@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's DiffusionFast serving path on one CUDA card.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase's failure is swallowed):
+  1. the card: name, count, and nvidia-smi's name and power limit;
+  2. build the hand-written kernels from ddsp_svc_tpu_torch/csrc (one nvcc
+     per source, started together) and print nvcc's -Xptxas -v lines;
+  3. each kernel against its plain PyTorch version on the card at the
+     shapes of the 10 s request, with the tolerance stated, and its time
+     (CUDA events) beside the plain version's and the bound;
+  4. the main path at configs/diffusion-fast.yaml widths (6 x 512 trunk,
+     k_step 100, DPM-Solver++ with speedup 10, the default NSF-HiFiGAN) with
+     random weights from a seeded torch.Generator: requests of 2, 5 and
+     10 s through SvcPipeline.infer_features (one cold and five warm runs
+     each, then one warm 10 s run under torch.profiler for the device-time
+     breakdown), checking each output and the kernel launch counts of
+     every run;
+  5. the 2 s request on the card (kernels, TF32 off) against the same
+     request on the CPU (plain versions) with the same weights and noise.
+It then prints one JSON line describing the kernels and, last, one JSON
+line {"ok": true, "device": {...}}. TF32 is off for the whole run.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 1234
+SR, BLOCK, WIN = 44100, 512, 2048
+REQUEST_SECONDS = (2, 5, 10)
+WARM_RUNS = 5
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
+K2_KERNEL_SIZES = (3, 7, 11)
+K2_DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+K2_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256), (16, 512))  # (C, L/T)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def frames_for(seconds: float) -> int:
+    return int(seconds * SR) // BLOCK + 1
+
+
+def f0_contour(t: int) -> np.ndarray:
+    """220 Hz with 5.5 Hz vibrato (+-0.5 semitone) and one unvoiced stretch
+    over the middle tenth of the frames: (1, T, 1)."""
+    time_s = np.arange(t) * BLOCK / SR
+    f0 = 220.0 * 2.0 ** (0.5 / 12.0 * np.sin(2 * np.pi * 5.5 * time_s))
+    f0[int(0.45 * t):int(0.55 * t)] = 0.0
+    return f0.astype(np.float32)[None, :, None]
+
+
+def synthetic_wave(seconds: float, rng: np.random.Generator) -> np.ndarray:
+    """A waveform for the volume features: a 220 Hz tone with a tremolo,
+    light noise, and 0.25 s of silence in the middle (below -60 dB)."""
+    n = int(seconds * SR)
+    time_s = np.arange(n) / SR
+    wave = 0.3 * np.sin(2 * np.pi * 220.0 * time_s) * (
+        0.75 + 0.25 * np.sin(2 * np.pi * 3.0 * time_s))
+    wave += 0.003 * rng.standard_normal(n)
+    mid = n // 2
+    wave[mid - SR // 8: mid + SR // 8] = 0.0
+    return wave.astype(np.float32)
+
+
+def snr_db(ref: np.ndarray, test: np.ndarray) -> float:
+    err = float(np.sum((test.astype(np.float64) - ref) ** 2))
+    return 10.0 * math.log10(float(np.sum(ref.astype(np.float64) ** 2))
+                             / max(err, 1e-30))
+
+
+def cuda_ms(torch, fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls after a
+    warm-up (CUDA events)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- phase 1
+
+
+def phase_device(torch) -> tuple[str, str]:
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{name}; device_count={count}")
+    log(card)  # nvidia-smi's own line: the card's name and power limit
+    return name, card
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def phase_build() -> None:
+    from ddsp_svc_tpu_torch.ops import kernels
+
+    info = kernels.build()
+    kernels.library()
+    log(f"[build] {info.path.name} in {info.seconds:.2f} s "
+        f"({'reused' if info.seconds == 0.0 else 'nvcc, one process per source'})")
+    for line in info.log.splitlines():
+        if line.startswith("==") or "ptxas info" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def _rand(torch, gen, shape, scale=1.0):
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * scale
+
+
+def phase_kernels(torch, card: str) -> dict:
+    """Kernel vs plain at the 10 s request's shapes. Returns per-kernel
+    measurements (launches filled in by phase 4)."""
+    from ddsp_svc_tpu_torch.ops import kernels
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import (conformer_layer,
+                                                       conformer_layer_plain)
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (resblock_group,
+                                                      resblock_group_plain)
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
+    from ddsp_svc_tpu_torch.ops.source import (_next_frame_delta,
+                                               carry_from_increments_q,
+                                               frame_phase_increments_q)
+
+    dev = torch.device("cuda")
+    lib = kernels.library()
+    gen = torch.Generator().manual_seed(SEED)
+    t = frames_for(10)
+    results = {}
+    problems = []  # every kernel is checked before the phase fails
+
+    # K1 combtooth: f0 (1, T, 1) -> (1, T * 512); tolerance 5e-5 absolute
+    f0 = torch.from_numpy(f0_contour(t)).to(dev)
+    got, got_phase = combtooth(f0, SR, BLOCK)
+    want, want_phase = combtooth_plain(f0, SR, BLOCK)
+    err = max(float((got - want).abs().max()),
+              float((got_phase - want_phase).abs().max()))
+    if not err <= 5e-5:
+        problems.append(f"K1 combtooth: max abs err {err:.3e} > 5e-5")
+    s0 = (f0 / SR).contiguous()
+    ds0 = _next_frame_delta(s0).contiguous()
+    carry = carry_from_increments_q(
+        frame_phase_increments_q(f0, SR, BLOCK)).contiguous()
+    out = torch.empty(1, t * BLOCK, device=dev)
+    stream = kernels.stream_handle(dev)
+    ms = cuda_ms(torch, lambda: lib.ddsp_combtooth(
+        s0.data_ptr(), ds0.data_ptr(), carry.data_ptr(), out.data_ptr(), t,
+        BLOCK, stream), 200)
+    plain = cuda_ms(torch, lambda: combtooth_plain(f0, SR, BLOCK), 50)
+    b_ms, b_by = bound_ms(3 * t * 4 + t * BLOCK * 4, 30.0 * t * BLOCK)
+    results["combtooth"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/combtooth.cu",
+        replaces="ddsp_svc_tpu/ops/pallas_source.py:49", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[kernels] K1 combtooth T={t}: max_abs_err {err:.3e} (tol 5e-5 abs); "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); no single PyTorch call computes it [{card}]")
+
+    # K2 resblock stage at each of the five stages; tolerance 1e-4 x max|out|
+    tot = dict(ms=0.0, plain=0.0, bound=0.0, flops=0.0, bytes=0.0)
+    worst_abs = 0.0
+    for c, per_frame in K2_STAGES:
+        length = t * per_frame
+        x = torch.randn((1, length, c), generator=gen).to(dev)
+        weights = []
+        for k, dils in zip(K2_KERNEL_SIZES, K2_DILATIONS):
+            bound = 1.0 / math.sqrt(c * k)
+            weights.append([(_rand(torch, gen, (c, c, k), bound).to(dev),
+                             _rand(torch, gen, (c,), bound).to(dev))
+                            for _ in range(2 * len(dils))])
+        got = resblock_group(x, weights, K2_KERNEL_SIZES, K2_DILATIONS)
+        want = resblock_group_plain(x, weights, K2_KERNEL_SIZES, K2_DILATIONS)
+        abs_err = float((got - want).abs().max())
+        rel = abs_err / float(want.abs().max())
+        worst_abs = max(worst_abs, abs_err)
+        if not rel <= 1e-4:
+            problems.append(f"K2 resblock_group C={c}: {rel:.3e} x max|out| > 1e-4")
+        iters = 20 if c >= 64 else 10
+        k_ms = cuda_ms(torch, lambda: resblock_group(
+            x, weights, K2_KERNEL_SIZES, K2_DILATIONS), iters)
+        p_ms = cuda_ms(torch, lambda: resblock_group_plain(
+            x, weights, K2_KERNEL_SIZES, K2_DILATIONS), iters)
+        taps = sum(k * 2 * len(d) for k, d in zip(K2_KERNEL_SIZES, K2_DILATIONS))
+        n_convs = sum(2 * len(d) for d in K2_DILATIONS)
+        flops = 2.0 * length * c * c * taps + 48.0 * length * c
+        nbytes = 4.0 * (2 * length * c + c * c * taps + n_convs * c)
+        b_ms, _ = bound_ms(nbytes, flops)
+        for key, val in (("ms", k_ms), ("plain", p_ms), ("bound", b_ms),
+                         ("flops", flops), ("bytes", nbytes)):
+            tot[key] += val
+        log(f"[kernels] K2 resblock_group C={c} L={length}: rel err {rel:.3e} "
+            f"(abs {abs_err:.3e}, tol 1e-4 x max|out|); kernel {k_ms:.3f} ms "
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms [{card}]")
+        del x, weights, got, want
+    results["resblock_group"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock.cu",
+        replaces="ddsp_svc_tpu/ops/pallas_resblock.py:311",
+        max_abs_err=worst_abs, ms=tot["ms"], plain_ms=tot["plain"],
+        bound_ms=tot["bound"], bound_by=bound_ms(tot["bytes"], tot["flops"])[1],
+        library_ms=None)
+    log(f"[kernels] K2 five stages of one 10 s request: kernel {tot['ms']:.3f} "
+        f"ms, plain {tot['plain']:.3f} ms, bound {tot['bound']:.4f} ms; no "
+        f"single PyTorch call computes a stage [{card}]")
+
+    # K3 conformer layer: T=862, C=512, Hc=128, I=1024, k=31
+    c, hc, inner, k = 512, 128, 1024, 31
+    x = torch.randn((1, t, c), generator=gen).to(dev)
+    cond = torch.randn((1, t, hc), generator=gen).to(dev)
+    step = torch.randn((1, c), generator=gen).to(dev)
+    w = tuple(_rand(torch, gen, shape, scale).to(dev) for shape, scale in (
+        ((c, hc), hc ** -0.5), ((c,), hc ** -0.5),
+        ((2 * inner, c), c ** -0.5), ((2 * inner,), c ** -0.5),
+        ((inner, k), k ** -0.5), ((inner,), k ** -0.5),
+        ((c, inner), inner ** -0.5), ((c,), inner ** -0.5)))
+    got = conformer_layer(x, cond, step, w)
+    want = conformer_layer_plain(x, cond, step, w)
+    abs_err = float((got - want).abs().max())
+    rel = abs_err / float(want.abs().max())
+    if not rel <= 1e-4:
+        problems.append(f"K3 conformer_layer: {rel:.3e} x max|out| > 1e-4")
+    k_ms = cuda_ms(torch, lambda: conformer_layer(x, cond, step, w), 100)
+    p_ms = cuda_ms(torch, lambda: conformer_layer_plain(x, cond, step, w), 100)
+    flops = (2.0 * t * (hc * c + c * 2 * inner + inner * c) + 2.0 * t * inner * k
+             + t * (3 * c + 8 * inner))
+    nbytes = 4.0 * (2 * t * c + t * hc + c + c * hc + c + 2 * inner * c
+                    + 2 * inner + inner * k + inner + c * inner + c)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    results["conformer_layer"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/conformer.cu",
+        replaces="ddsp_svc_tpu/ops/pallas_conformer.py:125",
+        max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    log(f"[kernels] K3 conformer_layer T={t} C={c}: rel err {rel:.3e} "
+        f"(abs {abs_err:.3e}, tol 1e-4 x max|out|); kernel {k_ms:.4f} ms "
+        f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); no single PyTorch call computes it [{card}]")
+    if problems:
+        fail("kernel vs plain: " + "; ".join(problems))
+    log("[kernels] K1 combtooth ok, K2 resblock_group ok, K3 conformer_layer "
+        "ok (each within tolerance of its plain version)")
+    return results
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def build_parts(torch):
+    """The diffusion-fast model and the default NSF-HiFiGAN on the CPU,
+    random weights from one seeded generator."""
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.models.registry import build_model
+    from ddsp_svc_tpu_torch.models.vocoder import Vocoder
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+
+    args = DotDict({
+        "data": {"sampling_rate": SR, "block_size": BLOCK,
+                 "encoder_out_channels": 768},
+        "model": {"type": "DiffusionFast", "win_length": WIN, "n_layers": 6,
+                  "n_chans": 512, "k_step_max": 100, "use_pitch_aug": True,
+                  "n_spk": 1},
+        "vocoder": {"type": "nsf-hifigan"},
+        "infer": {"speedup": 10, "method": "dpm-solver"},
+    })
+    gen = torch.Generator().manual_seed(SEED)
+    model = random_init_(build_model(args), gen)
+    vocoder = random_init_(Vocoder("nsf-hifigan"), gen)
+    if float(model.denoise_fn.output_projection.weight.detach().abs().max()) == 0.0:
+        fail("the denoiser's output projection is zero")
+    return args, model, vocoder
+
+
+def request_inputs(pipe, seconds: float, rng: np.random.Generator):
+    wave = synthetic_wave(seconds, rng)
+    volume, mask = pipe.volume_and_mask(wave, threshold=-60.0)
+    t = volume.shape[1]
+    units = rng.standard_normal((1, t, 768)).astype(np.float32)
+    return dict(units=units, f0=f0_contour(t), volume=volume, frame_mask=mask)
+
+
+def check_audio(audio, t: int, what: str) -> np.ndarray:
+    a = audio.detach().float().cpu().numpy()
+    if a.shape != (1, t * BLOCK):
+        fail(f"{what}: output shape {a.shape}, expected (1, {t * BLOCK})")
+    if not np.isfinite(a).all():
+        fail(f"{what}: non-finite samples")
+    if not (np.abs(a).max() > 1e-4 and np.sqrt(np.mean(a * a)) > 1e-5):
+        fail(f"{what}: output is silent")
+    return a
+
+
+def counts():
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import conformer_layer
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import resblock_group
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth
+
+    return {"combtooth": combtooth, "resblock_group": resblock_group,
+            "conformer_layer": conformer_layer}
+
+
+KERNEL_GROUPS = (("K1 combtooth", ("combtooth_kernel",)),
+                 ("K2 resblock", ("resblock_conv_kernel",)),
+                 ("K3 conformer", ("gemm_kernel", "depthwise_silu_kernel")),
+                 ("FFT", ("fft",)),
+                 ("conv/GEMM libraries", ("conv", "cudnn", "gemm", "xmma",
+                                          "cutlass", "sm90")))
+
+
+def profile_breakdown(torch, request, card: str) -> None:
+    """One warm request under torch.profiler: device time by kernel group
+    and the device's busy share of the request's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels_us = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", 0) or getattr(
+            evt, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels_us[evt.key] = kernels_us.get(evt.key, 0.0) + us
+    busy = sum(kernels_us.values())
+    if busy <= 0:
+        log("[profile] the profiler saw no device time (see the CUDA-event "
+            "kernel times above)")
+        return
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["elementwise/other"] = 0.0
+    for key, us in kernels_us.items():
+        low = key.lower()
+        name = next((g for g, subs in KERNEL_GROUPS
+                     if any(sub in low for sub in subs)), "elementwise/other")
+        groups[name] += us
+    log(f"[profile] 10 s request: wall {wall_us / 1e3:.2f} ms (profiler on), "
+        f"device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f} % of "
+        f"wall, {len(kernels_us)} distinct kernels [{card}]")
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {name}: {us / 1e3:.3f} ms ({100 * us / busy:.1f} % of "
+            "device time)")
+    for key, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   top: {us / 1e3:.3f} ms  {key[:90]}")
+
+
+def phase_main_path(torch, args, model, vocoder, card: str) -> dict:
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    pipe = SvcPipeline.from_parts(model, None, args, vocoder, seed=SEED)
+    if pipe.device.type != "cuda":
+        fail(f"pipeline on {pipe.device}, expected cuda")
+    rng = np.random.default_rng(SEED)
+    expect = {"combtooth": 1, "resblock_group": 5, "conformer_layer": 60}
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+
+    def request(seconds, inputs, what):
+        """One request through the entry point; checks its output and that
+        it launched each kernel as often as the path needs."""
+        before = {n: w.launches for n, w in wrappers.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, _ = pipe.infer_features(**inputs, k_step=100, speedup=10,
+                                       method="dpm-solver")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {n: w.launches - before[n] for n, w in wrappers.items()}
+        if delta != expect:
+            fail(f"{seconds} s request ({what}): launches {delta}, "
+                 f"expected {expect}")
+        check_audio(audio, inputs["volume"].shape[1], f"{seconds} s request")
+        return wall
+
+    for seconds in REQUEST_SECONDS:
+        inputs = request_inputs(pipe, seconds, rng)
+        cold = request(seconds, inputs, "cold")
+        walls = sorted(request(seconds, inputs, "warm") for _ in range(WARM_RUNS))
+        med = walls[len(walls) // 2]
+        log(f"[main] {seconds} s request T={inputs['volume'].shape[1]}: warm "
+            f"median {med * 1e3:.2f} ms (min {walls[0] * 1e3:.2f}, max "
+            f"{walls[-1] * 1e3:.2f}, n={WARM_RUNS}; cold {cold * 1e3:.1f} ms), "
+            f"real-time factor {med / seconds:.5f} ({seconds / med:.1f}x real "
+            f"time), launches per request {expect} [{card}]")
+    profile_breakdown(torch, lambda: request(10, inputs, "profiled"), card)
+    return {n: w.launches for n, w in wrappers.items()}
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def phase_card_vs_cpu(torch, args, cpu_model, cpu_vocoder, card: str) -> None:
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    rng = np.random.default_rng(SEED + 1)
+    gpu = SvcPipeline.from_parts(copy.deepcopy(cpu_model), None, args,
+                                 copy.deepcopy(cpu_vocoder), seed=SEED)
+    cpu = SvcPipeline.from_parts(cpu_model, None, args, cpu_vocoder,
+                                 device="cpu", seed=SEED)
+    inputs = request_inputs(cpu, 2, rng)
+    t = inputs["volume"].shape[1]
+    noise = {"ddsp": rng.standard_normal((1, t * BLOCK)),
+             "diffusion": rng.standard_normal((1, t, 128)),
+             "rand_ini": np.concatenate([[0.0], rng.random(8)])[None, None],
+             "sine": rng.standard_normal((1, t * BLOCK, 9))}
+    noise = {k: v.astype(np.float32) for k, v in noise.items()}
+    mels, audios = {}, {}
+    for name, pipe in (("card", gpu), ("cpu", cpu)):
+        mel = pipe.cascade(inputs["units"], inputs["f0"], inputs["volume"],
+                           k_step=100, speedup=10, noise=noise)
+        audio = pipe.vocode(mel, inputs["f0"], inputs["frame_mask"], noise)
+        mels[name] = mel.float().cpu().numpy()
+        audios[name] = check_audio(audio, t, f"2 s request on {name}")
+    mel_err = float(np.abs(mels["card"] - mels["cpu"]).max())
+    snr = snr_db(audios["cpu"], audios["card"])
+    log(f"[parity] 2 s request, card (kernels) vs CPU (plain), same weights "
+        f"and noise: mel max-abs diff {mel_err:.3e}, audio SNR {snr:.2f} dB "
+        f"(limit >= 40 dB) [{card}]")
+    if not snr >= 40.0:
+        fail(f"card vs CPU audio SNR {snr:.2f} dB < 40 dB")
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    try:
+        import ddsp_svc_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"cannot import the port (run from the repository root): {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    name, card = phase_device(torch)
+    phase_build()
+    results = phase_kernels(torch, card)
+    args, model, vocoder = build_parts(torch)
+    cpu_model, cpu_vocoder = copy.deepcopy(model), copy.deepcopy(vocoder)
+    launches = phase_main_path(torch, args, model, vocoder, card)
+    del model, vocoder
+    torch.cuda.empty_cache()
+    phase_card_vs_cpu(torch, args, cpu_model, cpu_vocoder, card)
+
+    table = []
+    for kname in ("combtooth", "resblock_group", "conformer_layer"):
+        r = results[kname]
+        if launches[kname] <= 0:
+            fail(f"kernel {kname} was not launched on the main path")
+        table.append({"name": kname, "route": r["route"], "source": r["source"],
+                      "replaces": r["replaces"], "launches": launches[kname],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
+        f"[{card}]")
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

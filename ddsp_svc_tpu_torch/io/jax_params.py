@@ -1,0 +1,205 @@
+"""JAX param trees -> the port's state dicts.
+
+Reads the JAX package's params (a nested dict of numpy arrays, as
+``flax`` keeps them) or its checkpoint file (``train/checkpoint.py``: one
+msgpack payload whose arrays are flax's ndarray ext type, decoded here by
+the port's own hook; ``msgpack`` is imported only when a file is read).
+
+Layout rules (the inverse of the torch->flax converters): Dense kernel
+(in, out) -> Linear weight (out, in); Conv1d kernel (k, in, out) -> (out,
+in, k); ConvTranspose1d kernel (k, in, out) -> (in, out, k), no flip. Weight
+norm is folded as the JAX modules fold it, with the +1e-12: Conv1d / Dense
+normalise over every axis but the output one; ConvTranspose1d normalises
+per *input* channel. Every leaf must map, and every port parameter must be
+set, or a ``KeyError`` names the leftovers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+# flax.serialization's msgpack ext codes for arrays and numpy scalars
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    import msgpack
+
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":
+        raise ValueError("bfloat16 leaves are not supported by the port")
+    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode()),
+                         count=-1).reshape(shape, order="C")
+
+
+def _ext_hook(code: int, data: bytes):
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    raise ValueError(f"msgpack ext type {code} is not a flax array")
+
+
+def read_msgpack(path: str) -> dict:
+    """A flax msgpack file (a JAX checkpoint or vocoder payload) -> tree.
+    (flax splits leaves above 1 GiB into chunks; no leaf of these models
+    comes near that, and such a tree fails the leaf mapping by name.)"""
+    import msgpack
+
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+
+
+class _Leaves:
+    """The JAX tree flattened to 'a/b/c' paths; ``take`` pops a leaf so the
+    leftovers can be reported."""
+
+    def __init__(self, params: dict):
+        self.leaves: dict[str, np.ndarray] = {}
+        self._flatten(params, "")
+
+    def _flatten(self, node, prefix):
+        for k, v in node.items():
+            path = f"{prefix}{k}"
+            if isinstance(v, dict):
+                self._flatten(v, path + "/")
+            else:
+                self.leaves[path] = np.asarray(v, dtype=np.float32)
+
+    def has(self, path: str) -> bool:
+        return path in self.leaves
+
+    def take(self, path: str) -> np.ndarray:
+        if path not in self.leaves:
+            raise KeyError(f"JAX param {path!r} missing")
+        return self.leaves.pop(path)
+
+    def finish(self):
+        if self.leaves:
+            raise KeyError("JAX params left unmapped: " + ", ".join(sorted(self.leaves)))
+
+
+def _wn_fold(v: np.ndarray, g: np.ndarray, axes: tuple, shape_g) -> np.ndarray:
+    norm = np.sqrt(np.sum(v * v, axis=axes, dtype=np.float32))
+    return v * (g / (norm + np.float32(1e-12))).reshape(shape_g)
+
+
+def _kernel(tree: _Leaves, scope: str) -> np.ndarray:
+    """The (folded) flax kernel of ``scope``, JAX layout."""
+    if tree.has(f"{scope}/kernel_v"):
+        v = tree.take(f"{scope}/kernel_v")
+        g = tree.take(f"{scope}/kernel_g")
+        return _wn_fold(v, g, tuple(range(v.ndim - 1)), (1,) * (v.ndim - 1) + (-1,))
+    return tree.take(f"{scope}/kernel")
+
+
+def _put_bias(sd, tree, scope, name):
+    if tree.has(f"{scope}/bias"):
+        sd[f"{name}.bias"] = tree.take(f"{scope}/bias")
+
+
+def _put_dense(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
+    sd[f"{name}.weight"] = np.ascontiguousarray(_kernel(tree, scope).T)
+    _put_bias(sd, tree, scope, name)
+
+
+def _put_conv(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
+    sd[f"{name}.weight"] = np.ascontiguousarray(
+        _kernel(tree, scope).transpose(2, 1, 0))
+    _put_bias(sd, tree, scope, name)
+
+
+def _put_conv_transpose(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
+    v = tree.take(f"{scope}/kernel_v")  # (k, in, out)
+    g = tree.take(f"{scope}/kernel_g")  # (in,)
+    kernel = _wn_fold(v, g, (0, 2), (1, -1, 1))
+    sd[f"{name}.weight"] = np.ascontiguousarray(kernel.transpose(1, 2, 0))
+    _put_bias(sd, tree, scope, name)
+
+
+def _put_norm(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
+    sd[f"{name}.weight"] = tree.take(f"{scope}/scale")
+    sd[f"{name}.bias"] = tree.take(f"{scope}/bias")
+
+
+def _put_conformer(sd, tree, scope, name):
+    for i, part in enumerate(("conv1", "depthwise", "conv2")):
+        _put_conv(sd, tree, f"{scope}/Conv1d_{i}", f"{name}.{part}")
+
+
+def unit2wav_fast_state_dict(params: dict, n_layers: int) -> dict:
+    """Unit2WavFast params (``ddsp_model/...``, ``denoise_fn/...``) -> the
+    port's ``models/cascade.Unit2WavFast`` state dict (numpy)."""
+    tree = _Leaves(params)
+    sd: dict = {}
+    u, un = "ddsp_model/unit2ctrl", "ddsp_model.unit2ctrl"
+    _put_conv(sd, tree, f"{u}/stack_conv0", f"{un}.stack_conv0")
+    _put_norm(sd, tree, f"{u}/stack_norm", f"{un}.stack_norm")
+    _put_conv(sd, tree, f"{u}/stack_conv1", f"{un}.stack_conv1")
+    for emb in ("f0_embed", "phase_embed", "volume_embed"):
+        _put_dense(sd, tree, f"{u}/{emb}", f"{un}.{emb}")
+    if tree.has(f"{u}/spk_embed/embedding"):
+        sd[f"{un}.spk_embed.weight"] = tree.take(f"{u}/spk_embed/embedding")
+    if tree.has(f"{u}/aug_shift_embed/kernel"):
+        _put_dense(sd, tree, f"{u}/aug_shift_embed", f"{un}.aug_shift_embed")
+    for i in range(3):
+        _put_conformer(sd, tree,
+                       f"{u}/decoder/CFNEncoderLayer_{i}/ConformerConvModule_0",
+                       f"{un}.decoder.layers.{i}.conformer")
+    _put_norm(sd, tree, f"{u}/norm", f"{un}.norm")
+    _put_dense(sd, tree, f"{u}/dense_out", f"{un}.dense_out")
+    d, dn = "denoise_fn", "denoise_fn"
+    _put_conv(sd, tree, f"{d}/input_projection", f"{dn}.input_projection")
+    _put_dense(sd, tree, f"{d}/diff_emb_0", f"{dn}.diff_emb_0")
+    _put_dense(sd, tree, f"{d}/diff_emb_1", f"{dn}.diff_emb_1")
+    for i in range(n_layers):
+        s, n = f"{d}/layer_{i}", f"{dn}.layers.{i}"
+        _put_conv(sd, tree, f"{s}/diffusion_step_projection",
+                  f"{n}.diffusion_step_projection")
+        _put_conv(sd, tree, f"{s}/condition_projection",
+                  f"{n}.condition_projection")
+        _put_conformer(sd, tree, f"{s}/conformer", f"{n}.conformer")
+    _put_conv(sd, tree, f"{d}/output_projection", f"{dn}.output_projection")
+    tree.finish()
+    return sd
+
+
+def generator_state_dict(params: dict, n_upsamples: int = 5,
+                         n_kernels: int = 3, n_dilations: int = 3) -> dict:
+    """NSF-HiFiGAN Generator params (the vocoder payload's ``params``) ->
+    the port's ``models/nsf_hifigan.Generator`` state dict (numpy)."""
+    tree = _Leaves(params)
+    sd: dict = {}
+    _put_dense(sd, tree, "m_source/l_linear", "m_source.l_linear")
+    _put_conv(sd, tree, "conv_pre", "conv_pre")
+    for i in range(n_upsamples):
+        _put_conv_transpose(sd, tree, f"ups_{i}", f"ups.{i}")
+        _put_conv(sd, tree, f"noise_convs_{i}", f"noise_convs.{i}")
+        for j in range(n_kernels):
+            r = i * n_kernels + j
+            for n in range(n_dilations):
+                for c in ("convs1", "convs2"):
+                    _put_conv(sd, tree, f"resblocks_{r}/{c}_{n}",
+                              f"resblocks.{r}.{c}.{n}")
+    _put_conv(sd, tree, "conv_post", "conv_post")
+    tree.finish()
+    return sd
+
+
+def load_state(module: nn.Module, state: dict) -> nn.Module:
+    """Load a numpy state dict strictly: a port parameter left unset or a
+    key the module lacks raises. An optional ``aug_shift_embed`` that the
+    checkpoint does not carry is dropped from the module."""
+    for name, sub in list(module.named_modules()):
+        if name.endswith("aug_shift_embed") and f"{name}.weight" not in state:
+            parent = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
+            setattr(parent, name.rsplit(".", 1)[-1], None)
+    device = next(module.parameters()).device
+    tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+               for k, v in state.items()}
+    missing, unexpected = module.load_state_dict(tensors, strict=False)
+    if missing or unexpected:
+        raise KeyError(f"state dict mismatch: missing {missing}, "
+                       f"unexpected {unexpected}")
+    return module

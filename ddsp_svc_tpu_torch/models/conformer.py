@@ -1,0 +1,56 @@
+"""Conv-only conformer encoder (mirrors ddsp_svc_tpu/models/conformer.py:
+ConformerConvModule, CFNEncoderLayer, ConformerNaiveEncoder with
+conv_only=True, use_norm=False, no dropout at inference)."""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .nn import Conv1d
+
+
+def calc_same_padding(kernel_size: int) -> int:
+    """Symmetric 'same' padding; the conformers here use odd kernels only."""
+    if kernel_size % 2 == 0:
+        raise ValueError(f"odd kernel sizes only, got {kernel_size}")
+    return kernel_size // 2
+
+
+class ConformerConvModule(nn.Module):
+    """1x1 conv -> GLU -> depthwise k -> SiLU -> 1x1 conv (JAX Conv1d_0,
+    Conv1d_1, Conv1d_2 are ``conv1``, ``depthwise``, ``conv2`` here)."""
+
+    def __init__(self, dim: int, expansion_factor: int = 2,
+                 kernel_size: int = 31):
+        super().__init__()
+        inner = dim * expansion_factor
+        self.conv1 = Conv1d(dim, inner * 2, 1)
+        self.depthwise = Conv1d(inner, inner, kernel_size,
+                                padding=calc_same_padding(kernel_size),
+                                groups=inner)
+        self.conv2 = Conv1d(inner, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(F.silu(self.depthwise(F.glu(self.conv1(x), dim=-1))))
+
+
+class CFNEncoderLayer(nn.Module):
+    def __init__(self, dim_model: int):
+        super().__init__()
+        self.conformer = ConformerConvModule(dim_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.conformer(x)
+
+
+class ConformerNaiveEncoder(nn.Module):
+    def __init__(self, num_layers: int, dim_model: int):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            CFNEncoderLayer(dim_model) for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x

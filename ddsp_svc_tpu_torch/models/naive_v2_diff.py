@@ -1,0 +1,67 @@
+"""NaiveV2Diff: the conv-only conformer denoiser of DiffusionFast (mirrors
+ddsp_svc_tpu/models/naive_v2_diff.py with use_mlp=False, conv_only=True,
+no norm, no wavenet_like). Each layer runs through kernel K3
+(ops/cuda_conformer.conformer_layer)."""
+from __future__ import annotations
+
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.cuda_conformer import conformer_layer
+from .conformer import ConformerConvModule
+from .nn import Conv1d
+from .wavenet import sinusoidal_pos_emb
+
+
+class NaiveV2DiffLayer(nn.Module):
+    def __init__(self, dim_model: int, dim_cond: int, expansion_factor: int = 2,
+                 kernel_size: int = 31):
+        super().__init__()
+        self.diffusion_step_projection = Conv1d(dim_model, dim_model, 1)
+        self.condition_projection = Conv1d(dim_cond, dim_model, 1)
+        self.conformer = ConformerConvModule(dim_model, expansion_factor,
+                                             kernel_size)
+
+    def kernel_weights(self) -> tuple:
+        """(Wc, bc, W1, b1, wd, bd, W2, b2) in the kernel's torch layout:
+        the 1x1 conv weights squeezed to (out, in), depthwise (I, k)."""
+        cm = self.conformer
+        return (self.condition_projection.weight[:, :, 0],
+                self.condition_projection.bias,
+                cm.conv1.weight[:, :, 0], cm.conv1.bias,
+                cm.depthwise.weight[:, 0, :], cm.depthwise.bias,
+                cm.conv2.weight[:, :, 0], cm.conv2.bias)
+
+    def forward(self, x, condition, diffusion_step):
+        """x (B, T, C), condition (B, T, Hc), diffusion_step (B, 1, C)."""
+        # the step projection of the (B, 1, C) embedding stays outside the
+        # kernel, as in JAX
+        step_vec = self.diffusion_step_projection(diffusion_step)[:, 0, :]
+        return conformer_layer(x, condition, step_vec.contiguous(),
+                               self.kernel_weights())
+
+
+class NaiveV2Diff(nn.Module):
+    def __init__(self, mel_channels: int = 128, dim: int = 512,
+                 condition_dim: int = 128, num_layers: int = 6,
+                 mlp_factor: int = 4, expansion_factor: int = 2,
+                 kernel_size: int = 31):
+        super().__init__()
+        self.dim = dim
+        self.input_projection = Conv1d(mel_channels, dim, 1)
+        self.diff_emb_0 = nn.Linear(dim, dim * mlp_factor)
+        self.diff_emb_1 = nn.Linear(dim * mlp_factor, dim)
+        self.layers = nn.ModuleList(
+            NaiveV2DiffLayer(dim, condition_dim, expansion_factor, kernel_size)
+            for _ in range(num_layers))
+        self.output_projection = Conv1d(dim, mel_channels, 1)
+
+    def forward(self, spec, diffusion_step, cond):
+        """spec (B, T, M), diffusion_step (B,) float, cond (B, T, Hc) ->
+        (B, T, M)."""
+        x = F.gelu(self.input_projection(spec)).contiguous()
+        step = sinusoidal_pos_emb(diffusion_step.to(x.dtype), self.dim)
+        step = self.diff_emb_1(F.gelu(self.diff_emb_0(step)))[:, None, :]
+        for layer in self.layers:
+            x = layer(x, cond, step)
+        return self.output_projection(x)

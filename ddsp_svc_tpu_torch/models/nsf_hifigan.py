@@ -1,0 +1,118 @@
+"""NSF-HiFiGAN generator at inference (mirrors
+ddsp_svc_tpu/models/nsf_hifigan.py: ``ResBlock1``, ``SourceModuleHnNSF``,
+``Generator``). Each upsample stage's resblock mean runs through kernel K2
+(ops/cuda_resblock.resblock_group) -- on all five stages, where the TPU
+path fused only the stages with C <= 128."""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.cuda_resblock import LRELU_SLOPE, resblock_group
+from ..ops.source import sine_gen
+from .nn import Conv1d, ConvTranspose1d
+
+
+class ResBlock1(nn.Module):
+    """Parameters of one ResBlock1 chain (``convs1.i`` dilated by the
+    chain's i-th dilation, ``convs2.i`` undilated); the chain itself, with
+    its 'same' padding, runs inside ``resblock_group``."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Sequence[int] = (1, 3, 5)):
+        super().__init__()
+        self.convs1 = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size) for _ in dilation)
+        self.convs2 = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size) for _ in dilation)
+
+    def chain_weights(self) -> list:
+        """(weight, bias) pairs in chain order convs1_0, convs2_0, ..."""
+        out = []
+        for c1, c2 in zip(self.convs1, self.convs2):
+            out += [(c1.weight, c1.bias), (c2.weight, c2.bias)]
+        return out
+
+
+class SourceModuleHnNSF(nn.Module):
+    """Sine bank -> Linear(h + 1, 1) -> tanh merged excitation."""
+
+    def __init__(self, sampling_rate: int, harmonic_num: int = 8,
+                 sine_amp: float = 0.1, add_noise_std: float = 0.003,
+                 voiced_threshold: float = 0.0):
+        super().__init__()
+        self.sampling_rate, self.harmonic_num = sampling_rate, harmonic_num
+        self.sine_amp, self.add_noise_std = sine_amp, add_noise_std
+        self.voiced_threshold = voiced_threshold
+        self.l_linear = nn.Linear(harmonic_num + 1, 1)
+
+    def forward(self, f0, upp: int, sine_kwargs=None,
+                generator: torch.Generator | None = None):
+        sines = sine_gen(f0, upp, self.sampling_rate, self.harmonic_num,
+                         sine_amp=self.sine_amp, noise_std=self.add_noise_std,
+                         voiced_threshold=self.voiced_threshold,
+                         generator=generator, **(sine_kwargs or {}))
+        return torch.tanh(self.l_linear(sines))  # (B, T * upp, 1)
+
+
+class Generator(nn.Module):
+    """mel (B, T, M), f0 (B, T) -> audio (B, T * upp)."""
+
+    def __init__(self, sampling_rate: int, num_mels: int = 128,
+                 upsample_rates: Sequence[int] = (8, 8, 2, 2, 2),
+                 upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4, 4),
+                 upsample_initial_channel: int = 512, resblock: str = "1",
+                 resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = (
+                     (1, 3, 5), (1, 3, 5), (1, 3, 5))):
+        super().__init__()
+        if str(resblock) != "1":
+            raise NotImplementedError("only ResBlock1 generators are ported")
+        n_up = len(upsample_rates)
+        if upsample_initial_channel < 2 ** n_up:
+            raise ValueError("upsample_initial_channel too small: channels "
+                             "halve per stage")
+        self.upsample_rates = tuple(upsample_rates)
+        self.kernel_sizes = tuple(resblock_kernel_sizes)
+        self.dilations = tuple(tuple(d) for d in resblock_dilation_sizes)
+        self.upp = int(math.prod(upsample_rates))
+        self.m_source = SourceModuleHnNSF(sampling_rate, harmonic_num=8)
+        c0 = upsample_initial_channel
+        self.conv_pre = Conv1d(num_mels, c0, 7, padding=3)
+        self.ups = nn.ModuleList()
+        self.noise_convs = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
+            c_in, c_cur = c0 // 2 ** i, c0 // 2 ** (i + 1)
+            self.ups.append(ConvTranspose1d(c_in, c_cur, k, stride=u,
+                                            padding=(k - u) // 2))
+            if i + 1 < n_up:
+                s = int(math.prod(upsample_rates[i + 1:]))
+                self.noise_convs.append(
+                    Conv1d(1, c_cur, 2 * s, stride=s, padding=s // 2))
+            else:
+                self.noise_convs.append(Conv1d(1, c_cur, 1))
+            for rk, rd in zip(self.kernel_sizes, self.dilations):
+                self.resblocks.append(ResBlock1(c_cur, rk, rd))
+        self.conv_post = Conv1d(c0 // 2 ** n_up, 1, 7, padding=3)
+
+    def forward(self, mel, f0, sine_kwargs=None,
+                generator: torch.Generator | None = None):
+        """``sine_kwargs``: optional ``rand_ini`` (1, 1, 9) and ``noise``
+        (B, T * upp, 9) for the sine source; drawn from ``generator``
+        otherwise."""
+        n_k = len(self.kernel_sizes)
+        har_source = self.m_source(f0, self.upp, sine_kwargs, generator)
+        x = self.conv_pre(mel)
+        for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
+            x = up(F.leaky_relu(x, LRELU_SLOPE))
+            x = (x + noise_conv(har_source)).contiguous()
+            blocks = self.resblocks[i * n_k:(i + 1) * n_k]
+            x = resblock_group(x, [blk.chain_weights() for blk in blocks],
+                               self.kernel_sizes, self.dilations)
+        x = self.conv_post(F.leaky_relu(x, 0.01))
+        return torch.tanh(x)[..., 0]

@@ -1,0 +1,59 @@
+"""Unit2Control: units + f0/phase/volume/speaker -> named control tensors
+(mirrors ddsp_svc_tpu/models/unit2control.py with use_naive_v2=True and
+use_conv_stack=True: conv stack, additive embeddings, a 3-layer conv-only
+conformer decoder, LayerNorm and the output projection)."""
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .conformer import ConformerNaiveEncoder
+from .nn import Conv1d, GroupNorm
+
+
+def split_to_dict(tensor: torch.Tensor, splits: Mapping[str, int]) -> dict:
+    out, start = {}, 0
+    for name, size in splits.items():
+        out[name] = tensor[..., start:start + size]
+        start += size
+    return out
+
+
+class Unit2Control(nn.Module):
+    def __init__(self, input_channel: int, n_spk: int,
+                 output_splits: Mapping[str, int], use_pitch_aug: bool = False):
+        super().__init__()
+        self.output_splits = dict(output_splits)
+        self.stack_conv0 = Conv1d(input_channel, 256, 3, padding=1)
+        self.stack_norm = GroupNorm(4, 256)
+        self.stack_conv1 = Conv1d(256, 256, 3, padding=1)
+        self.f0_embed = nn.Linear(1, 256)
+        self.phase_embed = nn.Linear(1, 256)
+        self.volume_embed = nn.Linear(1, 256)
+        self.spk_embed = nn.Embedding(n_spk, 256) if n_spk and n_spk > 1 else None
+        # present only in checkpoints trained with pitch augmentation; the
+        # loader drops it when the checkpoint has none (io/jax_params.py)
+        self.aug_shift_embed = (nn.Linear(1, 256, bias=False) if use_pitch_aug
+                                else None)
+        self.decoder = ConformerNaiveEncoder(3, 256)
+        self.norm = nn.LayerNorm(256)  # eps 1e-5, as JAX
+        self.dense_out = nn.Linear(256, sum(self.output_splits.values()))
+
+    def forward(self, units, f0, phase, volume, spk_id=None, aug_shift=None):
+        """units (B, T, n_unit), f0/phase/volume (B, T, 1), spk_id (B, 1)
+        1-based, aug_shift (B, 1, 1) -> (controls dict, hidden (B, T, 256))."""
+        x = self.stack_conv0(units)
+        x = F.leaky_relu(self.stack_norm(x), 0.01)
+        x = self.stack_conv1(x)
+        x = (x + self.f0_embed(torch.log1p(f0 / 700.0))
+             + self.phase_embed(phase / math.pi) + self.volume_embed(volume))
+        if self.spk_embed is not None:
+            x = x + self.spk_embed(spk_id.long() - 1)
+        if self.aug_shift_embed is not None and aug_shift is not None:
+            x = x + self.aug_shift_embed(aug_shift / 5.0)
+        x = self.norm(self.decoder(x))
+        return split_to_dict(self.dense_out(x), self.output_splits), x

@@ -1,0 +1,141 @@
+"""Build and load the hand-written Hopper kernels (``csrc/*.cu``).
+
+The sources have a plain C interface and no PyTorch headers. At first use
+each source is compiled by its own ``nvcc`` process (all started together)
+for ``sm_90a``, the objects are linked into one shared library under
+``build/kernels/`` at the repository root, and the library is loaded with
+``ctypes``. The library's file name carries a hash of the sources and
+flags, so an edited source is never served by a stale build. Nothing here
+runs at import time: the CPU tests import every module of the port.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+SOURCES = ("combtooth.cu", "resblock.cu", "conformer.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # (s0, ds0, carry, out, n_rows, block, stream)
+    "ddsp_combtooth": (_P, _P, _P, _P, ctypes.c_longlong, _I, _P),
+    # (x, weights[], biases[], kernel_sizes[], dilations[], n_rb, n_dil,
+    #  out, t_buf, z_buf, batch, length, channels, stream)
+    "ddsp_resblock_group": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                            _I, _I, _I, _P),
+    # (x, cond, step_vec, wc, bc, w1, b1, wd, bd, w2, b2, out, h, u, s,
+    #  batch, t, c, hc, inner, k, stream)
+    "ddsp_conformer_layer": (_P,) * 15 + (_I,) * 6 + (_P,),
+}
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when an existing build was reused
+    log: str        # nvcc's output, including the -Xptxas -v lines
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc"
+        if cand and p.exists():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(p.name for p in CSRC.iterdir()
+                       if p.suffix in (".cu", ".cuh")):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def build() -> BuildInfo:
+    """Compile the kernels (once per process; reuses a matching build)."""
+    lib = BUILD_DIR / f"libddsp_kernels_{_digest()}.so"
+    if lib.exists():
+        return BuildInfo(lib, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in SOURCES:
+            obj = Path(tmp) / (Path(src).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
+                               + "\n".join(logs))
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed\n" + link.stdout)
+        os.replace(tmp_lib, lib)  # atomic: a concurrent reader never sees half
+    return BuildInfo(lib, time.perf_counter() - t0, "\n".join(logs))
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, with argument types declared."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def check_cuda_input(t: torch.Tensor, name: str, ndim: int) -> None:
+    """What every kernel takes: a contiguous float32 CUDA tensor."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,96 @@
+"""The port's CUDA kernels against their plain versions on the card
+(run on a machine with one: ``python -m pytest tests/test_torch_cuda_kernels.py
+-m cuda -n 0``). Whether a card exists is decided inside the fixture, so
+every worker collects the same tests; here they skip without one.
+
+TF32 is off for the plain versions. Tolerances: K1 5e-5 absolute; K2 and
+K3 1e-4 relative to max|out|, since sums run in another order."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+KS = (3, 7, 11)
+DS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("t", [5, 173])
+def test_combtooth_kernel(cuda, t):
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
+
+    time_s = np.arange(t) * 512 / 44100
+    f0 = 220.0 * 2.0 ** (0.5 / 12 * np.sin(2 * np.pi * 5.5 * time_s))
+    f0[t // 3: t // 2] = 0.0
+    f0 = torch.tensor(f0, dtype=torch.float32, device=cuda)[None, :, None]
+    n0 = combtooth.launches
+    got, got_phase = combtooth(f0, 44100, 512)
+    want, want_phase = combtooth_plain(f0, 44100, 512)
+    torch.cuda.synchronize()
+    assert combtooth.launches == n0 + 1
+    assert float((got - want).abs().max()) <= 5e-5
+    assert float((got_phase - want_phase).abs().max()) <= 5e-5
+
+
+@pytest.mark.parametrize("c,length", [(16, 1000), (64, 777), (256, 300)])
+def test_resblock_group_kernel(cuda, c, length):
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (resblock_group,
+                                                      resblock_group_plain)
+
+    gen = torch.Generator().manual_seed(c)
+    x = torch.randn((2, length, c), generator=gen).to(cuda)
+    weights = []
+    for k, dils in zip(KS, DS):
+        b = 1 / math.sqrt(c * k)
+        weights.append([(((torch.rand((c, c, k), generator=gen) * 2 - 1) * b).to(cuda),
+                         ((torch.rand((c,), generator=gen) * 2 - 1) * b).to(cuda))
+                        for _ in range(2 * len(dils))])
+    got = resblock_group(x, weights, KS, DS)
+    want = resblock_group_plain(x, weights, KS, DS)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("b,t,c,hc,k", [(1, 862, 512, 128, 31), (2, 37, 64, 32, 7)])
+def test_conformer_layer_kernel(cuda, b, t, c, hc, k):
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import (conformer_layer,
+                                                       conformer_layer_plain)
+
+    gen = torch.Generator().manual_seed(t)
+    inner = 2 * c
+
+    def r(*shape, scale):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).to(cuda)
+
+    x, cond, step = r(b, t, c, scale=1.0), r(b, t, hc, scale=1.0), r(b, c, scale=1.0)
+    w = (r(c, hc, scale=hc ** -0.5), r(c, scale=0.1), r(2 * inner, c, scale=c ** -0.5),
+         r(2 * inner, scale=0.1), r(inner, k, scale=k ** -0.5), r(inner, scale=0.1),
+         r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
+    got = conformer_layer(x, cond, step, w)
+    want = conformer_layer_plain(x, cond, step, w)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-4
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth
+
+    with pytest.raises(ValueError):
+        combtooth(torch.ones((1, 4, 1), device=cuda, dtype=torch.float64), 44100, 512)
+    with pytest.raises(ValueError):
+        combtooth(torch.ones((1, 4, 2), device=cuda), 44100, 512)
