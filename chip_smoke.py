@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DiffusionFast serving path on one CUDA card.
+"""Drive the PyTorch port's serving paths on one CUDA card: DiffusionFast
+and the DDSP family (Sins with the NSF-HiFiGAN enhancer).
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's failure is swallowed):
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build the hand-written kernels from ddsp_svc_tpu_torch/csrc (one nvcc
-     per source, started together) and print nvcc's -Xptxas -v lines;
+     per source, started together), print nvcc's -Xptxas -v lines, and
+     count K4's f32 instructions per (sample, harmonic) pair in its SASS;
   3. each kernel against its plain PyTorch version on the card at the
      shapes of the 10 s request, with the tolerance stated, and its time
-     (CUDA events) beside the plain version's and the bound;
-  4. the main path at configs/diffusion-fast.yaml widths (6 x 512 trunk,
-     k_step 100, DPM-Solver++ with speedup 10, the default NSF-HiFiGAN) with
-     random weights from a seeded torch.Generator: requests of 2, 5 and
-     10 s through SvcPipeline.infer_features (one cold and five warm runs
-     each, then one warm 10 s run under torch.profiler for the device-time
-     breakdown), checking each output and the kernel launch counts of
-     every run;
-  5. the 2 s request on the card (kernels, TF32 off) against the same
-     request on the CPU (plain versions) with the same weights and noise.
+     (CUDA events) beside the plain version's and the bound; K4 also at
+     B = 2;
+  4. the DiffusionFast path at configs/diffusion-fast.yaml widths (6 x 512
+     trunk, k_step 100, DPM-Solver++ with speedup 10, the default
+     NSF-HiFiGAN) with random weights from a seeded torch.Generator:
+     requests of 2, 5 and 10 s through SvcPipeline.infer_features (one cold
+     and five warm runs each, then one warm 10 s run under torch.profiler
+     for the device-time breakdown), checking each output and the kernel
+     launch counts of every run;
+  5. its 2 s request on the card (kernels, TF32 off) against the same
+     request on the CPU (plain versions) with the same weights and noise;
+  6. the Sins path at configs/sins.yaml widths (n_unit 768, 128 harmonics,
+     256 all-pass and 80 noise bins, a 3-layer PCmer) with the default
+     NSF-HiFiGAN as its enhancer, served as phase 4 serves DiffusionFast;
+  7. Sins at 2 s, card against CPU with the same weights and injected
+     noise, and CombSubFast, CombSub and standalone CombSubSuperFast at 2 s
+     without the enhancer, each at the same SNR bound.
 It then prints one JSON line describing the kernels and, last, one JSON
 line {"ok": true, "device": {...}}. TF32 is off for the whole run.
 """
@@ -27,9 +36,11 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -42,6 +53,10 @@ PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
 K2_KERNEL_SIZES = (3, 7, 11)
 K2_DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 K2_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256), (16, 512))  # (C, L/T)
+SINS = dict(n_harmonics=128, n_mag_allpass=256, n_mag_noise=80)  # sins.yaml
+# the repo ships no CombSub config: the legacy combsub schema's widths
+COMBSUB = dict(n_mag_allpass=256, n_mag_harmonic=512, n_mag_noise=256)
+SNR_LIMIT_DB = 40.0
 
 
 def fail(msg: str) -> None:
@@ -128,7 +143,60 @@ def phase_device(torch) -> tuple[str, str]:
 # ---------------------------------------------------------------- phase 2
 
 
-def phase_build() -> None:
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+SASS_BRANCH = re.compile(r"(@!?P\d+\s+)?BRA\s+(0x[0-9a-f]+)$")
+# f32 operations per instruction on the FP32 pipe (an FFMA is two)
+SASS_F32_OPS = {"FFMA": 2, "FMUL": 1, "FADD": 1, "FSEL": 1, "FSETP": 1,
+                "FMNMX": 1, "F2I": 1, "I2FP": 1, "I2F": 1, "FRND": 1,
+                "MUFU": 1, "FCHK": 1}
+
+
+def k4_ops_per_pair(lib_path, nvcc: str) -> tuple[float, float]:
+    """(f32 instructions, f32 operations) per (sample, harmonic) pair of K4
+    as compiled: the SASS of harmonic_bank_kernel's innermost loop (the one
+    holding the coefficients' LDS.128), walked along the fast path (a
+    predicated forward branch inside the loop skips sinf's reduction for
+    |x| >= 105615, which the bank never reaches), divided by the sinf
+    count in it (one multiply by 2/pi each)."""
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    insns, inside = [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "harmonic_bank_kernel" in line
+        elif inside and (m := SASS_INSN.search(line)):
+            insns.append((int(m.group(1), 16), m.group(2)))
+    addrs = [a for a, _ in insns]
+    lds = [a for a, t in insns if t.startswith("LDS.128")]
+    loops = []
+    for a, t in insns:
+        m = SASS_BRANCH.match(t)
+        if m and m.group(1) and any(int(m.group(2), 16) <= x <= a for x in lds):
+            loops.append((a - int(m.group(2), 16), int(m.group(2), 16), a))
+    if not loops:
+        fail("K4's SASS: no loop around the coefficient load found")
+    _, head, tail = min(loops)
+    i, n_sin, n_insn, n_ops = addrs.index(head), 0, 0, 0
+    while insns[i][0] <= tail:
+        a, t = insns[i]
+        m = SASS_BRANCH.match(t)
+        if m and a < int(m.group(2), 16) <= tail:
+            i = addrs.index(int(m.group(2), 16))
+            continue
+        op = (t.split()[1] if t.startswith("@") else t.split()[0]).split(".")[0]
+        if op in SASS_F32_OPS:
+            n_insn += 1
+            n_ops += SASS_F32_OPS[op]
+        n_sin += "0.63661974" in t
+        i += 1
+    if n_sin == 0:
+        fail("K4's SASS: no sinf found in the harmonic loop")
+    return n_insn / n_sin, n_ops / n_sin
+
+
+def phase_build() -> float:
+    """Build; returns K4's f32 operations per (sample, harmonic) pair."""
     from ddsp_svc_tpu_torch.ops import kernels
 
     info = kernels.build()
@@ -138,6 +206,12 @@ def phase_build() -> None:
     for line in info.log.splitlines():
         if line.startswith("==") or "ptxas info" in line or "spill" in line:
             log(f"[build] {line.strip()}")
+    n_insn, n_ops = k4_ops_per_pair(info.path, kernels._nvcc())
+    log(f"[build] K4 harmonic loop (SASS, fast path): {n_insn:.2f} f32 "
+        f"instructions = {n_ops:.2f} f32 operations (FFMA as 2) per "
+        f"(sample, harmonic) pair, the lerp, the product, sinf and the "
+        f"multiply-add included")
+    return n_ops
 
 
 # ---------------------------------------------------------------- phase 3
@@ -147,9 +221,9 @@ def _rand(torch, gen, shape, scale=1.0):
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * scale
 
 
-def phase_kernels(torch, card: str) -> dict:
+def phase_kernels(torch, card: str, k4_ops: float) -> dict:
     """Kernel vs plain at the 10 s request's shapes. Returns per-kernel
-    measurements (launches filled in by phase 4)."""
+    measurements (launches filled in by the serving phases)."""
     from ddsp_svc_tpu_torch.ops import kernels
     from ddsp_svc_tpu_torch.ops.cuda_conformer import (conformer_layer,
                                                        conformer_layer_plain)
@@ -273,36 +347,82 @@ def phase_kernels(torch, card: str) -> dict:
         f"(abs {abs_err:.3e}, tol 1e-4 x max|out|); kernel {k_ms:.4f} ms "
         f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}); no single PyTorch call computes it [{card}]")
+    # K4 harmonic bank: x (B, T*512, 1) cycles, amps (B, T, 128); 3e-5 abs
+    from ddsp_svc_tpu_torch.ops.cuda_oscillator import (harmonic_bank,
+                                                        harmonic_bank_plain)
+    from ddsp_svc_tpu_torch.ops.interp import remove_above_fmax
+    from ddsp_svc_tpu_torch.ops.source import cumsum_phase_source
+
+    n_harm = SINS["n_harmonics"]
+    k4 = {}
+    for b, frames in ((1, t), (2, 37)):
+        f0_frames = torch.from_numpy(np.concatenate(
+            [f0_contour(frames) * (1.0 + 0.5 * i) for i in range(b)]
+        ).astype(np.float32)).to(dev)
+        x = cumsum_phase_source(torch.repeat_interleave(f0_frames, BLOCK, dim=1),
+                                SR, BLOCK).contiguous()
+        amps = remove_above_fmax(
+            torch.exp(0.5 * torch.randn((b, frames, n_harm), generator=gen)).to(dev)
+            / 128.0, f0_frames, SR / 2).contiguous()
+        got = harmonic_bank(x, amps, BLOCK)
+        want = harmonic_bank_plain(x, amps, BLOCK)
+        err = float((got - want).abs().max())
+        if not err <= 3e-5:
+            problems.append(f"K4 harmonic_bank B={b} T={frames}: max abs err "
+                            f"{err:.3e} > 3e-5")
+        k4[b] = (x, amps, err, float(want.abs().max()))
+    x, amps, err, peak = k4[1]
+    k_ms = cuda_ms(torch, lambda: harmonic_bank(x, amps, BLOCK), 200)
+    p_ms = cuda_ms(torch, lambda: harmonic_bank_plain(x, amps, BLOCK), 20)
+    pairs = float(x.numel()) * n_harm
+    b_ms, b_by = bound_ms(4.0 * (2 * x.numel() + amps.numel()), pairs * k4_ops)
+    results["harmonic_bank"] = dict(
+        route="cuda", source="ddsp_svc_tpu_torch/csrc/oscillator.cu",
+        replaces="ddsp_svc_tpu/ops/pallas_oscillator.py:42",
+        max_abs_err=max(err, k4[2][2]), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    log(f"[kernels] K4 harmonic_bank T={t} L={x.numel()} K={n_harm}: max_abs_err "
+        f"{err:.3e} (max|out| {peak:.3f}; B=2 T=37: {k4[2][2]:.3e}; tol 3e-5 abs); "
+        f"kernel {k_ms:.4f} ms ({pairs * k4_ops / k_ms / 1e9:.1f} TFLOP/s at "
+        f"{k4_ops:.0f} ops per pair), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); no single PyTorch call computes it [{card}]")
     if problems:
         fail("kernel vs plain: " + "; ".join(problems))
     log("[kernels] K1 combtooth ok, K2 resblock_group ok, K3 conformer_layer "
-        "ok (each within tolerance of its plain version)")
+        "ok, K4 harmonic_bank ok (each within tolerance of its plain version)")
     return results
 
 
 # ---------------------------------------------------------------- phase 4
 
 
-def build_parts(torch):
-    """The diffusion-fast model and the default NSF-HiFiGAN on the CPU,
-    random weights from one seeded generator."""
+def random_parts(torch, model_cfg: dict, enhancer: bool = False):
+    """(args, model, NSF-HiFiGAN) on the CPU, random weights (and FAVOR+
+    buffers) from one seeded generator. The vocoder is the diffusion
+    model's, or with ``enhancer`` the DDSP model's enhancer."""
     from ddsp_svc_tpu_torch.models.nn import random_init_
     from ddsp_svc_tpu_torch.models.registry import build_model
     from ddsp_svc_tpu_torch.models.vocoder import Vocoder
     from ddsp_svc_tpu_torch.utils.config import DotDict
 
-    args = DotDict({
-        "data": {"sampling_rate": SR, "block_size": BLOCK,
-                 "encoder_out_channels": 768},
-        "model": {"type": "DiffusionFast", "win_length": WIN, "n_layers": 6,
-                  "n_chans": 512, "k_step_max": 100, "use_pitch_aug": True,
-                  "n_spk": 1},
-        "vocoder": {"type": "nsf-hifigan"},
-        "infer": {"speedup": 10, "method": "dpm-solver"},
-    })
+    cfg = {"data": {"sampling_rate": SR, "block_size": BLOCK,
+                    "encoder_out_channels": 768},
+           "model": dict(model_cfg, n_spk=1)}
+    if enhancer:
+        cfg["enhancer"] = {"type": "nsf-hifigan", "ckpt": None}
+    args = DotDict(cfg)
     gen = torch.Generator().manual_seed(SEED)
     model = random_init_(build_model(args), gen)
     vocoder = random_init_(Vocoder("nsf-hifigan"), gen)
+    return args, model, vocoder
+
+
+def build_parts(torch):
+    """The diffusion-fast model and the default NSF-HiFiGAN."""
+    args, model, vocoder = random_parts(torch, {
+        "type": "DiffusionFast", "win_length": WIN, "n_layers": 6,
+        "n_chans": 512, "k_step_max": 100, "use_pitch_aug": True})
+    args["infer"] = {"speedup": 10, "method": "dpm-solver"}
     if float(model.denoise_fn.output_projection.weight.detach().abs().max()) == 0.0:
         fail("the denoiser's output projection is zero")
     return args, model, vocoder
@@ -329,22 +449,26 @@ def check_audio(audio, t: int, what: str) -> np.ndarray:
 
 def counts():
     from ddsp_svc_tpu_torch.ops.cuda_conformer import conformer_layer
+    from ddsp_svc_tpu_torch.ops.cuda_oscillator import harmonic_bank
     from ddsp_svc_tpu_torch.ops.cuda_resblock import resblock_group
     from ddsp_svc_tpu_torch.ops.cuda_source import combtooth
 
     return {"combtooth": combtooth, "resblock_group": resblock_group,
-            "conformer_layer": conformer_layer}
+            "conformer_layer": conformer_layer, "harmonic_bank": harmonic_bank}
 
 
+# device kernels by name; the port's own kernels live in an anonymous
+# namespace, so "::gemm_kernel<" is K3's and never a library GEMM
 KERNEL_GROUPS = (("K1 combtooth", ("combtooth_kernel",)),
                  ("K2 resblock", ("resblock_conv_kernel",)),
-                 ("K3 conformer", ("gemm_kernel", "depthwise_silu_kernel")),
+                 ("K3 conformer", ("::gemm_kernel<", "depthwise_silu_kernel")),
+                 ("K4 harmonic bank", ("harmonic_bank_kernel",)),
                  ("FFT", ("fft",)),
                  ("conv/GEMM libraries", ("conv", "cudnn", "gemm", "xmma",
                                           "cutlass", "sm90")))
 
 
-def profile_breakdown(torch, request, card: str) -> None:
+def profile_breakdown(torch, request, card: str, what: str) -> None:
     """One warm request under torch.profiler: device time by kernel group
     and the device's busy share of the request's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -355,7 +479,7 @@ def profile_breakdown(torch, request, card: str) -> None:
         request()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels_us = {}
+    kernels_us, launches = {}, 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -363,21 +487,22 @@ def profile_breakdown(torch, request, card: str) -> None:
             evt, "self_cuda_time_total", 0)
         if us > 0:
             kernels_us[evt.key] = kernels_us.get(evt.key, 0.0) + us
+            launches += evt.count
     busy = sum(kernels_us.values())
     if busy <= 0:
-        log("[profile] the profiler saw no device time (see the CUDA-event "
-            "kernel times above)")
+        log(f"[profile] {what}: the profiler saw no device time (see the "
+            "CUDA-event kernel times above)")
         return
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["elementwise/other"] = 0.0
     for key, us in kernels_us.items():
         low = key.lower()
         name = next((g for g, subs in KERNEL_GROUPS
-                     if any(sub in low for sub in subs)), "elementwise/other")
+                     if any(sub.lower() in low for sub in subs)), "elementwise/other")
         groups[name] += us
-    log(f"[profile] 10 s request: wall {wall_us / 1e3:.2f} ms (profiler on), "
-        f"device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f} % of "
-        f"wall, {len(kernels_us)} distinct kernels [{card}]")
+    log(f"[profile] {what} 10 s request: wall {wall_us / 1e3:.2f} ms (profiler "
+        f"on), device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f} % of "
+        f"wall, {len(kernels_us)} distinct kernels, {launches} device ops [{card}]")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {name}: {us / 1e3:.3f} ms ({100 * us / busy:.1f} % of "
             "device time)")
@@ -385,33 +510,32 @@ def profile_breakdown(torch, request, card: str) -> None:
         log(f"[profile]   top: {us / 1e3:.3f} ms  {key[:90]}")
 
 
-def phase_main_path(torch, args, model, vocoder, card: str) -> dict:
-    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
-
-    pipe = SvcPipeline.from_parts(model, None, args, vocoder, seed=SEED)
+def serve_path(torch, pipe, what: str, expect: dict, card: str, **kwargs) -> dict:
+    """Requests of 2, 5 and 10 s through ``pipe.infer_features`` (one cold
+    and five warm runs each, then one profiled warm 10 s run), each checked
+    for its output and its launch counts. Every count is set to 0 just
+    before and read just after; returns them."""
     if pipe.device.type != "cuda":
-        fail(f"pipeline on {pipe.device}, expected cuda")
+        fail(f"{what} pipeline on {pipe.device}, expected cuda")
     rng = np.random.default_rng(SEED)
-    expect = {"combtooth": 1, "resblock_group": 5, "conformer_layer": 60}
     wrappers = counts()
     for w in wrappers.values():
         w.launches = 0
 
-    def request(seconds, inputs, what):
-        """One request through the entry point; checks its output and that
-        it launched each kernel as often as the path needs."""
+    def request(seconds, inputs, when):
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        audio, _ = pipe.infer_features(**inputs, k_step=100, speedup=10,
-                                       method="dpm-solver")
+        audio, sr = pipe.infer_features(**inputs, **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         delta = {n: w.launches - before[n] for n, w in wrappers.items()}
         if delta != expect:
-            fail(f"{seconds} s request ({what}): launches {delta}, "
+            fail(f"{what} {seconds} s request ({when}): launches {delta}, "
                  f"expected {expect}")
-        check_audio(audio, inputs["volume"].shape[1], f"{seconds} s request")
+        if sr != SR:
+            fail(f"{what} {seconds} s request: sample rate {sr}, expected {SR}")
+        check_audio(audio, inputs["volume"].shape[1], f"{what} {seconds} s request")
         return wall
 
     for seconds in REQUEST_SECONDS:
@@ -419,13 +543,23 @@ def phase_main_path(torch, args, model, vocoder, card: str) -> dict:
         cold = request(seconds, inputs, "cold")
         walls = sorted(request(seconds, inputs, "warm") for _ in range(WARM_RUNS))
         med = walls[len(walls) // 2]
-        log(f"[main] {seconds} s request T={inputs['volume'].shape[1]}: warm "
+        log(f"[{what}] {seconds} s request T={inputs['volume'].shape[1]}: warm "
             f"median {med * 1e3:.2f} ms (min {walls[0] * 1e3:.2f}, max "
             f"{walls[-1] * 1e3:.2f}, n={WARM_RUNS}; cold {cold * 1e3:.1f} ms), "
             f"real-time factor {med / seconds:.5f} ({seconds / med:.1f}x real "
             f"time), launches per request {expect} [{card}]")
-    profile_breakdown(torch, lambda: request(10, inputs, "profiled"), card)
+    profile_breakdown(torch, lambda: request(10, inputs, "profiled"), card, what)
     return {n: w.launches for n, w in wrappers.items()}
+
+
+def phase_main_path(torch, args, model, vocoder, card: str) -> dict:
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    pipe = SvcPipeline.from_parts(model, None, args, vocoder, seed=SEED)
+    expect = {"combtooth": 1, "resblock_group": 5, "conformer_layer": 60,
+              "harmonic_bank": 0}
+    return serve_path(torch, pipe, "diffusion-fast", expect, card, k_step=100,
+                      speedup=10, method="dpm-solver")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -455,11 +589,67 @@ def phase_card_vs_cpu(torch, args, cpu_model, cpu_vocoder, card: str) -> None:
         audios[name] = check_audio(audio, t, f"2 s request on {name}")
     mel_err = float(np.abs(mels["card"] - mels["cpu"]).max())
     snr = snr_db(audios["cpu"], audios["card"])
-    log(f"[parity] 2 s request, card (kernels) vs CPU (plain), same weights "
-        f"and noise: mel max-abs diff {mel_err:.3e}, audio SNR {snr:.2f} dB "
-        f"(limit >= 40 dB) [{card}]")
-    if not snr >= 40.0:
-        fail(f"card vs CPU audio SNR {snr:.2f} dB < 40 dB")
+    log(f"[parity] diffusion-fast 2 s request, card (kernels) vs CPU (plain), "
+        f"same weights and noise: mel max-abs diff {mel_err:.3e}, audio SNR "
+        f"{snr:.2f} dB (limit >= {SNR_LIMIT_DB:.0f} dB) [{card}]")
+    if not snr >= SNR_LIMIT_DB:
+        fail(f"card vs CPU audio SNR {snr:.2f} dB < {SNR_LIMIT_DB} dB")
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def phase_sins_path(torch, args, model, vocoder, card: str) -> dict:
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    pipe = SvcPipeline.from_parts(model, None, args, vocoder, seed=SEED,
+                                  enhance=True)
+    if pipe.enhancer is None:
+        fail("the Sins pipeline has no enhancer")
+    expect = {"combtooth": 0, "resblock_group": 5, "conformer_layer": 0,
+              "harmonic_bank": 1}
+    return serve_path(torch, pipe, "sins", expect, card)
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def phase_ddsp_card_vs_cpu(torch, card: str, sins_parts) -> None:
+    """Sins (with the enhancer) and the other three DDSP models (without)
+    at 2 s: card against CPU on the same weights and injected noise."""
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    rng = np.random.default_rng(SEED + 2)
+    cases = [("Sins", sins_parts, True)]
+    for cfg in ({"type": "CombSubFast"}, dict(COMBSUB, type="CombSub"),
+                {"type": "CombSubSuperFast", "win_length": WIN}):
+        cases.append((cfg["type"], random_parts(torch, cfg), False))
+    for mtype, (args, model, vocoder), enhance in cases:
+        gpu = SvcPipeline.from_parts(copy.deepcopy(model), None, args,
+                                     copy.deepcopy(vocoder), seed=SEED,
+                                     enhance=enhance)
+        cpu = SvcPipeline.from_parts(model, None, args, vocoder, device="cpu",
+                                     seed=SEED, enhance=enhance)
+        inputs = request_inputs(cpu, 2, rng)
+        t = inputs["volume"].shape[1]
+        draw = rng.standard_normal if mtype == "CombSubSuperFast" else (
+            lambda shape: rng.uniform(-1.0, 1.0, shape))
+        noise = {"ddsp": draw((1, t * BLOCK)),
+                 "rand_ini": np.concatenate([[0.0], rng.random(8)])[None, None],
+                 "sine": rng.standard_normal((1, t * BLOCK, 9))}
+        noise = {k: v.astype(np.float32) for k, v in noise.items()}
+        audios = {}
+        for name, pipe in (("card", gpu), ("cpu", cpu)):
+            audio, sr = pipe.infer_features(**inputs, noise=noise)
+            audios[name] = check_audio(audio, t, f"{mtype} 2 s on {name}")
+        snr = snr_db(audios["cpu"], audios["card"])
+        log(f"[parity] {mtype} 2 s request{' with the enhancer' if enhance else ''}"
+            f", card (kernels) vs CPU (plain), same weights and noise: audio SNR "
+            f"{snr:.2f} dB (limit >= {SNR_LIMIT_DB:.0f} dB) [{card}]")
+        if not snr >= SNR_LIMIT_DB:
+            fail(f"{mtype} card vs CPU audio SNR {snr:.2f} dB < {SNR_LIMIT_DB} dB")
+        del gpu, cpu
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -478,22 +668,35 @@ def main() -> None:
     t_start = time.perf_counter()
 
     name, card = phase_device(torch)
-    phase_build()
-    results = phase_kernels(torch, card)
+    k4_ops = phase_build()
+    results = phase_kernels(torch, card, k4_ops)
+
     args, model, vocoder = build_parts(torch)
     cpu_model, cpu_vocoder = copy.deepcopy(model), copy.deepcopy(vocoder)
-    launches = phase_main_path(torch, args, model, vocoder, card)
+    diffusion = phase_main_path(torch, args, model, vocoder, card)
     del model, vocoder
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch, args, cpu_model, cpu_vocoder, card)
+    del cpu_model, cpu_vocoder
+
+    sins_parts = random_parts(torch, dict(SINS, type="Sins"), enhancer=True)
+    args, model, vocoder = sins_parts
+    sins = phase_sins_path(torch, args, copy.deepcopy(model),
+                           copy.deepcopy(vocoder), card)
+    torch.cuda.empty_cache()
+    phase_ddsp_card_vs_cpu(torch, card, sins_parts)
 
     table = []
-    for kname in ("combtooth", "resblock_group", "conformer_layer"):
+    for kname in ("combtooth", "resblock_group", "conformer_layer",
+                  "harmonic_bank"):
         r = results[kname]
-        if launches[kname] <= 0:
-            fail(f"kernel {kname} was not launched on the main path")
+        launches = diffusion[kname] + sins[kname]
+        if launches <= 0:
+            fail(f"kernel {kname} was not launched on a serving path")
+        log(f"[done] {kname}: {diffusion[kname]} launches on the diffusion-fast "
+            f"path, {sins[kname]} on the Sins path")
         table.append({"name": kname, "route": r["route"], "source": r["source"],
-                      "replaces": r["replaces"], "launches": launches[kname],
+                      "replaces": r["replaces"], "launches": launches,
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -1,6 +1,11 @@
-"""The DiffusionFast serving path (mirrors the direct path of
-ddsp_svc_tpu/infer/pipeline.py ``SvcPipeline.infer``, the jitted ``fwd``
-with silence_front = 0): cascade -> NSF-HiFiGAN -> volume mask.
+"""The serving path from features (mirrors the direct path of
+ddsp_svc_tpu/infer/pipeline.py ``SvcPipeline.infer``) for two families:
+
+- DiffusionFast (the jitted ``fwd`` with silence_front 0): cascade ->
+  NSF-HiFiGAN -> volume mask;
+- the DDSP family (Sins, CombSub, CombSubFast, CombSubSuperFast): synth ->
+  volume mask -> the NSF-HiFiGAN ``Enhancer`` when ``enhance`` is set and
+  the config names an ``enhancer``.
 
 The front-end (units encoder, f0 tracker) is not ported yet, so the entry
 point takes the features it would produce: ``infer_features``.
@@ -24,47 +29,58 @@ def _maybe(noise: dict, name: str, device):
 
 
 class SvcPipeline:
-    """DiffusionFast model + NSF-HiFiGAN vocoder on one device (the CUDA
-    card unless ``device`` says otherwise)."""
+    """A model of a ported family and its NSF-HiFiGAN (the vocoder of the
+    diffusion family, the enhancer of the DDSP family) on one device (the
+    CUDA card unless ``device`` says otherwise)."""
 
     def __init__(self, model_path: str, device: str | torch.device | None = None,
-                 seed: int = 0):
-        """Load a JAX checkpoint, its config.yaml and the vocoder payload the
-        config names (random init when that file does not exist)."""
-        from ..models.registry import load_model, load_vocoder
-        from ..models.vocoder import Vocoder
+                 seed: int = 0, enhance: bool = False):
+        """Load a JAX checkpoint, its config.yaml and the NSF-HiFiGAN payload
+        the config names (``vocoder`` or, with ``enhance``, ``enhancer``;
+        random init when that file does not exist)."""
+        from ..models.registry import (load_model, load_vocoder_or_random,
+                                       model_family)
 
         dev = resolve_device(device)
-        model, args = load_model(model_path)
-        vc = args.vocoder or {}
-        vocoder = load_vocoder(vc.get("ckpt"))
-        if vocoder is None:
-            from ..models.nn import random_init_
-
-            print(f" [!] vocoder checkpoint {vc.get('ckpt')!r} not found - random init")
-            vocoder = Vocoder(vc.get("type", "nsf-hifigan"))
-            random_init_(vocoder, torch.Generator().manual_seed(seed))
-        self._init(model, args, vocoder, dev, seed)
+        model, args = load_model(model_path, device="cpu")
+        if model_family(args.model.type) == "ddsp":
+            vc = args.enhancer if enhance else None
+        else:
+            vc = args.vocoder or {}
+        vocoder = load_vocoder_or_random(vc.get("ckpt"), seed) if vc is not None else None
+        self._init(model, args, vocoder, dev, seed, enhance)
 
     @classmethod
     def from_parts(cls, model, params, args, vocoder,
                    device: str | torch.device | None = None,
-                   seed: int = 0) -> "SvcPipeline":
-        """Build a pipeline in memory: ``model`` a Unit2WavFast, ``params``
-        its state dict (None keeps the model's weights), ``args`` the
-        DotDict config, ``vocoder`` a Vocoder."""
+                   seed: int = 0, enhance: bool = False) -> "SvcPipeline":
+        """Build a pipeline in memory: ``model`` a module of a ported family,
+        ``params`` its state dict (None keeps the model's weights), ``args``
+        the DotDict config, ``vocoder`` a Vocoder (for the DDSP family, the
+        enhancer's; used when ``enhance`` is set and args has ``enhancer``)."""
         dev = resolve_device(device)
         if params is not None:
             model.load_state_dict(params, strict=True)
         self = cls.__new__(cls)
-        self._init(model, args, vocoder, dev, seed)
+        self._init(model, args, vocoder, dev, seed, enhance)
         return self
 
-    def _init(self, model, args, vocoder, device, seed):
+    def _init(self, model, args, vocoder, device, seed, enhance):
+        from ..models.registry import model_family
+        from ..models.vocoder import Enhancer
+
         self.device = device
         self.args = args
+        self.family = model_family(args.model.type)
         self.model = model.to(device).eval()
-        self.vocoder = vocoder.to(device).eval()
+        self.vocoder = self.enhancer = None
+        if self.family != "ddsp":
+            self.vocoder = vocoder.to(device).eval()
+        elif enhance and args.enhancer:
+            if vocoder is None:
+                raise ValueError("enhance=True needs the enhancer's vocoder")
+            self.enhancer = Enhancer(args.enhancer.type or "nsf-hifigan",
+                                     device=device, vocoder=vocoder)
         # per-request noise when none is injected
         self.generator = torch.Generator(device=device).manual_seed(seed)
 
@@ -78,23 +94,55 @@ class SvcPipeline:
     @torch.no_grad()
     def infer_features(self, units, f0, volume, frame_mask, spk_id: int = 1,
                        k_step: int | None = None, speedup: int = 10,
-                       method: str = "dpm-solver", noise: dict | None = None):
+                       method: str = "dpm-solver", noise: dict | None = None,
+                       enhancer_adaptive_key: float | str = 0.0,
+                       silence_front: float = 0.0):
         """units (1, T, n_unit), f0 (1, T, 1) Hz, volume (1, T, 1), frame_mask
-        (T,) -> (audio (1, T * hop) on the pipeline's device, sample rate).
+        (T,) -> (audio (1, L) on the pipeline's device, its sample rate).
 
         ``noise`` may carry any of ``ddsp`` (1, T * block), ``diffusion``
-        (1, T, M), ``rand_ini`` (1, 1, 9) and ``sine`` (1, T * hop, 9); what
-        is missing is drawn from the pipeline's generator."""
+        (1, T, M), ``rand_ini`` (1, 1, 9) and ``sine`` (1, >= L, 9); what
+        is missing is drawn from the pipeline's generator. The diffusion
+        family reads k_step, speedup and method; the DDSP family's enhancer
+        reads ``enhancer_adaptive_key`` and ``silence_front``."""
+        if self.family == "ddsp":
+            return self._infer_ddsp(units, f0, volume, frame_mask, spk_id,
+                                    noise or {}, enhancer_adaptive_key,
+                                    silence_front)
         mel = self.cascade(units, f0, volume, spk_id, k_step, speedup, method,
                            noise)
         return (self.vocode(mel, f0, frame_mask, noise),
                 self.vocoder.vocoder_sample_rate)
 
+    def _volume_mask(self, audio, frame_mask):
+        mask = upsample(_as_tensor(frame_mask, self.device)[None, :, None],
+                        int(self.args.data.block_size))[..., 0]
+        return audio * mask[:, :audio.shape[-1]]
+
+    def _infer_ddsp(self, units, f0, volume, frame_mask, spk_id, noise,
+                    adaptive_key, silence_front):
+        """Synth -> volume mask -> enhancer (JAX: the masked direct forward,
+        then ``Enhancer.enhance`` on the masked audio)."""
+        dev = self.device
+        units, f0, volume = (_as_tensor(a, dev) for a in (units, f0, volume))
+        spk = torch.full((units.shape[0], 1), int(spk_id), device=dev,
+                         dtype=torch.long)
+        audio, _ = self.model(units, f0, volume, spk_id=spk,
+                              noise=_maybe(noise, "ddsp", dev),
+                              generator=self.generator)
+        audio = self._volume_mask(audio, frame_mask)
+        if self.enhancer is None:
+            return audio, int(self.args.data.sampling_rate)
+        return self.enhancer.enhance(
+            audio, int(self.args.data.sampling_rate), f0,
+            int(self.args.data.block_size), adaptive_key=adaptive_key,
+            silence_front=silence_front, noise=noise, generator=self.generator)
+
     @torch.no_grad()
     def cascade(self, units, f0, volume, spk_id: int = 1,
                 k_step: int | None = None, speedup: int = 10,
                 method: str = "dpm-solver", noise: dict | None = None):
-        """The first half of ``infer_features``: the DiffusionFast mel
+        """The first half of ``infer_features`` for DiffusionFast: the mel
         (1, T, M). k_step defaults to, and is clamped by, k_step_max."""
         if method != "dpm-solver":
             raise NotImplementedError(
@@ -125,6 +173,4 @@ class SvcPipeline:
                                          ("noise", "sine")) if name in noise}
         audio = self.vocoder.infer(mel, _as_tensor(f0, dev), sine_kwargs or None,
                                    generator=self.generator)
-        mask = upsample(_as_tensor(frame_mask, dev)[None, :, None],
-                        int(self.args.data.block_size))[..., 0]
-        return audio * mask[:, :audio.shape[-1]]
+        return self._volume_mask(audio, frame_mask)

@@ -5,6 +5,9 @@ Reads the JAX package's params (a nested dict of numpy arrays, as
 msgpack payload whose arrays are flax's ndarray ext type, decoded here by
 the port's own hook; ``msgpack`` is imported only when a file is read).
 
+A model's ``buffers`` tree (the FAVOR+ projections of a PCmer decoder)
+maps to the port's buffers the same way, leaf by leaf.
+
 Layout rules (the inverse of the torch->flax converters): Dense kernel
 (in, out) -> Linear weight (out, in); Conv1d kernel (k, in, out) -> (out,
 in, k); ConvTranspose1d kernel (k, in, out) -> (in, out, k), no flip. Weight
@@ -123,9 +126,71 @@ def _put_norm(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
     sd[f"{name}.bias"] = tree.take(f"{scope}/bias")
 
 
-def _put_conformer(sd, tree, scope, name):
+def _put_conformer(sd, tree, scope, name, use_norm: bool = False):
+    if use_norm:
+        _put_norm(sd, tree, f"{scope}/LayerNorm_0", f"{name}.norm")
     for i, part in enumerate(("conv1", "depthwise", "conv2")):
         _put_conv(sd, tree, f"{scope}/Conv1d_{i}", f"{name}.{part}")
+
+
+def _put_pcmer(sd: dict, tree: _Leaves, buffers: _Leaves | None, scope: str,
+               name: str, n_layers: int) -> None:
+    """PCmer layers: norm, FAVOR+ attention (its projection matrix from the
+    ``buffers`` tree at the same path), conformer with LayerNorm."""
+    if buffers is None:
+        raise KeyError("JAX buffers missing: a PCmer decoder needs its FAVOR+ "
+                       "projection matrices")
+    for i in range(n_layers):
+        s, n = f"{scope}/layer_{i}", f"{name}.layers.{i}"
+        _put_norm(sd, tree, f"{s}/norm", f"{n}.norm")
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            _put_dense(sd, tree, f"{s}/attn/{proj}", f"{n}.attn.{proj}")
+        _put_conformer(sd, tree, f"{s}/conformer", f"{n}.conformer", use_norm=True)
+        sd[f"{n}.attn.projection_matrix"] = buffers.take(
+            f"{s}/attn/projection_matrix")
+
+
+def _put_unit2control(sd: dict, tree: _Leaves, buffers: _Leaves | None,
+                      u: str, un: str, pcmer: bool) -> None:
+    """Unit2Control at JAX scope ``u`` -> port module ``un``: the conv
+    stack (or its single conv), the embeddings, the decoder (PCmer layers
+    with their FAVOR+ projection buffers, or the conv-only conformer), the
+    norm and the weight-normed ``dense_out``."""
+    _put_conv(sd, tree, f"{u}/stack_conv0", f"{un}.stack_conv0")
+    if tree.has(f"{u}/stack_norm/scale"):
+        _put_norm(sd, tree, f"{u}/stack_norm", f"{un}.stack_norm")
+        _put_conv(sd, tree, f"{u}/stack_conv1", f"{un}.stack_conv1")
+    for emb in ("f0_embed", "phase_embed", "volume_embed"):
+        _put_dense(sd, tree, f"{u}/{emb}", f"{un}.{emb}")
+    if tree.has(f"{u}/spk_embed/embedding"):
+        sd[f"{un}.spk_embed.weight"] = tree.take(f"{u}/spk_embed/embedding")
+    if tree.has(f"{u}/aug_shift_embed/kernel"):
+        _put_dense(sd, tree, f"{u}/aug_shift_embed", f"{un}.aug_shift_embed")
+    if pcmer:
+        _put_pcmer(sd, tree, buffers, f"{u}/decoder", f"{un}.decoder", 3)
+    else:
+        for i in range(3):
+            _put_conformer(sd, tree,
+                           f"{u}/decoder/CFNEncoderLayer_{i}/ConformerConvModule_0",
+                           f"{un}.decoder.layers.{i}.conformer")
+    _put_norm(sd, tree, f"{u}/norm", f"{un}.norm")
+    _put_dense(sd, tree, f"{u}/dense_out", f"{un}.dense_out")
+
+
+def ddsp_state_dict(params: dict, buffers: dict | None = None,
+                    pcmer: bool = True) -> dict:
+    """A DDSP model's params (``unit2ctrl/...``) and buffers (the FAVOR+
+    projections, ``unit2ctrl/decoder/layer_i/attn/projection_matrix``) ->
+    the port's Sins / CombSub / CombSubFast (``pcmer``) or CombSubSuperFast
+    state dict (numpy)."""
+    tree = _Leaves(params)
+    buf = _Leaves(buffers) if buffers is not None else None
+    sd: dict = {}
+    _put_unit2control(sd, tree, buf, "unit2ctrl", "unit2ctrl", pcmer)
+    tree.finish()
+    if buf is not None:
+        buf.finish()
+    return sd
 
 
 def unit2wav_fast_state_dict(params: dict, n_layers: int) -> dict:
@@ -133,22 +198,8 @@ def unit2wav_fast_state_dict(params: dict, n_layers: int) -> dict:
     port's ``models/cascade.Unit2WavFast`` state dict (numpy)."""
     tree = _Leaves(params)
     sd: dict = {}
-    u, un = "ddsp_model/unit2ctrl", "ddsp_model.unit2ctrl"
-    _put_conv(sd, tree, f"{u}/stack_conv0", f"{un}.stack_conv0")
-    _put_norm(sd, tree, f"{u}/stack_norm", f"{un}.stack_norm")
-    _put_conv(sd, tree, f"{u}/stack_conv1", f"{un}.stack_conv1")
-    for emb in ("f0_embed", "phase_embed", "volume_embed"):
-        _put_dense(sd, tree, f"{u}/{emb}", f"{un}.{emb}")
-    if tree.has(f"{u}/spk_embed/embedding"):
-        sd[f"{un}.spk_embed.weight"] = tree.take(f"{u}/spk_embed/embedding")
-    if tree.has(f"{u}/aug_shift_embed/kernel"):
-        _put_dense(sd, tree, f"{u}/aug_shift_embed", f"{un}.aug_shift_embed")
-    for i in range(3):
-        _put_conformer(sd, tree,
-                       f"{u}/decoder/CFNEncoderLayer_{i}/ConformerConvModule_0",
-                       f"{un}.decoder.layers.{i}.conformer")
-    _put_norm(sd, tree, f"{u}/norm", f"{un}.norm")
-    _put_dense(sd, tree, f"{u}/dense_out", f"{un}.dense_out")
+    _put_unit2control(sd, tree, None, "ddsp_model/unit2ctrl",
+                      "ddsp_model.unit2ctrl", pcmer=False)
     d, dn = "denoise_fn", "denoise_fn"
     _put_conv(sd, tree, f"{d}/input_projection", f"{dn}.input_projection")
     _put_dense(sd, tree, f"{d}/diff_emb_0", f"{dn}.diff_emb_0")

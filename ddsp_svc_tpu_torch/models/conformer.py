@@ -1,6 +1,7 @@
 """Conv-only conformer encoder (mirrors ddsp_svc_tpu/models/conformer.py:
-ConformerConvModule, CFNEncoderLayer, ConformerNaiveEncoder with
-conv_only=True, use_norm=False, no dropout at inference)."""
+ConformerConvModule, with or without its leading LayerNorm, and
+CFNEncoderLayer, ConformerNaiveEncoder with conv_only=True, use_norm=False,
+no dropout at inference)."""
 from __future__ import annotations
 
 import torch
@@ -18,13 +19,15 @@ def calc_same_padding(kernel_size: int) -> int:
 
 
 class ConformerConvModule(nn.Module):
-    """1x1 conv -> GLU -> depthwise k -> SiLU -> 1x1 conv (JAX Conv1d_0,
-    Conv1d_1, Conv1d_2 are ``conv1``, ``depthwise``, ``conv2`` here)."""
+    """LayerNorm (``use_norm``, as PCmer) -> 1x1 conv -> GLU -> depthwise k
+    -> SiLU -> 1x1 conv (JAX LayerNorm_0, Conv1d_0, Conv1d_1, Conv1d_2 are
+    ``norm``, ``conv1``, ``depthwise``, ``conv2`` here)."""
 
     def __init__(self, dim: int, expansion_factor: int = 2,
-                 kernel_size: int = 31):
+                 kernel_size: int = 31, use_norm: bool = False):
         super().__init__()
         inner = dim * expansion_factor
+        self.norm = nn.LayerNorm(dim) if use_norm else None  # eps 1e-5
         self.conv1 = Conv1d(dim, inner * 2, 1)
         self.depthwise = Conv1d(inner, inner, kernel_size,
                                 padding=calc_same_padding(kernel_size),
@@ -32,6 +35,8 @@ class ConformerConvModule(nn.Module):
         self.conv2 = Conv1d(inner, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm is not None:
+            x = self.norm(x)
         return self.conv2(F.silu(self.depthwise(F.glu(self.conv1(x), dim=-1))))
 
 

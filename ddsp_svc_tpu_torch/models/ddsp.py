@@ -1,7 +1,10 @@
-"""CombSubSuperFast, the STFT-domain combtooth subtractive synthesiser
-(mirrors ddsp_svc_tpu/models/ddsp.py: ``combsub_stft_synthesis``,
-``CombSubSuperFast``). The exciter runs through kernel K1
-(ops/cuda_source.combtooth)."""
+"""The DDSP synthesisers (mirrors ddsp_svc_tpu/models/ddsp.py:
+``sins_harmonic_bank``, ``Sins``, ``combsub_stft_synthesis``,
+``CombSubSuperFast``, ``combsub_fast_synthesis``, ``CombSubFast``,
+``CombSub``). Sins' harmonic bank runs through kernel K4
+(ops/cuda_oscillator.harmonic_bank), CombSubSuperFast's exciter through
+kernel K1 (ops/cuda_source.combtooth). Every random draw can be injected
+(``noise=``); what is not injected comes from ``generator``."""
 from __future__ import annotations
 
 import math
@@ -9,10 +12,98 @@ import math
 import torch
 import torch.nn as nn
 
+from ..ops.cuda_oscillator import harmonic_bank
 from ..ops.cuda_source import combtooth
-from ..ops.spectral import istft, stft
-from ..ops.window import hann_window
+from ..ops.fir import frequency_filter
+from ..ops.interp import remove_above_fmax, upsample
+from ..ops.source import cumsum_phase_source
+from ..ops.spectral import frame_signal, istft, overlap_add, stft
+from ..ops.window import hann_window, sqrt_hann_window
 from .unit2control import Unit2Control
+
+
+def _uniform_noise(like: torch.Tensor, generator) -> torch.Tensor:
+    """U(-1, 1) of ``like``'s shape, as the JAX models draw it."""
+    return torch.rand(like.shape, generator=generator, device=like.device,
+                      dtype=like.dtype) * 2.0 - 1.0
+
+
+def _unit_phasor(angle: torch.Tensor) -> torch.Tensor:
+    """exp(1j * angle)."""
+    return torch.polar(torch.ones_like(angle), angle)
+
+
+def _phase_source(f0_frames, sampling_rate, block_size, initial_phase):
+    """-> (f0 (B, L, 1), wrapped phase x (B, L, 1) in cycles, phase at each
+    frame start (B, T, 1) in radians)."""
+    f0 = upsample(f0_frames, block_size)
+    x = cumsum_phase_source(f0, sampling_rate, block_size, initial_phase)
+    return f0, x, 2.0 * math.pi * x[:, ::block_size, :]
+
+
+def sins_harmonic_bank(phase: torch.Tensor, amplitudes_frames: torch.Tensor,
+                       block_size: int, max_upsample_dim: int = 32
+                       ) -> torch.Tensor:
+    """The JAX model's harmonic bank, in radians and 32-harmonic chunks:
+    phase (B, L, 1), amplitudes (B, T, n_harm) -> (B, L). Sins itself
+    computes the same function through K4 (``harmonic_bank``), in cycles."""
+    n_harmonic = amplitudes_frames.shape[-1]
+    level = torch.arange(1, n_harmonic + 1, dtype=phase.dtype,
+                         device=phase.device)
+    sinusoids = 0.0
+    for start in range(0, n_harmonic, max_upsample_dim):
+        end = start + max_upsample_dim
+        amplitudes = upsample(amplitudes_frames[:, :, start:end], block_size)
+        sinusoids = sinusoids + torch.sum(
+            torch.sin(phase * level[start:end]) * amplitudes, dim=-1)
+    return sinusoids
+
+
+class Sins(nn.Module):
+    """Additive harmonic synthesiser with an LTV all-pass and a filtered
+    noise branch."""
+
+    def __init__(self, sampling_rate: int, block_size: int, n_harmonics: int,
+                 n_mag_allpass: int, n_mag_noise: int, n_unit: int = 256,
+                 n_spk: int = 1):
+        super().__init__()
+        self.sampling_rate, self.block_size = sampling_rate, block_size
+        self.unit2ctrl = Unit2Control(
+            n_unit, n_spk, {"amplitudes": n_harmonics,
+                            "group_delay": n_mag_allpass,
+                            "noise_magnitude": n_mag_noise})
+
+    def controls(self, units, f0_frames, phase_frames, volume, spk_id=None):
+        """-> (amplitudes (exp-scaled, fmax-masked), group_delay,
+        noise_param, hidden)."""
+        ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
+                                       spk_id=spk_id)
+        amplitudes = torch.exp(ctrls["amplitudes"]) / 128.0
+        group_delay = math.pi * torch.tanh(ctrls["group_delay"])
+        noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
+        amplitudes = remove_above_fmax(amplitudes, f0_frames,
+                                       self.sampling_rate / 2, level_start=1)
+        return amplitudes, group_delay, noise_param, hidden
+
+    def forward(self, units, f0_frames, volume, spk_id=None,
+                initial_phase=None, noise=None,
+                generator: torch.Generator | None = None):
+        """units (B, T, n_unit), f0/volume (B, T, 1) -> (signal (B, T *
+        block), hidden). ``noise`` (B, T * block) is the U(-1, 1) draw."""
+        _, x, phase_frames = _phase_source(f0_frames, self.sampling_rate,
+                                           self.block_size, initial_phase)
+        amplitudes, group_delay, noise_param, hidden = self.controls(
+            units, f0_frames, phase_frames, volume, spk_id=spk_id)
+        sinusoids = harmonic_bank(x.contiguous(), amplitudes.contiguous(),
+                                  self.block_size)
+        harmonic = frequency_filter(
+            sinusoids, _unit_phasor(torch.cumsum(group_delay, dim=-1)),
+            hann_window_flag=False)
+        if noise is None:
+            noise = _uniform_noise(harmonic, generator)
+        noise = frequency_filter(noise, noise_param.to(torch.complex64),
+                                 hann_window_flag=True)
+        return harmonic + noise, hidden
 
 
 def combsub_stft_synthesis(combtooth_wav, noise, src_filter, noise_filter,
@@ -41,7 +132,7 @@ class CombSubSuperFast(nn.Module):
             n_unit, n_spk,
             {"harmonic_magnitude": n_bins, "harmonic_phase": n_bins,
              "noise_magnitude": n_bins, "noise_phase": n_bins},
-            use_pitch_aug=use_pitch_aug)
+            use_pitch_aug=use_pitch_aug, use_naive_v2=True)
 
     def controls(self, units, f0, phase, volume, spk_id=None, aug_shift=None):
         """-> (src_filter, noise_filter, hidden); complex filters
@@ -73,3 +164,114 @@ class CombSubSuperFast(nn.Module):
                                         self.win_length, self.block_size,
                                         pad_mode)
         return signal, hidden
+
+
+def combsub_fast_synthesis(combtooth_wav, noise, src_filter, noise_filter,
+                           block: int) -> torch.Tensor:
+    """Framed rFFT filtering with sqrt-Hann windows and overlap-add:
+    signals (B, T * block), filters (B, T + 1, block + 1)."""
+    window = torch.from_numpy(sqrt_hann_window(2 * block)).to(combtooth_wav.device)
+
+    def filtered_frames(sig, filt):
+        frames = frame_signal(torch.nn.functional.pad(sig, (block, block)),
+                              2 * block, block) * window
+        spec = torch.fft.rfft(frames, 2 * block, dim=-1)
+        return torch.fft.irfft(spec * filt, 2 * block, dim=-1) * window
+
+    frames = (filtered_frames(combtooth_wav, src_filter)
+              + filtered_frames(noise, noise_filter.to(torch.complex64)))
+    return overlap_add(frames, block)[:, block:-block]
+
+
+def _comb_exciter(x, f0, sampling_rate):
+    """sinc(sr * x / (f0 + 1e-3)): (B, L, 1) -> (B, L)."""
+    return torch.sinc(sampling_rate * x / (f0 + 1e-3))[..., 0]
+
+
+class CombSubFast(nn.Module):
+    """Combtooth subtractive synthesiser, framed rFFT and overlap-add."""
+
+    def __init__(self, sampling_rate: int, block_size: int, n_unit: int = 256,
+                 n_spk: int = 1, use_pitch_aug: bool = False,
+                 pcmer_norm: bool = False):
+        super().__init__()
+        self.sampling_rate, self.block_size = sampling_rate, block_size
+        self.unit2ctrl = Unit2Control(
+            n_unit, n_spk, {"harmonic_magnitude": block_size + 1,
+                            "harmonic_phase": block_size + 1,
+                            "noise_magnitude": block_size + 1},
+            use_pitch_aug=use_pitch_aug, pcmer_norm=pcmer_norm)
+
+    def controls(self, units, f0_frames, phase_frames, volume, spk_id=None,
+                 aug_shift=None):
+        """-> (src_filter complex, noise_filter real, hidden), (B, T,
+        block + 1)."""
+        ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
+                                       spk_id=spk_id, aug_shift=aug_shift)
+        src_filter = torch.polar(torch.exp(ctrls["harmonic_magnitude"]),
+                                 math.pi * ctrls["harmonic_phase"])
+        noise_filter = torch.exp(ctrls["noise_magnitude"]) / 128.0
+        return src_filter, noise_filter, hidden
+
+    def forward(self, units, f0_frames, volume, spk_id=None, aug_shift=None,
+                initial_phase=None, noise=None,
+                generator: torch.Generator | None = None):
+        """-> (signal (B, T * block), hidden); ``noise`` the U(-1, 1) draw."""
+        f0, x, phase_frames = _phase_source(f0_frames, self.sampling_rate,
+                                            self.block_size, initial_phase)
+        src_filter, noise_filter, hidden = self.controls(
+            units, f0_frames, phase_frames, volume, spk_id=spk_id,
+            aug_shift=aug_shift)
+        src_filter = torch.cat([src_filter, src_filter[:, -1:]], dim=1)
+        noise_filter = torch.cat([noise_filter, noise_filter[:, -1:]], dim=1)
+        comb = _comb_exciter(x, f0, self.sampling_rate)
+        if noise is None:
+            noise = _uniform_noise(comb, generator)
+        return combsub_fast_synthesis(comb, noise, src_filter, noise_filter,
+                                      self.block_size), hidden
+
+
+class CombSub(nn.Module):
+    """Combtooth subtractive synthesiser with LTV-FIR filters (the old
+    version): all-pass, then a per-frame dynamically windowed harmonic
+    filter, plus filtered noise."""
+
+    def __init__(self, sampling_rate: int, block_size: int, n_mag_allpass: int,
+                 n_mag_harmonic: int, n_mag_noise: int, n_unit: int = 256,
+                 n_spk: int = 1):
+        super().__init__()
+        self.sampling_rate, self.block_size = sampling_rate, block_size
+        self.unit2ctrl = Unit2Control(
+            n_unit, n_spk, {"group_delay": n_mag_allpass,
+                            "harmonic_magnitude": n_mag_harmonic,
+                            "noise_magnitude": n_mag_noise})
+
+    def controls(self, units, f0_frames, phase_frames, volume, spk_id=None):
+        """-> (group_delay, src_param, noise_param, hidden)."""
+        ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
+                                       spk_id=spk_id)
+        group_delay = math.pi * torch.tanh(ctrls["group_delay"])
+        src_param = torch.exp(ctrls["harmonic_magnitude"])
+        noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
+        return group_delay, src_param, noise_param, hidden
+
+    def forward(self, units, f0_frames, volume, spk_id=None,
+                initial_phase=None, noise=None,
+                generator: torch.Generator | None = None):
+        """-> (signal (B, T * block), hidden); ``noise`` the U(-1, 1) draw."""
+        f0, x, phase_frames = _phase_source(f0_frames, self.sampling_rate,
+                                            self.block_size, initial_phase)
+        group_delay, src_param, noise_param, hidden = self.controls(
+            units, f0_frames, phase_frames, volume, spk_id=spk_id)
+        comb = _comb_exciter(x, f0, self.sampling_rate)
+        harmonic = frequency_filter(
+            comb, _unit_phasor(torch.cumsum(group_delay, dim=-1)),
+            hann_window_flag=False)
+        harmonic = frequency_filter(
+            harmonic, src_param.to(torch.complex64), hann_window_flag=True,
+            half_width_frames=1.5 * self.sampling_rate / (f0_frames + 1e-3))
+        if noise is None:
+            noise = _uniform_noise(harmonic, generator)
+        noise = frequency_filter(noise, noise_param.to(torch.complex64),
+                                 hann_window_flag=True)
+        return harmonic + noise, hidden

@@ -76,9 +76,12 @@ class GroupNorm(nn.Module):
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from ``generator`` with torch's default-init
     ranges: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for conv and linear weights
-    and biases, ones/zeros for norms, N(0, 1) for embeddings. Unlike the JAX
-    init, no projection is left at zero."""
+    and biases, ones/zeros for norms, N(0, 1) for embeddings, and a FAVOR+
+    projection buffer (models/pcmer.py) drawn as the reference draws it.
+    Unlike the JAX init, no projection is left at zero."""
     for mod in module.modules():
+        if hasattr(mod, "redraw_projection_matrix"):
+            mod.redraw_projection_matrix(generator)
         params = dict(mod.named_parameters(recurse=False))
         if not params:
             continue

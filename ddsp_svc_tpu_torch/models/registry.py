@@ -1,50 +1,87 @@
 """Model construction from the reference YAML schema (mirrors
 ddsp_svc_tpu/models/registry.py ``build_model``/``load_model`` for the
-DiffusionFast family only)."""
+DDSP family -- Sins, CombSub, CombSubFast, CombSubSuperFast -- and
+DiffusionFast, and ddsp_svc_tpu/train/solver.py ``model_family``)."""
 from __future__ import annotations
 
 import os
 
 import torch
 
+from ..utils.device import resolve_device
 from .cascade import Unit2WavFast
+from .ddsp import CombSub, CombSubFast, CombSubSuperFast, Sins
 from .vocoder import DEFAULT_NSF_CONFIG, Vocoder
 
+FAMILIES = {"Sins": "ddsp", "CombSub": "ddsp", "CombSubFast": "ddsp",
+            "CombSubSuperFast": "ddsp", "DiffusionFast": "diffusion"}
 
-def build_model(args, vocoder_dimension: int = 128) -> Unit2WavFast:
-    """args: DotDict config (configs/diffusion-fast.yaml schema). Returns a
-    module with uninitialised parameters."""
-    if args.model.type != "DiffusionFast":
+
+def model_family(model_type: str) -> str:
+    """'ddsp' or 'diffusion' for a ported ``model.type``."""
+    try:
+        return FAMILIES[model_type]
+    except KeyError:
         raise NotImplementedError(
-            f"model type {args.model.type!r}: only DiffusionFast is ported")
+            f"model type {model_type!r}: ported types are "
+            + ", ".join(FAMILIES)) from None
+
+
+def build_model(args, vocoder_dimension: int = 128) -> torch.nn.Module:
+    """args: DotDict config (configs/*.yaml schema). Returns a module with
+    uninitialised parameters."""
+    m, d = args.model, args.data
+    model_family(m.type)
+    if m.type == "Sins":
+        return Sins(d.sampling_rate, d.block_size, m.n_harmonics,
+                    m.n_mag_allpass, m.n_mag_noise, d.encoder_out_channels,
+                    m.n_spk)
+    if m.type == "CombSub":
+        return CombSub(d.sampling_rate, d.block_size, m.n_mag_allpass,
+                       m.n_mag_harmonic, m.n_mag_noise, d.encoder_out_channels,
+                       m.n_spk)
+    if m.type == "CombSubFast":
+        return CombSubFast(d.sampling_rate, d.block_size, d.encoder_out_channels,
+                           m.n_spk)
+    if m.type == "CombSubSuperFast":
+        return CombSubSuperFast(d.sampling_rate, d.block_size, m.win_length,
+                                d.encoder_out_channels, m.n_spk)
     return Unit2WavFast(
-        args.data.sampling_rate, args.data.block_size, args.model.win_length,
-        args.data.encoder_out_channels, args.model.n_spk,
-        bool(args.model.use_pitch_aug), vocoder_dimension,
-        args.model.n_layers, args.model.n_chans)
+        d.sampling_rate, d.block_size, m.win_length, d.encoder_out_channels,
+        m.n_spk, bool(m.use_pitch_aug), vocoder_dimension, m.n_layers,
+        m.n_chans)
 
 
-def load_model(model_path: str, device: torch.device | str = "cpu"):
+def load_model(model_path: str, device: str | torch.device | None = None):
     """A JAX checkpoint (``model_<step>.ckpt``) and its sibling config.yaml
-    -> (module with the checkpoint's weights, args)."""
-    from ..io.jax_params import load_state, read_msgpack, unit2wav_fast_state_dict
+    -> (module with the checkpoint's weights and buffers on ``device``, the
+    CUDA card by default; args)."""
+    from ..io.jax_params import (ddsp_state_dict, load_state, read_msgpack,
+                                 unit2wav_fast_state_dict)
     from ..utils.config import load_config
 
+    dev = resolve_device(device)
     args = load_config(os.path.join(os.path.dirname(model_path), "config.yaml"))
     model = build_model(args, vocoder_dimension=args.model.out_dims or 128)
     payload = read_msgpack(model_path)
-    load_state(model, unit2wav_fast_state_dict(payload["params"],
-                                               args.model.n_layers))
-    return model.to(device), args
+    if model_family(args.model.type) == "ddsp":
+        state = ddsp_state_dict(payload["params"], payload.get("buffers"),
+                                pcmer=args.model.type != "CombSubSuperFast")
+    else:
+        state = unit2wav_fast_state_dict(payload["params"], args.model.n_layers)
+    load_state(model, state)
+    return model.to(dev), args
 
 
-def load_vocoder(ckpt_path: str | None, device: torch.device | str = "cpu"
-                 ) -> Vocoder | None:
+def load_vocoder(ckpt_path: str | None,
+                 device: str | torch.device | None = None) -> Vocoder | None:
     """A converted NSF-HiFiGAN payload (``{"params", "config"}`` msgpack,
-    as ``models/vocoder.load_vocoder_params`` reads it) -> Vocoder, or None
-    when the file does not exist."""
+    as ``models/vocoder.load_vocoder_params`` reads it) -> Vocoder on
+    ``device`` (the CUDA card by default), or None when the file does not
+    exist."""
     from ..io.jax_params import generator_state_dict, load_state, read_msgpack
 
+    dev = resolve_device(device)
     if not ckpt_path:
         return None
     path = ckpt_path if ckpt_path.endswith(".msgpack") else ckpt_path + ".msgpack"
@@ -58,4 +95,18 @@ def load_vocoder(ckpt_path: str | None, device: torch.device | str = "cpu"
         payload["params"], len(config["upsample_rates"]),
         len(config["resblock_kernel_sizes"]),
         len(config["resblock_dilation_sizes"][0])))
-    return vocoder.to(device)
+    return vocoder.to(dev)
+
+
+def load_vocoder_or_random(ckpt_path: str | None, seed: int = 0) -> Vocoder:
+    """``load_vocoder`` on the CPU, or the default NSF-HiFiGAN with random
+    weights from ``seed`` when the file does not exist (as the JAX
+    wrapper's random init)."""
+    from .nn import random_init_
+
+    vocoder = load_vocoder(ckpt_path, device="cpu")
+    if vocoder is None:
+        print(f" [!] vocoder checkpoint {ckpt_path!r} not found - random init")
+        vocoder = random_init_(Vocoder("nsf-hifigan"),
+                               torch.Generator().manual_seed(seed))
+    return vocoder

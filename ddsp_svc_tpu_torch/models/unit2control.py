@@ -1,7 +1,8 @@
 """Unit2Control: units + f0/phase/volume/speaker -> named control tensors
-(mirrors ddsp_svc_tpu/models/unit2control.py with use_naive_v2=True and
-use_conv_stack=True: conv stack, additive embeddings, a 3-layer conv-only
-conformer decoder, LayerNorm and the output projection)."""
+(mirrors ddsp_svc_tpu/models/unit2control.py with its flags and defaults:
+a conv stack (``use_conv_stack``) or one conv, additive embeddings, a
+3-layer decoder -- PCmer by default, the conv-only conformer with
+``use_naive_v2`` -- LayerNorm and the output projection)."""
 from __future__ import annotations
 
 import math
@@ -13,6 +14,7 @@ import torch.nn.functional as F
 
 from .conformer import ConformerNaiveEncoder
 from .nn import Conv1d, GroupNorm
+from .pcmer import PCmer
 
 
 def split_to_dict(tensor: torch.Tensor, splits: Mapping[str, int]) -> dict:
@@ -25,12 +27,15 @@ def split_to_dict(tensor: torch.Tensor, splits: Mapping[str, int]) -> dict:
 
 class Unit2Control(nn.Module):
     def __init__(self, input_channel: int, n_spk: int,
-                 output_splits: Mapping[str, int], use_pitch_aug: bool = False):
+                 output_splits: Mapping[str, int], use_pitch_aug: bool = False,
+                 pcmer_norm: bool = False, use_naive_v2: bool = False,
+                 use_conv_stack: bool = True):
         super().__init__()
         self.output_splits = dict(output_splits)
         self.stack_conv0 = Conv1d(input_channel, 256, 3, padding=1)
-        self.stack_norm = GroupNorm(4, 256)
-        self.stack_conv1 = Conv1d(256, 256, 3, padding=1)
+        self.stack_norm = GroupNorm(4, 256) if use_conv_stack else None
+        self.stack_conv1 = (Conv1d(256, 256, 3, padding=1) if use_conv_stack
+                            else None)
         self.f0_embed = nn.Linear(1, 256)
         self.phase_embed = nn.Linear(1, 256)
         self.volume_embed = nn.Linear(1, 256)
@@ -39,7 +44,8 @@ class Unit2Control(nn.Module):
         # loader drops it when the checkpoint has none (io/jax_params.py)
         self.aug_shift_embed = (nn.Linear(1, 256, bias=False) if use_pitch_aug
                                 else None)
-        self.decoder = ConformerNaiveEncoder(3, 256)
+        self.decoder = (ConformerNaiveEncoder(3, 256) if use_naive_v2
+                        else PCmer(3, 8, 256, pcmer_norm=pcmer_norm))
         self.norm = nn.LayerNorm(256)  # eps 1e-5, as JAX
         self.dense_out = nn.Linear(256, sum(self.output_splits.values()))
 
@@ -47,8 +53,8 @@ class Unit2Control(nn.Module):
         """units (B, T, n_unit), f0/phase/volume (B, T, 1), spk_id (B, 1)
         1-based, aug_shift (B, 1, 1) -> (controls dict, hidden (B, T, 256))."""
         x = self.stack_conv0(units)
-        x = F.leaky_relu(self.stack_norm(x), 0.01)
-        x = self.stack_conv1(x)
+        if self.stack_norm is not None:
+            x = self.stack_conv1(F.leaky_relu(self.stack_norm(x), 0.01))
         x = (x + self.f0_embed(torch.log1p(f0 / 700.0))
              + self.phase_embed(phase / math.pi) + self.volume_embed(volume))
         if self.spk_embed is not None:

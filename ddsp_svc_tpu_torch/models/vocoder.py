@@ -1,12 +1,17 @@
-"""NSF-HiFiGAN vocoder wrapper (mirrors ddsp_svc_tpu/models/vocoder.py:
-``DEFAULT_NSF_CONFIG``, ``Vocoder.extract``, ``Vocoder.infer``) for the
-'nsf-hifigan' type at the vocoder's own sample rate."""
+"""NSF-HiFiGAN vocoder wrapper and the DDSP models' output enhancer
+(mirrors ddsp_svc_tpu/models/vocoder.py: ``DEFAULT_NSF_CONFIG``,
+``Vocoder.extract``, ``Vocoder.infer``, ``Enhancer.enhance``) for the
+'nsf-hifigan' type."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.mel import LogMelSpectrogram
+from ..ops.resample import resample
+from ..utils.device import resolve_device
 from .nsf_hifigan import Generator
 
 DEFAULT_NSF_CONFIG = dict(
@@ -54,10 +59,9 @@ class Vocoder(nn.Module):
                 tuple(d) for d in cfg["resblock_dilation_sizes"]))
 
     def extract(self, audio: torch.Tensor, sample_rate: int = 0) -> torch.Tensor:
-        """audio (B, L) -> mel (B, T, M)."""
+        """audio (B, L) at ``sample_rate`` (0: the vocoder's) -> mel (B, T, M)."""
         if sample_rate not in (0, self.vocoder_sample_rate):
-            raise NotImplementedError("resampling is not ported: pass audio "
-                                      "at the vocoder's sample rate")
+            audio = resample(audio, sample_rate, self.vocoder_sample_rate)
         return self.mel.extract(audio)
 
     def infer(self, mel: torch.Tensor, f0: torch.Tensor, sine_kwargs=None,
@@ -67,3 +71,90 @@ class Vocoder(nn.Module):
         if f0.dim() == 3:
             f0 = f0[..., 0]
         return self.model(mel, f0[:, :mel.shape[1]], sine_kwargs, generator)
+
+
+class Enhancer:
+    """NSF-HiFiGAN re-synthesis of a DDSP model's output, on one device
+    (the CUDA card unless ``device`` says otherwise). ``vocoder`` is a
+    Vocoder in memory; without one the converted payload ``ckpt`` is read,
+    and random weights from ``seed`` stand in when that file is absent."""
+
+    def __init__(self, enhancer_type: str = "nsf-hifigan", ckpt: str | None = None,
+                 device: str | torch.device | None = None,
+                 vocoder: Vocoder | None = None, seed: int = 0):
+        if enhancer_type != "nsf-hifigan":
+            raise NotImplementedError(
+                f"enhancer type {enhancer_type!r}: only 'nsf-hifigan' is ported")
+        self.device = resolve_device(device)
+        if vocoder is None:
+            from .registry import load_vocoder_or_random
+
+            vocoder = load_vocoder_or_random(ckpt, seed)
+        self.vocoder = vocoder.to(self.device).eval()
+
+    @torch.no_grad()
+    def enhance(self, audio: torch.Tensor, sample_rate: int, f0: torch.Tensor,
+                hop_size: int, adaptive_key: float | str = 0,
+                silence_front: float = 0, noise: dict | None = None,
+                generator: torch.Generator | None = None):
+        """audio (B, L) at ``sample_rate``, f0 (B, T, 1) on the caller's hop
+        grid -> (audio at the vocoder's rate, that rate).
+
+        ``adaptive_key`` (semitones, or "auto" from the peak f0) resamples
+        the input up so the vocoder sees its pitch lowered, and the output
+        back; ``silence_front`` seconds are skipped and padded back as
+        silence. ``noise`` may carry the vocoder's ``rand_ini`` (1, 1, 9)
+        and ``sine`` (B, >= frames * hop, 9) draws; the rest comes from
+        ``generator``."""
+        v = self.vocoder
+        start_frame = int(silence_front * sample_rate / hop_size)
+        real_silence_front = start_frame * hop_size / sample_rate
+        audio = audio[:, int(np.round(real_silence_front * sample_rate)):]
+        f0 = f0[:, start_frame:, :]
+        if adaptive_key == "auto":
+            adaptive_key = 12 * np.log2(float(torch.max(f0)) / 760.0)
+            adaptive_key = max(0.0, float(np.ceil(adaptive_key)))
+        adaptive_factor = 2 ** (-float(adaptive_key) / 12.0)
+        adaptive_sr = 100 * int(np.round(v.vocoder_sample_rate
+                                         / adaptive_factor / 100))
+        real_factor = v.vocoder_sample_rate / adaptive_sr
+        if sample_rate != adaptive_sr:
+            audio = resample(audio, sample_rate, adaptive_sr)
+        n_frames = int(audio.shape[-1] // v.vocoder_hop_size + 1)
+        mel = v.extract(audio)
+        # f0 onto the vocoder's hop grid: scaled by real_factor, source
+        # times stretched by 1 / real_factor, edges held (host numpy, as JAX)
+        f0_np = f0[:, :, 0].detach().cpu().numpy()
+        if not (hop_size == v.vocoder_hop_size
+                and sample_rate == v.vocoder_sample_rate == adaptive_sr):
+            f0_np = f0_np * real_factor
+            src_t = (hop_size / sample_rate) * np.arange(f0_np.shape[1]) / real_factor
+            tgt_t = (v.vocoder_hop_size / v.vocoder_sample_rate) * np.arange(n_frames)
+            f0_np = np.stack([np.interp(tgt_t, src_t, row, left=row[0], right=row[-1])
+                              for row in f0_np], axis=0)
+        f0_grid = torch.as_tensor(np.asarray(f0_np, np.float32), device=self.device)
+        enhanced = v.infer(mel, f0_grid, self._sine_kwargs(noise, mel.shape[1]),
+                           generator=generator)
+        out_sr = v.vocoder_sample_rate
+        if adaptive_sr != out_sr:
+            enhanced = resample(enhanced, adaptive_sr, out_sr)
+        if start_frame > 0:
+            enhanced = F.pad(enhanced, (int(np.round(out_sr * real_silence_front)), 0))
+        return enhanced, out_sr
+
+    def _sine_kwargs(self, noise: dict | None, n_frames: int) -> dict | None:
+        if not noise:
+            return None
+        out = {}
+        if "rand_ini" in noise:
+            out["rand_ini"] = torch.as_tensor(noise["rand_ini"], dtype=torch.float32,
+                                              device=self.device)
+        if "sine" in noise:
+            n = n_frames * self.vocoder.vocoder_hop_size
+            sine = torch.as_tensor(noise["sine"], dtype=torch.float32,
+                                   device=self.device)
+            if sine.shape[1] < n:
+                raise ValueError(f"enhancer sine noise has {sine.shape[1]} "
+                                 f"samples, the request needs {n}")
+            out["noise"] = sine[:, :n]
+        return out or None

@@ -1,0 +1,68 @@
+"""K4: the Sins harmonic bank as a CUDA kernel (``csrc/oscillator.cu``),
+its plain PyTorch version and its launch counter.
+
+Replaces ddsp_svc_tpu/ops/pallas_oscillator.py ``harmonic_bank_pallas``:
+the same function of the wrapped phase in cycles, so the kernel is held to
+the Pallas formula, ``sin((2 pi (k + 1)) x)``; the radians form of
+``models/ddsp.sins_harmonic_bank`` stays the JAX model's reference.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import kernels
+from .source import exact_div
+
+CHUNK = 32  # harmonics per step of the plain version (bounds its temporaries)
+
+
+def harmonic_bank_plain(x: torch.Tensor, amplitudes_frames: torch.Tensor,
+                        block_size: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: x (B, L, 1) cycles,
+    amplitudes (B, T, n_harm) with L = T * block -> (B, L)."""
+    b, t, n_harm = amplitudes_frames.shape
+    xr = x.reshape(b, t, block_size, 1)
+    w = exact_div(torch.arange(block_size, dtype=x.dtype, device=x.device),
+                  block_size).reshape(1, 1, block_size, 1)
+    nxt = torch.cat([amplitudes_frames[:, 1:], amplitudes_frames[:, -1:]], dim=1)
+    # 2 pi (k + 1), each rounded once from float64, as the kernel's
+    mult = (2.0 * math.pi * torch.arange(1, n_harm + 1, dtype=torch.float64)
+            ).to(device=x.device, dtype=torch.float32)
+    out = x.new_zeros(b, t, block_size)
+    for start in range(0, n_harm, CHUNK):
+        end = min(start + CHUNK, n_harm)
+        amp = (amplitudes_frames[:, :, None, start:end] * (1.0 - w)
+               + nxt[:, :, None, start:end] * w)
+        out = out + torch.sum(torch.sin(mult[start:end] * xr) * amp, dim=-1)
+    return out.reshape(b, t * block_size)
+
+
+def harmonic_bank(x: torch.Tensor, amplitudes_frames: torch.Tensor,
+                  block_size: int) -> torch.Tensor:
+    """x (B, L, 1) wrapped phase in cycles, amplitudes (B, T, n_harm) ->
+    (B, L), L = T * block.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in ``harmonic_bank.launches``)."""
+    if x.device.type == "cpu":
+        return harmonic_bank_plain(x, amplitudes_frames, block_size)
+    kernels.check_cuda_input(x, "harmonic_bank x", 3)
+    kernels.check_cuda_input(amplitudes_frames, "harmonic_bank amplitudes", 3)
+    b, t, n_harm = amplitudes_frames.shape
+    if x.shape != (b, t * block_size, 1):
+        raise ValueError(f"harmonic_bank: x must be ({b}, {t * block_size}, 1), "
+                         f"got {tuple(x.shape)}")
+    if x.device != amplitudes_frames.device:
+        raise ValueError("harmonic_bank: x and amplitudes on different devices")
+    out = torch.empty(b, t * block_size, device=x.device, dtype=torch.float32)
+    err = kernels.library().ddsp_harmonic_bank(
+        x.data_ptr(), amplitudes_frames.data_ptr(), out.data_ptr(), b, t,
+        block_size, n_harm, kernels.stream_handle(x.device))
+    kernels.check(err, "harmonic_bank")
+    harmonic_bank.launches += 1
+    return out
+
+
+harmonic_bank.launches = 0

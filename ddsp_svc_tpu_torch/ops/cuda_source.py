@@ -12,7 +12,7 @@ import math
 import torch
 
 from . import kernels
-from .source import (_next_frame_delta, carry_from_increments_q,
+from .source import (_next_frame_delta, carry_from_increments_q, exact_div,
                      fast_source_gen, frame_phase_increments_q)
 
 
@@ -36,7 +36,7 @@ def combtooth(f0_frames: torch.Tensor, sampling_rate: int, block_size: int,
     b, t, one = f0_frames.shape
     if one != 1:
         raise ValueError(f"combtooth: f0 must be (B, T, 1), got {tuple(f0_frames.shape)}")
-    s0 = (f0_frames / sampling_rate).contiguous()
+    s0 = exact_div(f0_frames, sampling_rate).contiguous()
     ds0 = _next_frame_delta(s0).contiguous()
     q = frame_phase_increments_q(f0_frames, sampling_rate, block_size)
     carry = carry_from_increments_q(q, carry_offset_q).contiguous()

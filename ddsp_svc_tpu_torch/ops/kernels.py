@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("combtooth.cu", "resblock.cu", "conformer.cu")
+SOURCES = ("combtooth.cu", "resblock.cu", "conformer.cu", "oscillator.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,8 @@ _SIGNATURES = {
     # (x, cond, step_vec, wc, bc, w1, b1, wd, bd, w2, b2, out, h, u, s,
     #  batch, t, c, hc, inner, k, stream)
     "ddsp_conformer_layer": (_P,) * 15 + (_I,) * 6 + (_P,),
+    # (x, amps, out, batch, n_frames, block, n_harm, stream)
+    "ddsp_harmonic_bank": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

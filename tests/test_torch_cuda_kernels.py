@@ -94,3 +94,26 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         combtooth(torch.ones((1, 4, 1), device=cuda, dtype=torch.float64), 44100, 512)
     with pytest.raises(ValueError):
         combtooth(torch.ones((1, 4, 2), device=cuda), 44100, 512)
+
+
+@pytest.mark.parametrize("b,t,n_harm", [(1, 862, 128), (2, 37, 128), (2, 5, 24)])
+def test_harmonic_bank_kernel(cuda, b, t, n_harm):
+    """K4 against its plain version: 3e-5 absolute (the JAX oscillator
+    test's bound); B = 2 checks that each row's last frame repeats itself."""
+    from ddsp_svc_tpu_torch.ops.cuda_oscillator import (harmonic_bank,
+                                                        harmonic_bank_plain)
+    from ddsp_svc_tpu_torch.ops.source import cumsum_phase_source
+
+    gen = torch.Generator().manual_seed(t)
+    f0 = 220.0 * torch.exp(0.2 * torch.randn((b, t, 1), generator=gen))
+    x = cumsum_phase_source(torch.repeat_interleave(f0, 512, dim=1), 44100,
+                            512).to(cuda)
+    amps = (torch.rand((b, t, n_harm), generator=gen) * 0.02).to(cuda)
+    n0 = harmonic_bank.launches
+    got = harmonic_bank(x, amps, 512)
+    want = harmonic_bank_plain(x, amps, 512)
+    torch.cuda.synchronize()
+    assert harmonic_bank.launches == n0 + 1
+    assert float((got - want).abs().max()) <= 3e-5
+    with pytest.raises(ValueError):
+        harmonic_bank(x[:, :-1].contiguous(), amps, 512)

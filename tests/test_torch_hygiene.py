@@ -11,6 +11,8 @@ import torch
 
 import ddsp_svc_tpu_torch
 from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+from ddsp_svc_tpu_torch.models.registry import load_model, load_vocoder
+from ddsp_svc_tpu_torch.models.vocoder import Enhancer, Vocoder
 from ddsp_svc_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -47,9 +49,15 @@ def test_no_jax_imports(path):
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
-    sig = inspect.signature(SvcPipeline.from_parts)
-    assert sig.parameters["device"].default is None
-    assert inspect.signature(SvcPipeline).parameters["device"].default is None
+    for entry in (SvcPipeline, SvcPipeline.from_parts, load_model, load_vocoder,
+                  Enhancer):
+        assert inspect.signature(entry).parameters["device"].default is None, entry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: load_model("absent/model_1.ckpt"),
+                 lambda: load_vocoder("absent.msgpack"),
+                 lambda: Enhancer(vocoder=Vocoder())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()  # resolved before any file is read
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -2,7 +2,8 @@
 and every port parameter is set, the weight-norm folds equal the JAX
 modules' folds (per output channel for Conv1d/Dense, per input channel
 for ConvTranspose1d), and a checkpoint written by the JAX trainer's
-``save_checkpoint`` loads through the port's own msgpack reader."""
+``save_checkpoint`` loads through the port's own msgpack reader -- for the
+DDSP family with its ``buffers`` tree (the FAVOR+ projections) too."""
 import os
 
 import numpy as np
@@ -20,6 +21,7 @@ from ddsp_svc_tpu_torch.io import jax_params
 from ddsp_svc_tpu_torch.models import nn as tnn
 from ddsp_svc_tpu_torch.models.cascade import Unit2WavFast
 from ddsp_svc_tpu_torch.models.nsf_hifigan import Generator
+from test_torch_ddsp_models import WIDTHS, build_ddsp, inputs
 from test_torch_models import N_LAYERS, _cascade_kwargs, build_cascade
 from torch_helpers import randomize_tree, tt
 
@@ -151,7 +153,7 @@ def test_jax_checkpoint_loads_through_the_port_reader(cascade, tmp_path):
         "data: {sampling_rate: 44100, block_size: 512, encoder_out_channels: 64}\n"
         "model: {type: DiffusionFast, win_length: 2048, n_layers: 2, n_chans: 64,\n"
         "        k_step_max: 100, use_pitch_aug: true, n_spk: 2}\n")
-    model, args = load_model(path)
+    model, args = load_model(path, device="cpu")
     assert args.model.type == "DiffusionFast"
     for k, v in port.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
@@ -166,9 +168,9 @@ def test_jax_checkpoint_loads_through_the_port_reader(cascade, tmp_path):
     vpath = os.path.join(tmp_path, "vocoder.msgpack")
     with open(vpath, "wb") as f:
         f.write(serialization.msgpack_serialize({"params": vparams, "config": cfg}))
-    vocoder = load_vocoder(vpath)
+    vocoder = load_vocoder(vpath, device="cpu")
     assert vocoder.config["upsample_initial_channel"] == 32
-    assert load_vocoder(os.path.join(tmp_path, "absent")) is None
+    assert load_vocoder(os.path.join(tmp_path, "absent"), device="cpu") is None
 
     # the checkpoint constructor: model, config and the vocoder it names
     with open(tmp_path / "config.yaml", "a") as f:
@@ -181,3 +183,54 @@ def test_jax_checkpoint_loads_through_the_port_reader(cascade, tmp_path):
         np.full((1, t, 1), 0.1), np.ones(t), spk_id=2, k_step=100)
     assert sr == 44100 and audio.shape == (1, t * 512)
     assert torch.isfinite(audio).all()
+
+
+@pytest.mark.parametrize("mtype", sorted(WIDTHS))
+def test_every_ddsp_param_and_buffer_maps(mtype):
+    """Sins, CombSub, CombSubFast and CombSubSuperFast: the state dict from
+    the JAX params (and, for the PCmer models, buffers) sets exactly the
+    port's parameters and buffers, and round-trips: the loaded module's
+    state dict gives back every array."""
+    _, params, buffers, port = build_ddsp(mtype, inputs(t=4))
+    pcmer = mtype != "CombSubSuperFast"
+    assert (buffers is not None) == pcmer
+    sd = jax_params.ddsp_state_dict(params, buffers, pcmer=pcmer)
+    assert set(sd) == set(port.state_dict())
+    for k, v in port.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), sd[k], err_msg=k)
+    if pcmer:
+        assert sum(k.endswith("projection_matrix") for k in sd) == 3
+        with pytest.raises(KeyError, match="buffers missing"):
+            jax_params.ddsp_state_dict(params, None)
+        extra = {"unit2ctrl": dict(buffers["unit2ctrl"], stray={"m": np.zeros(2)})}
+        with pytest.raises(KeyError, match="stray/m"):
+            jax_params.ddsp_state_dict(params, extra)
+
+
+def test_ddsp_checkpoint_loads_with_its_buffers(tmp_path):
+    """A Sins checkpoint saved with its ``buffers`` (as the JAX trainer and
+    converters write it) -> registry.load_model, param and buffer for
+    buffer; the checkpoint constructor with ``enhance`` builds the enhancer
+    (random weights: the configured payload is absent) and serves."""
+    from ddsp_svc_tpu_torch.models.registry import load_model, model_family
+
+    x = inputs(t=4)
+    _, params, buffers, port = build_ddsp("Sins", x)
+    path = save_checkpoint(str(tmp_path), 3, params, extra={"buffers": buffers})
+    w = WIDTHS["Sins"]
+    (tmp_path / "config.yaml").write_text(
+        "data: {sampling_rate: 44100, block_size: 512, encoder_out_channels: 32}\n"
+        f"model: {{type: Sins, n_spk: 2, n_harmonics: {w['n_harmonics']},\n"
+        f"        n_mag_allpass: {w['n_mag_allpass']}, n_mag_noise: {w['n_mag_noise']}}}\n"
+        f"enhancer: {{type: nsf-hifigan, ckpt: {tmp_path}/absent.msgpack}}\n")
+    model, args = load_model(path, device="cpu")
+    assert model_family(args.model.type) == "ddsp"
+    for k, v in port.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+    pipe = SvcPipeline(path, device="cpu", enhance=True)
+    assert pipe.enhancer is not None
+    audio, sr = pipe.infer_features(x["units"], x["f0"], x["volume"],
+                                    np.ones(4, np.float32), spk_id=2)
+    assert sr == 44100 and audio.shape == (1, 4 * 512)
+    assert torch.isfinite(audio).all()
+    assert SvcPipeline(path, device="cpu").enhancer is None
