@@ -50,6 +50,9 @@ REQUEST_SECONDS = (2, 5, 10)
 WARM_RUNS = 5
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
+# f32 accuracy on the tensor cores: split TF32, three MMAs per product at
+# the dense TF32 rate (494.7 TFLOP/s), K2's and K3's route
+PEAK_TF32X3_FLOP_PER_S = 494.7e12 / 3
 K2_KERNEL_SIZES = (3, 7, 11)
 K2_DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 K2_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256), (16, 512))  # (C, L/T)
@@ -116,9 +119,11 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float,
+             peak: float = PEAK_F32_FLOP_PER_S) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and flops over ``peak``."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -227,7 +232,8 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
     from ddsp_svc_tpu_torch.ops import kernels
     from ddsp_svc_tpu_torch.ops.cuda_conformer import (conformer_layer,
                                                        conformer_layer_plain)
-    from ddsp_svc_tpu_torch.ops.cuda_resblock import (resblock_group,
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (pack_resblock_weights,
+                                                      resblock_group,
                                                       resblock_group_plain)
     from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
     from ddsp_svc_tpu_torch.ops.source import (_next_frame_delta,
@@ -268,8 +274,10 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}); no single PyTorch call computes it [{card}]")
 
-    # K2 resblock stage at each of the five stages; tolerance 1e-4 x max|out|
-    tot = dict(ms=0.0, plain=0.0, bound=0.0, flops=0.0, bytes=0.0)
+    # K2 resblock stage at each of the five stages; tolerance 1e-4 x max|out|.
+    # Weights are packed once, as the serving path packs them per model.
+    tot = dict(ms=0.0, plain=0.0, bound=0.0, bound_fma=0.0, flops=0.0,
+               bytes=0.0)
     worst_abs = 0.0
     for c, per_frame in K2_STAGES:
         length = t * per_frame
@@ -280,7 +288,8 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
             weights.append([(_rand(torch, gen, (c, c, k), bound).to(dev),
                              _rand(torch, gen, (c,), bound).to(dev))
                             for _ in range(2 * len(dils))])
-        got = resblock_group(x, weights, K2_KERNEL_SIZES, K2_DILATIONS)
+        packed = pack_resblock_weights(weights)
+        got = resblock_group(x, packed, K2_KERNEL_SIZES, K2_DILATIONS)
         want = resblock_group_plain(x, weights, K2_KERNEL_SIZES, K2_DILATIONS)
         abs_err = float((got - want).abs().max())
         rel = abs_err / float(want.abs().max())
@@ -289,31 +298,36 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
             problems.append(f"K2 resblock_group C={c}: {rel:.3e} x max|out| > 1e-4")
         iters = 20 if c >= 64 else 10
         k_ms = cuda_ms(torch, lambda: resblock_group(
-            x, weights, K2_KERNEL_SIZES, K2_DILATIONS), iters)
+            x, packed, K2_KERNEL_SIZES, K2_DILATIONS), iters)
         p_ms = cuda_ms(torch, lambda: resblock_group_plain(
             x, weights, K2_KERNEL_SIZES, K2_DILATIONS), iters)
         taps = sum(k * 2 * len(d) for k, d in zip(K2_KERNEL_SIZES, K2_DILATIONS))
         n_convs = sum(2 * len(d) for d in K2_DILATIONS)
         flops = 2.0 * length * c * c * taps + 48.0 * length * c
         nbytes = 4.0 * (2 * length * c + c * c * taps + n_convs * c)
-        b_ms, _ = bound_ms(nbytes, flops)
+        b_ms, _ = bound_ms(nbytes, flops, PEAK_TF32X3_FLOP_PER_S)
+        b_fma, _ = bound_ms(nbytes, flops)
         for key, val in (("ms", k_ms), ("plain", p_ms), ("bound", b_ms),
-                         ("flops", flops), ("bytes", nbytes)):
+                         ("bound_fma", b_fma), ("flops", flops),
+                         ("bytes", nbytes)):
             tot[key] += val
         log(f"[kernels] K2 resblock_group C={c} L={length}: rel err {rel:.3e} "
             f"(abs {abs_err:.3e}, tol 1e-4 x max|out|); kernel {k_ms:.3f} ms "
             f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms [{card}]")
-        del x, weights, got, want
+            f"{b_ms:.4f} ms at 3xTF32 / {b_fma:.4f} ms at f32 FMA [{card}]")
+        del x, weights, packed, got, want
     results["resblock_group"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock.cu",
         replaces="ddsp_svc_tpu/ops/pallas_resblock.py:311",
         max_abs_err=worst_abs, ms=tot["ms"], plain_ms=tot["plain"],
-        bound_ms=tot["bound"], bound_by=bound_ms(tot["bytes"], tot["flops"])[1],
+        bound_ms=tot["bound"],
+        bound_by=bound_ms(tot["bytes"], tot["flops"], PEAK_TF32X3_FLOP_PER_S)[1],
         library_ms=None)
     log(f"[kernels] K2 five stages of one 10 s request: kernel {tot['ms']:.3f} "
-        f"ms, plain {tot['plain']:.3f} ms, bound {tot['bound']:.4f} ms; no "
-        f"single PyTorch call computes a stage [{card}]")
+        f"ms ({tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{tot['plain']:.3f} ms, bound {tot['bound']:.4f} ms at 3xTF32 / "
+        f"{tot['bound_fma']:.4f} ms at f32 FMA; no single PyTorch call "
+        f"computes a stage [{card}]")
 
     # K3 conformer layer: T=862, C=512, Hc=128, I=1024, k=31
     c, hc, inner, k = 512, 128, 1024, 31

@@ -10,169 +10,237 @@
 // the whole utterance (rows outside [0, length) read as zero).
 //
 // Bound on the H100: operations. A stage does 2*L*C^2*126 flops (126 = the
-// sum of the 18 convs' taps) on 8*L*C bytes of activation in and out; at
-// C >= 16 that is >= 250 flop/byte, above the f32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 flop/byte). Design (simple and right first): one direct
-// dilated conv kernel, launched 18 times per stage. A block computes a tile
-// of TT output rows x TCO output channels (4x4 per thread, 256 threads) and
-// walks the input channels in chunks of 16: each chunk stages TT + halo
-// input rows (leaky_relu applied as they load, zeros outside the
-// utterance) and the chunk's k x 16 x TCO weights in shared memory, so
-// C = 256, k = 11, d = 5 needs 53 KB. The epilogue adds the bias and,
-// optionally, the residual; the last conv of each chain accumulates into
-// the stage output and the last chain applies the 1/n_rb of the mean, so
-// no sum is finished outside the kernels. The TPU kernel's band-matrix
-// lane packing is a TPU layout device and is not carried over, and unlike
-// the TPU path (C <= 128 only) this kernel runs on all five stages.
+// sum of the 18 convs' taps) on 8*L*C bytes of activation in and out, so at
+// C >= 16 it is far above the ridge. At f32 accuracy the tensor cores run
+// split TF32 (mma_tf32x3.cuh: three MMAs per product), whose ceiling is
+// 494.7 / 3 TFLOP/s; the f32 FMA pipe's is 67.
+//
+// Design: each conv is an implicit GEMM on the tensor cores, M = a tile of
+// output time rows, N = output channels, K = input channels x taps, where
+// tap tau reads the input rows shifted by tau * dilation. A block of four
+// warps owns BM rows x BN channels (a warp 64 x 32, or 64 x 16 at C = 16)
+// and walks the input channels eight at a time through a two-stage cp.async
+// ring: each stage holds BM + (k-1)*d input rows of eight channels (the
+// halo comes in the same copy; cp.async's zero fill gives the rows outside
+// the utterance) and those channels' k x 8 x BN weights, which the wrapper
+// packed once per model as (k, C_in, C_out) so that every copy is 16 bytes
+// and every fragment load is free of bank conflicts. A fragments take
+// leaky_relu as they leave shared memory and are split there, so each staged
+// input row serves all k taps. The epilogue adds the bias and, optionally,
+// the residual; the last conv of each chain accumulates into the stage
+// output and the last chain applies the 1/n_rb of the mean, so no sum is
+// finished outside the kernels. A stage is 18 launches of this kernel.
+//
+// Why not one launch per chain at C <= 64 (a time tile plus the chain's
+// 60-row halo kept on the SM): the two activation tiles of 248 rows x 64
+// channels take 127 KB and the conv's weights (11 x 64 x 64 floats, 180 KB)
+// do not fit beside them, so they would stream from L2 six times per tile
+// anyway; what fusion saves is the activation round trips, which at these
+// sizes mostly hit the 50 MB L2. The per-conv kernel serves all five stages
+// with one code path; the fused chain is left for a later PR and its
+// measured share (PERF.md) says whether it pays.
 // Backward (training) is not here: it stays the stock conv chain.
 #include "common.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCC = 16;             // input channels per shared-memory chunk
-constexpr int kInStride = kCC + 1;  // padded rows: no bank conflicts on reads
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int KC = 8;          // input channels per ring stage: one k8 step
+constexpr int kInStride = 12;  // 48-byte rows: 16-byte copies, no conflicts
+constexpr int kWPad = 8;       // weight rows of BN + 8 floats: no conflicts
 constexpr float kSlope = 0.1f;
 
-template <int TCO>
-struct Tile {
-  static constexpr int TT = 4096 / TCO;  // output rows per block
-  static constexpr int TX = TCO / 4;     // threads across output channels
+template <int BN>
+struct ConvTile {
+  static constexpr int WARPS_N = BN >= 64 ? 2 : 1;
+  static constexpr int WARPS_M = kWarps / WARPS_N;
+  static constexpr int WN = BN / WARPS_N;  // output channels per warp
+  static constexpr int NT = WN / 8;        // n8 fragments per warp
+  static constexpr int MT = 4;             // m16 fragments per warp
+  static constexpr int BM = WARPS_M * MT * 16;
+  static constexpr int WS = BN + kWPad;
 };
 
-template <int TCO>
+template <int BN>
 __global__ void __launch_bounds__(kThreads)
-resblock_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, const float* res,
-                     float* out, int length, int channels, int k,
-                     int dilation, float scale, int accumulate) {
-  constexpr int TT = Tile<TCO>::TT;
-  constexpr int TX = Tile<TCO>::TX;
+resblock_conv_tc_kernel(const float* __restrict__ x,
+                        const float* __restrict__ wp,
+                        const float* __restrict__ bias, const float* res,
+                        float* out, int length, int channels, int k,
+                        int dilation, float scale, int accumulate) {
+  using T = ConvTile<BN>;
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned base
   float* smem = reinterpret_cast<float*>(smem4);
   const int halo = (k - 1) * dilation;
   const int pad = halo / 2;
-  const int rows_in = TT + halo;
-  float* w_s = smem;                   // [k][kCC][TCO]
-  float* in_s = smem + k * kCC * TCO;  // [rows_in][kInStride]
+  const int rows_in = T::BM + halo;
+  const int in_floats = rows_in * kInStride;
+  const int stage_floats = in_floats + k * KC * T::WS;
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int t0 = blockIdx.x * TT;
-  const int co0 = blockIdx.y * TCO;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int warp_m = warp / T::WARPS_N;
+  const int warp_n = warp % T::WARPS_N;
+  const int t0 = blockIdx.x * T::BM;
+  const int co0 = blockIdx.y * BN;
   const int b = blockIdx.z;
   const float* xb = x + (size_t)b * length * channels;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  const int wtile = kCC * k;
-  for (int ci0 = 0; ci0 < channels; ci0 += kCC) {
-    for (int idx = tid; idx < rows_in * kCC; idx += kThreads) {
-      int r = idx / kCC;
-      int c = idx - r * kCC;
-      int t = t0 - pad + r;
-      int ci = ci0 + c;
-      float v = 0.0f;
-      if (t >= 0 && t < length && ci < channels) {
-        v = xb[(size_t)t * channels + ci];
-        v = v >= 0.0f ? v : kSlope * v;
-      }
-      in_s[r * kInStride + c] = v;
+  // one ring stage: input rows t0 - pad .. t0 + BM + pad of channels
+  // ci0 .. ci0 + 7 (zeros outside the utterance), and their weights
+  auto stage = [&](int chunk, int buf) {
+    float* in_s = smem + buf * stage_floats;
+    float* w_s = in_s + in_floats;
+    const int ci0 = chunk * KC;
+    for (int i = tid; i < rows_in * 2; i += kThreads) {
+      const int r = i >> 1;
+      const int half = i & 1;
+      const int t = t0 - pad + r;
+      const bool ok = t >= 0 && t < length;
+      const float* src = ok ? xb + (size_t)t * channels + ci0 + 4 * half : xb;
+      cp_async16(in_s + r * kInStride + 4 * half, src, ok);
     }
-    // weights from the torch Conv1d layout (Cout, Cin, k)
-    for (int idx = tid; idx < TCO * wtile; idx += kThreads) {
-      int co = idx / wtile;
-      int rem = idx - co * wtile;
-      int c = rem / k;
-      int tau = rem - c * k;
-      float v = 0.0f;
-      if (co0 + co < channels && ci0 + c < channels)
-        v = w[((size_t)(co0 + co) * channels + ci0 + c) * k + tau];
-      w_s[(tau * kCC + c) * TCO + co] = v;
+    constexpr int kVec = BN / 4;
+    for (int i = tid; i < k * KC * kVec; i += kThreads) {
+      const int row = i / kVec;  // tau * KC + kk
+      const int v = i - row * kVec;
+      const int tau = row / KC;
+      const int kk = row - tau * KC;
+      cp_async16(w_s + row * T::WS + 4 * v,
+                 wp + ((size_t)tau * channels + ci0 + kk) * channels + co0 +
+                     4 * v,
+                 true);
+    }
+  };
+
+  float acc[T::MT][T::NT][4];
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+
+  const int n_chunks = channels / KC;
+  stage(0, 0);
+  cp_async_commit();
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) {
+      stage(ch + 1, (ch + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* in_s = smem + (ch & 1) * stage_floats;
+    const float* w_s = in_s + in_floats;
     for (int tau = 0; tau < k; ++tau) {
-      const float* in_row = in_s + (ty * 4 + tau * dilation) * kInStride;
-      const float* w_row = w_s + tau * kCC * TCO + tx * 4;
+      uint32_t b_hi[T::NT][2], b_lo[T::NT][2];
+      const float* wrow = w_s + (tau * KC + q) * T::WS + warp_n * T::WN + g;
 #pragma unroll
-      for (int c = 0; c < kCC; ++c) {
-        const float4 wv = *reinterpret_cast<const float4*>(w_row + c * TCO);
-        const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+      for (int nt = 0; nt < T::NT; ++nt) {
+        split_tf32(wrow[nt * 8], b_hi[nt][0], b_lo[nt][0]);
+        split_tf32(wrow[4 * T::WS + nt * 8], b_hi[nt][1], b_lo[nt][1]);
+      }
+      // output row i of the tile reads staged input row i + tau * dilation
+      const float* arow =
+          in_s + (warp_m * T::MT * 16 + tau * dilation + g) * kInStride + q;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = in_row[i * kInStride + c];
+      for (int mt = 0; mt < T::MT; ++mt) {
+        const float* a = arow + mt * 16 * kInStride;
+        const float av[4] = {a[0], a[8 * kInStride], a[4],
+                             a[8 * kInStride + 4]};
+        uint32_t a_hi[4], a_lo[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, wr[j], acc[i][j]);
-        }
+        for (int i = 0; i < 4; ++i)
+          split_tf32(fmaxf(av[i], kSlope * av[i]), a_hi[i], a_lo[i]);
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt)
+          mma_tf32x3(acc[mt][nt], a_hi, a_lo, b_hi[nt], b_lo[nt]);
       }
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
-    if (t >= length) continue;
+  for (int mt = 0; mt < T::MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx * 4 + j;
-      if (co >= channels) continue;
-      const size_t o = ((size_t)b * length + t) * channels + co;
-      float y = acc[i][j] + bias[co];
-      if (res != nullptr) y += res[o];
-      if (accumulate) y += out[o];
-      out[o] = y * scale;
+    for (int half = 0; half < 2; ++half) {
+      const int t = t0 + warp_m * T::MT * 16 + mt * 16 + g + 8 * half;
+      if (t >= length) continue;
+      const size_t row = ((size_t)b * length + t) * channels;
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt) {
+        const int co = co0 + warp_n * T::WN + nt * 8 + 2 * q;
+        float2 y = make_float2(acc[mt][nt][2 * half] + bias[co],
+                               acc[mt][nt][2 * half + 1] + bias[co + 1]);
+        if (res != nullptr) {
+          const float2 r = *reinterpret_cast<const float2*>(res + row + co);
+          y.x += r.x;
+          y.y += r.y;
+        }
+        if (accumulate) {
+          const float2 o = *reinterpret_cast<const float2*>(out + row + co);
+          y.x += o.x;
+          y.y += o.y;
+        }
+        y.x *= scale;
+        y.y *= scale;
+        *reinterpret_cast<float2*>(out + row + co) = y;
+      }
     }
   }
 }
 
-template <int TCO>
-int launch_conv(const float* x, const float* w, const float* bias,
+template <int BN>
+int launch_conv(const float* x, const float* wp, const float* bias,
                 const float* res, float* out, int batch, int length,
                 int channels, int k, int dilation, float scale, int accumulate,
                 cudaStream_t stream) {
-  constexpr int TT = Tile<TCO>::TT;
+  using T = ConvTile<BN>;
   const int halo = (k - 1) * dilation;
   const size_t smem =
-      (size_t)(k * kCC * TCO + (TT + halo) * kInStride) * sizeof(float);
+      2 * (size_t)((T::BM + halo) * kInStride + k * KC * T::WS) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        resblock_conv_kernel<TCO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        resblock_conv_tc_kernel<BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((length + TT - 1) / TT, (channels + TCO - 1) / TCO, batch);
-  resblock_conv_kernel<TCO><<<grid, kThreads, smem, stream>>>(
-      x, w, bias, res, out, length, channels, k, dilation, scale, accumulate);
+  dim3 grid((length + T::BM - 1) / T::BM, channels / BN, batch);
+  resblock_conv_tc_kernel<BN><<<grid, kThreads, smem, stream>>>(
+      x, wp, bias, res, out, length, channels, k, dilation, scale, accumulate);
   DDSP_CHECK_LAUNCH();
   return 0;
 }
 
-int launch_conv_any(const float* x, const float* w, const float* bias,
+int launch_conv_any(const float* x, const float* wp, const float* bias,
                     const float* res, float* out, int batch, int length,
                     int channels, int k, int dilation, float scale,
                     int accumulate, cudaStream_t stream) {
-  if (channels >= 64)
-    return launch_conv<64>(x, w, bias, res, out, batch, length, channels, k,
+  if (channels % 64 == 0)
+    return launch_conv<64>(x, wp, bias, res, out, batch, length, channels, k,
                            dilation, scale, accumulate, stream);
-  if (channels >= 32)
-    return launch_conv<32>(x, w, bias, res, out, batch, length, channels, k,
+  if (channels % 32 == 0)
+    return launch_conv<32>(x, wp, bias, res, out, batch, length, channels, k,
                            dilation, scale, accumulate, stream);
-  return launch_conv<16>(x, w, bias, res, out, batch, length, channels, k,
+  return launch_conv<16>(x, wp, bias, res, out, batch, length, channels, k,
                          dilation, scale, accumulate, stream);
 }
 
 }  // namespace
 
-// x, out: (batch, length, channels); weights/biases: host arrays of
-// n_rb * n_dil * 2 device pointers in chain order (convs1_0, convs2_0,
-// convs1_1, ...) per resblock; kernel_sizes[n_rb]; dilations[n_rb * n_dil].
-// t_buf and z_buf are scratch activations of x's size.
+// x, out: (batch, length, channels), channels a multiple of 16; weights:
+// host array of n_rb * n_dil * 2 device pointers in chain order (convs1_0,
+// convs2_0, convs1_1, ...) per resblock, each packed as (k, C_in, C_out);
+// biases likewise; kernel_sizes[n_rb]; dilations[n_rb * n_dil]. t_buf and
+// z_buf are scratch activations of x's size.
 DDSP_API int ddsp_resblock_group(const float* x, const float* const* weights,
                                  const float* const* biases,
                                  const int* kernel_sizes, const int* dilations,
@@ -180,6 +248,7 @@ DDSP_API int ddsp_resblock_group(const float* x, const float* const* weights,
                                  float* z_buf, int batch, int length,
                                  int channels, void* stream) {
   if ((long long)batch * length * channels == 0) return 0;
+  if (channels % 16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int wi = 0;
   for (int rb = 0; rb < n_rb; ++rb) {

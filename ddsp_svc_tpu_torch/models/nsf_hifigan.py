@@ -2,7 +2,8 @@
 ddsp_svc_tpu/models/nsf_hifigan.py: ``ResBlock1``, ``SourceModuleHnNSF``,
 ``Generator``). Each upsample stage's resblock mean runs through kernel K2
 (ops/cuda_resblock.resblock_group) -- on all five stages, where the TPU
-path fused only the stages with C <= 128."""
+path fused only the stages with C <= 128. On the card each stage's weights
+are packed for the kernel once per model (``Generator.stage_weights``)."""
 from __future__ import annotations
 
 import math
@@ -12,7 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda_resblock import LRELU_SLOPE, resblock_group
+from ..ops.cuda_resblock import LRELU_SLOPE, PackedResblocks, resblock_group
 from ..ops.source import sine_gen
 from .nn import Conv1d, ConvTranspose1d
 
@@ -99,6 +100,21 @@ class Generator(nn.Module):
             for rk, rd in zip(self.kernel_sizes, self.dilations):
                 self.resblocks.append(ResBlock1(c_cur, rk, rd))
         self.conv_post = Conv1d(c0 // 2 ** n_up, 1, 7, padding=3)
+        self._packed = {}  # stage -> (weights' identity, PackedResblocks)
+
+    def stage_weights(self, i: int) -> PackedResblocks:
+        """Stage ``i``'s resblock weights packed for K2, made once per model
+        and made again only when a weight is replaced or changed in place
+        (another tensor, device or version)."""
+        n_k = len(self.kernel_sizes)
+        rbw = [blk.chain_weights() for blk in self.resblocks[i * n_k:(i + 1) * n_k]]
+        key = tuple((w.data_ptr(), w.device, w._version)
+                    for pairs in rbw for w, _ in pairs)
+        cached = self._packed.get(i)
+        if cached is None or cached[0] != key:
+            cached = (key, PackedResblocks(rbw))
+            self._packed[i] = cached
+        return cached[1]
 
     def forward(self, mel, f0, sine_kwargs=None,
                 generator: torch.Generator | None = None):
@@ -111,8 +127,11 @@ class Generator(nn.Module):
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             x = (x + noise_conv(har_source)).contiguous()
-            blocks = self.resblocks[i * n_k:(i + 1) * n_k]
-            x = resblock_group(x, [blk.chain_weights() for blk in blocks],
-                               self.kernel_sizes, self.dilations)
+            if x.device.type == "cpu":
+                blocks = self.resblocks[i * n_k:(i + 1) * n_k]
+                weights = [blk.chain_weights() for blk in blocks]
+            else:
+                weights = self.stage_weights(i)
+            x = resblock_group(x, weights, self.kernel_sizes, self.dilations)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)[..., 0]

@@ -5,6 +5,14 @@ Replaces ddsp_svc_tpu/ops/pallas_resblock.py ``fused_resblock_group``.
 Weights are in the torch Conv1d layout: per resblock, the six folded
 (weight (C, C, k), bias (C,)) pairs in chain order (convs1_0, convs2_0,
 convs1_1, ...). Activations are feature-last (B, L, C), as in JAX.
+
+The kernel reads each conv weight packed as (k, C_in, C_out)
+(``pack_resblock_weights``). A caller that serves many requests packs once
+per model and passes the ``PackedResblocks`` in place of the nested list
+(``models/nsf_hifigan.Generator`` does); a nested list is packed on every
+call. The kernel multiplies on the tensor cores in split TF32 at f32
+accuracy; ``tf32_split`` and ``conv_packed_plain`` are its arithmetic in
+plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ LRELU_SLOPE = 0.1
 
 def resblock_group_plain(x, rb_weights, kernel_sizes, dilations):
     """mean_j ResBlock1_j(x) in plain PyTorch (JAX ``_stock_group``)."""
+    if isinstance(rb_weights, PackedResblocks):
+        rb_weights = rb_weights.torch_weights
     xc = x.transpose(1, 2)
     total = None
     for k, dils, rbw in zip(kernel_sizes, dilations, rb_weights):
@@ -35,6 +45,77 @@ def resblock_group_plain(x, rb_weights, kernel_sizes, dilations):
             z = t + z
         total = z if total is None else total + z
     return (total / float(len(rb_weights))).transpose(1, 2)
+
+
+# ---------------------------------------------------------------- packing
+
+
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """Torch Conv1d weight (C_out, C_in, k) -> the kernel's (k, C_in, C_out):
+    tap-major, so that one tap's rows for eight input channels and a tile of
+    output channels are contiguous 16-byte runs."""
+    return w.detach().permute(2, 1, 0).contiguous()
+
+
+class PackedResblocks:
+    """A stage's resblock weights packed for the kernel, with the torch
+    layout kept (by reference) for the plain version and the checks."""
+
+    def __init__(self, rb_weights):
+        self.torch_weights = [list(rbw) for rbw in rb_weights]
+        self.packed = [[(pack_conv_weight(w), b.detach().contiguous())
+                        for w, b in rbw] for rbw in self.torch_weights]
+
+
+def pack_resblock_weights(rb_weights) -> PackedResblocks:
+    return PackedResblocks(rb_weights)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``x`` as the kernels split it: hi = tf32(x),
+    lo = tf32(x - hi), each rounded to the nearest TF32 value (10-bit
+    mantissa) with ties away from zero, bit for bit as ``cvt.rna.tf32.f32``
+    (finite inputs)."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def conv_packed_plain(x, wp, b, dilation, products=None):
+    """One 'same' conv as the kernel computes it, from packed weights:
+    out[t] = b + sum_tau x[t + tau * d - pad] . wp[tau] with zero rows
+    outside [0, L). x (B, L, C_in), wp (k, C_in, C_out) -> (B, L, C_out).
+
+    ``products`` "3xtf32" or "tf32" multiplies the split operands as the
+    tensor cores do (lo*hi + hi*lo + hi*hi, or hi*hi alone) with the sum
+    taken in float64; the default is the exact float64 conv of the f32
+    inputs."""
+    k = wp.shape[0]
+    pad = (k - 1) * dilation // 2
+    xp = F.pad(x, (0, 0, pad, pad)).double()
+    length = x.shape[1]
+    if products is None:
+        pairs = [(xp, wp.double())]
+    else:
+        x_hi, x_lo = (v.double() for v in tf32_split(F.pad(x, (0, 0, pad, pad))))
+        w_hi, w_lo = (v.double() for v in tf32_split(wp))
+        pairs = [(x_hi, w_hi)]
+        if products == "3xtf32":
+            pairs = [(x_lo, w_hi), (x_hi, w_lo)] + pairs
+        elif products != "tf32":
+            raise ValueError(f"products: '3xtf32', 'tf32' or None, got {products!r}")
+    out = b.double().expand(x.shape[0], length, -1).clone()
+    for xa, wa in pairs:
+        for tau in range(k):
+            s = tau * dilation
+            out += xa[:, s:s + length] @ wa[tau]
+    return out
+
+
+# ---------------------------------------------------------------- kernel
 
 
 def _check_weights(rb_weights, kernel_sizes, dilations, c, device):
@@ -53,9 +134,10 @@ def _check_weights(rb_weights, kernel_sizes, dilations, c, device):
         for w, b in rbw:
             kernels.check_cuda_input(w, "resblock weight", 3)
             kernels.check_cuda_input(b, "resblock bias", 1)
-            if tuple(w.shape) != (c, c, k) or tuple(b.shape) != (c,):
-                raise ValueError(f"resblock_group: weight {tuple(w.shape)} / "
-                                 f"bias {tuple(b.shape)} for C={c}, k={k}")
+            if tuple(w.shape) != (k, c, c) or tuple(b.shape) != (c,):
+                raise ValueError(f"resblock_group: packed weight "
+                                 f"{tuple(w.shape)} / bias {tuple(b.shape)} "
+                                 f"for C={c}, k={k}")
             if w.device != device:
                 raise ValueError("resblock_group: weights on another device")
 
@@ -63,15 +145,24 @@ def _check_weights(rb_weights, kernel_sizes, dilations, c, device):
 def resblock_group(x, rb_weights, kernel_sizes, dilations):
     """x (B, L, C) -> mean over the stage's ResBlock1 chains, (B, L, C).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches 18 conv
-    kernels (one stage) and counts one launch in ``resblock_group.launches``.
+    ``rb_weights``: the nested torch-layout list, or its
+    ``PackedResblocks``. A CPU tensor takes the plain version; a CUDA tensor
+    (C a multiple of 16) launches 18 conv kernels (one stage) and counts one
+    launch in ``resblock_group.launches``.
     """
     if x.device.type == "cpu":
         return resblock_group_plain(x, rb_weights, kernel_sizes, dilations)
     kernels.check_cuda_input(x, "resblock_group x", 3)
     b, length, c = x.shape
-    _check_weights(rb_weights, kernel_sizes, dilations, c, x.device)
-    flat = [wb for rbw in rb_weights for wb in rbw]
+    if c % 16 != 0:
+        raise ValueError(f"resblock_group: channels a multiple of 16, got {c}")
+    if x.data_ptr() % 16 != 0:
+        raise ValueError("resblock_group: x must be 16-byte aligned")
+    if not isinstance(rb_weights, PackedResblocks):
+        rb_weights = PackedResblocks(rb_weights)
+    packed = rb_weights.packed
+    _check_weights(packed, kernel_sizes, dilations, c, x.device)
+    flat = [wb for rbw in packed for wb in rbw]
     w_ptrs = (ctypes.c_void_p * len(flat))(*(w.data_ptr() for w, _ in flat))
     b_ptrs = (ctypes.c_void_p * len(flat))(*(bb.data_ptr() for _, bb in flat))
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)

@@ -47,12 +47,22 @@ def test_combtooth_kernel(cuda, t):
     assert float((got_phase - want_phase).abs().max()) <= 5e-5
 
 
-@pytest.mark.parametrize("c,length", [(16, 1000), (64, 777), (256, 300)])
-def test_resblock_group_kernel(cuda, c, length):
-    from ddsp_svc_tpu_torch.ops.cuda_resblock import (resblock_group,
+@pytest.mark.parametrize("c,length,packed", [
+    (16, 1000, False), (32, 513, True), (64, 777, False), (128, 129, True),
+    (256, 300, False),
+    # shorter than one time tile (128 rows at C >= 64, 256 below) and than
+    # the chain's 60-row halo a side
+    (16, 7, True), (64, 45, False), (256, 50, True),
+    # no multiple of the tile, a few tiles long
+    (128, 1001, False)])
+def test_resblock_group_kernel(cuda, c, length, packed):
+    """All five stage widths at B = 2, with weights packed once
+    (``pack_resblock_weights``) or packed by the wrapper on the call."""
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (pack_resblock_weights,
+                                                      resblock_group,
                                                       resblock_group_plain)
 
-    gen = torch.Generator().manual_seed(c)
+    gen = torch.Generator().manual_seed(c + length)
     x = torch.randn((2, length, c), generator=gen).to(cuda)
     weights = []
     for k, dils in zip(KS, DS):
@@ -60,13 +70,21 @@ def test_resblock_group_kernel(cuda, c, length):
         weights.append([(((torch.rand((c, c, k), generator=gen) * 2 - 1) * b).to(cuda),
                          ((torch.rand((c,), generator=gen) * 2 - 1) * b).to(cuda))
                         for _ in range(2 * len(dils))])
-    got = resblock_group(x, weights, KS, DS)
-    want = resblock_group_plain(x, weights, KS, DS)
+    arg = pack_resblock_weights(weights) if packed else weights
+    n0 = resblock_group.launches
+    got = resblock_group(x, arg, KS, DS)
     torch.cuda.synchronize()
+    assert resblock_group.launches == n0 + 1
+    want = resblock_group_plain(x, weights, KS, DS)
     assert _rel(got, want) <= 1e-4
+    # a row of the batch computed alone is the same row in the batch
+    one = resblock_group(x[1:].contiguous(), arg, KS, DS)
+    assert torch.equal(one[0], got[1])
 
 
-@pytest.mark.parametrize("b,t,c,hc,k", [(1, 862, 512, 128, 31), (2, 37, 64, 32, 7)])
+@pytest.mark.parametrize("b,t,c,hc,k", [(1, 862, 512, 128, 31), (2, 37, 64, 32, 7),
+                                        (2, 37, 512, 128, 31),
+                                        (3, 300, 512, 128, 31)])
 def test_conformer_layer_kernel(cuda, b, t, c, hc, k):
     from ddsp_svc_tpu_torch.ops.cuda_conformer import (conformer_layer,
                                                        conformer_layer_plain)
@@ -81,9 +99,11 @@ def test_conformer_layer_kernel(cuda, b, t, c, hc, k):
     w = (r(c, hc, scale=hc ** -0.5), r(c, scale=0.1), r(2 * inner, c, scale=c ** -0.5),
          r(2 * inner, scale=0.1), r(inner, k, scale=k ** -0.5), r(inner, scale=0.1),
          r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
+    n0 = conformer_layer.launches
     got = conformer_layer(x, cond, step, w)
-    want = conformer_layer_plain(x, cond, step, w)
     torch.cuda.synchronize()
+    assert conformer_layer.launches == n0 + 1
+    want = conformer_layer_plain(x, cond, step, w)
     assert _rel(got, want) <= 1e-4
 
 
