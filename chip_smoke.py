@@ -7,12 +7,15 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure exits non-zero; no phase's failure is swallowed):
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build the hand-written kernels from ddsp_svc_tpu_torch/csrc (one nvcc
-     per source, started together), print nvcc's -Xptxas -v lines, and
-     count K4's f32 instructions per (sample, harmonic) pair in its SASS;
+     per source, started together), print nvcc's -Xptxas -v lines, count
+     the tensor-core instructions (HMMA/HGMMA) in the SASS of K2's and K3's
+     kernels (none fails the run), and count K4's f32 instructions per
+     (sample, harmonic) pair in its SASS;
   3. each kernel against its plain PyTorch version on the card at the
      shapes of the 10 s request, with the tolerance stated, and its time
-     (CUDA events) beside the plain version's and the bound; K4 also at
-     B = 2;
+     (CUDA events) beside the plain version's and the bound (K2 per stage
+     and K3 with both bounds: f32 FMA at 67 TFLOP/s and split TF32 at
+     494.7 / 3); K4 also at B = 2;
   4. the DiffusionFast path at configs/diffusion-fast.yaml widths (6 x 512
      trunk, k_step 100, DPM-Solver++ with speedup 10, the default
      NSF-HiFiGAN) with random weights from a seeded torch.Generator:
@@ -156,18 +159,68 @@ SASS_F32_OPS = {"FFMA": 2, "FMUL": 1, "FADD": 1, "FSEL": 1, "FSETP": 1,
                 "MUFU": 1, "FCHK": 1}
 
 
-def k4_ops_per_pair(lib_path, nvcc: str) -> tuple[float, float]:
+def sass_text(lib_path, nvcc: str) -> str:
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+# the tensor-core kernels of K2 and K3, by the name in their SASS
+TC_KERNELS = (("K2", "resblock_conv_tc_kernel"), ("K3", "gemm_tc_kernel"))
+
+
+def _opcode(text: str) -> str:
+    return (text.split()[1] if text.startswith("@") else text.split()[0]).split(".")[0]
+
+
+def tensor_core_insns(sass: str) -> tuple[dict, dict]:
+    """({(kernel id, symbol): [HMMA/HGMMA instructions per instantiation]},
+    {(kernel id, symbol): opcode counts of the innermost loop that holds
+    HMMAs, in the instantiation with the most of them})."""
+    funcs = {key: [] for key in TC_KERNELS}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((key for key in TC_KERNELS if key[1] in line), None)
+            if current is not None:
+                funcs[current].append([])
+        elif current is not None and (m := SASS_INSN.search(line)):
+            funcs[current][-1].append((int(m.group(1), 16), m.group(2)))
+    counts, loops = {}, {}
+    for key, insts in funcs.items():
+        counts[key] = [sum(_opcode(t) in ("HMMA", "HGMMA") for _, t in f)
+                       for f in insts]
+        best = {}
+        for f in insts:
+            mma_at = [a for a, t in f if _opcode(t) in ("HMMA", "HGMMA")]
+            spans = []
+            for a, t in f:
+                m = SASS_BRANCH.match(t)
+                if m and int(m.group(2), 16) < a and any(
+                        int(m.group(2), 16) <= x <= a for x in mma_at):
+                    spans.append((a - int(m.group(2), 16), int(m.group(2), 16), a))
+            if not spans:
+                continue
+            _, head, tail = min(spans)
+            hist = {}
+            for a, t in f:
+                if head <= a <= tail:
+                    hist[_opcode(t)] = hist.get(_opcode(t), 0) + 1
+            if hist.get("HMMA", 0) > best.get("HMMA", 0):
+                best = hist
+        loops[key] = best
+    return counts, loops
+
+
+def k4_ops_per_pair(sass: str) -> tuple[float, float]:
     """(f32 instructions, f32 operations) per (sample, harmonic) pair of K4
     as compiled: the SASS of harmonic_bank_kernel's innermost loop (the one
     holding the coefficients' LDS.128), walked along the fast path (a
     predicated forward branch inside the loop skips sinf's reduction for
     |x| >= 105615, which the bank never reaches), divided by the sinf
     count in it (one multiply by 2/pi each)."""
-    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
-    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
-                         text=True, timeout=120, check=True).stdout
     insns, inside = [], False
-    for line in out.splitlines():
+    for line in sass.splitlines():
         if "Function :" in line:
             inside = "harmonic_bank_kernel" in line
         elif inside and (m := SASS_INSN.search(line)):
@@ -211,7 +264,18 @@ def phase_build() -> float:
     for line in info.log.splitlines():
         if line.startswith("==") or "ptxas info" in line or "spill" in line:
             log(f"[build] {line.strip()}")
-    n_insn, n_ops = k4_ops_per_pair(info.path, kernels._nvcc())
+    sass = sass_text(info.path, kernels._nvcc())
+    tc_counts, tc_opcodes = tensor_core_insns(sass)
+    for (kid, symbol), per_inst in tc_counts.items():
+        if not per_inst or min(per_inst) == 0:
+            fail(f"{kid}'s SASS: no tensor-core instruction (HMMA/HGMMA) in "
+                 f"{symbol} ({per_inst} per instantiation)")
+        hist = sorted(tc_opcodes[(kid, symbol)].items(), key=lambda kv: -kv[1])
+        log(f"[build] {kid} {symbol}: {per_inst} HMMA/HGMMA instructions in "
+            f"the SASS of its {len(per_inst)} instantiations (tensor cores); "
+            f"its innermost HMMA loop: {sum(n for _, n in hist)} instructions, "
+            + ", ".join(f"{op} {n}" for op, n in hist[:14]))
+    n_insn, n_ops = k4_ops_per_pair(sass)
     log(f"[build] K4 harmonic loop (SASS, fast path): {n_insn:.2f} f32 "
         f"instructions = {n_ops:.2f} f32 operations (FFMA as 2) per "
         f"(sample, harmonic) pair, the lerp, the product, sinf and the "
@@ -351,7 +415,8 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
              + t * (3 * c + 8 * inner))
     nbytes = 4.0 * (2 * t * c + t * hc + c + c * hc + c + 2 * inner * c
                     + 2 * inner + inner * k + inner + c * inner + c)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_TF32X3_FLOP_PER_S)
+    b_fma, _ = bound_ms(nbytes, flops)
     results["conformer_layer"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/conformer.cu",
         replaces="ddsp_svc_tpu/ops/pallas_conformer.py:125",
@@ -360,7 +425,8 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
     log(f"[kernels] K3 conformer_layer T={t} C={c}: rel err {rel:.3e} "
         f"(abs {abs_err:.3e}, tol 1e-4 x max|out|); kernel {k_ms:.4f} ms "
         f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); no single PyTorch call computes it [{card}]")
+        f"{b_ms:.4f} ms at 3xTF32 / {b_fma:.4f} ms at f32 FMA ({b_by}); no "
+        f"single PyTorch call computes it [{card}]")
     # K4 harmonic bank: x (B, T*512, 1) cycles, amps (B, T, 128); 3e-5 abs
     from ddsp_svc_tpu_torch.ops.cuda_oscillator import (harmonic_bank,
                                                         harmonic_bank_plain)
@@ -471,20 +537,25 @@ def counts():
             "conformer_layer": conformer_layer, "harmonic_bank": harmonic_bank}
 
 
-# device kernels by name; the port's own kernels live in an anonymous
-# namespace, so "::gemm_kernel<" is K3's and never a library GEMM
-KERNEL_GROUPS = (("K1 combtooth", ("combtooth_kernel",)),
-                 ("K2 resblock", ("resblock_conv_kernel",)),
-                 ("K3 conformer", ("::gemm_kernel<", "depthwise_silu_kernel")),
-                 ("K4 harmonic bank", ("harmonic_bank_kernel",)),
-                 ("FFT", ("fft",)),
-                 ("conv/GEMM libraries", ("conv", "cudnn", "gemm", "xmma",
-                                          "cutlass", "sm90")))
+# device kernels by name (and the wrapper whose launches they are); the
+# port's own kernels live in an anonymous namespace, so "::gemm_tc_kernel<"
+# is K3's and never a library GEMM
+KERNEL_GROUPS = (("K1 combtooth", "combtooth", ("combtooth_kernel",)),
+                 ("K2 resblock", "resblock_group", ("resblock_conv_tc_kernel",)),
+                 ("K3 conformer", "conformer_layer",
+                  ("::gemm_tc_kernel<", "depthwise_silu_kernel")),
+                 ("K4 harmonic bank", "harmonic_bank", ("harmonic_bank_kernel",)),
+                 ("FFT", None, ("fft",)),
+                 ("conv/GEMM libraries", None, ("conv", "cudnn", "gemm", "xmma",
+                                                "cutlass", "sm90")))
 
 
-def profile_breakdown(torch, request, card: str, what: str) -> None:
+def profile_breakdown(torch, request, card: str, what: str,
+                      expect: dict) -> None:
     """One warm request under torch.profiler: device time by kernel group
-    and the device's busy share of the request's wall time."""
+    and the device's busy share of the request's wall time. A kernel group
+    whose wrapper launched (``expect``) but which shows no device time
+    fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -504,16 +575,18 @@ def profile_breakdown(torch, request, card: str, what: str) -> None:
             launches += evt.count
     busy = sum(kernels_us.values())
     if busy <= 0:
-        log(f"[profile] {what}: the profiler saw no device time (see the "
-            "CUDA-event kernel times above)")
-        return
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+        fail(f"{what} profile: the profiler saw no device time")
+    groups = {name: 0.0 for name, _, _ in KERNEL_GROUPS}
     groups["elementwise/other"] = 0.0
     for key, us in kernels_us.items():
         low = key.lower()
-        name = next((g for g, subs in KERNEL_GROUPS
+        name = next((g for g, _, subs in KERNEL_GROUPS
                      if any(sub.lower() in low for sub in subs)), "elementwise/other")
         groups[name] += us
+    for name, wrapper, _ in KERNEL_GROUPS:
+        if wrapper is not None and expect[wrapper] > 0 and groups[name] <= 0:
+            fail(f"{what} profile: {name} launched {expect[wrapper]} times but "
+                 "no kernel of its group shows device time")
     log(f"[profile] {what} 10 s request: wall {wall_us / 1e3:.2f} ms (profiler "
         f"on), device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f} % of "
         f"wall, {len(kernels_us)} distinct kernels, {launches} device ops [{card}]")
@@ -562,7 +635,8 @@ def serve_path(torch, pipe, what: str, expect: dict, card: str, **kwargs) -> dic
             f"{walls[-1] * 1e3:.2f}, n={WARM_RUNS}; cold {cold * 1e3:.1f} ms), "
             f"real-time factor {med / seconds:.5f} ({seconds / med:.1f}x real "
             f"time), launches per request {expect} [{card}]")
-    profile_breakdown(torch, lambda: request(10, inputs, "profiled"), card, what)
+    profile_breakdown(torch, lambda: request(10, inputs, "profiled"), card, what,
+                      expect)
     return {n: w.launches for n, w in wrappers.items()}
 
 

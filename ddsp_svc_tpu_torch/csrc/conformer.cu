@@ -1,7 +1,7 @@
 // K3: one NaiveV2Diff denoiser layer (conv-only conformer, no norm).
 //
 // Replaces the Pallas kernel ddsp_svc_tpu/ops/pallas_conformer.py
-// (fused_conformer_layer -> _fused_layer_impl -> _layer_kernel):
+// (fused_conformer_layer -> _fused_layer_impl -> _layer_kernel), f32 mode:
 //   h   = x + step_vec + cond . Wc^T + bc
 //   u   = GLU(h . W1^T + b1)                (a * sigmoid(g), halves of 2I)
 //   v   = depthwise_k(u) + bd               (zero rows outside [0, T))
@@ -11,146 +11,232 @@
 //
 // Bound on the H100: operations. At the 10 s request (T = 862, C = 512,
 // Hc = 128, I = 1024, k = 31) a layer does 2.9 GFLOP on ~11 MB (weights
-// dominate), ~260 flop/byte, above the f32 ridge of 20 flop/byte. Design
-// (simple and right first, f32 only): a shared-memory-tiled f32 GEMM
-// (64 x 64 output tile, k-steps of 16, 4 x 4 outputs per thread) launched
-// three times with a fused epilogue each -- the first adds x, the step
-// vector and the bias; the second owns output column j and column j + I of
-// W1 together and applies the GLU; the third adds the bias and the
-// residual -- and between the second and third a depthwise k-tap conv with
-// bias and SiLU. No library GEMM is called. The bf16 precision class,
-// wgmma and TMA are later work. Backward (training) stays the stock chain.
+// dominate), ~260 flop/byte, above the ridge. At f32 accuracy the GEMMs run
+// on the tensor cores in split TF32 (mma_tf32x3.cuh: three MMAs per
+// product, a ceiling of 494.7 / 3 TFLOP/s), which puts the layer's bound
+// near 0.017 ms; the depthwise conv's 0.05 GFLOP stays on the FMA pipe.
+//
+// Design: one tensor-core GEMM kernel, launched three times with a fused
+// epilogue each -- the first adds x, the step vector and the bias; the
+// second owns output column j and column j + I of W1 together and applies
+// the GLU; the third adds the bias and the residual -- and between the
+// second and third a depthwise k-tap conv with bias and SiLU. What holds a
+// GEMM of M = 862 rows back is filling 132 SMs, not its arithmetic: a block
+// of four warps owns 64 rows x 32 output columns (a warp 32 x 16, and the
+// matching 16 gate columns in the GLU), so the three GEMMs launch 224, 448
+// and 224 blocks. A and W tiles of 32-deep k-steps go through a two-stage
+// cp.async ring (zero fill past M, N and K) into rows padded to 36 floats,
+// from which one ldmatrix.x4 loads an A fragment, or the W fragments of a
+// warp's two n8 tiles, free of bank conflicts; the fragments are split into
+// hi/lo TF32 in registers. The depthwise conv stages 64 rows and their
+// halo of 64 channels in shared memory and keeps each channel's taps in
+// registers. No library GEMM is called. The bf16 precision class, wgmma and
+// TMA are later work. Backward (training) stays the stock chain.
 #include "common.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
 constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int kThreads = 256;
+constexpr int BN = 32;
+constexpr int BK = 32;
+constexpr int kStride = BK + 4;  // 144-byte rows: 16-byte copies, no conflicts
+constexpr int kThreads = 128;
+constexpr int MT = 2;  // m16 fragments per warp (32 rows)
+constexpr int NT = 2;  // n8 fragments per warp (16 columns): one ldmatrix
 
 enum Mode { kCond = 0, kGlu = 1, kResidual = 2 };
 
 // out[M, N] = epilogue(A[M, K] . W[N, K]^T); for kGlu, W has 2N rows and the
-// tile also accumulates W rows n + N (the gate half).
+// tile also accumulates W rows n + N (the gate half). K is a multiple of 4.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-gemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
-            const float* __restrict__ bias, const float* __restrict__ x,
-            const float* __restrict__ step, float* __restrict__ out,
-            int m_rows, int n_out, int k_dim, int rows_per_batch) {
-  __shared__ __align__(16) float a_s[BK][BM + 4];
-  __shared__ __align__(16) float w_s[BK][BN + 4];
-  __shared__ __align__(16) float g_s[MODE == kGlu ? BK : 1][BN + 4];
+gemm_tc_kernel(const float* __restrict__ a, const float* __restrict__ w,
+               const float* __restrict__ bias, const float* __restrict__ x,
+               const float* __restrict__ step, float* __restrict__ out,
+               int m_rows, int n_out, int k_dim, int rows_per_batch) {
+  constexpr int kHalves = MODE == kGlu ? 2 : 1;
+  constexpr int WR = kHalves * BN;  // staged W rows
+  __shared__ __align__(16) float a_s[2][BM * kStride];
+  __shared__ __align__(16) float w_s[2][WR * kStride];
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int warp_m = warp >> 1;
+  const int warp_n = warp & 1;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int lr = tid / 4;        // tile row this thread loads
-  const int lk = (tid % 4) * 4;  // first of its four k columns
 
-  float acc[4][4];
-  float accg[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] = 0.0f;
-      accg[i][j] = 0.0f;
+  auto stage = [&](int kt, int buf) {
+    const int k0 = kt * BK;
+    constexpr int kVec = BK / 4;
+    for (int i = tid; i < BM * kVec; i += kThreads) {
+      const int r = i / kVec;
+      const int kk = k0 + 4 * (i - r * kVec);
+      const bool ok = m0 + r < m_rows && kk < k_dim;
+      cp_async16(&a_s[buf][r * kStride + kk - k0],
+                 ok ? a + (size_t)(m0 + r) * k_dim + kk : a, ok);
     }
+    for (int i = tid; i < WR * kVec; i += kThreads) {
+      const int r = i / kVec;
+      const int kk = k0 + 4 * (i - r * kVec);
+      const int n = n0 + (r % BN);
+      const bool ok = n < n_out && kk < k_dim;
+      const size_t row = (size_t)n + (r / BN) * (size_t)n_out;
+      cp_async16(&w_s[buf][r * kStride + kk - k0],
+                 ok ? w + row * k_dim + kk : w, ok);
+    }
+  };
 
-  for (int k0 = 0; k0 < k_dim; k0 += BK) {
-    const int m = m0 + lr;
-    const int n = n0 + lr;
+  float acc[kHalves][MT][NT][4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int kk = k0 + lk + q;
-      const bool k_ok = kk < k_dim;
-      a_s[lk + q][lr] =
-          (m < m_rows && k_ok) ? a[(size_t)m * k_dim + kk] : 0.0f;
-      w_s[lk + q][lr] =
-          (n < n_out && k_ok) ? w[(size_t)n * k_dim + kk] : 0.0f;
-      if constexpr (MODE == kGlu)
-        g_s[lk + q][lr] =
-            (n < n_out && k_ok) ? w[(size_t)(n + n_out) * k_dim + kk] : 0.0f;
+  for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[h][mt][nt][i] = 0.0f;
+
+  // ldmatrix row addresses: A quarter j = lane / 8 is rows + 8 * (j & 1),
+  // words 4 * (j >> 1); W (n-major) matrix j is rows + 8 * (j >> 1), words
+  // 4 * (j & 1), which covers the warp's NT = 2 n8 tiles
+  const int a_row = warp_m * MT * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 4;
+  const int b_row = warp_n * NT * 8 + (lane & 7) + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 4;
+
+  const int n_k = (k_dim + BK - 1) / BK;
+  stage(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < n_k; ++kt) {
+    if (kt + 1 < n_k) {
+      stage(kt + 1, (kt + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
-      const float4 wv = *reinterpret_cast<const float4*>(&w_s[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+    for (int ks = 0; ks < BK; ks += 8) {
+      uint32_t a_hi[MT][4], a_lo[MT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t r[4];
+        ldmatrix_x4(r, &a_s[kt & 1][(a_row + mt * 16) * kStride + ks + a_col]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], wr[j], acc[i][j]);
-      if constexpr (MODE == kGlu) {
-        const float4 gv = *reinterpret_cast<const float4*>(&g_s[kk][tx * 4]);
-        const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+        for (int i = 0; i < 4; ++i) split_tf32(r[i], a_hi[mt][i], a_lo[mt][i]);
+      }
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) {
+        uint32_t r[4], b_hi[NT][2], b_lo[NT][2];
+        ldmatrix_x4(r, &w_s[kt & 1][(h * BN + b_row) * kStride + ks + b_col]);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            accg[i][j] = fmaf(ar[i], gr[j], accg[i][j]);
+          split_tf32(r[i], b_hi[i >> 1][i & 1], b_lo[i >> 1][i & 1]);
+        mma_tf32x3_grid(acc[h], a_hi, a_lo, b_hi, b_lo);
       }
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= m_rows) continue;
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= n_out) continue;
-      const size_t o = (size_t)m * n_out + n;
-      if constexpr (MODE == kCond) {
-        const int bi = m / rows_per_batch;
-        out[o] = x[o] + step[(size_t)bi * n_out + n] + acc[i][j] + bias[n];
-      } else if constexpr (MODE == kGlu) {
-        const float ga = acc[i][j] + bias[n];
-        const float gg = accg[i][j] + bias[n + n_out];
-        out[o] = ga * ddsp_sigmoid(gg);
-      } else {
-        out[o] = x[o] + acc[i][j] + bias[n];
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + warp_m * MT * 16 + mt * 16 + g + 8 * half;
+      if (m >= m_rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = n0 + warp_n * NT * 8 + nt * 8 + 2 * q;
+        if (n >= n_out) continue;
+        const size_t o = (size_t)m * n_out + n;
+        const float c0 = acc[0][mt][nt][2 * half];
+        const float c1 = acc[0][mt][nt][2 * half + 1];
+        float2 y;
+        if constexpr (MODE == kCond) {
+          const float2 xv = *reinterpret_cast<const float2*>(x + o);
+          const float* sv = step + (size_t)(m / rows_per_batch) * n_out + n;
+          y = make_float2(xv.x + sv[0] + c0 + bias[n],
+                          xv.y + sv[1] + c1 + bias[n + 1]);
+        } else if constexpr (MODE == kGlu) {
+          const float g0 = acc[kHalves - 1][mt][nt][2 * half] + bias[n + n_out];
+          const float g1 =
+              acc[kHalves - 1][mt][nt][2 * half + 1] + bias[n + 1 + n_out];
+          y = make_float2((c0 + bias[n]) * ddsp_sigmoid(g0),
+                          (c1 + bias[n + 1]) * ddsp_sigmoid(g1));
+        } else {
+          const float2 xv = *reinterpret_cast<const float2*>(x + o);
+          y = make_float2(xv.x + c0 + bias[n], xv.y + c1 + bias[n + 1]);
+        }
+        *reinterpret_cast<float2*>(out + o) = y;
       }
     }
   }
 }
 
 // s = silu(depthwise_k(u) + bd) along time within each utterance; u rows
-// outside [0, t_len) are zero ('same' padding on the whole utterance).
-__global__ void __launch_bounds__(256)
+// outside [0, t_len) are zero ('same' padding on the whole utterance). A
+// block owns kDwRows time rows x kDwCh channels of one utterance: it stages
+// those rows and their (k-1)/2-row halo in shared memory, and each thread
+// keeps its channel's k taps in registers and slides down its rows.
+constexpr int kDwRows = 64;
+constexpr int kDwCh = 64;
+constexpr int kDwThreads = 256;
+constexpr int kDwMaxK = 31;
+
+__global__ void __launch_bounds__(kDwThreads)
 depthwise_silu_kernel(const float* __restrict__ u, const float* __restrict__ wd,
                       const float* __restrict__ bd, float* __restrict__ s,
-                      int t_len, int inner, int k, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % inner);
-  const long long m = idx / inner;
-  const int t = (int)(m % t_len);
-  const long long base = m - t;
+                      int t_len, int inner, int k) {
+  extern __shared__ float4 dw_smem4[];
+  float* tile = reinterpret_cast<float*>(dw_smem4);  // [rows + k - 1][kDwCh]
   const int pad = (k - 1) / 2;
-  float acc = 0.0f;
-  for (int tau = 0; tau < k; ++tau) {
-    const int tt = t + tau - pad;
-    if (tt >= 0 && tt < t_len)
-      acc = fmaf(u[(base + tt) * inner + c], wd[(size_t)c * k + tau], acc);
+  const int t0 = blockIdx.x * kDwRows;
+  const int c0 = blockIdx.y * kDwCh;
+  const int b = blockIdx.z;
+  const float* ub = u + (size_t)b * t_len * inner;
+  const int rows = kDwRows + k - 1;
+  for (int i = threadIdx.x; i < rows * kDwCh; i += kDwThreads) {
+    const int r = i / kDwCh;
+    const int c = i - r * kDwCh;
+    const int t = t0 - pad + r;
+    tile[i] = (t >= 0 && t < t_len && c0 + c < inner)
+                  ? ub[(size_t)t * inner + c0 + c] : 0.0f;
   }
-  const float v = acc + bd[c];
-  s[idx] = v * ddsp_sigmoid(v);
+  __syncthreads();
+  const int c = threadIdx.x % kDwCh;
+  if (c0 + c >= inner) return;
+  constexpr int kGroups = kDwThreads / kDwCh;
+  const int rows_per = kDwRows / kGroups;
+  const int r0 = (threadIdx.x / kDwCh) * rows_per;
+  float w[kDwMaxK];
+#pragma unroll
+  for (int tau = 0; tau < kDwMaxK; ++tau)
+    w[tau] = tau < k ? wd[(size_t)(c0 + c) * k + tau] : 0.0f;
+  const float bias = bd[c0 + c];
+  for (int r = r0; r < r0 + rows_per; ++r) {
+    const int t = t0 + r;
+    if (t >= t_len) break;
+    float acc = 0.0f;
+#pragma unroll
+    for (int tau = 0; tau < kDwMaxK; ++tau)
+      if (tau < k) acc = fmaf(tile[(r + tau) * kDwCh + c], w[tau], acc);
+    const float v = acc + bias;
+    s[((size_t)b * t_len + t) * inner + c0 + c] = v * ddsp_sigmoid(v);
+  }
 }
 
 }  // namespace
 
 // x, out: (batch, t_len, c); cond: (batch, t_len, hc); step: (batch, c);
 // wc (c, hc), w1 (2*inner, c), wd (inner, k), w2 (c, inner); h (batch*t_len,
-// c), u and s (batch*t_len, inner) are scratch.
+// c), u and s (batch*t_len, inner) are scratch. c, hc and inner are
+// multiples of 4 and the matrices 16-byte aligned.
 DDSP_API int ddsp_conformer_layer(const float* x, const float* cond,
                                   const float* step, const float* wc,
                                   const float* bc, const float* w1,
@@ -162,22 +248,26 @@ DDSP_API int ddsp_conformer_layer(const float* x, const float* cond,
                                   void* stream) {
   const int m = batch * t_len;
   if (m == 0) return 0;
+  if (c % 4 != 0 || hc % 4 != 0 || inner % 4 != 0 || k > kDwMaxK)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 block(kThreads);
   const dim3 grid_c((c + BN - 1) / BN, (m + BM - 1) / BM);
   const dim3 grid_u((inner + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_kernel<kCond><<<grid_c, block, 0, st>>>(cond, wc, bc, x, step, h, m, c,
-                                               hc, t_len);
+  gemm_tc_kernel<kCond><<<grid_c, block, 0, st>>>(cond, wc, bc, x, step, h, m,
+                                                  c, hc, t_len);
   DDSP_CHECK_LAUNCH();
-  gemm_kernel<kGlu><<<grid_u, block, 0, st>>>(h, w1, b1, nullptr, nullptr, u,
-                                              m, inner, c, t_len);
+  gemm_tc_kernel<kGlu><<<grid_u, block, 0, st>>>(h, w1, b1, nullptr, nullptr,
+                                                 u, m, inner, c, t_len);
   DDSP_CHECK_LAUNCH();
-  const long long total = (long long)m * inner;
-  depthwise_silu_kernel<<<(unsigned int)((total + 255) / 256), 256, 0, st>>>(
-      u, wd, bd, s, t_len, inner, k, total);
+  const dim3 grid_d((t_len + kDwRows - 1) / kDwRows,
+                    (inner + kDwCh - 1) / kDwCh, batch);
+  const size_t smem_d = (size_t)(kDwRows + k - 1) * kDwCh * sizeof(float);
+  depthwise_silu_kernel<<<grid_d, kDwThreads, smem_d, st>>>(u, wd, bd, s,
+                                                           t_len, inner, k);
   DDSP_CHECK_LAUNCH();
-  gemm_kernel<kResidual><<<grid_c, block, 0, st>>>(s, w2, b2, x, nullptr, out,
-                                                   m, c, inner, t_len);
+  gemm_tc_kernel<kResidual><<<grid_c, block, 0, st>>>(s, w2, b2, x, nullptr,
+                                                      out, m, c, inner, t_len);
   DDSP_CHECK_LAUNCH();
   return 0;
 }

@@ -1,56 +1,93 @@
 // Split-TF32 ("3xTF32") tensor-core products at f32 accuracy, and the
-// cp.async helpers that stage their tiles. Shared by K2 (resblock.cu) and
-// K3 (conformer.cu).
+// ldmatrix / cp.async helpers that feed them. Shared by K2 (resblock.cu)
+// and K3 (conformer.cu).
 //
 // An f32 operand x is split as hi = tf32(x), lo = tf32(x - hi), both
-// rounded to nearest with ties away from zero (cvt.rna.tf32.f32; the plain
-// emulation is ops/cuda_resblock.tf32_split). The product of two operands is
-// taken as lo*hi + hi*lo + hi*hi on mma.sync m16n8k8 with f32 accumulation:
-// the two small cross terms go into the accumulator first, then hi*hi. The
-// dropped lo*lo term and the rounding of lo are ~2^-22 of the product, so a
-// sum over K terms keeps f32's accuracy, where one TF32 pass (10-bit
-// mantissa) would sit near 1e-3 of the result. Three MMAs per product put
-// the ceiling at a third of the card's dense TF32 rate (494.7 / 3 TFLOP/s on
-// an H100 SXM).
+// rounded to nearest with ties away from zero, as cvt.rna.tf32.f32 rounds
+// (the plain emulation is ops/cuda_resblock.tf32_split). The product of two
+// operands is taken as lo*hi + hi*lo + hi*hi on mma.sync m16n8k8 with f32
+// accumulation: the two small cross terms go into the accumulator first,
+// then hi*hi. The dropped lo*lo term and the rounding of lo are ~2^-22 of
+// the product, so a sum over K terms keeps f32's accuracy, where one TF32
+// pass (10-bit mantissa) would sit near 1e-3 of the result. Three MMAs per
+// product put the ceiling at a third of the card's dense TF32 rate (494.7 /
+// 3 TFLOP/s on an H100 SXM).
 //
 // Fragment layout of mma.m16n8k8 (.row.col, tf32), lane = 4 * g + q:
 //   A (16 x 8):  a0 (g, q)  a1 (g + 8, q)  a2 (g, q + 4)  a3 (g + 8, q + 4)
 //   B (8 x 8):   b0 (k = q, n = g)  b1 (k = q + 4, n = g)
 //   C (16 x 8):  c0 (g, 2q)  c1 (g, 2q + 1)  c2 (g + 8, 2q)  c3 (g + 8, 2q + 1)
+// Each 8 x 4 quarter of A, and each half of B stored n-major ([n][k]), is
+// one 8 x 8 b16 matrix of ldmatrix: lane l receives word l % 4 of row l / 4,
+// which is the fragment element above. So one ldmatrix.x4 loads a whole A
+// fragment, or the B fragments of two n8 tiles, from rows of 16-byte
+// aligned words; rows whose stride is an odd multiple of 4 words load
+// without bank conflicts.
 #pragma once
 
 #include <cstdint>
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+// cvt.rna.tf32.f32's rounding (nearest, ties away from zero) in two integer
+// instructions: add half a TF32 ulp to the magnitude bits and clear the 13
+// dropped ones. The same bits as the cvt for every finite input; ptxas
+// expands the cvt with a NaN guard (an FSETP and a SEL more per value).
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(uint32_t bits, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(bits);
+  lo = tf32_rna(__float_as_uint(__uint_as_float(bits) - __uint_as_float(hi)));
 }
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+  split_tf32(__float_as_uint(x), hi, lo);
 }
 
+// four 8 x 8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// not volatile: the kernels issue many independent products back to back,
+// and the scheduler may interleave them
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a * b at f32 accuracy: small cross terms first, then hi * hi.
-__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
-                                           const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4],
-                                           const uint32_t (&b_hi)[2],
-                                           const uint32_t (&b_lo)[2]) {
-  mma_tf32(d, a_lo, b_hi);
-  mma_tf32(d, a_hi, b_lo);
-  mma_tf32(d, a_hi, b_hi);
+// acc[m][n] += a[m] * b[n] at f32 accuracy for an MT x NT grid of m16n8k8
+// fragments: the small cross terms first, then hi * hi, each pass over the
+// whole grid, so that the three products into one accumulator are MT * NT
+// independent MMAs apart rather than back to back.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_tf32x3_grid(float (&acc)[MT][NT][4],
+                                                const uint32_t (&a_hi)[MT][4],
+                                                const uint32_t (&a_lo)[MT][4],
+                                                const uint32_t (&b_hi)[NT][2],
+                                                const uint32_t (&b_lo)[NT][2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], a_lo[m], b_hi[n]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], a_hi[m], b_lo[n]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], a_hi[m], b_hi[n]);
 }
 
 // 16-byte global -> shared copy; with valid == false it writes 16 zero

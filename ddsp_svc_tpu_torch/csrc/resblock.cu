@@ -22,14 +22,20 @@
 // and walks the input channels eight at a time through a two-stage cp.async
 // ring: each stage holds BM + (k-1)*d input rows of eight channels (the
 // halo comes in the same copy; cp.async's zero fill gives the rows outside
-// the utterance) and those channels' k x 8 x BN weights, which the wrapper
-// packed once per model as (k, C_in, C_out) so that every copy is 16 bytes
-// and every fragment load is free of bank conflicts. A fragments take
-// leaky_relu as they leave shared memory and are split there, so each staged
-// input row serves all k taps. The epilogue adds the bias and, optionally,
-// the residual; the last conv of each chain accumulates into the stage
-// output and the last chain applies the 1/n_rb of the mean, so no sum is
-// finished outside the kernels. A stage is 18 launches of this kernel.
+// the utterance) and those channels' k x BN x 8 weights, which the wrapper
+// packed once per model as (k, C_out, C_in) so that every copy is 16 bytes
+// and B fragments load n-major. Once a stage has landed, the block applies
+// leaky_relu to the staged input and splits it into a hi and a lo plane,
+// once per element, so that the fragments of all k taps and both warp
+// columns load ready operands: one ldmatrix.x4 per A fragment and plane,
+// one per two B fragments (weights are split in registers as they load).
+// What the design fights is issue slots, not bytes: the split, the
+// fragment loads and the three MMAs per product share one issue port per
+// SM quarter, so every operand is split once where it is staged and loaded
+// without register moves. The epilogue adds the bias and, optionally, the
+// residual; the last conv of each chain accumulates into the stage output
+// and the last chain applies the 1/n_rb of the mean, so no sum is finished
+// outside the kernels. A stage is 18 launches of this kernel.
 //
 // Why not one launch per chain at C <= 64 (a time tile plus the chain's
 // 60-row halo kept on the SM): the two activation tiles of 248 rows x 64
@@ -47,9 +53,9 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int KC = 8;          // input channels per ring stage: one k8 step
-constexpr int kInStride = 12;  // 48-byte rows: 16-byte copies, no conflicts
-constexpr int kWPad = 8;       // weight rows of BN + 8 floats: no conflicts
+constexpr int KC = 8;       // input channels per ring stage: one k8 step
+constexpr int kStride = 12;  // words per staged row of 8: 48 bytes, ldmatrix
+                             // rows 16-byte aligned and free of conflicts
 constexpr float kSlope = 0.1f;
 
 template <int BN>
@@ -57,11 +63,16 @@ struct ConvTile {
   static constexpr int WARPS_N = BN >= 64 ? 2 : 1;
   static constexpr int WARPS_M = kWarps / WARPS_N;
   static constexpr int WN = BN / WARPS_N;  // output channels per warp
-  static constexpr int NT = WN / 8;        // n8 fragments per warp
+  static constexpr int NT = WN / 8;        // n8 fragments per warp (even)
   static constexpr int MT = 4;             // m16 fragments per warp
   static constexpr int BM = WARPS_M * MT * 16;
-  static constexpr int WS = BN + kWPad;
 };
+
+// one ring stage: hi plane [rows_in][kStride] (the raw input lands here),
+// lo plane [rows_in][kStride], weights [k][BN][kStride]
+__host__ __device__ constexpr int stage_words(int rows_in, int k, int bn) {
+  return (2 * rows_in + k * bn) * kStride;
+}
 
 template <int BN>
 __global__ void __launch_bounds__(kThreads)
@@ -76,8 +87,7 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
   const int halo = (k - 1) * dilation;
   const int pad = halo / 2;
   const int rows_in = T::BM + halo;
-  const int in_floats = rows_in * kInStride;
-  const int stage_floats = in_floats + k * KC * T::WS;
+  const int stage_floats = stage_words(rows_in, k, BN);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -91,11 +101,11 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
   const int b = blockIdx.z;
   const float* xb = x + (size_t)b * length * channels;
 
-  // one ring stage: input rows t0 - pad .. t0 + BM + pad of channels
-  // ci0 .. ci0 + 7 (zeros outside the utterance), and their weights
+  // input rows t0 - pad .. t0 + BM + pad of channels ci0 .. ci0 + 7 (zeros
+  // outside the utterance) into the hi plane, and their weights
   auto stage = [&](int chunk, int buf) {
-    float* in_s = smem + buf * stage_floats;
-    float* w_s = in_s + in_floats;
+    float* hi_s = smem + buf * stage_floats;
+    float* w_s = hi_s + 2 * rows_in * kStride;
     const int ci0 = chunk * KC;
     for (int i = tid; i < rows_in * 2; i += kThreads) {
       const int r = i >> 1;
@@ -103,17 +113,16 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
       const int t = t0 - pad + r;
       const bool ok = t >= 0 && t < length;
       const float* src = ok ? xb + (size_t)t * channels + ci0 + 4 * half : xb;
-      cp_async16(in_s + r * kInStride + 4 * half, src, ok);
+      cp_async16(hi_s + r * kStride + 4 * half, src, ok);
     }
-    constexpr int kVec = BN / 4;
-    for (int i = tid; i < k * KC * kVec; i += kThreads) {
-      const int row = i / kVec;  // tau * KC + kk
-      const int v = i - row * kVec;
-      const int tau = row / KC;
-      const int kk = row - tau * KC;
-      cp_async16(w_s + row * T::WS + 4 * v,
-                 wp + ((size_t)tau * channels + ci0 + kk) * channels + co0 +
-                     4 * v,
+    for (int i = tid; i < k * BN * 2; i += kThreads) {
+      const int row = i >> 1;  // tau * BN + n
+      const int half = i & 1;
+      const int tau = row / BN;
+      const int n = row - tau * BN;
+      cp_async16(w_s + row * kStride + 4 * half,
+                 wp + ((size_t)tau * channels + co0 + n) * channels + ci0 +
+                     4 * half,
                  true);
     }
   };
@@ -125,6 +134,13 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
     for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+
+  // ldmatrix row addresses: A quarter j = lane / 8 is rows + 8 * (j & 1),
+  // words 4 * (j >> 1); B matrix j is n rows + 8 * (j >> 1), words 4 * (j & 1)
+  const int a_row = warp_m * T::MT * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 4;
+  const int b_row = warp_n * T::WN + (lane & 7) + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 4;
 
   const int n_chunks = channels / KC;
   stage(0, 0);
@@ -138,32 +154,49 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* in_s = smem + (ch & 1) * stage_floats;
-    const float* w_s = in_s + in_floats;
+    float* hi_s = smem + (ch & 1) * stage_floats;
+    float* lo_s = hi_s + rows_in * kStride;
+    const float* w_s = lo_s + rows_in * kStride;
+    // leaky_relu and the hi/lo split, once per staged element (each serves
+    // all k taps and every warp of the block): a thread owns a row
+    for (int r = tid; r < rows_in; r += kThreads) {
+      float4* hrow = reinterpret_cast<float4*>(hi_s + r * kStride);
+      float4* lrow = reinterpret_cast<float4*>(lo_s + r * kStride);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = hrow[h];
+        const float e[4] = {fmaxf(v.x, kSlope * v.x), fmaxf(v.y, kSlope * v.y),
+                            fmaxf(v.z, kSlope * v.z), fmaxf(v.w, kSlope * v.w)};
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(e[i], hi[i], lo[i]);
+        hrow[h] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                              __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+        lrow[h] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                              __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+      }
+    }
+    __syncthreads();
     for (int tau = 0; tau < k; ++tau) {
       uint32_t b_hi[T::NT][2], b_lo[T::NT][2];
-      const float* wrow = w_s + (tau * KC + q) * T::WS + warp_n * T::WN + g;
 #pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt) {
-        split_tf32(wrow[nt * 8], b_hi[nt][0], b_lo[nt][0]);
-        split_tf32(wrow[4 * T::WS + nt * 8], b_hi[nt][1], b_lo[nt][1]);
+      for (int np = 0; np < T::NT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, w_s + (tau * BN + b_row + np * 16) * kStride + b_col);
+        split_tf32(r[0], b_hi[2 * np][0], b_lo[2 * np][0]);
+        split_tf32(r[1], b_hi[2 * np][1], b_lo[2 * np][1]);
+        split_tf32(r[2], b_hi[2 * np + 1][0], b_lo[2 * np + 1][0]);
+        split_tf32(r[3], b_hi[2 * np + 1][1], b_lo[2 * np + 1][1]);
       }
       // output row i of the tile reads staged input row i + tau * dilation
-      const float* arow =
-          in_s + (warp_m * T::MT * 16 + tau * dilation + g) * kInStride + q;
+      const int a_off = (a_row + tau * dilation) * kStride + a_col;
+      uint32_t a_hi[T::MT][4], a_lo[T::MT][4];
 #pragma unroll
       for (int mt = 0; mt < T::MT; ++mt) {
-        const float* a = arow + mt * 16 * kInStride;
-        const float av[4] = {a[0], a[8 * kInStride], a[4],
-                             a[8 * kInStride + 4]};
-        uint32_t a_hi[4], a_lo[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split_tf32(fmaxf(av[i], kSlope * av[i]), a_hi[i], a_lo[i]);
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt)
-          mma_tf32x3(acc[mt][nt], a_hi, a_lo, b_hi[nt], b_lo[nt]);
+        ldmatrix_x4(a_hi[mt], hi_s + a_off + mt * 16 * kStride);
+        ldmatrix_x4(a_lo[mt], lo_s + a_off + mt * 16 * kStride);
       }
+      mma_tf32x3_grid(acc, a_hi, a_lo, b_hi, b_lo);
     }
     __syncthreads();
   }
@@ -204,9 +237,8 @@ int launch_conv(const float* x, const float* wp, const float* bias,
                 int channels, int k, int dilation, float scale, int accumulate,
                 cudaStream_t stream) {
   using T = ConvTile<BN>;
-  const int halo = (k - 1) * dilation;
-  const size_t smem =
-      2 * (size_t)((T::BM + halo) * kInStride + k * KC * T::WS) * sizeof(float);
+  const int rows_in = T::BM + (k - 1) * dilation;
+  const size_t smem = 2 * (size_t)stage_words(rows_in, k, BN) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         resblock_conv_tc_kernel<BN>,
@@ -238,7 +270,7 @@ int launch_conv_any(const float* x, const float* wp, const float* bias,
 
 // x, out: (batch, length, channels), channels a multiple of 16; weights:
 // host array of n_rb * n_dil * 2 device pointers in chain order (convs1_0,
-// convs2_0, convs1_1, ...) per resblock, each packed as (k, C_in, C_out);
+// convs2_0, convs1_1, ...) per resblock, each packed as (k, C_out, C_in);
 // biases likewise; kernel_sizes[n_rb]; dilations[n_rb * n_dil]. t_buf and
 // z_buf are scratch activations of x's size.
 DDSP_API int ddsp_resblock_group(const float* x, const float* const* weights,

@@ -3,7 +3,10 @@
 
 Replaces ddsp_svc_tpu/ops/pallas_conformer.py ``fused_conformer_layer``
 (f32 mode). Weights are in the torch layout: ``(Wc (C, Hc), bc, W1 (2I, C),
-b1, wd (I, k), bd, W2 (C, I), b2)``. Activations are feature-last.
+b1, wd (I, k), bd, W2 (C, I), b2)``, which is the layout the kernel's
+tiles want, so nothing is packed. Activations are feature-last. The GEMMs
+multiply on the tensor cores in split TF32 at f32 accuracy (the scheme
+``ops/cuda_resblock.tf32_split`` emulates).
 """
 from __future__ import annotations
 
@@ -45,15 +48,22 @@ def _check(x, cond, step_vec, weights):
                              f"expected {shape}")
         if tensor.device != x.device:
             raise ValueError(f"conformer_layer: {name} on another device")
-    if k % 2 == 0:
-        raise ValueError(f"conformer_layer: odd depthwise kernel only, got {k}")
+    if k % 2 == 0 or k > 31:
+        raise ValueError(f"conformer_layer: an odd depthwise kernel of at most "
+                         f"31 taps, got {k}")
+    if c % 4 or hc % 4 or inner % 4:
+        raise ValueError(f"conformer_layer: C, Hc and I multiples of 4, got "
+                         f"{c}, {hc}, {inner}")
+    if any(t.data_ptr() % 16 for t in (x, cond, step_vec, *weights)):
+        raise ValueError("conformer_layer: tensors must be 16-byte aligned")
 
 
 def conformer_layer(x, cond, step_vec, weights):
     """x (B, T, C), cond (B, T, Hc), step_vec (B, C) -> (B, T, C).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the layer's
-    four kernels and counts one launch in ``conformer_layer.launches``."""
+    four kernels (three tensor-core GEMMs and the depthwise conv) and counts
+    one launch in ``conformer_layer.launches``."""
     if x.device.type == "cpu":
         return conformer_layer_plain(x, cond, step_vec, weights)
     kernels.check_cuda_input(x, "conformer_layer x", 3)

@@ -6,7 +6,7 @@ Weights are in the torch Conv1d layout: per resblock, the six folded
 (weight (C, C, k), bias (C,)) pairs in chain order (convs1_0, convs2_0,
 convs1_1, ...). Activations are feature-last (B, L, C), as in JAX.
 
-The kernel reads each conv weight packed as (k, C_in, C_out)
+The kernel reads each conv weight packed as (k, C_out, C_in)
 (``pack_resblock_weights``). A caller that serves many requests packs once
 per model and passes the ``PackedResblocks`` in place of the nested list
 (``models/nsf_hifigan.Generator`` does); a nested list is packed on every
@@ -51,10 +51,11 @@ def resblock_group_plain(x, rb_weights, kernel_sizes, dilations):
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """Torch Conv1d weight (C_out, C_in, k) -> the kernel's (k, C_in, C_out):
-    tap-major, so that one tap's rows for eight input channels and a tile of
-    output channels are contiguous 16-byte runs."""
-    return w.detach().permute(2, 1, 0).contiguous()
+    """Torch Conv1d weight (C_out, C_in, k) -> the kernel's (k, C_out, C_in):
+    tap-major, and for each tap and output channel the eight input channels
+    of a ring stage are two contiguous 16-byte runs, stored n-major as the
+    kernel's B fragments load them."""
+    return w.detach().permute(2, 0, 1).contiguous()
 
 
 class PackedResblocks:
@@ -86,8 +87,8 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def conv_packed_plain(x, wp, b, dilation, products=None):
     """One 'same' conv as the kernel computes it, from packed weights:
-    out[t] = b + sum_tau x[t + tau * d - pad] . wp[tau] with zero rows
-    outside [0, L). x (B, L, C_in), wp (k, C_in, C_out) -> (B, L, C_out).
+    out[t] = b + sum_tau x[t + tau * d - pad] . wp[tau]^T with zero rows
+    outside [0, L). x (B, L, C_in), wp (k, C_out, C_in) -> (B, L, C_out).
 
     ``products`` "3xtf32" or "tf32" multiplies the split operands as the
     tensor cores do (lo*hi + hi*lo + hi*hi, or hi*hi alone) with the sum
@@ -111,7 +112,7 @@ def conv_packed_plain(x, wp, b, dilation, products=None):
     for xa, wa in pairs:
         for tau in range(k):
             s = tau * dilation
-            out += xa[:, s:s + length] @ wa[tau]
+            out += xa[:, s:s + length] @ wa[tau].t()
     return out
 
 

@@ -87,7 +87,7 @@ def test_one_tf32_product_misses_the_kernel_tolerance():
 @pytest.mark.parametrize("c,k,d,length", [(16, 3, 1, 40), (32, 7, 3, 57),
                                           (64, 11, 5, 23), (48, 5, 2, 9)])
 def test_packed_weights_give_back_conv1d(c, k, d, length):
-    """(C_out, C_in, k) -> (k, C_in, C_out), summed tap by tap over shifted
+    """(C_out, C_in, k) -> (k, C_out, C_in), summed tap by tap over shifted
     rows with zeros outside the utterance, is F.conv1d's 'same' conv (the
     shortest length is below the halo)."""
     rng = np.random.default_rng(c + k)
@@ -96,7 +96,7 @@ def test_packed_weights_give_back_conv1d(c, k, d, length):
     b = torch.from_numpy(rng.standard_normal((c,)).astype(np.float32))
     wp = pack_conv_weight(w)
     assert wp.shape == (k, c, c) and wp.is_contiguous()
-    assert torch.equal(wp[:, :, 3], w[3].t())
+    assert torch.equal(wp[:, 3, :], w[3].t())
     want = F.conv1d(x.transpose(1, 2).double(), w.double(), b.double(),
                     padding=(k - 1) * d // 2, dilation=d).transpose(1, 2)
     got = conv_packed_plain(x, wp, b, d)
