@@ -33,9 +33,11 @@
 // fragment loads and the three MMAs per product share one issue port per
 // SM quarter, so every operand is split once where it is staged and loaded
 // without register moves. The epilogue adds the bias and, optionally, the
-// residual; the last conv of each chain accumulates into the stage output
-// and the last chain applies the 1/n_rb of the mean, so no sum is finished
-// outside the kernels. A stage is 18 launches of this kernel.
+// residual; the last conv of each chain adds the previous chains' sum and
+// the last chain applies the 1/n_rb of the mean, so no sum is finished
+// outside the kernels. The running sum alternates between two buffers:
+// read and written in place by one launch it cost ~0.18 ms more per launch
+// at C = 128 (tools/kernel_ab.py on an H100). A stage is 18 launches.
 //
 // Why not one launch per chain at C <= 64 (a time tile plus the chain's
 // 60-row halo kept on the SM): the two activation tiles of 248 rows x 64
@@ -80,7 +82,7 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
                         const float* __restrict__ wp,
                         const float* __restrict__ bias, const float* res,
                         float* out, int length, int channels, int k,
-                        int dilation, float scale, int accumulate) {
+                        int dilation, float scale, const float* acc_in) {
   using T = ConvTile<BN>;
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned base
   float* smem = reinterpret_cast<float*>(smem4);
@@ -218,8 +220,8 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
           y.x += r.x;
           y.y += r.y;
         }
-        if (accumulate) {
-          const float2 o = *reinterpret_cast<const float2*>(out + row + co);
+        if (acc_in != nullptr) {
+          const float2 o = *reinterpret_cast<const float2*>(acc_in + row + co);
           y.x += o.x;
           y.y += o.y;
         }
@@ -234,8 +236,8 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
 template <int BN>
 int launch_conv(const float* x, const float* wp, const float* bias,
                 const float* res, float* out, int batch, int length,
-                int channels, int k, int dilation, float scale, int accumulate,
-                cudaStream_t stream) {
+                int channels, int k, int dilation, float scale,
+                const float* acc_in, cudaStream_t stream) {
   using T = ConvTile<BN>;
   const int rows_in = T::BM + (k - 1) * dilation;
   const size_t smem = 2 * (size_t)stage_words(rows_in, k, BN) * sizeof(float);
@@ -247,7 +249,7 @@ int launch_conv(const float* x, const float* wp, const float* bias,
   }
   dim3 grid((length + T::BM - 1) / T::BM, channels / BN, batch);
   resblock_conv_tc_kernel<BN><<<grid, kThreads, smem, stream>>>(
-      x, wp, bias, res, out, length, channels, k, dilation, scale, accumulate);
+      x, wp, bias, res, out, length, channels, k, dilation, scale, acc_in);
   DDSP_CHECK_LAUNCH();
   return 0;
 }
@@ -255,15 +257,15 @@ int launch_conv(const float* x, const float* wp, const float* bias,
 int launch_conv_any(const float* x, const float* wp, const float* bias,
                     const float* res, float* out, int batch, int length,
                     int channels, int k, int dilation, float scale,
-                    int accumulate, cudaStream_t stream) {
+                    const float* acc_in, cudaStream_t stream) {
   if (channels % 64 == 0)
     return launch_conv<64>(x, wp, bias, res, out, batch, length, channels, k,
-                           dilation, scale, accumulate, stream);
+                           dilation, scale, acc_in, stream);
   if (channels % 32 == 0)
     return launch_conv<32>(x, wp, bias, res, out, batch, length, channels, k,
-                           dilation, scale, accumulate, stream);
+                           dilation, scale, acc_in, stream);
   return launch_conv<16>(x, wp, bias, res, out, batch, length, channels, k,
-                         dilation, scale, accumulate, stream);
+                         dilation, scale, acc_in, stream);
 }
 
 }  // namespace
@@ -272,13 +274,13 @@ int launch_conv_any(const float* x, const float* wp, const float* bias,
 // host array of n_rb * n_dil * 2 device pointers in chain order (convs1_0,
 // convs2_0, convs1_1, ...) per resblock, each packed as (k, C_out, C_in);
 // biases likewise; kernel_sizes[n_rb]; dilations[n_rb * n_dil]. t_buf and
-// z_buf are scratch activations of x's size.
+// z_buf and s_buf are scratch activations of x's size.
 DDSP_API int ddsp_resblock_group(const float* x, const float* const* weights,
                                  const float* const* biases,
                                  const int* kernel_sizes, const int* dilations,
                                  int n_rb, int n_dil, float* out, float* t_buf,
-                                 float* z_buf, int batch, int length,
-                                 int channels, void* stream) {
+                                 float* z_buf, float* s_buf, int batch,
+                                 int length, int channels, void* stream) {
   if ((long long)batch * length * channels == 0) return 0;
   if (channels % 16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -289,15 +291,19 @@ DDSP_API int ddsp_resblock_group(const float* x, const float* const* weights,
     for (int di = 0; di < n_dil; ++di) {
       const int d = dilations[rb * n_dil + di];
       int err = launch_conv_any(z, weights[wi], biases[wi], nullptr, t_buf,
-                                batch, length, channels, k, d, 1.0f, 0, st);
+                                batch, length, channels, k, d, 1.0f, nullptr,
+                                st);
       if (err) return err;
       ++wi;
       const bool last = di == n_dil - 1;
-      float* dst = last ? out : z_buf;
+      // the chains' running sum alternates between out and s_buf, ending
+      // in out: summing in place measured slower (see the note above)
+      float* sums[2] = {out, s_buf};
+      float* dst = last ? sums[(n_rb - 1 - rb) % 2] : z_buf;
       const float scale = (last && rb == n_rb - 1) ? 1.0f / n_rb : 1.0f;
-      const int accumulate = (last && rb > 0) ? 1 : 0;
+      const float* acc_in = (last && rb > 0) ? sums[(n_rb - rb) % 2] : nullptr;
       err = launch_conv_any(t_buf, weights[wi], biases[wi], z, dst, batch,
-                            length, channels, k, 1, scale, accumulate, st);
+                            length, channels, k, 1, scale, acc_in, st);
       if (err) return err;
       ++wi;
       z = z_buf;

@@ -169,13 +169,11 @@ def resblock_group(x, rb_weights, kernel_sizes, dilations):
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     ds_flat = [d for dils in dilations for d in dils]
     ds = (ctypes.c_int * len(ds_flat))(*ds_flat)
-    out = torch.empty_like(x)
-    t_buf = torch.empty_like(x)
-    z_buf = torch.empty_like(x)
+    out, t_buf, z_buf, s_buf = (torch.empty_like(x) for _ in range(4))
     err = kernels.library().ddsp_resblock_group(
         x.data_ptr(), w_ptrs, b_ptrs, ks, ds, len(kernel_sizes),
         len(dilations[0]), out.data_ptr(), t_buf.data_ptr(), z_buf.data_ptr(),
-        b, length, c, kernels.stream_handle(x.device))
+        s_buf.data_ptr(), b, length, c, kernels.stream_handle(x.device))
     kernels.check(err, "resblock_group")
     resblock_group.launches += 1
     return out

@@ -35,8 +35,8 @@ _SIGNATURES = {
     # (s0, ds0, carry, out, n_rows, block, stream)
     "ddsp_combtooth": (_P, _P, _P, _P, ctypes.c_longlong, _I, _P),
     # (x, weights[], biases[], kernel_sizes[], dilations[], n_rb, n_dil,
-    #  out, t_buf, z_buf, batch, length, channels, stream)
-    "ddsp_resblock_group": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+    #  out, t_buf, z_buf, s_buf, batch, length, channels, stream)
+    "ddsp_resblock_group": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _I, _I, _I, _P),
     # (x, cond, step_vec, wc, bc, w1, b1, wd, bd, w2, b2, out, h, u, s,
     #  batch, t, c, hc, inner, k, stream)
