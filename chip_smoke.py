@@ -296,7 +296,7 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
     from ddsp_svc_tpu_torch.ops import kernels
     from ddsp_svc_tpu_torch.ops.cuda_conformer import (conformer_layer,
                                                        conformer_layer_plain)
-    from ddsp_svc_tpu_torch.ops.cuda_resblock import (pack_resblock_weights,
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
                                                       resblock_group,
                                                       resblock_group_plain)
     from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
@@ -352,7 +352,7 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
             weights.append([(_rand(torch, gen, (c, c, k), bound).to(dev),
                              _rand(torch, gen, (c,), bound).to(dev))
                             for _ in range(2 * len(dils))])
-        packed = pack_resblock_weights(weights)
+        packed = PackedResblocks(weights)
         got = resblock_group(x, packed, K2_KERNEL_SIZES, K2_DILATIONS)
         want = resblock_group_plain(x, weights, K2_KERNEL_SIZES, K2_DILATIONS)
         abs_err = float((got - want).abs().max())

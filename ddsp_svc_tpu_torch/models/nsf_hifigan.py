@@ -2,8 +2,8 @@
 ddsp_svc_tpu/models/nsf_hifigan.py: ``ResBlock1``, ``SourceModuleHnNSF``,
 ``Generator``). Each upsample stage's resblock mean runs through kernel K2
 (ops/cuda_resblock.resblock_group) -- on all five stages, where the TPU
-path fused only the stages with C <= 128. On the card each stage's weights
-are packed for the kernel once per model (``Generator.stage_weights``)."""
+path fused only the stages with C <= 128. Each stage's weights are packed
+for the kernel once per model (``Generator.stage_weights``)."""
 from __future__ import annotations
 
 import math
@@ -108,8 +108,8 @@ class Generator(nn.Module):
         (another tensor, device or version)."""
         n_k = len(self.kernel_sizes)
         rbw = [blk.chain_weights() for blk in self.resblocks[i * n_k:(i + 1) * n_k]]
-        key = tuple((w.data_ptr(), w.device, w._version)
-                    for pairs in rbw for w, _ in pairs)
+        key = tuple((t.data_ptr(), t.device, t._version)
+                    for pairs in rbw for pair in pairs for t in pair)
         cached = self._packed.get(i)
         if cached is None or cached[0] != key:
             cached = (key, PackedResblocks(rbw))
@@ -121,17 +121,12 @@ class Generator(nn.Module):
         """``sine_kwargs``: optional ``rand_ini`` (1, 1, 9) and ``noise``
         (B, T * upp, 9) for the sine source; drawn from ``generator``
         otherwise."""
-        n_k = len(self.kernel_sizes)
         har_source = self.m_source(f0, self.upp, sine_kwargs, generator)
         x = self.conv_pre(mel)
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             x = (x + noise_conv(har_source)).contiguous()
-            if x.device.type == "cpu":
-                blocks = self.resblocks[i * n_k:(i + 1) * n_k]
-                weights = [blk.chain_weights() for blk in blocks]
-            else:
-                weights = self.stage_weights(i)
-            x = resblock_group(x, weights, self.kernel_sizes, self.dilations)
+            x = resblock_group(x, self.stage_weights(i), self.kernel_sizes,
+                               self.dilations)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)[..., 0]

@@ -7,7 +7,7 @@ Weights are in the torch Conv1d layout: per resblock, the six folded
 convs1_1, ...). Activations are feature-last (B, L, C), as in JAX.
 
 The kernel reads each conv weight packed as (k, C_out, C_in)
-(``pack_resblock_weights``). A caller that serves many requests packs once
+(``PackedResblocks``). A caller that serves many requests packs once
 per model and passes the ``PackedResblocks`` in place of the nested list
 (``models/nsf_hifigan.Generator`` does); a nested list is packed on every
 call. The kernel multiplies on the tensor cores in split TF32 at f32
@@ -66,10 +66,6 @@ class PackedResblocks:
         self.torch_weights = [list(rbw) for rbw in rb_weights]
         self.packed = [[(pack_conv_weight(w), b.detach().contiguous())
                         for w, b in rbw] for rbw in self.torch_weights]
-
-
-def pack_resblock_weights(rb_weights) -> PackedResblocks:
-    return PackedResblocks(rb_weights)
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -35,7 +35,7 @@ from ddsp_svc_tpu_torch.ops import cuda_resblock
 from ddsp_svc_tpu_torch.ops.cuda_resblock import resblock_group, resblock_group_plain
 
 # a copy from before K2 took packed weights gets the nested list
-pack = getattr(cuda_resblock, "pack_resblock_weights", lambda w: w)
+pack = getattr(cuda_resblock, "PackedResblocks", lambda w: w)
 
 if not torch.cuda.is_available():
     sys.exit("needs a CUDA card")

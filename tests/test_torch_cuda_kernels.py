@@ -57,8 +57,8 @@ def test_combtooth_kernel(cuda, t):
     (128, 1001, False)])
 def test_resblock_group_kernel(cuda, c, length, packed):
     """All five stage widths at B = 2, with weights packed once
-    (``pack_resblock_weights``) or packed by the wrapper on the call."""
-    from ddsp_svc_tpu_torch.ops.cuda_resblock import (pack_resblock_weights,
+    (``PackedResblocks``) or packed by the wrapper on the call."""
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
                                                       resblock_group,
                                                       resblock_group_plain)
 
@@ -70,7 +70,7 @@ def test_resblock_group_kernel(cuda, c, length, packed):
         weights.append([(((torch.rand((c, c, k), generator=gen) * 2 - 1) * b).to(cuda),
                          ((torch.rand((c,), generator=gen) * 2 - 1) * b).to(cuda))
                         for _ in range(2 * len(dils))])
-    arg = pack_resblock_weights(weights) if packed else weights
+    arg = PackedResblocks(weights) if packed else weights
     n0 = resblock_group.launches
     got = resblock_group(x, arg, KS, DS)
     torch.cuda.synchronize()

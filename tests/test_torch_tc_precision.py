@@ -12,7 +12,6 @@ from ddsp_svc_tpu_torch.models.nsf_hifigan import Generator
 from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
                                                   conv_packed_plain,
                                                   pack_conv_weight,
-                                                  pack_resblock_weights,
                                                   resblock_group,
                                                   resblock_group_plain,
                                                   tf32_split)
@@ -119,7 +118,7 @@ def test_packed_stage_takes_the_plain_path_on_the_cpu():
     nothing."""
     rng = np.random.default_rng(3)
     tw = _torch_rb_weights(rng, 16)
-    packed = pack_resblock_weights(tw)
+    packed = PackedResblocks(tw)
     assert packed.torch_weights[1][2][0] is tw[1][2][0]
     assert [wp.shape for wp, _ in packed.packed[2]] == [(11, 16, 16)] * 6
     x = torch.from_numpy(rng.standard_normal((2, 50, 16)).astype(np.float32))
@@ -150,4 +149,10 @@ def test_generator_packs_each_stage_once_per_model():
     assert gen.stage_weights(1) is first[1]
     gen.resblocks[3].convs2[2].weight = torch.nn.Parameter(
         gen.resblocks[3].convs2[2].weight.detach().clone())
-    assert gen.stage_weights(1) is not first[1]
+    second = gen.stage_weights(1)
+    assert second is not first[1]
+    gen.resblocks[4].convs1[1].bias = torch.nn.Parameter(
+        gen.resblocks[4].convs1[1].bias.detach() + 1.0)
+    third = gen.stage_weights(1)
+    assert third is not second
+    assert torch.equal(third.packed[1][2][1], gen.resblocks[4].convs1[1].bias.detach())
