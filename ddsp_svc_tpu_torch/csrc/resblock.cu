@@ -17,27 +17,27 @@
 //
 // Design: each conv is an implicit GEMM on the tensor cores, M = a tile of
 // output time rows, N = output channels, K = input channels x taps, where
-// tap tau reads the input rows shifted by tau * dilation. A block of four
-// warps owns BM rows x BN channels (a warp 64 x 32, or 64 x 16 at C = 16)
-// and walks the input channels eight at a time through a two-stage cp.async
+// tap tau reads the input rows shifted by tau * dilation. A block is one
+// warpgroup that owns BM rows (two or four m64 tiles) x BN channels and
+// walks the input channels eight at a time through a two-stage cp.async
 // ring: each stage holds BM + (k-1)*d input rows of eight channels (the
 // halo comes in the same copy; cp.async's zero fill gives the rows outside
-// the utterance) and those channels' k x BN x 8 weights, which the wrapper
-// packed once per model as (k, C_out, C_in) so that every copy is 16 bytes
-// and B fragments load n-major. Once a stage has landed, the block applies
+// the utterance) and the eight channels' k B tiles. The weights were split
+// into TF32 hi and lo planes and packed once per model as wgmma's K-major
+// core matrices, so a B tile is one contiguous copy that wgmma reads from
+// shared memory by descriptor. Once a stage has landed, the block applies
 // leaky_relu to the staged input and splits it into a hi and a lo plane,
-// once per element, so that the fragments of all k taps and both warp
-// columns load ready operands: one ldmatrix.x4 per A fragment and plane,
-// one per two B fragments (weights are split in registers as they load).
-// What the design fights is issue slots, not bytes: the split, the
-// fragment loads and the three MMAs per product share one issue port per
-// SM quarter, so every operand is split once where it is staged and loaded
-// without register moves. The epilogue adds the bias and, optionally, the
-// residual; the last conv of each chain adds the previous chains' sum and
-// the last chain applies the 1/n_rb of the mean, so no sum is finished
-// outside the kernels. The running sum alternates between two buffers:
-// read and written in place by one launch it cost ~0.18 ms more per launch
-// at C = 128 (tools/kernel_ab.py on an H100). A stage is 18 launches.
+// once per element (each serves all k taps); per tap, one ldmatrix.x4 per
+// plane loads each warp's A fragment into registers, and wgmma
+// m64nBNk8 takes lo*hi, hi*lo, then hi*hi. Issue slots are what the
+// mma.sync version ran out of (splits, fragment loads and 48 HMMA per tap
+// and warp); a wgmma instruction does 64 x BN x 8 products for one issue.
+// The epilogue adds the bias and, optionally, the residual; the last conv
+// of each chain adds the previous chains' sum and the last chain applies
+// the 1/n_rb of the mean, so no sum is finished outside the kernels. The
+// running sum alternates between two buffers: read and written in place
+// by one launch it cost ~0.18 ms more per launch at C = 128
+// (tools/kernel_ab.py on an H100). A stage is 18 launches.
 //
 // Why not one launch per chain at C <= 64 (a time tile plus the chain's
 // 60-row halo kept on the SM): the two activation tiles of 248 rows x 64
@@ -53,27 +53,31 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int KC = 8;       // input channels per ring stage: one k8 step
-constexpr int kStride = 12;  // words per staged row of 8: 48 bytes, ldmatrix
-                             // rows 16-byte aligned and free of conflicts
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int KC = 8;          // input channels per ring stage: one k8 step
+constexpr int kStride = 8;     // words per staged input row of 8 channels
 constexpr float kSlope = 0.1f;
+
+// word offset of 16-byte half h of staged input row r: the halves of rows
+// whose bit 2 is set trade places, so any 8 consecutive rows' same half
+// fall in 8 distinct 16-byte bank groups (ldmatrix without conflicts)
+__device__ __forceinline__ int swz(int r, int h) {
+  return r * kStride + 4 * (h ^ ((r >> 2) & 1));
+}
 
 template <int BN>
 struct ConvTile {
-  static constexpr int WARPS_N = BN >= 64 ? 2 : 1;
-  static constexpr int WARPS_M = kWarps / WARPS_N;
-  static constexpr int WN = BN / WARPS_N;  // output channels per warp
-  static constexpr int NT = WN / 8;        // n8 fragments per warp (even)
-  static constexpr int MT = 4;             // m16 fragments per warp
-  static constexpr int BM = WARPS_M * MT * 16;
+  static constexpr int MT = BN >= 64 ? 2 : 4;  // m64 tiles per block
+  static constexpr int BM = 64 * MT;
+  static constexpr int NACC = BN / 2;  // accumulators per thread per tile
+  static constexpr int B_WORDS = BN * KC;  // one tap's B tile, one plane
 };
 
-// one ring stage: hi plane [rows_in][kStride] (the raw input lands here),
-// lo plane [rows_in][kStride], weights [k][BN][kStride]
+// one ring stage: B hi and lo planes [k][BN / 8][2][8][4] (the layout the
+// wgmma descriptor names), then the input's hi plane (the raw input lands
+// here) and lo plane, [rows_in][kStride] each
 __host__ __device__ constexpr int stage_words(int rows_in, int k, int bn) {
-  return (2 * rows_in + k * bn) * kStride;
+  return 2 * k * bn * KC + 2 * rows_in * kStride;
 }
 
 template <int BN>
@@ -90,24 +94,24 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
   const int pad = halo / 2;
   const int rows_in = T::BM + halo;
   const int stage_floats = stage_words(rows_in, k, BN);
+  const int n_chunks = channels / KC;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int q = lane & 3;
-  const int warp_m = warp / T::WARPS_N;
-  const int warp_n = warp % T::WARPS_N;
   const int t0 = blockIdx.x * T::BM;
   const int co0 = blockIdx.y * BN;
   const int b = blockIdx.z;
   const float* xb = x + (size_t)b * length * channels;
 
   // input rows t0 - pad .. t0 + BM + pad of channels ci0 .. ci0 + 7 (zeros
-  // outside the utterance) into the hi plane, and their weights
+  // outside the utterance) into the hi plane, and the k B tiles of both
+  // planes: wp is [2][k][C / 8][C / 8][2][8][4], so a tile is contiguous
   auto stage = [&](int chunk, int buf) {
-    float* hi_s = smem + buf * stage_floats;
-    float* w_s = hi_s + 2 * rows_in * kStride;
+    float* w_s = smem + buf * stage_floats;
+    float* hi_s = w_s + 2 * k * T::B_WORDS;
     const int ci0 = chunk * KC;
     for (int i = tid; i < rows_in * 2; i += kThreads) {
       const int r = i >> 1;
@@ -115,36 +119,29 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
       const int t = t0 - pad + r;
       const bool ok = t >= 0 && t < length;
       const float* src = ok ? xb + (size_t)t * channels + ci0 + 4 * half : xb;
-      cp_async16(hi_s + r * kStride + 4 * half, src, ok);
+      cp_async16(hi_s + swz(r, half), src, ok);
     }
-    for (int i = tid; i < k * BN * 2; i += kThreads) {
-      const int row = i >> 1;  // tau * BN + n
-      const int half = i & 1;
-      const int tau = row / BN;
-      const int n = row - tau * BN;
-      cp_async16(w_s + row * kStride + 4 * half,
-                 wp + ((size_t)tau * channels + co0 + n) * channels + ci0 +
-                     4 * half,
-                 true);
+    constexpr int kVec = T::B_WORDS / 4;
+    for (int i = tid; i < 2 * k * kVec; i += kThreads) {
+      const int tile = i / kVec;  // plane * k + tau
+      const int v = i - tile * kVec;
+      const size_t src = (((size_t)tile * n_chunks + chunk) * channels + co0) *
+                             KC + 4 * v;
+      cp_async16(w_s + tile * T::B_WORDS + 4 * v, wp + src, true);
     }
   };
 
-  float acc[T::MT][T::NT][4];
+  float acc[T::MT][T::NACC];
 #pragma unroll
   for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+    for (int i = 0; i < T::NACC; ++i) acc[mt][i] = 0.0f;
 
-  // ldmatrix row addresses: A quarter j = lane / 8 is rows + 8 * (j & 1),
-  // words 4 * (j >> 1); B matrix j is n rows + 8 * (j >> 1), words 4 * (j & 1)
-  const int a_row = warp_m * T::MT * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_col = (lane >> 4) * 4;
-  const int b_row = warp_n * T::WN + (lane & 7) + (lane >> 4) * 8;
-  const int b_col = ((lane >> 3) & 1) * 4;
+  // ldmatrix row addresses of the A fragment (warp w: rows 16w..16w+15 of
+  // each m64 tile): quarter j = lane / 8 is rows + 8 * (j & 1), half j >> 1
+  const int a_row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_half = lane >> 4;
 
-  const int n_chunks = channels / KC;
   stage(0, 0);
   cp_async_commit();
   for (int ch = 0; ch < n_chunks; ++ch) {
@@ -155,12 +152,13 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
     } else {
       cp_async_wait<0>();
     }
+    fence_proxy_async();  // the B tiles are read by wgmma
     __syncthreads();
-    float* hi_s = smem + (ch & 1) * stage_floats;
+    const float* wb_s = smem + (ch & 1) * stage_floats;
+    float* hi_s = const_cast<float*>(wb_s) + 2 * k * T::B_WORDS;
     float* lo_s = hi_s + rows_in * kStride;
-    const float* w_s = lo_s + rows_in * kStride;
     // leaky_relu and the hi/lo split, once per staged element (each serves
-    // all k taps and every warp of the block): a thread owns a row
+    // all k taps and every m64 tile): a thread owns a row
     for (int r = tid; r < rows_in; r += kThreads) {
       float4* hrow = reinterpret_cast<float4*>(hi_s + r * kStride);
       float4* lrow = reinterpret_cast<float4*>(lo_s + r * kStride);
@@ -180,25 +178,33 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
     }
     __syncthreads();
     for (int tau = 0; tau < k; ++tau) {
-      uint32_t b_hi[T::NT][2], b_lo[T::NT][2];
-#pragma unroll
-      for (int np = 0; np < T::NT / 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, w_s + (tau * BN + b_row + np * 16) * kStride + b_col);
-        split_tf32(r[0], b_hi[2 * np][0], b_lo[2 * np][0]);
-        split_tf32(r[1], b_hi[2 * np][1], b_lo[2 * np][1]);
-        split_tf32(r[2], b_hi[2 * np + 1][0], b_lo[2 * np + 1][0]);
-        split_tf32(r[3], b_hi[2 * np + 1][1], b_lo[2 * np + 1][1]);
-      }
       // output row i of the tile reads staged input row i + tau * dilation
-      const int a_off = (a_row + tau * dilation) * kStride + a_col;
       uint32_t a_hi[T::MT][4], a_lo[T::MT][4];
 #pragma unroll
       for (int mt = 0; mt < T::MT; ++mt) {
-        ldmatrix_x4(a_hi[mt], hi_s + a_off + mt * 16 * kStride);
-        ldmatrix_x4(a_lo[mt], lo_s + a_off + mt * 16 * kStride);
+        const int off = swz(a_row + tau * dilation + 64 * mt, a_half);
+        ldmatrix_x4(a_hi[mt], hi_s + off);
+        ldmatrix_x4(a_lo[mt], lo_s + off);
       }
-      mma_tf32x3_grid(acc, a_hi, a_lo, b_hi, b_lo);
+      // core matrices of 8 n-rows x 4 k-words: 128 bytes apart along K,
+      // 256 bytes apart along N
+      const uint64_t b_hi = wgmma_desc(wb_s + tau * T::B_WORDS, 128, 256);
+      const uint64_t b_lo =
+          wgmma_desc(wb_s + (k + tau) * T::B_WORDS, 128, 256);
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) wgmma_fence_operand(acc[mt]);
+      wgmma_fence();
+      // the small cross terms first, then hi * hi
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) wgmma_tf32<BN>(acc[mt], a_lo[mt], b_hi);
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) wgmma_tf32<BN>(acc[mt], a_hi[mt], b_lo);
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) wgmma_tf32<BN>(acc[mt], a_hi[mt], b_hi);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) wgmma_fence_operand(acc[mt]);
     }
     __syncthreads();
   }
@@ -207,14 +213,14 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
   for (int mt = 0; mt < T::MT; ++mt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int t = t0 + warp_m * T::MT * 16 + mt * 16 + g + 8 * half;
+      const int t = t0 + 64 * mt + 16 * warp + g + 8 * half;
       if (t >= length) continue;
       const size_t row = ((size_t)b * length + t) * channels;
 #pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt) {
-        const int co = co0 + warp_n * T::WN + nt * 8 + 2 * q;
-        float2 y = make_float2(acc[mt][nt][2 * half] + bias[co],
-                               acc[mt][nt][2 * half + 1] + bias[co + 1]);
+      for (int j = 0; j < BN / 8; ++j) {
+        const int co = co0 + 8 * j + 2 * q;
+        float2 y = make_float2(acc[mt][4 * j + 2 * half] + bias[co],
+                               acc[mt][4 * j + 2 * half + 1] + bias[co + 1]);
         if (res != nullptr) {
           const float2 r = *reinterpret_cast<const float2*>(res + row + co);
           y.x += r.x;

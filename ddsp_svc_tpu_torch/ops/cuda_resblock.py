@@ -6,13 +6,13 @@ Weights are in the torch Conv1d layout: per resblock, the six folded
 (weight (C, C, k), bias (C,)) pairs in chain order (convs1_0, convs2_0,
 convs1_1, ...). Activations are feature-last (B, L, C), as in JAX.
 
-The kernel reads each conv weight packed as (k, C_out, C_in)
-(``PackedResblocks``). A caller that serves many requests packs once
+The kernel reads each conv weight split into TF32 hi and lo planes and
+packed as wgmma B tiles (``pack_conv_weight``, ``PackedResblocks``). A caller that serves many requests packs once
 per model and passes the ``PackedResblocks`` in place of the nested list
 (``models/nsf_hifigan.Generator`` does); a nested list is packed on every
 call. The kernel multiplies on the tensor cores in split TF32 at f32
-accuracy; ``tf32_split`` and ``conv_packed_plain`` are its arithmetic in
-plain PyTorch, for the tests.
+accuracy; ``tf32_split``, ``unpack_conv_weight`` and ``conv_packed_plain``
+are its arithmetic in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -51,11 +51,26 @@ def resblock_group_plain(x, rb_weights, kernel_sizes, dilations):
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """Torch Conv1d weight (C_out, C_in, k) -> the kernel's (k, C_out, C_in):
-    tap-major, and for each tap and output channel the eight input channels
-    of a ring stage are two contiguous 16-byte runs, stored n-major as the
-    kernel's B fragments load them."""
-    return w.detach().permute(2, 0, 1).contiguous()
+    """Torch Conv1d weight (C_out, C_in, k) -> the kernel's split B tiles,
+    (2, k, C_in / 8, C_out / 8, 2, 8, 4): plane 0 holds tf32 hi, plane 1 tf32
+    lo (``tf32_split``); for each tap and block of eight input channels, each
+    group of eight output channels is two 8 x 4 core matrices (rows: output
+    channels, words: four input channels), the K-major layout that the
+    kernel's wgmma descriptor names, contiguous so that it copies in
+    16-byte runs."""
+    c_out, c_in, k = w.shape
+    def tiles(v):  # v[co, ci, tau], co = 8 ng + r, ci = 8 chunk + 4 kg + kk
+        v = v.reshape(c_out // 8, 8, c_in // 8, 2, 4, k)
+        return v.permute(5, 2, 0, 3, 1, 4)
+    return torch.stack([tiles(p) for p in tf32_split(w.detach())]).contiguous()
+
+
+def unpack_conv_weight(wp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pack_conv_weight``'s planes back in the torch layout: (hi, lo), each
+    (C_out, C_in, k)."""
+    _, k, n_ci, n_co = wp.shape[:4]
+    return tuple(p.permute(2, 4, 1, 3, 5, 0).reshape(8 * n_co, 8 * n_ci, k)
+                 for p in wp)
 
 
 class PackedResblocks:
@@ -81,34 +96,28 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(x - hi)
 
 
-def conv_packed_plain(x, wp, b, dilation, products=None):
-    """One 'same' conv as the kernel computes it, from packed weights:
-    out[t] = b + sum_tau x[t + tau * d - pad] . wp[tau]^T with zero rows
-    outside [0, L). x (B, L, C_in), wp (k, C_out, C_in) -> (B, L, C_out).
-
-    ``products`` "3xtf32" or "tf32" multiplies the split operands as the
-    tensor cores do (lo*hi + hi*lo + hi*hi, or hi*hi alone) with the sum
-    taken in float64; the default is the exact float64 conv of the f32
-    inputs."""
-    k = wp.shape[0]
+def conv_packed_plain(x, wp, b, dilation, products="3xtf32"):
+    """One 'same' conv as the kernel computes it, from packed weights, with
+    the sums in float64: out[t] = b + sum_tau x[t + tau * d - pad] . W_tau
+    with zero rows outside [0, L), where every product is taken from the
+    split operands as the tensor cores take it: lo*hi + hi*lo + hi*hi
+    ("3xtf32"), or hi*hi alone ("tf32"). x (B, L, C_in), wp from
+    ``pack_conv_weight`` -> (B, L, C_out)."""
+    if products not in ("3xtf32", "tf32"):
+        raise ValueError(f"products: '3xtf32' or 'tf32', got {products!r}")
+    w_hi, w_lo = (v.double() for v in unpack_conv_weight(wp))
+    k = w_hi.shape[-1]
     pad = (k - 1) * dilation // 2
-    xp = F.pad(x, (0, 0, pad, pad)).double()
+    x_hi, x_lo = (v.double() for v in tf32_split(F.pad(x, (0, 0, pad, pad))))
+    pairs = [(x_hi, w_hi)]
+    if products == "3xtf32":
+        pairs = [(x_lo, w_hi), (x_hi, w_lo)] + pairs
     length = x.shape[1]
-    if products is None:
-        pairs = [(xp, wp.double())]
-    else:
-        x_hi, x_lo = (v.double() for v in tf32_split(F.pad(x, (0, 0, pad, pad))))
-        w_hi, w_lo = (v.double() for v in tf32_split(wp))
-        pairs = [(x_hi, w_hi)]
-        if products == "3xtf32":
-            pairs = [(x_lo, w_hi), (x_hi, w_lo)] + pairs
-        elif products != "tf32":
-            raise ValueError(f"products: '3xtf32', 'tf32' or None, got {products!r}")
     out = b.double().expand(x.shape[0], length, -1).clone()
     for xa, wa in pairs:
         for tau in range(k):
             s = tau * dilation
-            out += xa[:, s:s + length] @ wa[tau].t()
+            out += xa[:, s:s + length] @ wa[:, :, tau].t()
     return out
 
 
@@ -129,9 +138,10 @@ def _check_weights(rb_weights, kernel_sizes, dilations, c, device):
         if len(rbw) != 2 * n_dil:
             raise ValueError("resblock_group: two convs per dilation")
         for w, b in rbw:
-            kernels.check_cuda_input(w, "resblock weight", 3)
+            kernels.check_cuda_input(w, "resblock weight", 7)
             kernels.check_cuda_input(b, "resblock bias", 1)
-            if tuple(w.shape) != (k, c, c) or tuple(b.shape) != (c,):
+            if (tuple(w.shape) != (2, k, c // 8, c // 8, 2, 8, 4)
+                    or tuple(b.shape) != (c,)):
                 raise ValueError(f"resblock_group: packed weight "
                                  f"{tuple(w.shape)} / bias {tuple(b.shape)} "
                                  f"for C={c}, k={k}")

@@ -14,7 +14,8 @@ from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
                                                   pack_conv_weight,
                                                   resblock_group,
                                                   resblock_group_plain,
-                                                  tf32_split)
+                                                  tf32_split,
+                                                  unpack_conv_weight)
 
 KS = (3, 7, 11)
 DS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
@@ -61,15 +62,20 @@ def _stage_slice(seed, c=128, length=300, k=11):
     return F.leaky_relu(x, 0.1), w, b
 
 
+def _conv1d_f64(x, w, b, d):
+    k = w.shape[-1]
+    return F.conv1d(x.transpose(1, 2).double(), w.double(), b.double(),
+                    padding=(k - 1) * d // 2, dilation=d).transpose(1, 2)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_three_products_keep_f32_accuracy(seed):
     """One C = 128, k = 11, d = 5 conv of a stage slice from split operands
     (3 products, float64 sums) stays within 1e-6 x max|out| of the float64
     conv: the dropped lo*lo term and lo's rounding are ~2^-22 a product."""
     x, w, b = _stage_slice(seed)
-    wp = pack_conv_weight(w)
-    exact = conv_packed_plain(x, wp, b, 5)
-    split = conv_packed_plain(x, wp, b, 5, products="3xtf32")
+    exact = _conv1d_f64(x, w, b, 5)
+    split = conv_packed_plain(x, pack_conv_weight(w), b, 5)
     assert float((split - exact).abs().max() / exact.abs().max()) <= 1e-6
 
 
@@ -77,29 +83,37 @@ def test_one_tf32_product_misses_the_kernel_tolerance():
     """One TF32 pass (hi*hi) lands near 1e-3 x max|out|: it cannot meet the
     1e-4 the kernels are held to, hence three products."""
     x, w, b = _stage_slice(2)
-    wp = pack_conv_weight(w)
-    exact = conv_packed_plain(x, wp, b, 5)
-    one = conv_packed_plain(x, wp, b, 5, products="tf32")
+    exact = _conv1d_f64(x, w, b, 5)
+    one = conv_packed_plain(x, pack_conv_weight(w), b, 5, products="tf32")
     assert float((one - exact).abs().max() / exact.abs().max()) > 1e-4
 
 
 @pytest.mark.parametrize("c,k,d,length", [(16, 3, 1, 40), (32, 7, 3, 57),
                                           (64, 11, 5, 23), (48, 5, 2, 9)])
 def test_packed_weights_give_back_conv1d(c, k, d, length):
-    """(C_out, C_in, k) -> (k, C_out, C_in), summed tap by tap over shifted
-    rows with zeros outside the utterance, is F.conv1d's 'same' conv (the
-    shortest length is below the halo)."""
+    """The packed planes are the weight's TF32 split in the wgmma tile
+    layout: element (co, ci, tau) sits at [tau, ci // 8, co // 8,
+    ci % 8 // 4, co % 8, ci % 4]; unpacked, hi + lo is the weight to 2^-21,
+    and the conv summed tap by tap over shifted rows with zeros outside the
+    utterance is F.conv1d's 'same' conv (the shortest length is below the
+    halo)."""
     rng = np.random.default_rng(c + k)
     x = torch.from_numpy(rng.standard_normal((2, length, c)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((c, c, k)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((c,)).astype(np.float32))
     wp = pack_conv_weight(w)
-    assert wp.shape == (k, c, c) and wp.is_contiguous()
-    assert torch.equal(wp[:, 3, :], w[3].t())
-    want = F.conv1d(x.transpose(1, 2).double(), w.double(), b.double(),
-                    padding=(k - 1) * d // 2, dilation=d).transpose(1, 2)
+    assert wp.shape == (2, k, c // 8, c // 8, 2, 8, 4) and wp.is_contiguous()
+    hi, lo = tf32_split(w)
+    co, ci, tau = c - 3, c // 2 + 5, k - 1
+    at = (tau, ci // 8, co // 8, ci % 8 // 4, co % 8, ci % 4)
+    assert wp[0][at] == hi[co, ci, tau] and wp[1][at] == lo[co, ci, tau]
+    got_hi, got_lo = unpack_conv_weight(wp)
+    assert torch.equal(got_hi, hi) and torch.equal(got_lo, lo)
+    err = (got_hi.double() + got_lo.double() - w.double()).abs()
+    assert bool((err <= 2.0 ** -21 * w.double().abs()).all())
+    want = _conv1d_f64(x, w, b, d)
     got = conv_packed_plain(x, wp, b, d)
-    assert float((got - want).abs().max()) <= 1e-9 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 def _torch_rb_weights(rng, c):
@@ -120,7 +134,7 @@ def test_packed_stage_takes_the_plain_path_on_the_cpu():
     tw = _torch_rb_weights(rng, 16)
     packed = PackedResblocks(tw)
     assert packed.torch_weights[1][2][0] is tw[1][2][0]
-    assert [wp.shape for wp, _ in packed.packed[2]] == [(11, 16, 16)] * 6
+    assert [wp.shape for wp, _ in packed.packed[2]] == [(2, 11, 2, 2, 2, 8, 4)] * 6
     x = torch.from_numpy(rng.standard_normal((2, 50, 16)).astype(np.float32))
     resblock_group.launches = 0
     assert torch.equal(resblock_group(x, packed, KS, DS),
