@@ -17,27 +17,30 @@
 //
 // Design: each conv is an implicit GEMM on the tensor cores, M = a tile of
 // output time rows, N = output channels, K = input channels x taps, where
-// tap tau reads the input rows shifted by tau * dilation. A block is one
-// warpgroup that owns BM rows (two or four m64 tiles) x BN channels and
-// walks the input channels eight at a time through a two-stage cp.async
-// ring: each stage holds BM + (k-1)*d input rows of eight channels (the
-// halo comes in the same copy; cp.async's zero fill gives the rows outside
-// the utterance) and the eight channels' k B tiles. The weights were split
-// into TF32 hi and lo planes and packed once per model as wgmma's K-major
-// core matrices, so a B tile is one contiguous copy that wgmma reads from
-// shared memory by descriptor. Once a stage has landed, the block applies
-// leaky_relu to the staged input and splits it into a hi and a lo plane,
-// once per element (each serves all k taps); per tap, one ldmatrix.x4 per
-// plane loads each warp's A fragment into registers, and wgmma
-// m64nBNk8 takes lo*hi, hi*lo, then hi*hi. Issue slots are what the
-// mma.sync version ran out of (splits, fragment loads and 48 HMMA per tap
-// and warp); a wgmma instruction does 64 x BN x 8 products for one issue.
-// The epilogue adds the bias and, optionally, the residual; the last conv
-// of each chain adds the previous chains' sum and the last chain applies
-// the 1/n_rb of the mean, so no sum is finished outside the kernels. The
-// running sum alternates between two buffers: read and written in place
-// by one launch it cost ~0.18 ms more per launch at C = 128
-// (tools/kernel_ab.py on an H100). A stage is 18 launches.
+// tap tau reads the input rows shifted by tau * dilation. A block is two
+// warpgroups that own BM = 256 rows (128 at the C = 256 stage, which has
+// too few rows to fill the card otherwise) x BN channels and walk the
+// input channels eight at a time through a two-stage cp.async ring: each
+// stage holds BM + (k-1)*d input rows of eight channels (the halo comes in
+// the same copy; cp.async's zero fill gives the rows outside the
+// utterance) and the eight channels' k B tiles, which the wrapper packed
+// once per model as wgmma's K-major core matrices, so a tile is one
+// contiguous copy. Once a stage has landed, the block splits every staged
+// element into a TF32 hi and lo plane once (the input through leaky_relu
+// first): each input value then serves all k taps and each weight all BM
+// rows. Per tap, one ldmatrix.x4 per plane loads each warp's A fragment
+// into registers, and wgmma m64nBNk8 takes lo*hi, hi*lo, then hi*hi with B
+// read from shared memory by descriptor. What the design fights: issue
+// slots (the mma.sync version spent ~55 instructions per 48 HMMA on splits
+// and fragment loads; a wgmma does 64 x BN x 8 products for one issue) and
+// the weights' L2 traffic (every block reads all of its BN columns'
+// weights, so rows per block set how often they are read). The epilogue
+// adds the bias and, optionally, the residual; the last conv of each chain
+// adds the previous chains' sum and the last chain applies the 1/n_rb of
+// the mean, so no sum is finished outside the kernels. The running sum
+// alternates between two buffers: read and written in place by one launch
+// it cost ~0.18 ms more per launch at C = 128 (tools/kernel_ab.py on an
+// H100). A stage is 18 launches.
 //
 // Why not one launch per chain at C <= 64 (a time tile plus the chain's
 // 60-row halo kept on the SM): the two activation tiles of 248 rows x 64
@@ -53,9 +56,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // one warpgroup
-constexpr int KC = 8;          // input channels per ring stage: one k8 step
-constexpr int kStride = 8;     // words per staged input row of 8 channels
+constexpr int kWarpgroups = 2;
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr int KC = 8;       // input channels per ring stage: one k8 step
+constexpr int kStride = 8;  // words per staged input row of 8 channels
 constexpr float kSlope = 0.1f;
 
 // word offset of 16-byte half h of staged input row r: the halves of rows
@@ -65,40 +69,63 @@ __device__ __forceinline__ int swz(int r, int h) {
   return r * kStride + 4 * (h ^ ((r >> 2) & 1));
 }
 
-template <int BN>
+// BN output channels x BM rows per block; each warpgroup owns MT m64 tiles
+template <int BN, int MT>
 struct ConvTile {
-  static constexpr int MT = BN >= 64 ? 2 : 4;  // m64 tiles per block
-  static constexpr int BM = 64 * MT;
-  static constexpr int NACC = BN / 2;  // accumulators per thread per tile
-  static constexpr int B_WORDS = BN * KC;  // one tap's B tile, one plane
+  static constexpr int BM = kWarpgroups * MT * 64;
+  static constexpr int NACC = BN / 2;      // accumulators per thread per tile
+  static constexpr int B_WORDS = BN * KC;  // one tap's B tile
 };
 
-// one ring stage: B hi and lo planes [k][BN / 8][2][8][4] (the layout the
-// wgmma descriptor names), then the input's hi plane (the raw input lands
-// here) and lo plane, [rows_in][kStride] each
+// one ring stage: the k B tiles, hi plane (the raw weights land here) and
+// lo plane, [k][BN / 8][2][8][4] each (the layout the wgmma descriptor
+// names), then the input's hi plane (the raw input lands here) and lo
+// plane, [rows_in][kStride] each
 __host__ __device__ constexpr int stage_words(int rows_in, int k, int bn) {
   return 2 * k * bn * KC + 2 * rows_in * kStride;
 }
 
-template <int BN>
+// leaky_relu (when asked) and the hi/lo split of four staged values:
+// hi in place, lo at the same offset of the lo plane
+__device__ __forceinline__ void split4(float* hi_p, float* lo_p, bool leaky) {
+  float4 v = *reinterpret_cast<const float4*>(hi_p);
+  if (leaky)
+    v = make_float4(fmaxf(v.x, kSlope * v.x), fmaxf(v.y, kSlope * v.y),
+                    fmaxf(v.z, kSlope * v.z), fmaxf(v.w, kSlope * v.w));
+  uint32_t hi[4], lo[4];
+  split_tf32(v.x, hi[0], lo[0]);
+  split_tf32(v.y, hi[1], lo[1]);
+  split_tf32(v.z, hi[2], lo[2]);
+  split_tf32(v.w, hi[3], lo[3]);
+  *reinterpret_cast<float4*>(hi_p) =
+      make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                  __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+  *reinterpret_cast<float4*>(lo_p) =
+      make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                  __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+}
+
+template <int BN, int MT>
 __global__ void __launch_bounds__(kThreads)
 resblock_conv_tc_kernel(const float* __restrict__ x,
                         const float* __restrict__ wp,
                         const float* __restrict__ bias, const float* res,
                         float* out, int length, int channels, int k,
                         int dilation, float scale, const float* acc_in) {
-  using T = ConvTile<BN>;
+  using T = ConvTile<BN, MT>;
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned base
   float* smem = reinterpret_cast<float*>(smem4);
   const int halo = (k - 1) * dilation;
   const int pad = halo / 2;
   const int rows_in = T::BM + halo;
   const int stage_floats = stage_words(rows_in, k, BN);
+  const int b_words = k * T::B_WORDS;  // one plane of a stage's B tiles
   const int n_chunks = channels / KC;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int warp = (tid >> 5) & 3;  // within its warpgroup
+  const int row0 = (tid >> 7) * MT * 64 + 16 * warp;  // this warp's first row
   const int g = lane >> 2;
   const int q = lane & 3;
   const int t0 = blockIdx.x * T::BM;
@@ -107,11 +134,11 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
   const float* xb = x + (size_t)b * length * channels;
 
   // input rows t0 - pad .. t0 + BM + pad of channels ci0 .. ci0 + 7 (zeros
-  // outside the utterance) into the hi plane, and the k B tiles of both
-  // planes: wp is [2][k][C / 8][C / 8][2][8][4], so a tile is contiguous
+  // outside the utterance) and the k B tiles, raw, into the hi planes:
+  // wp is [k][C / 8][C / 8][2][8][4], so a tile is contiguous
   auto stage = [&](int chunk, int buf) {
     float* w_s = smem + buf * stage_floats;
-    float* hi_s = w_s + 2 * k * T::B_WORDS;
+    float* x_s = w_s + 2 * b_words;
     const int ci0 = chunk * KC;
     for (int i = tid; i < rows_in * 2; i += kThreads) {
       const int r = i >> 1;
@@ -119,27 +146,28 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
       const int t = t0 - pad + r;
       const bool ok = t >= 0 && t < length;
       const float* src = ok ? xb + (size_t)t * channels + ci0 + 4 * half : xb;
-      cp_async16(hi_s + swz(r, half), src, ok);
+      cp_async16(x_s + swz(r, half), src, ok);
     }
     constexpr int kVec = T::B_WORDS / 4;
-    for (int i = tid; i < 2 * k * kVec; i += kThreads) {
-      const int tile = i / kVec;  // plane * k + tau
-      const int v = i - tile * kVec;
-      const size_t src = (((size_t)tile * n_chunks + chunk) * channels + co0) *
-                             KC + 4 * v;
-      cp_async16(w_s + tile * T::B_WORDS + 4 * v, wp + src, true);
+    for (int i = tid; i < k * kVec; i += kThreads) {
+      const int tau = i / kVec;
+      const int v = i - tau * kVec;
+      const size_t src =
+          (((size_t)tau * n_chunks + chunk) * channels + co0) * KC + 4 * v;
+      cp_async16(w_s + tau * T::B_WORDS + 4 * v, wp + src, true);
     }
   };
 
-  float acc[T::MT][T::NACC];
+  float acc[MT][T::NACC];
 #pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i = 0; i < T::NACC; ++i) acc[mt][i] = 0.0f;
 
-  // ldmatrix row addresses of the A fragment (warp w: rows 16w..16w+15 of
-  // each m64 tile): quarter j = lane / 8 is rows + 8 * (j & 1), half j >> 1
-  const int a_row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  // ldmatrix row addresses of the A fragment (warp w of a warpgroup: rows
+  // 16w..16w+15 of each m64 tile): quarter j = lane / 8 is rows
+  // + 8 * (j & 1), half j >> 1
+  const int a_row = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_half = lane >> 4;
 
   stage(0, 0);
@@ -152,68 +180,56 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
     } else {
       cp_async_wait<0>();
     }
-    fence_proxy_async();  // the B tiles are read by wgmma
     __syncthreads();
-    const float* wb_s = smem + (ch & 1) * stage_floats;
-    float* hi_s = const_cast<float*>(wb_s) + 2 * k * T::B_WORDS;
-    float* lo_s = hi_s + rows_in * kStride;
-    // leaky_relu and the hi/lo split, once per staged element (each serves
-    // all k taps and every m64 tile): a thread owns a row
-    for (int r = tid; r < rows_in; r += kThreads) {
-      float4* hrow = reinterpret_cast<float4*>(hi_s + r * kStride);
-      float4* lrow = reinterpret_cast<float4*>(lo_s + r * kStride);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 v = hrow[h];
-        const float e[4] = {fmaxf(v.x, kSlope * v.x), fmaxf(v.y, kSlope * v.y),
-                            fmaxf(v.z, kSlope * v.z), fmaxf(v.w, kSlope * v.w)};
-        uint32_t hi[4], lo[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(e[i], hi[i], lo[i]);
-        hrow[h] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
-                              __uint_as_float(hi[2]), __uint_as_float(hi[3]));
-        lrow[h] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
-                              __uint_as_float(lo[2]), __uint_as_float(lo[3]));
-      }
-    }
+    float* bh_s = smem + (ch & 1) * stage_floats;
+    float* bl_s = bh_s + b_words;
+    float* xh_s = bl_s + b_words;
+    float* xl_s = xh_s + rows_in * kStride;
+    // the hi/lo split once per staged element (each input value serves all
+    // k taps and every m64 tile, each weight every row of the block), the
+    // input through leaky_relu first
+    for (int i = tid; i < b_words / 4; i += kThreads)
+      split4(bh_s + 4 * i, bl_s + 4 * i, false);
+    for (int i = tid; i < rows_in * 2; i += kThreads)
+      split4(xh_s + 4 * i, xl_s + 4 * i, true);
+    fence_proxy_async();  // the B planes are read by wgmma
     __syncthreads();
     for (int tau = 0; tau < k; ++tau) {
       // output row i of the tile reads staged input row i + tau * dilation
-      uint32_t a_hi[T::MT][4], a_lo[T::MT][4];
+      uint32_t a_hi[MT][4], a_lo[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         const int off = swz(a_row + tau * dilation + 64 * mt, a_half);
-        ldmatrix_x4(a_hi[mt], hi_s + off);
-        ldmatrix_x4(a_lo[mt], lo_s + off);
+        ldmatrix_x4(a_hi[mt], xh_s + off);
+        ldmatrix_x4(a_lo[mt], xl_s + off);
       }
       // core matrices of 8 n-rows x 4 k-words: 128 bytes apart along K,
       // 256 bytes apart along N
-      const uint64_t b_hi = wgmma_desc(wb_s + tau * T::B_WORDS, 128, 256);
-      const uint64_t b_lo =
-          wgmma_desc(wb_s + (k + tau) * T::B_WORDS, 128, 256);
+      const uint64_t b_hi = wgmma_desc(bh_s + tau * T::B_WORDS, 128, 256);
+      const uint64_t b_lo = wgmma_desc(bl_s + tau * T::B_WORDS, 128, 256);
 #pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) wgmma_fence_operand(acc[mt]);
+      for (int mt = 0; mt < MT; ++mt) wgmma_fence_operand(acc[mt]);
       wgmma_fence();
       // the small cross terms first, then hi * hi
 #pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) wgmma_tf32<BN>(acc[mt], a_lo[mt], b_hi);
+      for (int mt = 0; mt < MT; ++mt) wgmma_tf32<BN>(acc[mt], a_lo[mt], b_hi);
 #pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) wgmma_tf32<BN>(acc[mt], a_hi[mt], b_lo);
+      for (int mt = 0; mt < MT; ++mt) wgmma_tf32<BN>(acc[mt], a_hi[mt], b_lo);
 #pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) wgmma_tf32<BN>(acc[mt], a_hi[mt], b_hi);
+      for (int mt = 0; mt < MT; ++mt) wgmma_tf32<BN>(acc[mt], a_hi[mt], b_hi);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) wgmma_fence_operand(acc[mt]);
+      for (int mt = 0; mt < MT; ++mt) wgmma_fence_operand(acc[mt]);
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int t = t0 + 64 * mt + 16 * warp + g + 8 * half;
+      const int t = t0 + row0 + 64 * mt + g + 8 * half;
       if (t >= length) continue;
       const size_t row = ((size_t)b * length + t) * channels;
 #pragma unroll
@@ -239,25 +255,47 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
   }
 }
 
-template <int BN>
+template <int BN, int MT>
 int launch_conv(const float* x, const float* wp, const float* bias,
                 const float* res, float* out, int batch, int length,
                 int channels, int k, int dilation, float scale,
                 const float* acc_in, cudaStream_t stream) {
-  using T = ConvTile<BN>;
+  using T = ConvTile<BN, MT>;
   const int rows_in = T::BM + (k - 1) * dilation;
   const size_t smem = 2 * (size_t)stage_words(rows_in, k, BN) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        resblock_conv_tc_kernel<BN>,
+        resblock_conv_tc_kernel<BN, MT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((length + T::BM - 1) / T::BM, channels / BN, batch);
-  resblock_conv_tc_kernel<BN><<<grid, kThreads, smem, stream>>>(
+  resblock_conv_tc_kernel<BN, MT><<<grid, kThreads, smem, stream>>>(
       x, wp, bias, res, out, length, channels, k, dilation, scale, acc_in);
   DDSP_CHECK_LAUNCH();
   return 0;
+}
+
+// Blocks of 256 rows, which halve the weights each block reads per row
+// against 128, unless that leaves fewer than two blocks per SM (the
+// C = 256 stage: 6,896 rows).
+template <int BN>
+int launch_conv_rows(const float* x, const float* wp, const float* bias,
+                     const float* res, float* out, int batch, int length,
+                     int channels, int k, int dilation, float scale,
+                     const float* acc_in, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks256 =
+      (long long)((length + 255) / 256) * (channels / BN) * batch;
+  if (blocks256 >= 2LL * sms)
+    return launch_conv<BN, 2>(x, wp, bias, res, out, batch, length, channels,
+                              k, dilation, scale, acc_in, stream);
+  return launch_conv<BN, 1>(x, wp, bias, res, out, batch, length, channels, k,
+                            dilation, scale, acc_in, stream);
 }
 
 int launch_conv_any(const float* x, const float* wp, const float* bias,
@@ -265,13 +303,13 @@ int launch_conv_any(const float* x, const float* wp, const float* bias,
                     int channels, int k, int dilation, float scale,
                     const float* acc_in, cudaStream_t stream) {
   if (channels % 64 == 0)
-    return launch_conv<64>(x, wp, bias, res, out, batch, length, channels, k,
-                           dilation, scale, acc_in, stream);
+    return launch_conv_rows<64>(x, wp, bias, res, out, batch, length,
+                                channels, k, dilation, scale, acc_in, stream);
   if (channels % 32 == 0)
-    return launch_conv<32>(x, wp, bias, res, out, batch, length, channels, k,
-                           dilation, scale, acc_in, stream);
-  return launch_conv<16>(x, wp, bias, res, out, batch, length, channels, k,
-                         dilation, scale, acc_in, stream);
+    return launch_conv_rows<32>(x, wp, bias, res, out, batch, length,
+                                channels, k, dilation, scale, acc_in, stream);
+  return launch_conv_rows<16>(x, wp, bias, res, out, batch, length, channels,
+                              k, dilation, scale, acc_in, stream);
 }
 
 }  // namespace
