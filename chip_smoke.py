@@ -176,7 +176,8 @@ def _opcode(text: str) -> str:
 def tensor_core_insns(sass: str) -> tuple[dict, dict]:
     """({(kernel id, symbol): [HMMA/HGMMA instructions per instantiation]},
     {(kernel id, symbol): opcode counts of the innermost loop that holds
-    HMMAs, in the instantiation with the most of them})."""
+    tensor-core instructions, in the instantiation with the most of
+    them})."""
     funcs = {key: [] for key in TC_KERNELS}
     current = None
     for line in sass.splitlines():
@@ -206,7 +207,10 @@ def tensor_core_insns(sass: str) -> tuple[dict, dict]:
             for a, t in f:
                 if head <= a <= tail:
                     hist[_opcode(t)] = hist.get(_opcode(t), 0) + 1
-            if hist.get("HMMA", 0) > best.get("HMMA", 0):
+            def n_mma(h):
+                return h.get("HMMA", 0) + h.get("HGMMA", 0)
+
+            if n_mma(hist) > n_mma(best):
                 best = hist
         loops[key] = best
     return counts, loops
@@ -273,7 +277,8 @@ def phase_build() -> float:
         hist = sorted(tc_opcodes[(kid, symbol)].items(), key=lambda kv: -kv[1])
         log(f"[build] {kid} {symbol}: {per_inst} HMMA/HGMMA instructions in "
             f"the SASS of its {len(per_inst)} instantiations (tensor cores); "
-            f"its innermost HMMA loop: {sum(n for _, n in hist)} instructions, "
+            f"its innermost tensor-core loop: {sum(n for _, n in hist)} "
+            f"instructions, "
             + ", ".join(f"{op} {n}" for op, n in hist[:14]))
     n_insn, n_ops = k4_ops_per_pair(sass)
     log(f"[build] K4 harmonic loop (SASS, fast path): {n_insn:.2f} f32 "

@@ -23,18 +23,20 @@
 // input channels eight at a time through a two-stage cp.async ring: each
 // stage holds BM + (k-1)*d input rows of eight channels (the halo comes in
 // the same copy; cp.async's zero fill gives the rows outside the
-// utterance) and the eight channels' k B tiles, which the wrapper packed
-// once per model as wgmma's K-major core matrices, so a tile is one
-// contiguous copy. Once a stage has landed, the block splits every staged
-// element into a TF32 hi and lo plane once (the input through leaky_relu
-// first): each input value then serves all k taps and each weight all BM
-// rows. Per tap, one ldmatrix.x4 per plane loads each warp's A fragment
+// utterance) and the eight channels' k B tiles in a TF32 hi and a lo
+// plane, which the wrapper split and packed once per model as wgmma's
+// K-major core matrices, so a tile is one contiguous copy. Once a stage has
+// landed, the block applies leaky_relu to the staged input and splits it
+// into a hi and a lo plane, once per element: each input value then serves
+// all k taps. Per tap, one ldmatrix.x4 per plane loads each warp's A fragment
 // into registers, and wgmma m64nBNk8 takes lo*hi, hi*lo, then hi*hi with B
 // read from shared memory by descriptor. What the design fights: issue
 // slots (the mma.sync version spent ~55 instructions per 48 HMMA on splits
 // and fragment loads; a wgmma does 64 x BN x 8 products for one issue) and
 // the weights' L2 traffic (every block reads all of its BN columns'
-// weights, so rows per block set how often they are read). The epilogue
+// weights, so rows per block set how often they are read; splitting them
+// in shared memory instead, which halves that traffic, measured slower
+// for the exposed split pass). The epilogue
 // adds the bias and, optionally, the residual; the last conv of each chain
 // adds the previous chains' sum and the last chain applies the 1/n_rb of
 // the mean, so no sum is finished outside the kernels. The running sum
@@ -77,21 +79,19 @@ struct ConvTile {
   static constexpr int B_WORDS = BN * KC;  // one tap's B tile
 };
 
-// one ring stage: the k B tiles, hi plane (the raw weights land here) and
-// lo plane, [k][BN / 8][2][8][4] each (the layout the wgmma descriptor
-// names), then the input's hi plane (the raw input lands here) and lo
-// plane, [rows_in][kStride] each
+// one ring stage: the k B tiles, hi plane and lo plane, [k][BN / 8][2][8][4]
+// each (the layout the wgmma descriptor names), then the input's hi plane
+// (the raw input lands here) and lo plane, [rows_in][kStride] each
 __host__ __device__ constexpr int stage_words(int rows_in, int k, int bn) {
   return 2 * k * bn * KC + 2 * rows_in * kStride;
 }
 
-// leaky_relu (when asked) and the hi/lo split of four staged values:
-// hi in place, lo at the same offset of the lo plane
-__device__ __forceinline__ void split4(float* hi_p, float* lo_p, bool leaky) {
+// leaky_relu and the hi/lo split of four staged input values: hi in place,
+// lo at the same offset of the lo plane
+__device__ __forceinline__ void leaky_split4(float* hi_p, float* lo_p) {
   float4 v = *reinterpret_cast<const float4*>(hi_p);
-  if (leaky)
-    v = make_float4(fmaxf(v.x, kSlope * v.x), fmaxf(v.y, kSlope * v.y),
-                    fmaxf(v.z, kSlope * v.z), fmaxf(v.w, kSlope * v.w));
+  v = make_float4(fmaxf(v.x, kSlope * v.x), fmaxf(v.y, kSlope * v.y),
+                  fmaxf(v.z, kSlope * v.z), fmaxf(v.w, kSlope * v.w));
   uint32_t hi[4], lo[4];
   split_tf32(v.x, hi[0], lo[0]);
   split_tf32(v.y, hi[1], lo[1]);
@@ -134,8 +134,8 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
   const float* xb = x + (size_t)b * length * channels;
 
   // input rows t0 - pad .. t0 + BM + pad of channels ci0 .. ci0 + 7 (zeros
-  // outside the utterance) and the k B tiles, raw, into the hi planes:
-  // wp is [k][C / 8][C / 8][2][8][4], so a tile is contiguous
+  // outside the utterance) into the input's hi plane, and the 2k B tiles:
+  // wp is [2][k][C / 8][C / 8][2][8][4], so a tile is contiguous
   auto stage = [&](int chunk, int buf) {
     float* w_s = smem + buf * stage_floats;
     float* x_s = w_s + 2 * b_words;
@@ -149,12 +149,12 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
       cp_async16(x_s + swz(r, half), src, ok);
     }
     constexpr int kVec = T::B_WORDS / 4;
-    for (int i = tid; i < k * kVec; i += kThreads) {
-      const int tau = i / kVec;
-      const int v = i - tau * kVec;
+    for (int i = tid; i < 2 * k * kVec; i += kThreads) {
+      const int tile = i / kVec;  // plane * k + tau
+      const int v = i - tile * kVec;
       const size_t src =
-          (((size_t)tau * n_chunks + chunk) * channels + co0) * KC + 4 * v;
-      cp_async16(w_s + tau * T::B_WORDS + 4 * v, wp + src, true);
+          (((size_t)tile * n_chunks + chunk) * channels + co0) * KC + 4 * v;
+      cp_async16(w_s + tile * T::B_WORDS + 4 * v, wp + src, true);
     }
   };
 
@@ -185,13 +185,10 @@ resblock_conv_tc_kernel(const float* __restrict__ x,
     float* bl_s = bh_s + b_words;
     float* xh_s = bl_s + b_words;
     float* xl_s = xh_s + rows_in * kStride;
-    // the hi/lo split once per staged element (each input value serves all
-    // k taps and every m64 tile, each weight every row of the block), the
-    // input through leaky_relu first
-    for (int i = tid; i < b_words / 4; i += kThreads)
-      split4(bh_s + 4 * i, bl_s + 4 * i, false);
+    // leaky_relu and the hi/lo split once per staged input element (each
+    // serves all k taps and every m64 tile)
     for (int i = tid; i < rows_in * 2; i += kThreads)
-      split4(xh_s + 4 * i, xl_s + 4 * i, true);
+      leaky_split4(xh_s + 4 * i, xl_s + 4 * i);
     fence_proxy_async();  // the B planes are read by wgmma
     __syncthreads();
     for (int tau = 0; tau < k; ++tau) {

@@ -6,9 +6,10 @@ Weights are in the torch Conv1d layout: per resblock, the six folded
 (weight (C, C, k), bias (C,)) pairs in chain order (convs1_0, convs2_0,
 convs1_1, ...). Activations are feature-last (B, L, C), as in JAX.
 
-The kernel reads each conv weight packed as wgmma B tiles
-(``pack_conv_weight``, ``PackedResblocks``). A caller that serves many requests packs once
-per model and passes the ``PackedResblocks`` in place of the nested list
+The kernel reads each conv weight split into TF32 hi and lo planes and
+packed as wgmma B tiles (``pack_conv_weight``, ``PackedResblocks``). A
+caller that serves many requests packs once per model and passes the
+``PackedResblocks`` in place of the nested list
 (``models/nsf_hifigan.Generator`` does); a nested list is packed on every
 call. The kernel multiplies on the tensor cores in split TF32 at f32
 accuracy; ``tf32_split``, ``unpack_conv_weight`` and ``conv_packed_plain``
@@ -51,22 +52,28 @@ def resblock_group_plain(x, rb_weights, kernel_sizes, dilations):
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """Torch Conv1d weight (C_out, C_in, k) -> the kernel's B tiles,
-    (k, C_in / 8, C_out / 8, 2, 8, 4): for each tap and block of eight input
-    channels, each group of eight output channels is two 8 x 4 core matrices
-    (rows: output channels, words: four input channels), the K-major layout
-    that the kernel's wgmma descriptor names, contiguous so that it copies
-    in 16-byte runs."""
+    """Torch Conv1d weight (C_out, C_in, k) -> the kernel's split B tiles,
+    (2, k, C_in / 8, C_out / 8, 2, 8, 4): plane 0 holds tf32 hi, plane 1 tf32
+    lo (``tf32_split``); for each tap and block of eight input channels, each
+    group of eight output channels is two 8 x 4 core matrices (rows: output
+    channels, words: four input channels), the K-major layout that the
+    kernel's wgmma descriptor names, contiguous so that it copies in
+    16-byte runs."""
     c_out, c_in, k = w.shape
-    # w[co, ci, tau] with co = 8 ng + r and ci = 8 chunk + 4 kg + kk
-    v = w.detach().reshape(c_out // 8, 8, c_in // 8, 2, 4, k)
-    return v.permute(5, 2, 0, 3, 1, 4).contiguous()
+
+    def tiles(v):  # v[co, ci, tau], co = 8 ng + r, ci = 8 chunk + 4 kg + kk
+        v = v.reshape(c_out // 8, 8, c_in // 8, 2, 4, k)
+        return v.permute(5, 2, 0, 3, 1, 4)
+
+    return torch.stack([tiles(p) for p in tf32_split(w.detach())]).contiguous()
 
 
-def unpack_conv_weight(wp: torch.Tensor) -> torch.Tensor:
-    """``pack_conv_weight``'s tiles back in the torch layout (C_out, C_in, k)."""
-    k, n_ci, n_co = wp.shape[:3]
-    return wp.permute(2, 4, 1, 3, 5, 0).reshape(8 * n_co, 8 * n_ci, k)
+def unpack_conv_weight(wp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pack_conv_weight``'s planes back in the torch layout: (hi, lo), each
+    (C_out, C_in, k)."""
+    _, k, n_ci, n_co = wp.shape[:4]
+    return tuple(p.permute(2, 4, 1, 3, 5, 0).reshape(8 * n_co, 8 * n_ci, k)
+                 for p in wp)
 
 
 class PackedResblocks:
@@ -101,7 +108,7 @@ def conv_packed_plain(x, wp, b, dilation, products="3xtf32"):
     ``pack_conv_weight`` -> (B, L, C_out)."""
     if products not in ("3xtf32", "tf32"):
         raise ValueError(f"products: '3xtf32' or 'tf32', got {products!r}")
-    w_hi, w_lo = (v.double() for v in tf32_split(unpack_conv_weight(wp)))
+    w_hi, w_lo = (v.double() for v in unpack_conv_weight(wp))
     k = w_hi.shape[-1]
     pad = (k - 1) * dilation // 2
     x_hi, x_lo = (v.double() for v in tf32_split(F.pad(x, (0, 0, pad, pad))))
@@ -134,9 +141,9 @@ def _check_weights(rb_weights, kernel_sizes, dilations, c, device):
         if len(rbw) != 2 * n_dil:
             raise ValueError("resblock_group: two convs per dilation")
         for w, b in rbw:
-            kernels.check_cuda_input(w, "resblock weight", 6)
+            kernels.check_cuda_input(w, "resblock weight", 7)
             kernels.check_cuda_input(b, "resblock bias", 1)
-            if (tuple(w.shape) != (k, c // 8, c // 8, 2, 8, 4)
+            if (tuple(w.shape) != (2, k, c // 8, c // 8, 2, 8, 4)
                     or tuple(b.shape) != (c,)):
                 raise ValueError(f"resblock_group: packed weight "
                                  f"{tuple(w.shape)} / bias {tuple(b.shape)} "

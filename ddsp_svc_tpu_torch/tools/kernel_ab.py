@@ -97,6 +97,7 @@ def main(dirs: list[str]) -> None:
     if not dirs:
         sys.exit(__doc__)
     runs = {d: [] for d in dirs}
+    failed = False
     for d in dirs + dirs[::-1]:
         path = os.path.abspath(d)
         args = [sys.executable, "-c", CHILD, path] + (["launches"] if not runs[d] else [])
@@ -107,7 +108,10 @@ def main(dirs: list[str]) -> None:
                 print(d, line, flush=True)
         result = [line[7:] for line in lines if line.startswith("RESULT ")]
         if r.returncode != 0 or not result:
-            sys.exit(f"{d} failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+            print(f"{d} failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}",
+                  flush=True)
+            failed = True
+            continue
         runs[d].append(json.loads(result[0]))
     for d in dirs:
         for i, res in enumerate(runs[d]):
@@ -115,6 +119,8 @@ def main(dirs: list[str]) -> None:
             print(f"{d} run {i}: K2 five stages {k2:.3f} ms; " + "; ".join(
                 f"{name} {ms:.3f} ms (err {err:.1e})" for name, (ms, err) in res.items()),
                 flush=True)
+    if failed:
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -91,20 +91,26 @@ def test_one_tf32_product_misses_the_kernel_tolerance():
 @pytest.mark.parametrize("c,k,d,length", [(16, 3, 1, 40), (32, 7, 3, 57),
                                           (64, 11, 5, 23), (48, 5, 2, 9)])
 def test_packed_weights_give_back_conv1d(c, k, d, length):
-    """The packed weight is in the wgmma tile layout: element (co, ci, tau)
-    sits at [tau, ci // 8, co // 8, ci % 8 // 4, co % 8, ci % 4], and
-    unpacks to itself; the conv from its split, summed tap by tap over
-    shifted rows with zeros outside the utterance, is F.conv1d's 'same'
-    conv (the shortest length is below the halo)."""
+    """The packed planes are the weight's TF32 split in the wgmma tile
+    layout: element (co, ci, tau) sits at [tau, ci // 8, co // 8,
+    ci % 8 // 4, co % 8, ci % 4]; unpacked, hi + lo is the weight to 2^-21,
+    and the conv summed tap by tap over shifted rows with zeros outside the
+    utterance is F.conv1d's 'same' conv (the shortest length is below the
+    halo)."""
     rng = np.random.default_rng(c + k)
     x = torch.from_numpy(rng.standard_normal((2, length, c)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((c, c, k)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((c,)).astype(np.float32))
     wp = pack_conv_weight(w)
-    assert wp.shape == (k, c // 8, c // 8, 2, 8, 4) and wp.is_contiguous()
+    assert wp.shape == (2, k, c // 8, c // 8, 2, 8, 4) and wp.is_contiguous()
+    hi, lo = tf32_split(w)
     co, ci, tau = c - 3, c // 2 + 5, k - 1
-    assert wp[tau, ci // 8, co // 8, ci % 8 // 4, co % 8, ci % 4] == w[co, ci, tau]
-    assert torch.equal(unpack_conv_weight(wp), w)
+    at = (tau, ci // 8, co // 8, ci % 8 // 4, co % 8, ci % 4)
+    assert wp[0][at] == hi[co, ci, tau] and wp[1][at] == lo[co, ci, tau]
+    got_hi, got_lo = unpack_conv_weight(wp)
+    assert torch.equal(got_hi, hi) and torch.equal(got_lo, lo)
+    err = (got_hi.double() + got_lo.double() - w.double()).abs()
+    assert bool((err <= 2.0 ** -21 * w.double().abs()).all())
     want = _conv1d_f64(x, w, b, d)
     got = conv_packed_plain(x, wp, b, d)
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
@@ -128,7 +134,7 @@ def test_packed_stage_takes_the_plain_path_on_the_cpu():
     tw = _torch_rb_weights(rng, 16)
     packed = PackedResblocks(tw)
     assert packed.torch_weights[1][2][0] is tw[1][2][0]
-    assert [wp.shape for wp, _ in packed.packed[2]] == [(11, 2, 2, 2, 8, 4)] * 6
+    assert [wp.shape for wp, _ in packed.packed[2]] == [(2, 11, 2, 2, 2, 8, 4)] * 6
     x = torch.from_numpy(rng.standard_normal((2, 50, 16)).astype(np.float32))
     resblock_group.launches = 0
     assert torch.equal(resblock_group(x, packed, KS, DS),
