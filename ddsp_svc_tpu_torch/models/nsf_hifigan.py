@@ -104,8 +104,8 @@ class Generator(nn.Module):
 
     def stage_weights(self, i: int) -> PackedResblocks:
         """Stage ``i``'s resblock weights packed for K2, made once per model
-        and made again only when a weight is replaced or changed in place
-        (another tensor, device or version)."""
+        and made again only when a weight or bias is replaced or changed in
+        place (another tensor, device or version)."""
         n_k = len(self.kernel_sizes)
         rbw = [blk.chain_weights() for blk in self.resblocks[i * n_k:(i + 1) * n_k]]
         key = tuple((t.data_ptr(), t.device, t._version)
