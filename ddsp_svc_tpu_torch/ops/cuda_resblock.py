@@ -78,12 +78,20 @@ def unpack_conv_weight(wp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 class PackedResblocks:
     """A stage's resblock weights packed for the kernel, with the torch
-    layout kept (by reference) for the plain version and the checks."""
+    layout kept (by reference) for the plain version and the checks. The
+    packing is made on first use of ``packed``, which only the kernel path
+    reads, so the CPU path never packs (and takes any channel count)."""
 
     def __init__(self, rb_weights):
         self.torch_weights = [list(rbw) for rbw in rb_weights]
-        self.packed = [[(pack_conv_weight(w), b.detach().contiguous())
-                        for w, b in rbw] for rbw in self.torch_weights]
+        self._packed = None
+
+    @property
+    def packed(self):
+        if self._packed is None:
+            self._packed = [[(pack_conv_weight(w), b.detach().contiguous())
+                             for w, b in rbw] for rbw in self.torch_weights]
+        return self._packed
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

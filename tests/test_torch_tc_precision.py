@@ -142,6 +142,20 @@ def test_packed_stage_takes_the_plain_path_on_the_cpu():
     assert resblock_group.launches == 0
 
 
+def test_cpu_path_packs_nothing_and_takes_any_width():
+    """The kernel needs C a multiple of 16, the plain path does not: a
+    ``PackedResblocks`` of a C = 12 stage serves the CPU path without ever
+    being packed."""
+    rng = np.random.default_rng(4)
+    tw = _torch_rb_weights(rng, 12)
+    packed = PackedResblocks(tw)
+    x = torch.from_numpy(rng.standard_normal((1, 30, 12)).astype(np.float32))
+    assert torch.equal(resblock_group(x, packed, KS, DS),
+                       resblock_group_plain(x, tw, KS, DS))
+    with pytest.raises(RuntimeError):  # C = 12 has no 8 x 8 tiles
+        _ = packed.packed
+
+
 def test_generator_packs_each_stage_once_per_model():
     """The serving path packs K2's weights once: the same object on every
     later call, a new one only when a weight changes (in place, or on a new
