@@ -70,25 +70,41 @@ gemm_tc_kernel(const float* __restrict__ a, const float* __restrict__ w,
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
+  // this thread's copies: rows tid / 8 + 16 j of each tile, words
+  // 4 * (tid % 8) of each k-step; the sources are set up once and step by BK
+  constexpr int kVec = BK / 4;
+  constexpr int kRowStep = kThreads / kVec;
+  const int r0 = tid / kVec;
+  const int c4 = 4 * (tid % kVec);
+  const float* a_src[BM / kRowStep];
+  bool a_ok[BM / kRowStep];
+#pragma unroll
+  for (int j = 0; j < BM / kRowStep; ++j) {
+    const int m = m0 + r0 + kRowStep * j;
+    a_ok[j] = m < m_rows;
+    a_src[j] = a + (size_t)(a_ok[j] ? m : 0) * k_dim + c4;
+  }
+  const float* w_src[WR / kRowStep];
+  bool w_ok[WR / kRowStep];
+#pragma unroll
+  for (int j = 0; j < WR / kRowStep; ++j) {
+    const int r = r0 + kRowStep * j;  // value rows, then gate rows
+    const int n = n0 + r % BN;
+    w_ok[j] = n < n_out;
+    w_src[j] = w + ((size_t)(w_ok[j] ? n : 0) + (r / BN) * (size_t)n_out) *
+                       k_dim + c4;
+  }
   auto stage = [&](int kt, int buf) {
     const int k0 = kt * BK;
-    constexpr int kVec = BK / 4;
-    for (int i = tid; i < BM * kVec; i += kThreads) {
-      const int r = i / kVec;
-      const int kk = k0 + 4 * (i - r * kVec);
-      const bool ok = m0 + r < m_rows && kk < k_dim;
-      cp_async16(&a_s[buf][r * kStride + kk - k0],
-                 ok ? a + (size_t)(m0 + r) * k_dim + kk : a, ok);
-    }
-    for (int i = tid; i < WR * kVec; i += kThreads) {
-      const int r = i / kVec;
-      const int kk = k0 + 4 * (i - r * kVec);
-      const int n = n0 + (r % BN);
-      const bool ok = n < n_out && kk < k_dim;
-      const size_t row = (size_t)n + (r / BN) * (size_t)n_out;
-      cp_async16(&w_s[buf][r * kStride + kk - k0],
-                 ok ? w + row * k_dim + kk : w, ok);
-    }
+    const bool k_ok = k0 + c4 < k_dim;
+#pragma unroll
+    for (int j = 0; j < BM / kRowStep; ++j)
+      cp_async16(&a_s[buf][(r0 + kRowStep * j) * kStride + c4],
+                 a_ok[j] && k_ok ? a_src[j] + k0 : a, a_ok[j] && k_ok);
+#pragma unroll
+    for (int j = 0; j < WR / kRowStep; ++j)
+      cp_async16(&w_s[buf][(r0 + kRowStep * j) * kStride + c4],
+                 w_ok[j] && k_ok ? w_src[j] + k0 : w, w_ok[j] && k_ok);
   };
 
   float acc[kHalves][MT][NT][4];
