@@ -28,21 +28,21 @@
 // K-major core matrices, so a tile is one contiguous copy. Once a stage has
 // landed, the block applies leaky_relu to the staged input and splits it
 // into a hi and a lo plane, once per element: each input value then serves
-// all k taps. Per tap, one ldmatrix.x4 per plane loads each warp's A fragment
-// into registers, and wgmma m64nBNk8 takes lo*hi, hi*lo, then hi*hi with B
-// read from shared memory by descriptor. What the design fights: issue
-// slots (the mma.sync version spent ~55 instructions per 48 HMMA on splits
-// and fragment loads; a wgmma does 64 x BN x 8 products for one issue) and
-// the weights' L2 traffic (every block reads all of its BN columns'
-// weights, so rows per block set how often they are read; splitting them
-// in shared memory instead, which halves that traffic, measured slower
-// for the exposed split pass). The epilogue
-// adds the bias and, optionally, the residual; the last conv of each chain
-// adds the previous chains' sum and the last chain applies the 1/n_rb of
-// the mean, so no sum is finished outside the kernels. The running sum
-// alternates between two buffers: read and written in place by one launch
-// it cost ~0.18 ms more per launch at C = 128 (tools/kernel_ab.py on an
-// H100). A stage is 18 launches.
+// all k taps. Per tap, one ldmatrix.x4 per plane loads each warp's A
+// fragment into registers, and wgmma m64nBNk8 takes lo*hi, hi*lo, then
+// hi*hi with B read from shared memory by descriptor. What the design
+// fights: issue slots (the mma.sync version spent ~55 instructions per 48
+// HMMA on splits and fragment loads; a wgmma does 64 x BN x 8 products for
+// one issue) and the weights' L2 traffic (every block reads all of its BN
+// columns' weights, so rows per block set how often they are read;
+// splitting them in shared memory instead, which halves that traffic,
+// measured slower for the exposed split pass). The epilogue adds the bias
+// and, optionally, the residual; the last conv of each chain adds the
+// previous chains' sum and the last chain applies the 1/n_rb of the mean,
+// so no sum is finished outside the kernels. The running sum alternates
+// between two buffers: read and written in place by one launch it cost
+// ~0.18 ms more per launch at C = 128 (tools/kernel_ab.py on an H100). A
+// stage is 18 launches.
 //
 // Why not one launch per chain at C <= 64 (a time tile plus the chain's
 // 60-row halo kept on the SM): the two activation tiles of 248 rows x 64
