@@ -9,13 +9,17 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
   2. build the hand-written kernels from ddsp_svc_tpu_torch/csrc (one nvcc
      per source, started together), print nvcc's -Xptxas -v lines, count
      the tensor-core instructions (HMMA/HGMMA) in the SASS of K2's and K3's
-     kernels (none fails the run), and count K4's f32 instructions per
-     (sample, harmonic) pair in its SASS;
+     kernels (none fails the run), and print the opcode mix of K1's and
+     K4's kernels as compiled;
   3. each kernel against its plain PyTorch version on the card at the
      shapes of the 10 s request, with the tolerance stated, and its time
-     (CUDA events) beside the plain version's and the bound (K2 per stage
-     and K3 with both bounds: f32 FMA at 67 TFLOP/s and split TF32 at
-     494.7 / 3); K4 also at B = 2;
+     beside the plain version's and the bound (K2 per stage and K3 with
+     both bounds: f32 FMA at 67 TFLOP/s and split TF32 at 494.7 / 3). K2
+     and K3 are timed by CUDA events over back-to-back calls; K1 and K4,
+     whose calls are shorter than a host launch, by replaying 200 calls
+     captured in one CUDA graph, cross-checked by torch.profiler's device
+     time. K1 also at a ten-minute input, with the host wall and device
+     operations of one combtooth() call; K4 also at B = 2;
   4. the DiffusionFast path at configs/diffusion-fast.yaml widths (6 x 512
      trunk, k_step 100, DPM-Solver++ with speedup 10, the default
      NSF-HiFiGAN) with random weights from a seeded torch.Generator:
@@ -106,22 +110,6 @@ def snr_db(ref: np.ndarray, test: np.ndarray) -> float:
                              / max(err, 1e-30))
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls after a
-    warm-up (CUDA events)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_ms(n_bytes: float, n_flops: float,
              peak: float = PEAK_F32_FLOP_PER_S) -> tuple[float, str]:
     """The larger of bytes over the memory rate and flops over ``peak``."""
@@ -153,10 +141,6 @@ def phase_device(torch) -> tuple[str, str]:
 
 SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 SASS_BRANCH = re.compile(r"(@!?P\d+\s+)?BRA\s+(0x[0-9a-f]+)$")
-# f32 operations per instruction on the FP32 pipe (an FFMA is two)
-SASS_F32_OPS = {"FFMA": 2, "FMUL": 1, "FADD": 1, "FSEL": 1, "FSETP": 1,
-                "FMNMX": 1, "F2I": 1, "I2FP": 1, "I2F": 1, "FRND": 1,
-                "MUFU": 1, "FCHK": 1}
 
 
 def sass_text(lib_path, nvcc: str) -> str:
@@ -216,49 +200,22 @@ def tensor_core_insns(sass: str) -> tuple[dict, dict]:
     return counts, loops
 
 
-def k4_ops_per_pair(sass: str) -> tuple[float, float]:
-    """(f32 instructions, f32 operations) per (sample, harmonic) pair of K4
-    as compiled: the SASS of harmonic_bank_kernel's innermost loop (the one
-    holding the coefficients' LDS.128), walked along the fast path (a
-    predicated forward branch inside the loop skips sinf's reduction for
-    |x| >= 105615, which the bank never reaches), divided by the sinf
-    count in it (one multiply by 2/pi each)."""
-    insns, inside = [], False
+def function_opcodes(sass: str, symbol: str) -> dict:
+    """Opcode counts of the SASS of the functions named ``symbol``, as
+    compiled (static: a loop body counts once)."""
+    hist, inside = {}, False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "harmonic_bank_kernel" in line
+            inside = symbol in line
         elif inside and (m := SASS_INSN.search(line)):
-            insns.append((int(m.group(1), 16), m.group(2)))
-    addrs = [a for a, _ in insns]
-    lds = [a for a, t in insns if t.startswith("LDS.128")]
-    loops = []
-    for a, t in insns:
-        m = SASS_BRANCH.match(t)
-        if m and m.group(1) and any(int(m.group(2), 16) <= x <= a for x in lds):
-            loops.append((a - int(m.group(2), 16), int(m.group(2), 16), a))
-    if not loops:
-        fail("K4's SASS: no loop around the coefficient load found")
-    _, head, tail = min(loops)
-    i, n_sin, n_insn, n_ops = addrs.index(head), 0, 0, 0
-    while insns[i][0] <= tail:
-        a, t = insns[i]
-        m = SASS_BRANCH.match(t)
-        if m and a < int(m.group(2), 16) <= tail:
-            i = addrs.index(int(m.group(2), 16))
-            continue
-        op = (t.split()[1] if t.startswith("@") else t.split()[0]).split(".")[0]
-        if op in SASS_F32_OPS:
-            n_insn += 1
-            n_ops += SASS_F32_OPS[op]
-        n_sin += "0.63661974" in t
-        i += 1
-    if n_sin == 0:
-        fail("K4's SASS: no sinf found in the harmonic loop")
-    return n_insn / n_sin, n_ops / n_sin
+            op = _opcode(m.group(2))
+            hist[op] = hist.get(op, 0) + 1
+    if not hist:
+        fail(f"no SASS found for {symbol}")
+    return hist
 
 
-def phase_build() -> float:
-    """Build; returns K4's f32 operations per (sample, harmonic) pair."""
+def phase_build() -> None:
     from ddsp_svc_tpu_torch.ops import kernels
 
     info = kernels.build()
@@ -280,12 +237,10 @@ def phase_build() -> float:
             f"its innermost tensor-core loop: {sum(n for _, n in hist)} "
             f"instructions, "
             + ", ".join(f"{op} {n}" for op, n in hist[:14]))
-    n_insn, n_ops = k4_ops_per_pair(sass)
-    log(f"[build] K4 harmonic loop (SASS, fast path): {n_insn:.2f} f32 "
-        f"instructions = {n_ops:.2f} f32 operations (FFMA as 2) per "
-        f"(sample, harmonic) pair, the lerp, the product, sinf and the "
-        f"multiply-add included")
-    return n_ops
+    for kid, symbol in (("K1", "combtooth_kernel"), ("K4", "harmonic_bank_kernel")):
+        hist = sorted(function_opcodes(sass, symbol).items(), key=lambda kv: -kv[1])
+        log(f"[build] {kid} {symbol} as compiled: {sum(n for _, n in hist)} "
+            f"instructions, " + ", ".join(f"{op} {n}" for op, n in hist[:14]))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -295,52 +250,63 @@ def _rand(torch, gen, shape, scale=1.0):
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * scale
 
 
-def phase_kernels(torch, card: str, k4_ops: float) -> dict:
+def phase_kernels(torch, card: str) -> dict:
     """Kernel vs plain at the 10 s request's shapes. Returns per-kernel
     measurements (launches filled in by the serving phases)."""
-    from ddsp_svc_tpu_torch.ops import kernels
     from ddsp_svc_tpu_torch.ops.cuda_conformer import (conformer_layer,
                                                        conformer_layer_plain)
     from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
                                                       resblock_group,
                                                       resblock_group_plain)
     from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
-    from ddsp_svc_tpu_torch.ops.source import (_next_frame_delta,
-                                               carry_from_increments_q,
-                                               frame_phase_increments_q)
+    from ddsp_svc_tpu_torch.tools.timing import (cuda_ms, graph_ms,
+                                                 profiled_call, wall_ms)
 
     dev = torch.device("cuda")
-    lib = kernels.library()
     gen = torch.Generator().manual_seed(SEED)
     t = frames_for(10)
     results = {}
     problems = []  # every kernel is checked before the phase fails
 
-    # K1 combtooth: f0 (1, T, 1) -> (1, T * 512); tolerance 5e-5 absolute
+    # K1 combtooth: f0 (1, T, 1) -> samples (1, T * 512) within 5e-5 and
+    # phase_frames (1, T, 1) within 1e-6 rad of the plain version; at the
+    # 10 s request and at a ten-minute input
+    k1 = {}
+    for seconds in (10, 600):
+        frames = frames_for(seconds)
+        f0 = torch.from_numpy(f0_contour(frames)).to(dev)
+        got, got_phase = combtooth(f0, SR, BLOCK)
+        want, want_phase = combtooth_plain(f0, SR, BLOCK)
+        err = float((got - want).abs().max())
+        p_err = float((got_phase - want_phase).abs().max())
+        if not (err <= 5e-5 and p_err <= 1e-6):
+            problems.append(f"K1 combtooth T={frames}: max abs err {err:.3e} "
+                            f"(tol 5e-5), phase_frames {p_err:.3e} (tol 1e-6)")
+        call = lambda f0=f0: combtooth(f0, SR, BLOCK)  # noqa: E731
+        k1[seconds] = dict(frames=frames, err=err, p_err=p_err,
+                           graph=graph_ms(call, 200 if seconds == 10 else 20),
+                           prof=profiled_call(call, "combtooth_kernel"),
+                           wall=wall_ms(call))
+        del got, want, got_phase, want_phase
     f0 = torch.from_numpy(f0_contour(t)).to(dev)
-    got, got_phase = combtooth(f0, SR, BLOCK)
-    want, want_phase = combtooth_plain(f0, SR, BLOCK)
-    err = max(float((got - want).abs().max()),
-              float((got_phase - want_phase).abs().max()))
-    if not err <= 5e-5:
-        problems.append(f"K1 combtooth: max abs err {err:.3e} > 5e-5")
-    s0 = (f0 / SR).contiguous()
-    ds0 = _next_frame_delta(s0).contiguous()
-    carry = carry_from_increments_q(
-        frame_phase_increments_q(f0, SR, BLOCK)).contiguous()
-    out = torch.empty(1, t * BLOCK, device=dev)
-    stream = kernels.stream_handle(dev)
-    ms = cuda_ms(torch, lambda: lib.ddsp_combtooth(
-        s0.data_ptr(), ds0.data_ptr(), carry.data_ptr(), out.data_ptr(), t,
-        BLOCK, stream), 200)
-    plain = cuda_ms(torch, lambda: combtooth_plain(f0, SR, BLOCK), 50)
-    b_ms, b_by = bound_ms(3 * t * 4 + t * BLOCK * 4, 30.0 * t * BLOCK)
+    plain = cuda_ms(lambda: combtooth_plain(f0, SR, BLOCK), 50)
+    r = k1[10]
+    b_ms, b_by = bound_ms((t + t * BLOCK + t) * 4.0, 30.0 * t * BLOCK)
     results["combtooth"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/combtooth.cu",
-        replaces="ddsp_svc_tpu/ops/pallas_source.py:49", max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[kernels] K1 combtooth T={t}: max_abs_err {err:.3e} (tol 5e-5 abs); "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        replaces="ddsp_svc_tpu/ops/pallas_source.py:49",
+        max_abs_err=max(r["err"], r["p_err"], k1[600]["err"], k1[600]["p_err"]),
+        ms=r["graph"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    for seconds, r in k1.items():
+        kern, ops, dev_ms = r["prof"]
+        log(f"[kernels] K1 combtooth {seconds} s T={r['frames']}: max_abs_err "
+            f"{r['err']:.3e} (tol 5e-5), phase_frames {r['p_err']:.3e} rad (tol "
+            f"1e-6); one combtooth() call: {r['graph']:.5f} ms device (CUDA "
+            f"graph replay), kernel {kern:.5f} ms by the profiler, {ops:g} "
+            f"device ops ({dev_ms:.5f} ms), host wall {r['wall']:.4f} ms to "
+            f"synchronize() [{card}]")
+    log(f"[kernels] K1 combtooth T={t}: plain {plain:.4f} ms, bound {b_ms:.5f} ms "
         f"({b_by}); no single PyTorch call computes it [{card}]")
 
     # K2 resblock stage at each of the five stages; tolerance 1e-4 x max|out|.
@@ -366,9 +332,9 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
         if not rel <= 1e-4:
             problems.append(f"K2 resblock_group C={c}: {rel:.3e} x max|out| > 1e-4")
         iters = 20 if c >= 64 else 10
-        k_ms = cuda_ms(torch, lambda: resblock_group(
+        k_ms = cuda_ms(lambda: resblock_group(
             x, packed, K2_KERNEL_SIZES, K2_DILATIONS), iters)
-        p_ms = cuda_ms(torch, lambda: resblock_group_plain(
+        p_ms = cuda_ms(lambda: resblock_group_plain(
             x, weights, K2_KERNEL_SIZES, K2_DILATIONS), iters)
         taps = sum(k * 2 * len(d) for k, d in zip(K2_KERNEL_SIZES, K2_DILATIONS))
         n_convs = sum(2 * len(d) for d in K2_DILATIONS)
@@ -414,8 +380,8 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
     rel = abs_err / float(want.abs().max())
     if not rel <= 1e-4:
         problems.append(f"K3 conformer_layer: {rel:.3e} x max|out| > 1e-4")
-    k_ms = cuda_ms(torch, lambda: conformer_layer(x, cond, step, w), 100)
-    p_ms = cuda_ms(torch, lambda: conformer_layer_plain(x, cond, step, w), 100)
+    k_ms = cuda_ms(lambda: conformer_layer(x, cond, step, w), 100)
+    p_ms = cuda_ms(lambda: conformer_layer_plain(x, cond, step, w), 100)
     flops = (2.0 * t * (hc * c + c * 2 * inner + inner * c) + 2.0 * t * inner * k
              + t * (3 * c + 8 * inner))
     nbytes = 4.0 * (2 * t * c + t * hc + c + c * hc + c + 2 * inner * c
@@ -457,10 +423,15 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
                             f"{err:.3e} > 3e-5")
         k4[b] = (x, amps, err, float(want.abs().max()))
     x, amps, err, peak = k4[1]
-    k_ms = cuda_ms(torch, lambda: harmonic_bank(x, amps, BLOCK), 200)
-    p_ms = cuda_ms(torch, lambda: harmonic_bank_plain(x, amps, BLOCK), 20)
+    call = lambda: harmonic_bank(x, amps, BLOCK)  # noqa: E731
+    k_ms = graph_ms(call)
+    prof_ms, _, _ = profiled_call(call, "harmonic_bank_kernel")
+    p_ms = cuda_ms(lambda: harmonic_bank_plain(x, amps, BLOCK), 20)
+    # the work, not any kernel's instructions: per (sample, harmonic) pair
+    # one recurrence FMA and two accumulation FMAs, 6 flops; every
+    # harmonic counts, those remove_above_fmax zeroed too
     pairs = float(x.numel()) * n_harm
-    b_ms, b_by = bound_ms(4.0 * (2 * x.numel() + amps.numel()), pairs * k4_ops)
+    b_ms, b_by = bound_ms(4.0 * (2 * x.numel() + amps.numel()), pairs * 6.0)
     results["harmonic_bank"] = dict(
         route="cuda", source="ddsp_svc_tpu_torch/csrc/oscillator.cu",
         replaces="ddsp_svc_tpu/ops/pallas_oscillator.py:42",
@@ -468,9 +439,10 @@ def phase_kernels(torch, card: str, k4_ops: float) -> dict:
         bound_by=b_by, library_ms=None)
     log(f"[kernels] K4 harmonic_bank T={t} L={x.numel()} K={n_harm}: max_abs_err "
         f"{err:.3e} (max|out| {peak:.3f}; B=2 T=37: {k4[2][2]:.3e}; tol 3e-5 abs); "
-        f"kernel {k_ms:.4f} ms ({pairs * k4_ops / k_ms / 1e9:.1f} TFLOP/s at "
-        f"{k4_ops:.0f} ops per pair), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}); no single PyTorch call computes it [{card}]")
+        f"kernel {k_ms:.5f} ms (CUDA graph replay; {prof_ms:.5f} ms by the "
+        f"profiler), {100 * b_ms / k_ms:.1f} % of the bound {b_ms:.5f} ms "
+        f"({b_by}: {pairs:.0f} pairs x 6 flops), plain {p_ms:.4f} ms; no "
+        f"single PyTorch call computes it [{card}]")
     if problems:
         fail("kernel vs plain: " + "; ".join(problems))
     log("[kernels] K1 combtooth ok, K2 resblock_group ok, K3 conformer_layer "
@@ -761,8 +733,8 @@ def main() -> None:
     t_start = time.perf_counter()
 
     name, card = phase_device(torch)
-    k4_ops = phase_build()
-    results = phase_kernels(torch, card, k4_ops)
+    phase_build()
+    results = phase_kernels(torch, card)
 
     args, model, vocoder = build_parts(torch)
     cpu_model, cpu_vocoder = copy.deepcopy(model), copy.deepcopy(vocoder)

@@ -4,7 +4,10 @@ its plain PyTorch version and its launch counter.
 Replaces ddsp_svc_tpu/ops/pallas_oscillator.py ``harmonic_bank_pallas``:
 the same function of the wrapped phase in cycles, so the kernel is held to
 the Pallas formula, ``sin((2 pi (k + 1)) x)``; the radians form of
-``models/ddsp.sins_harmonic_bank`` stays the JAX model's reference.
+``models/ddsp.sins_harmonic_bank`` stays the JAX model's reference. The
+kernel follows each sample's harmonics by a three-term recurrence,
+restarted every 16 harmonics from an exact sincos of this plain version's
+rounded argument (tests/test_torch_osc_precision.py emulates its order).
 """
 from __future__ import annotations
 

@@ -1,19 +1,18 @@
 """K1: the combtooth exciter kernel (``csrc/combtooth.cu``), its plain
 PyTorch version and its launch counter.
 
-Replaces ddsp_svc_tpu/ops/pallas_source.py ``combtooth_pallas``. Like the
-JAX wrapper, this one computes ds0, the exact integer carry prefix and
-``phase_frames`` in torch; the kernel writes the samples.
+Replaces ddsp_svc_tpu/ops/pallas_source.py ``combtooth_pallas``, the whole
+function: the kernel takes f0 and writes the samples and ``phase_frames``,
+deriving s0, ds0, the quantised frame increments and their integer carry
+prefix itself. A call is two device operations (a memset of the scan's
+scratch and the kernel) and no host-to-device copy.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from . import kernels
-from .source import (_next_frame_delta, carry_from_increments_q, exact_div,
-                     fast_source_gen, frame_phase_increments_q)
+from .source import fast_source_gen
 
 
 def combtooth_plain(f0_frames: torch.Tensor, sampling_rate: int,
@@ -26,6 +25,8 @@ def combtooth_plain(f0_frames: torch.Tensor, sampling_rate: int,
 def combtooth(f0_frames: torch.Tensor, sampling_rate: int, block_size: int,
               carry_offset_q: torch.Tensor | None = None):
     """f0 (B, T, 1) Hz -> (combtooth (B, T * block), phase_frames (B, T, 1)).
+    ``carry_offset_q`` (B, 1, 1) int32 or int64: the integer carry of
+    everything before this block (streaming), on f0's device.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts the launch in ``combtooth.launches``)."""
@@ -36,19 +37,29 @@ def combtooth(f0_frames: torch.Tensor, sampling_rate: int, block_size: int,
     b, t, one = f0_frames.shape
     if one != 1:
         raise ValueError(f"combtooth: f0 must be (B, T, 1), got {tuple(f0_frames.shape)}")
-    s0 = exact_div(f0_frames, sampling_rate).contiguous()
-    ds0 = _next_frame_delta(s0).contiguous()
-    q = frame_phase_increments_q(f0_frames, sampling_rate, block_size)
-    carry = carry_from_increments_q(q, carry_offset_q).contiguous()
-    out = torch.empty(b, t * block_size, device=f0_frames.device,
-                      dtype=torch.float32)
-    err = kernels.library().ddsp_combtooth(
-        s0.data_ptr(), ds0.data_ptr(), carry.data_ptr(), out.data_ptr(),
-        b * t, block_size, kernels.stream_handle(f0_frames.device))
+    offset_ptr, offset_is_64 = None, 0
+    if carry_offset_q is not None:
+        if (carry_offset_q.device != f0_frames.device
+                or carry_offset_q.dtype not in (torch.int32, torch.int64)
+                or carry_offset_q.numel() != b
+                or not carry_offset_q.is_contiguous()):
+            raise ValueError("combtooth: carry_offset_q must be a contiguous "
+                             f"int32 or int64 ({b}, 1, 1) tensor on "
+                             f"{f0_frames.device}")
+        offset_ptr = carry_offset_q.data_ptr()
+        offset_is_64 = int(carry_offset_q.dtype == torch.int64)
+    dev = f0_frames.device
+    lib = kernels.library()
+    out = torch.empty(b, t * block_size, device=dev, dtype=torch.float32)
+    phase_frames = torch.empty(b, t, 1, device=dev, dtype=torch.float32)
+    scratch = torch.empty(lib.ddsp_combtooth_scratch_words(b, t), device=dev,
+                          dtype=torch.int32)
+    err = lib.ddsp_combtooth(
+        f0_frames.data_ptr(), offset_ptr, offset_is_64, out.data_ptr(),
+        phase_frames.data_ptr(), scratch.data_ptr(), b, t, block_size,
+        float(sampling_rate), kernels.stream_handle(dev))
     kernels.check(err, "combtooth")
     combtooth.launches += 1
-    rad_first = s0 + carry
-    phase_frames = 2.0 * math.pi * (rad_first - torch.round(rad_first))
     return out, phase_frames
 
 

@@ -31,9 +31,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_RESTYPES = {"ddsp_combtooth_scratch_words": ctypes.c_longlong}
 _SIGNATURES = {
-    # (s0, ds0, carry, out, n_rows, block, stream)
-    "ddsp_combtooth": (_P, _P, _P, _P, ctypes.c_longlong, _I, _P),
+    # (f0, carry_offset_q, offset_is_int64, out, phase_frames, scratch,
+    #  batch, n_frames, block, sampling_rate, stream)
+    "ddsp_combtooth": (_P, _P, _I, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    # (batch, n_frames) -> words of K1's zeroed scratch
+    "ddsp_combtooth_scratch_words": (_I, _I),
     # (x, weights[], biases[], kernel_sizes[], dilations[], n_rb, n_dil,
     #  out, t_buf, z_buf, s_buf, batch, length, channels, stream)
     "ddsp_resblock_group": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
@@ -118,7 +122,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

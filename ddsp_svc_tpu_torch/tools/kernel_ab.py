@@ -1,17 +1,22 @@
-"""Compare copies of the port's K2 and K3 kernels on one card, in turns.
+"""Compare copies of the port's kernels on one card, in turns.
 
 Each argument names a directory that holds a copy of the package
 (``<dir>/ddsp_svc_tpu_torch``: the repository root, the parent commit
 unpacked with ``git archive``, or a variant of ``csrc/``). Every copy
 builds its own kernel library under ``<dir>/build/kernels`` and runs in its
-own process, in the
-order a, b, ..., b, a, so that drift on the card shows as a difference
-between a copy's two runs. Each run times K2's five stages and K3's layer
-at the 10 s request's shapes (CUDA events, weights packed once, TF32 off
-for the plain versions) and prints each time with its error against the
-plain version; the first run of each copy also prints the device time of
-each of the 18 conv launches of the C = 128 and C = 16 stages
-(torch.profiler), in launch order.
+own process, in the order a, b, ..., b, a, so that drift on the card shows
+as a difference between a copy's two runs. Every copy is timed by this
+copy's ``tools/timing.py``, at the 10 s request's shapes, each time with
+its error against the plain version:
+
+- K2's five stages and K3's layer by CUDA events over back-to-back calls
+  (weights packed once, TF32 off for the plain versions); the first run of
+  each copy also prints the device time of each of the 18 conv launches
+  of the C = 128 and C = 16 stages (torch.profiler), in launch order;
+- K1 (the whole ``combtooth()`` call, at T = 862 and at a ten-minute
+  T = 51,680) and K4 by replaying calls captured in one CUDA graph, with
+  torch.profiler's device time of the kernel, the device operations of one
+  call and, for K1, the host wall of one call up to ``synchronize()``.
 
     python3 -m ddsp_svc_tpu_torch.tools.kernel_ab <dir_a> <dir_b> [...]
 """
@@ -23,8 +28,12 @@ import subprocess
 import sys
 
 CHILD = r'''
-import json, math, sys
+import importlib.util, json, math, sys
+import numpy as np
 import torch
+spec = importlib.util.spec_from_file_location("ab_timing", sys.argv[2])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
 sys.path.insert(0, sys.argv[1])
 import ddsp_svc_tpu_torch
 if not ddsp_svc_tpu_torch.__file__.startswith(sys.argv[1]):
@@ -33,6 +42,10 @@ from ddsp_svc_tpu_torch.ops import kernels
 from ddsp_svc_tpu_torch.ops.cuda_conformer import conformer_layer, conformer_layer_plain
 from ddsp_svc_tpu_torch.ops import cuda_resblock
 from ddsp_svc_tpu_torch.ops.cuda_resblock import resblock_group, resblock_group_plain
+from ddsp_svc_tpu_torch.ops.cuda_oscillator import harmonic_bank, harmonic_bank_plain
+from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
+from ddsp_svc_tpu_torch.ops.interp import remove_above_fmax
+from ddsp_svc_tpu_torch.ops.source import cumsum_phase_source
 
 # a copy from before K2 took packed weights gets the nested list
 pack = getattr(cuda_resblock, "PackedResblocks", lambda w: w)
@@ -42,20 +55,8 @@ if not torch.cuda.is_available():
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 kernels.library()
-per_launch = len(sys.argv) > 2
-
-
-def ms(fn, iters):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+per_launch = len(sys.argv) > 3
+ms = timing.cuda_ms
 
 
 def rel(got, want):
@@ -71,7 +72,7 @@ for c, per_frame in ((256, 8), (128, 64), (64, 128), (32, 256), (16, 512)):
                 for shape in ((c, c, k), (c,))) for _ in range(6)] for k in ks]
     packed = pack(w)
     err = rel(resblock_group(x, packed, ks, ds), resblock_group_plain(x, w, ks, ds))
-    out[f"K2 C={c}"] = (ms(lambda: resblock_group(x, packed, ks, ds), 20), err)
+    out[f"K2 C={c}"] = dict(ms=ms(lambda: resblock_group(x, packed, ks, ds), 20), err=err)
     if per_launch and c in (128, 16):
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
@@ -88,19 +89,57 @@ w = tuple(((torch.rand(shape, generator=gen) * 2 - 1) * scale).cuda() for shape,
     ((c, hc), hc ** -0.5), ((c,), 0.1), ((2 * inner, c), c ** -0.5), ((2 * inner,), 0.1),
     ((inner, k), k ** -0.5), ((inner,), 0.1), ((c, inner), inner ** -0.5), ((c,), 0.1)))
 err = rel(conformer_layer(x, cond, step, w), conformer_layer_plain(x, cond, step, w))
-out["K3"] = (ms(lambda: conformer_layer(x, cond, step, w), 200), err)
+out["K3"] = dict(ms=ms(lambda: conformer_layer(x, cond, step, w), 200), err=err)
+
+
+def f0_contour(t):
+    """chip_smoke.py's: 220 Hz, 5.5 Hz vibrato, an unvoiced tenth."""
+    time_s = np.arange(t) * 512 / 44100
+    f0 = 220.0 * 2.0 ** (0.5 / 12.0 * np.sin(2 * np.pi * 5.5 * time_s))
+    f0[int(0.45 * t):int(0.55 * t)] = 0.0
+    return torch.from_numpy(f0.astype(np.float32)[None, :, None]).cuda()
+
+for t in (862, 51680):
+    f0 = f0_contour(t)
+    got, phase = combtooth(f0, 44100, 512)
+    want, want_phase = combtooth_plain(f0, 44100, 512)
+    err = max(float((got - want).abs().max()), float((phase - want_phase).abs().max()))
+    call = lambda: combtooth(f0, 44100, 512)
+    kern, ops, _ = timing.profiled_call(call, "combtooth_kernel")
+    out[f"K1 T={t}"] = dict(ms=timing.graph_ms(call, 200 if t < 1000 else 20),
+                            err=err, kernel_ms=kern, ops=ops,
+                            wall_ms=timing.wall_ms(call))
+f0 = f0_contour(862)
+x = cumsum_phase_source(torch.repeat_interleave(f0, 512, dim=1), 44100, 512).contiguous()
+amps = remove_above_fmax(torch.exp(0.5 * torch.randn((1, 862, 128), generator=gen)).cuda()
+                         / 128.0, f0, 22050.0).contiguous()
+err = float((harmonic_bank(x, amps, 512) - harmonic_bank_plain(x, amps, 512)).abs().max())
+call = lambda: harmonic_bank(x, amps, 512)
+kern, ops, _ = timing.profiled_call(call, "harmonic_bank_kernel")
+out["K4"] = dict(ms=timing.graph_ms(call), err=err, kernel_ms=kern, ops=ops)
 print("RESULT " + json.dumps(out))
 '''
 
 
-def main(dirs: list[str]) -> None:
-    if not dirs:
+def _describe(name: str, res: dict) -> str:
+    text = f"{name} {res['ms']:.5f} ms (err {res['err']:.1e}"
+    if "kernel_ms" in res:
+        text += f"; kernel {res['kernel_ms']:.5f} ms by the profiler, {res['ops']:g} device ops"
+    if "wall_ms" in res:
+        text += f", host wall {res['wall_ms']:.4f} ms"
+    return text + ")"
+
+
+def main(argv: list[str]) -> None:
+    if not argv:
         sys.exit(__doc__)
-    runs = {d: [] for d in dirs}
+    timing = os.path.join(os.path.dirname(os.path.abspath(__file__)), "timing.py")
+    runs = {d: [] for d in argv}
     failed = False
-    for d in dirs + dirs[::-1]:
+    for d in argv + argv[::-1]:
         path = os.path.abspath(d)
-        args = [sys.executable, "-c", CHILD, path] + (["launches"] if not runs[d] else [])
+        args = [sys.executable, "-c", CHILD, path, timing] + (
+            ["launches"] if not runs[d] else [])
         r = subprocess.run(args, capture_output=True, text=True, timeout=900)
         lines = r.stdout.splitlines()
         for line in lines:
@@ -113,12 +152,12 @@ def main(dirs: list[str]) -> None:
             failed = True
             continue
         runs[d].append(json.loads(result[0]))
-    for d in dirs:
+    for d in argv:
         for i, res in enumerate(runs[d]):
-            k2 = sum(ms for name, (ms, _) in res.items() if name.startswith("K2"))
-            print(f"{d} run {i}: K2 five stages {k2:.3f} ms; " + "; ".join(
-                f"{name} {ms:.3f} ms (err {err:.1e})" for name, (ms, err) in res.items()),
-                flush=True)
+            k2 = [v["ms"] for name, v in res.items() if name.startswith("K2")]
+            head = f"K2 five stages {sum(k2):.3f} ms; " if k2 else ""
+            print(f"{d} run {i}: {head}" + "; ".join(
+                _describe(name, v) for name, v in res.items()), flush=True)
     if failed:
         sys.exit(1)
 

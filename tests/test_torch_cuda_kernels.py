@@ -3,8 +3,9 @@
 -m cuda -n 0``). Whether a card exists is decided inside the fixture, so
 every worker collects the same tests; here they skip without one.
 
-TF32 is off for the plain versions. Tolerances: K1 5e-5 absolute; K2 and
-K3 1e-4 relative to max|out|, since sums run in another order."""
+TF32 is off for the plain versions. Tolerances: K1 5e-5 absolute on the
+samples and 1e-6 rad on ``phase_frames``; K2 and K3 1e-4 relative to
+max|out|, since sums run in another order; K4 3e-5 absolute."""
 import math
 
 import numpy as np
@@ -30,21 +31,85 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("t", [5, 173])
-def test_combtooth_kernel(cuda, t):
-    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
-
+def _vibrato_f0(b, t, device):
+    """220 Hz (x 1.5 per further row) with 5.5 Hz vibrato and an unvoiced
+    stretch: (B, T, 1)."""
     time_s = np.arange(t) * 512 / 44100
     f0 = 220.0 * 2.0 ** (0.5 / 12 * np.sin(2 * np.pi * 5.5 * time_s))
-    f0[t // 3: t // 2] = 0.0
-    f0 = torch.tensor(f0, dtype=torch.float32, device=cuda)[None, :, None]
+    f0 = np.stack([f0 * (1.0 + 0.5 * i) for i in range(b)])
+    f0[:, t // 3: t // 2] = 0.0
+    return torch.tensor(f0, dtype=torch.float32, device=device)[..., None]
+
+
+@pytest.mark.parametrize("t", [5, 173, 862, (1 << 13) + 5])
+@pytest.mark.parametrize("b,offset", [(1, False), (2, False), (2, True)])
+def test_combtooth_kernel(cuda, b, t, offset):
+    """K1 against its plain version: samples within 5e-5, ``phase_frames``
+    within 1e-6 rad (one carry quantum is 2 pi 2^-22 ~ 1.5e-6 rad, so a
+    wrong carry fails), with a ``carry_offset_q`` (int64, one negative and
+    one past 2^32) or without; 2^13 + 5 frames span many of the scan's
+    blocks."""
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
+
+    f0 = _vibrato_f0(b, t, cuda)
+    off = (torch.tensor([-123456789, (1 << 34) + 98765][:b], dtype=torch.int64,
+                        device=cuda).reshape(b, 1, 1) if offset else None)
     n0 = combtooth.launches
-    got, got_phase = combtooth(f0, 44100, 512)
-    want, want_phase = combtooth_plain(f0, 44100, 512)
+    got, got_phase = combtooth(f0, 44100, 512, off)
+    want, want_phase = combtooth_plain(f0, 44100, 512, off)
     torch.cuda.synchronize()
     assert combtooth.launches == n0 + 1
+    assert got.shape == want.shape and got_phase.shape == want_phase.shape
     assert float((got - want).abs().max()) <= 5e-5
-    assert float((got_phase - want_phase).abs().max()) <= 5e-5
+    assert float((got_phase - want_phase).abs().max()) <= 1e-6
+    if offset:  # an int32 offset with the same low bits gives the same
+        got32, phase32 = combtooth(f0, 44100, 512, off.to(torch.int32))
+        assert torch.equal(got32, got) and torch.equal(phase32, got_phase)
+
+
+def test_combtooth_kernel_unvoiced(cuda):
+    """All frames unvoiced (f0 = 0): every sample is sinc(0) = 1."""
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
+
+    f0 = torch.zeros((2, 173, 1), device=cuda)
+    got, got_phase = combtooth(f0, 44100, 512)
+    want, want_phase = combtooth_plain(f0, 44100, 512)
+    assert float((got - want).abs().max()) <= 5e-5
+    assert float((got_phase - want_phase).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("block", [480, 441])
+def test_combtooth_kernel_other_blocks(cuda, block):
+    """A block size that is no power of two divides where 512 multiplies
+    by its reciprocal."""
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth, combtooth_plain
+
+    f0 = _vibrato_f0(2, 173, cuda)
+    got, got_phase = combtooth(f0, 44100, block)
+    want, want_phase = combtooth_plain(f0, 44100, block)
+    assert float((got - want).abs().max()) <= 5e-5
+    assert float((got_phase - want_phase).abs().max()) <= 1e-6
+
+
+def test_combtooth_call_is_two_device_ops(cuda):
+    """A combtooth() call puts at most two operations on the device (the
+    scan's scratch memset and the kernel) and copies nothing from the
+    host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth
+
+    f0 = _vibrato_f0(1, 862, cuda)
+    combtooth(f0, 44100, 512)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        combtooth(f0, 44100, 512)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(device) <= 2, [e.name for e in device]
+    assert not any("HtoD" in e.name for e in device)
+    assert any("combtooth_kernel" in e.name for e in device)
 
 
 @pytest.mark.parametrize("c,length,packed", [
@@ -114,6 +179,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         combtooth(torch.ones((1, 4, 1), device=cuda, dtype=torch.float64), 44100, 512)
     with pytest.raises(ValueError):
         combtooth(torch.ones((1, 4, 2), device=cuda), 44100, 512)
+    with pytest.raises(ValueError):  # the offset on another device
+        combtooth(torch.ones((1, 4, 1), device=cuda), 44100, 512,
+                  torch.zeros((1, 1, 1), dtype=torch.int64))
+    with pytest.raises(ValueError):  # not an integer offset
+        combtooth(torch.ones((1, 4, 1), device=cuda), 44100, 512,
+                  torch.zeros((1, 1, 1), device=cuda))
 
 
 @pytest.mark.parametrize("b,t,n_harm", [(1, 862, 128), (2, 37, 128), (2, 5, 24)])
