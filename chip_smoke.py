@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths on one CUDA card: DiffusionFast
-and the DDSP family (Sins with the NSF-HiFiGAN enhancer).
+and the DDSP family (Sins with the NSF-HiFiGAN enhancer), from features and
+from a recording.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -34,7 +35,30 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      NSF-HiFiGAN as its enhancer, served as phase 4 serves DiffusionFast;
   7. Sins at 2 s, card against CPU with the same weights and injected
      noise, and CombSubFast, CombSub and standalone CombSubSuperFast at 2 s
-     without the enhancer, each at the same SNR bound.
+     without the enhancer, each at the same SNR bound;
+  8. both paths from a wav: SvcPipeline.infer with the full contentvec768l12
+     units encoder both configs name (random weights from the seed) and
+     host YIN, on synthetic 44.1 kHz recordings with a pitch contour of 2,
+     5 and 10 s (one cold and five warm runs each: median, min, max, real-
+     time factor), the launch counts of every run checked (DiffusionFast:
+     K1 1, K2 5, K3 60; Sins: K4 1, K2 5); one warm 10 s request's host
+     wall per stage (encoder, f0, volume/mask, model, vocoder or enhancer)
+     with a synchronize() at each boundary; one warm 10 s request under
+     torch.profiler with the encoder's kernels as their own group; and the
+     10 s DiffusionFast request with the device YIN (device_f0), its wall
+     beside the host YIN's and its f0 against the host's (identical
+     voicing, < 0.05 cents);
+  9. the 2 s recording through SvcPipeline.infer on the card and on the CPU
+     with the same weights and injected noise: the units' error and the
+     audio SNR (>= 40 dB) for both paths;
+ 10. the offline CLI's conversion (cli.infer.convert, on the pipelines in
+     memory: this machine cannot read a checkpoint) of a 12 s recording
+     with two silences, so the slicer cuts it and the splice runs, for both
+     paths: the output length as the JAX CLI computes it, finite audio,
+     launches = segments x the per-request counts, and a PCM16 file written
+     and read back;
+ 11. one 2 s DiffusionFast request per other sampler (ddim, pndm, unipc at
+     speedup 10; the DDPM chain at k_step 100), K3's launches checked.
 It then prints one JSON line describing the kernels and, last, one JSON
 line {"ok": true, "device": {...}}. TF32 is off for the whole run.
 """
@@ -67,6 +91,11 @@ SINS = dict(n_harmonics=128, n_mag_allpass=256, n_mag_noise=80)  # sins.yaml
 # the repo ships no CombSub config: the legacy combsub schema's widths
 COMBSUB = dict(n_mag_allpass=256, n_mag_harmonic=512, n_mag_noise=256)
 SNR_LIMIT_DB = 40.0
+ENCODER = "contentvec768l12"  # diffusion-fast.yaml and sins.yaml
+# (method, speedup, K3 launches per request: 6 layers x denoiser calls)
+SAMPLERS = (("ddim", 10, 60), ("pndm", 10, 66), ("unipc", 10, 60),
+            ("dpm-solver", 1, 600))  # speedup 1: the full DDPM chain
+CLI_SILENCES = ((5.3, 5.9), (10.6, 11.2))  # seconds of a 12 s recording
 
 
 def fail(msg: str) -> None:
@@ -101,6 +130,22 @@ def synthetic_wave(seconds: float, rng: np.random.Generator) -> np.ndarray:
     wave += 0.003 * rng.standard_normal(n)
     mid = n // 2
     wave[mid - SR // 8: mid + SR // 8] = 0.0
+    return wave.astype(np.float32)
+
+
+def voice_wave(seconds: float, rng: np.random.Generator,
+               silences=None) -> np.ndarray:
+    """Phase 4's waveform with its pitch contour: 220 Hz with 5.5 Hz vibrato
+    (+-0.5 semitone) and a tremolo, light noise, and 0.25 s of silence in
+    the middle (or the (start, stop) second spans of ``silences``)."""
+    n = int(seconds * SR)
+    time_s = np.arange(n) / SR
+    f0 = 220.0 * 2.0 ** (0.5 / 12.0 * np.sin(2 * np.pi * 5.5 * time_s))
+    wave = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / SR) * (
+        0.75 + 0.25 * np.sin(2 * np.pi * 3.0 * time_s))
+    wave += 0.003 * rng.standard_normal(n)
+    for lo, hi in silences or ((seconds / 2 - 0.125, seconds / 2 + 0.125),):
+        wave[int(lo * SR):int(hi * SR)] = 0.0
     return wave.astype(np.float32)
 
 
@@ -494,7 +539,11 @@ def request_inputs(pipe, seconds: float, rng: np.random.Generator):
 
 
 def check_audio(audio, t: int, what: str) -> np.ndarray:
-    a = audio.detach().float().cpu().numpy()
+    """(1, t * BLOCK) finite, not silent: a tensor from infer_features or
+    the (L,) host array infer returns."""
+    if hasattr(audio, "detach"):
+        audio = audio.detach().float().cpu().numpy()
+    a = np.asarray(audio, np.float32).reshape(1, -1)
     if a.shape != (1, t * BLOCK):
         fail(f"{what}: output shape {a.shape}, expected (1, {t * BLOCK})")
     if not np.isfinite(a).all():
@@ -517,33 +566,68 @@ def counts():
 # device kernels by name (and the wrapper whose launches they are); the
 # port's own kernels live in an anonymous namespace, so "::gemm_tc_kernel<"
 # is K3's and never a library GEMM
+# SvcPipeline.encode_units runs inside the profiler range "units_encoder"
+ENCODER_RANGE = {"encoder (GEMMs, convs, attention)": "units_encoder"}
 KERNEL_GROUPS = (("K1 combtooth", "combtooth", ("combtooth_kernel",)),
                  ("K2 resblock", "resblock_group", ("resblock_conv_tc_kernel",)),
                  ("K3 conformer", "conformer_layer",
                   ("::gemm_tc_kernel<", "depthwise_silu_kernel")),
                  ("K4 harmonic bank", "harmonic_bank", ("harmonic_bank_kernel",)),
+                 # the units encoder's kernels by where they were launched
+                 # (ENCODER_RANGE), not by name
+                 ("encoder (GEMMs, convs, attention)", None, ()),
                  ("FFT", None, ("fft",)),
                  ("conv/GEMM libraries", None, ("conv", "cudnn", "gemm", "xmma",
                                                 "cutlass", "sm90")))
 
 
+def _under(evt, name: str) -> bool:
+    """Whether a profiler event ran inside the record_function ``name``."""
+    parent = getattr(evt, "cpu_parent", None)
+    while parent is not None:
+        if parent.name == name:
+            return True
+        parent = getattr(parent, "cpu_parent", None)
+    return False
+
+
+def range_kernels_us(torch, prof, name: str) -> tuple[dict, dict]:
+    """({kernel: device time (us)} of the kernels launched inside the
+    record_function ``name``, {kernel: "op [input shapes]" of the CPU op
+    that launched it first}): the kernels the profiler ties to the CPU
+    events under that range."""
+    found, ops = {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or not _under(evt, name):
+            continue
+        for kern in getattr(evt, "kernels", None) or ():
+            found[kern.name] = found.get(kern.name, 0.0) + kern.duration
+            ops.setdefault(kern.name, f"{evt.name} {getattr(evt, 'input_shapes', '')}")
+    return found, ops
+
+
 def profile_breakdown(torch, request, card: str, what: str,
-                      expect: dict) -> None:
+                      expect: dict, ranges=None) -> None:
     """One warm request under torch.profiler: device time by kernel group
     and the device's busy share of the request's wall time. A kernel group
     whose wrapper launched (``expect``) but which shows no device time
-    fails the run."""
+    fails the run. ``ranges`` {group: record_function name}: the kernels
+    launched inside that range form the group, whatever their names."""
     from torch.profiler import ProfilerActivity, profile
 
+    ranges = ranges or {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(ranges)) as prof:
         t0 = time.perf_counter()
         request()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels_us, launches = {}, 0
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a range shows on the device as an annotation spanning its kernels
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.key in ranges.values()):
             continue
         us = getattr(evt, "self_device_time_total", 0) or getattr(
             evt, "self_cuda_time_total", 0)
@@ -554,6 +638,19 @@ def profile_breakdown(torch, request, card: str, what: str,
     if busy <= 0:
         fail(f"{what} profile: the profiler saw no device time")
     groups = {name: 0.0 for name, _, _ in KERNEL_GROUPS}
+    range_lines = []
+    for group, rname in ranges.items():
+        inside, ops = range_kernels_us(torch, prof, rname)
+        groups[group] = sum(inside.values())
+        if groups[group] <= 0:
+            log(f"[profile] {what}: the trace ties no kernel to the {rname!r} "
+                "range (the stage walls give its time)")
+        for key, us in inside.items():  # counted once, in the range's group
+            if key in kernels_us:
+                kernels_us[key] -= us
+        for key, us in sorted(inside.items(), key=lambda kv: -kv[1])[:6]:
+            range_lines.append(f"[profile]   {rname} top: {us / 1e3:.3f} ms  "
+                               f"{key[:60]}  <- {ops[key][:110]}")
     groups["elementwise/other"] = 0.0
     for key, us in kernels_us.items():
         low = key.lower()
@@ -572,25 +669,31 @@ def profile_breakdown(torch, request, card: str, what: str,
             "device time)")
     for key, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   top: {us / 1e3:.3f} ms  {key[:90]}")
+    for line in range_lines:
+        log(line)
 
 
-def serve_path(torch, pipe, what: str, expect: dict, card: str, **kwargs) -> dict:
-    """Requests of 2, 5 and 10 s through ``pipe.infer_features`` (one cold
-    and five warm runs each, then one profiled warm 10 s run), each checked
-    for its output and its launch counts. Every count is set to 0 just
-    before and read just after; returns them."""
+def check_on_card(pipe, what: str) -> None:
     if pipe.device.type != "cuda":
         fail(f"{what} pipeline on {pipe.device}, expected cuda")
-    rng = np.random.default_rng(SEED)
+
+
+def serve_requests(torch, what: str, expect: dict, card: str, requests,
+                   ranges=None) -> dict:
+    """``requests``: (seconds, T, call) with call() -> (audio, sr). Each
+    runs once cold and WARM_RUNS times warm, checked for its output and its
+    launch counts; then the last runs once more under torch.profiler
+    (``ranges``: profile_breakdown's). Every count is set to 0 just before
+    and read just after; returns them."""
     wrappers = counts()
     for w in wrappers.values():
         w.launches = 0
 
-    def request(seconds, inputs, when):
+    def request(seconds, t, call, when):
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        audio, sr = pipe.infer_features(**inputs, **kwargs)
+        audio, sr = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         delta = {n: w.launches - before[n] for n, w in wrappers.items()}
@@ -599,22 +702,36 @@ def serve_path(torch, pipe, what: str, expect: dict, card: str, **kwargs) -> dic
                  f"expected {expect}")
         if sr != SR:
             fail(f"{what} {seconds} s request: sample rate {sr}, expected {SR}")
-        check_audio(audio, inputs["volume"].shape[1], f"{what} {seconds} s request")
+        check_audio(audio, t, f"{what} {seconds} s request")
         return wall
 
+    walls = {}
+    for seconds, t, call in requests:
+        cold = request(seconds, t, call, "cold")
+        runs = sorted(request(seconds, t, call, "warm") for _ in range(WARM_RUNS))
+        med = walls[seconds] = runs[len(runs) // 2]
+        log(f"[{what}] {seconds} s request T={t}: warm median {med * 1e3:.2f} ms "
+            f"(min {runs[0] * 1e3:.2f}, max {runs[-1] * 1e3:.2f}, n={WARM_RUNS}; "
+            f"cold {cold * 1e3:.1f} ms), real-time factor {med / seconds:.5f} "
+            f"({seconds / med:.1f}x real time), launches per request {expect} "
+            f"[{card}]")
+    seconds, t, call = requests[-1]
+    profile_breakdown(torch, lambda: request(seconds, t, call, "profiled"), card,
+                      what, expect, ranges)
+    return {n: w.launches for n, w in wrappers.items()}, walls
+
+
+def serve_path(torch, pipe, what: str, expect: dict, card: str, **kwargs) -> dict:
+    """Requests of 2, 5 and 10 s through ``pipe.infer_features`` (see
+    ``serve_requests``); returns the launch counts."""
+    check_on_card(pipe, what)
+    rng = np.random.default_rng(SEED)
+    requests = []
     for seconds in REQUEST_SECONDS:
         inputs = request_inputs(pipe, seconds, rng)
-        cold = request(seconds, inputs, "cold")
-        walls = sorted(request(seconds, inputs, "warm") for _ in range(WARM_RUNS))
-        med = walls[len(walls) // 2]
-        log(f"[{what}] {seconds} s request T={inputs['volume'].shape[1]}: warm "
-            f"median {med * 1e3:.2f} ms (min {walls[0] * 1e3:.2f}, max "
-            f"{walls[-1] * 1e3:.2f}, n={WARM_RUNS}; cold {cold * 1e3:.1f} ms), "
-            f"real-time factor {med / seconds:.5f} ({seconds / med:.1f}x real "
-            f"time), launches per request {expect} [{card}]")
-    profile_breakdown(torch, lambda: request(10, inputs, "profiled"), card, what,
-                      expect)
-    return {n: w.launches for n, w in wrappers.items()}
+        requests.append((seconds, inputs["volume"].shape[1],
+                         lambda inputs=inputs: pipe.infer_features(**inputs, **kwargs)))
+    return serve_requests(torch, what, expect, card, requests)[0]
 
 
 def phase_main_path(torch, args, model, vocoder, card: str) -> dict:
@@ -717,6 +834,270 @@ def phase_ddsp_card_vs_cpu(torch, card: str, sins_parts) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+EXPECT_DIFFUSION = {"combtooth": 1, "resblock_group": 5, "conformer_layer": 60,
+                    "harmonic_bank": 0}
+EXPECT_SINS = {"combtooth": 0, "resblock_group": 5, "conformer_layer": 0,
+               "harmonic_bank": 1}
+
+
+def wav_pipeline(parts, enhance: bool, device=None, device_f0: bool = False,
+                 encoder=None):
+    """An SvcPipeline with the units encoder (random weights from SEED,
+    the same on every device) for (args, model, vocoder)."""
+    from ddsp_svc_tpu_torch.features.hubert import UnitsEncoder
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    args, model, vocoder = parts
+    encoder = encoder or UnitsEncoder(ENCODER, device=device, seed=SEED)
+    return SvcPipeline.from_parts(model, None, args, vocoder, device=device,
+                                  seed=SEED, enhance=enhance,
+                                  units_encoder=encoder, device_f0=device_f0)
+
+
+def stage_walls(torch, pipe, wave: np.ndarray, what: str, expect: dict,
+                card: str) -> None:
+    """One warm request stage by stage, synchronize() at each boundary: the
+    host wall of each stage, and the request's launches."""
+    wrappers = counts()
+    before = {n: w.launches for n, w in wrappers.items()}
+    walls = []
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((name, time.perf_counter() - t0))
+        return out
+
+    units = timed("encoder", lambda: pipe.encode_units(wave, SR))
+    t = units.shape[1]
+    f0 = timed("f0 (host YIN)", lambda: pipe.extract_f0(wave, SR))[:, :t]
+    volume, mask = timed("volume/mask", lambda: pipe.volume_and_mask(wave, -60.0))
+    volume = volume[:, :t]
+    if pipe.family == "ddsp":
+        audio = timed("synth + mask", lambda: pipe.apply_volume_mask(
+            pipe.synth_ddsp(units, f0, volume), mask))
+        audio, _ = timed("enhancer", lambda: pipe.enhance(audio, f0))
+    else:
+        mel = timed("cascade", lambda: pipe.cascade(units, f0, volume,
+                                                    k_step=100, speedup=10))
+        audio = timed("vocoder + mask", lambda: pipe.vocode(mel, f0, mask))
+    seconds = len(wave) / SR
+    check_audio(audio, t, f"{what} staged {seconds:g} s request")
+    delta = {n: w.launches - before[n] for n, w in wrappers.items()}
+    if delta != expect:
+        fail(f"{what} staged request: launches {delta}, expected {expect}")
+    total = sum(w for _, w in walls)
+    log(f"[{what}] {seconds:g} s request by stage (host wall to synchronize()): "
+        + ", ".join(f"{n} {w * 1e3:.2f} ms ({100 * w / total:.1f} %)"
+                    for n, w in walls) + f"; sum {total * 1e3:.2f} ms [{card}]")
+
+
+def cents_check(got: np.ndarray, want: np.ndarray, what: str,
+                voicing: bool = True) -> float:
+    """Identical voicing and < 0.05 cents on the frames voiced in both."""
+    if got.shape != want.shape:
+        fail(f"{what}: f0 shape {got.shape}, expected {want.shape}")
+    if voicing and not np.array_equal(got > 0, want > 0):
+        fail(f"{what}: voicing differs on {int(np.sum((got > 0) != (want > 0)))} "
+             "frames")
+    both = (got > 0) & (want > 0)
+    cents = float(np.abs(1200 * np.log2(got[both] / want[both])).max())
+    if not cents < 0.05:
+        fail(f"{what}: {cents:.4f} cents from the host YIN (limit 0.05)")
+    return cents
+
+
+def phase_wav_paths(torch, card: str, diffusion_parts, sins_parts):
+    """Both paths from a wav. Returns ({path: launch counts}, the diffusion
+    and Sins pipelines)."""
+    from ddsp_svc_tpu_torch.features.f0 import yin_f0
+    from ddsp_svc_tpu_torch.features.yin_device import make_yin_fn
+
+    rng = np.random.default_rng(SEED + 3)
+    waves = {s: voice_wave(s, rng) for s in REQUEST_SECONDS}
+    launches, pipes = {}, {}
+    for what, parts, enhance, expect, kwargs in (
+            ("diffusion-fast from a wav", diffusion_parts, False, EXPECT_DIFFUSION,
+             dict(k_step=100, speedup=10, method="dpm-solver")),
+            ("sins from a wav", sins_parts, True, EXPECT_SINS, {})):
+        args, model, vocoder = parts
+        pipe = pipes[what] = wav_pipeline(
+            (args, copy.deepcopy(model), copy.deepcopy(vocoder)), enhance)
+        check_on_card(pipe, what)
+        requests = [(s, len(waves[s]) // BLOCK + 1,
+                     lambda w=waves[s]: pipe.infer(w, SR, **kwargs))
+                    for s in REQUEST_SECONDS]
+        launches[what], walls = serve_requests(torch, what, expect, card,
+                                               requests, ENCODER_RANGE)
+        stage_walls(torch, pipe, waves[REQUEST_SECONDS[-1]], what, expect, card)
+        launches[what + " (staged)"] = expect
+        if enhance:
+            continue
+        # the same 10 s request with the f0 on the card
+        dev = wav_pipeline((pipe.args, pipe.model, pipe.vocoder), False,
+                           device_f0=True, encoder=pipe.units_encoder)
+        seconds = REQUEST_SECONDS[-1]
+        wave = waves[seconds]
+        launches["diffusion-fast, device YIN"], dev_walls = serve_requests(
+            torch, "diffusion-fast from a wav, device YIN", expect, card,
+            [(seconds, len(wave) // BLOCK + 1, lambda: dev.infer(wave, SR, **kwargs))],
+            ENCODER_RANGE)
+        host_f0 = pipe.extract_f0(wave, SR)
+        dev_f0 = dev.extract_f0(wave, SR).cpu().numpy()
+        hop = pipe.hop_size(SR)
+        raw_host = yin_f0(wave, SR, hop, pipe.f0_min, pipe.f0_max)
+        raw_dev = make_yin_fn(len(wave), SR, hop, pipe.f0_min, pipe.f0_max)(
+            torch.as_tensor(wave, device="cuda")).cpu().numpy()
+        c_raw = cents_check(raw_dev, raw_host, "device YIN (before interpolation)")
+        c_pipe = cents_check(dev_f0, host_f0, "device YIN (pipeline f0)", voicing=False)
+        log(f"[devf0] {seconds} s diffusion-fast request: warm median wall with "
+            f"the device YIN {dev_walls[seconds] * 1e3:.2f} ms, with the host YIN "
+            f"{walls[seconds] * 1e3:.2f} ms; device YIN vs host YIN: identical voicing "
+            f"({int((raw_host > 0).sum())} of {len(raw_host)} frames voiced), "
+            f"max {c_raw:.5f} cents before interpolation, {c_pipe:.5f} cents "
+            f"on the pipeline's f0 (limit 0.05) [{card}]")
+    return launches, pipes
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def phase_wav_card_vs_cpu(torch, card: str, pipes: dict, cpu_parts: dict) -> None:
+    """The 2 s recording through SvcPipeline.infer on the card and on the
+    CPU: the same weights (the CPU encoder drawn from the same seed) and
+    injected noise."""
+    from ddsp_svc_tpu_torch.features.hubert import UnitsEncoder
+
+    rng = np.random.default_rng(SEED + 4)
+    wave = voice_wave(2, rng)
+    t = len(wave) // BLOCK + 1
+    cpu_encoder = UnitsEncoder(ENCODER, device="cpu", seed=SEED)
+    units = {}
+    for what, gpu in pipes.items():
+        enhance = gpu.enhancer is not None
+        cpu = wav_pipeline(cpu_parts[what], enhance, device="cpu",
+                           encoder=cpu_encoder)
+        noise = {"ddsp": (rng.uniform(-1.0, 1.0, (1, t * BLOCK)) if enhance
+                          else rng.standard_normal((1, t * BLOCK))),
+                 "diffusion": rng.standard_normal((1, t, 128)),
+                 "rand_ini": np.concatenate([[0.0], rng.random(8)])[None, None],
+                 "sine": rng.standard_normal((1, t * BLOCK, 9))}
+        noise = {k: v.astype(np.float32) for k, v in noise.items()}
+        audios = {}
+        for name, pipe in (("card", gpu), ("cpu", cpu)):
+            units[name] = pipe.encode_units(wave, SR).float().cpu().numpy()
+            audio, sr = pipe.infer(wave, SR, noise=noise)
+            audios[name] = check_audio(audio, t, f"{what} 2 s on {name}")
+        u_err = float(np.abs(units["card"] - units["cpu"]).max()
+                      / np.abs(units["cpu"]).max())
+        snr = snr_db(audios["cpu"], audios["card"])
+        log(f"[parity] {what}: 2 s recording through infer, card (kernels) vs "
+            f"CPU (plain), same weights and noise: units max-abs diff "
+            f"{u_err:.3e} x max|units|, audio SNR {snr:.2f} dB (limit >= "
+            f"{SNR_LIMIT_DB:.0f} dB) [{card}]")
+        if not snr >= SNR_LIMIT_DB:
+            fail(f"{what} card vs CPU audio SNR {snr:.2f} dB < {SNR_LIMIT_DB} dB")
+        del cpu
+
+
+# ---------------------------------------------------------------- phase 10
+
+
+def phase_cli(torch, card: str, pipes: dict) -> dict:
+    """cli.infer.convert on a 12 s recording with two silences for both
+    paths. Returns {path: launch counts}."""
+    import tempfile
+
+    from ddsp_svc_tpu_torch.cli import infer as cli
+    from ddsp_svc_tpu_torch.features.audio import load_wav, save_wav
+    from ddsp_svc_tpu_torch.features.slicer import split_audio
+
+    rng = np.random.default_rng(SEED + 5)
+    wave = voice_wave(12, rng, silences=CLI_SILENCES)
+    segments = split_audio(wave, SR)
+    if len(segments) < 2:
+        fail(f"the CLI's recording gave {len(segments)} segment(s), expected >= 2")
+    # the JAX CLI's splice length: each segment's output (T_seg blocks at
+    # the output rate) placed at its start frame, cross-faded when it
+    # overlaps what came before
+    expected_len = 0
+    for start, seg in segments:
+        silent = round(start // BLOCK * BLOCK) - expected_len
+        expected_len += silent + (len(seg) // BLOCK + 1) * BLOCK
+    wrappers = counts()
+    launches = {}
+    for what, pipe, per_request in (
+            ("diffusion-fast CLI", pipes["diffusion-fast from a wav"], EXPECT_DIFFUSION),
+            ("sins CLI", pipes["sins from a wav"], EXPECT_SINS)):
+        options = cli.parse_args(["-m", "in-memory", "-i", "in.wav", "-o", "out.wav"])
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, sr = cli.convert(pipe, wave, SR, options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[what] = {n: w.launches for n, w in wrappers.items()}
+        expect = {n: len(segments) * c for n, c in per_request.items()}
+        if launches[what] != expect:
+            fail(f"{what}: launches {launches[what]}, expected {expect} "
+                 f"({len(segments)} segments)")
+        if sr != SR or audio.shape != (expected_len,):
+            fail(f"{what}: {audio.shape} samples at {sr} Hz, expected "
+                 f"({expected_len},) at {SR}")
+        if not np.isfinite(audio).all() or np.abs(audio).max() <= 1e-4:
+            fail(f"{what}: output non-finite or silent")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "out.wav")
+            save_wav(path, audio.astype(np.float32), sr)
+            back, back_sr = load_wav(path)
+        quant = float(np.abs(back - np.clip(audio, -1.0, 1.0)).max())
+        if back_sr != sr or back.shape != audio.shape or quant > 2.0 / 32767:
+            fail(f"{what}: the PCM16 file read back differs ({back.shape} at "
+                 f"{back_sr} Hz, max diff {quant:.3e})")
+        log(f"[cli] {what}: 12 s recording -> {len(segments)} segments "
+            f"(starts {[s for s, _ in segments]}), {len(audio)} samples at {sr} "
+            f"Hz as the JAX CLI splices them, wall {wall * 1e3:.1f} ms, launches "
+            f"{launches[what]}, PCM16 file read back within {quant:.2e} [{card}]")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 11
+
+
+def phase_samplers(torch, card: str, pipe) -> dict:
+    """One 2 s DiffusionFast request per other sampler. Returns {sampler:
+    launch counts}."""
+    rng = np.random.default_rng(SEED + 6)
+    wave = voice_wave(2, rng)
+    t = len(wave) // BLOCK + 1
+    wrappers = counts()
+    launches = {}
+    for method, speedup, k3 in SAMPLERS:
+        name = "ddpm chain" if speedup == 1 else method
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, sr = pipe.infer(wave, SR, k_step=100, speedup=speedup, method=method)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {n: w.launches for n, w in wrappers.items()}
+        expect = dict(EXPECT_DIFFUSION, conformer_layer=k3)
+        if launches[name] != expect:
+            fail(f"sampler {name}: launches {launches[name]}, expected {expect}")
+        check_audio(audio, t, f"sampler {name} 2 s request")
+        log(f"[samplers] {name} (k_step 100, speedup {speedup}): 2 s request "
+            f"{wall * 1e3:.1f} ms (first run of its shape), K3 launches {k3} "
+            f"[{card}]")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -737,29 +1118,35 @@ def main() -> None:
     results = phase_kernels(torch, card)
 
     args, model, vocoder = build_parts(torch)
-    cpu_model, cpu_vocoder = copy.deepcopy(model), copy.deepcopy(vocoder)
-    diffusion = phase_main_path(torch, args, model, vocoder, card)
+    diffusion_cpu = (args, copy.deepcopy(model), copy.deepcopy(vocoder))
+    paths = {"diffusion-fast": phase_main_path(torch, args, model, vocoder, card)}
     del model, vocoder
     torch.cuda.empty_cache()
-    phase_card_vs_cpu(torch, args, cpu_model, cpu_vocoder, card)
-    del cpu_model, cpu_vocoder
+    phase_card_vs_cpu(torch, args, *diffusion_cpu[1:], card)
 
     sins_parts = random_parts(torch, dict(SINS, type="Sins"), enhancer=True)
     args, model, vocoder = sins_parts
-    sins = phase_sins_path(torch, args, copy.deepcopy(model),
-                           copy.deepcopy(vocoder), card)
+    paths["sins"] = phase_sins_path(torch, args, copy.deepcopy(model),
+                                    copy.deepcopy(vocoder), card)
     torch.cuda.empty_cache()
     phase_ddsp_card_vs_cpu(torch, card, sins_parts)
+
+    wav_launches, pipes = phase_wav_paths(torch, card, diffusion_cpu, sins_parts)
+    paths.update(wav_launches)
+    phase_wav_card_vs_cpu(torch, card, pipes, {
+        "diffusion-fast from a wav": diffusion_cpu, "sins from a wav": sins_parts})
+    paths.update(phase_cli(torch, card, pipes))
+    paths.update(phase_samplers(torch, card, pipes["diffusion-fast from a wav"]))
 
     table = []
     for kname in ("combtooth", "resblock_group", "conformer_layer",
                   "harmonic_bank"):
         r = results[kname]
-        launches = diffusion[kname] + sins[kname]
+        launches = sum(c[kname] for c in paths.values())
         if launches <= 0:
             fail(f"kernel {kname} was not launched on a serving path")
-        log(f"[done] {kname}: {diffusion[kname]} launches on the diffusion-fast "
-            f"path, {sins[kname]} on the Sins path")
+        log(f"[done] {kname}: {launches} launches over the paths: "
+            + ", ".join(f"{p} {c[kname]}" for p, c in paths.items() if c[kname]))
         table.append({"name": kname, "route": r["route"], "source": r["source"],
                       "replaces": r["replaces"], "launches": launches,
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,0 +1,194 @@
+"""Offline voice-conversion CLI (mirrors ddsp_svc_tpu/cli/infer.py for the
+ported families: DiffusionFast and the DDSP models).
+
+python -m ddsp_svc_tpu_torch.cli.infer -m exp/model_10000.ckpt -i in.wav \\
+    -o out.wav [-k 0] [-id 1] [-th -60] [-pe yin] [-kstep 100] \\
+    [-method dpm-solver] [-speedup 10] [-e true -eak 0] [--device cpu]
+
+The f0 of the whole input is cached under ``cache/`` beside the output,
+keyed by the input's MD5 (the JAX CLI's file name and .npy content, so
+either CLI reads the other's cache); then the key shift, the volume mask
+with its 9-frame dilation, the silence split, one conversion per segment,
+and the zero-fill / linear cross-fade splice. ``main`` reads the checkpoint
+(which needs PyYAML and msgpack) and the wav; ``convert`` is the conversion
+on a pipeline in memory.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+
+import numpy as np
+import torch
+
+from ..features.audio import load_wav, save_wav
+from ..features.f0 import F0Extractor
+from ..features.slicer import split_audio
+from ..ops.interp import upsample
+
+_LEFT_OUT = "is not ported yet (ROADMAP A, 'Left of slice 4')"
+
+
+def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
+    """Linear cross-fade splice of ``b`` onto ``a`` from sample ``idx``."""
+    result = np.zeros(idx + b.shape[0])
+    fade_len = a.shape[0] - idx
+    result[:idx] = a[:idx]
+    k = np.linspace(0, 1.0, num=fade_len, endpoint=True)
+    result[idx: a.shape[0]] = (1 - k) * a[idx:] + k * b[:fade_len]
+    result[a.shape[0]:] = b[fade_len:]
+    return result
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        prog="python -m ddsp_svc_tpu_torch.cli.infer",
+        description="Convert a wav with a DiffusionFast or DDSP checkpoint "
+                    "of the JAX package, on the CUDA card (or --device cpu).")
+    p.add_argument("-m", "--model_path", required=True)
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-ddsp", "--ddsp_model_path", default=None)
+    p.add_argument("-id", "--spk_id", type=int, default=1)
+    p.add_argument("-mix", "--spk_mix_dict", default="None")
+    p.add_argument("-diffid", "--diff_spk_id", default="auto")
+    p.add_argument("-k", "--key", type=float, default=0.0)
+    p.add_argument("-e", "--enhance", default="true")
+    p.add_argument("--voc_bf16", action="store_true")
+    p.add_argument("-pe", "--pitch_extractor", default="yin")
+    p.add_argument("-fmin", "--f0_min", type=float, default=50.0)
+    p.add_argument("-fmax", "--f0_max", type=float, default=1100.0)
+    p.add_argument("-th", "--threhold", type=float, default=-60.0)
+    p.add_argument("-eak", "--enhancer_adaptive_key", default="0")
+    p.add_argument("-fs", "--formant_shift_key", type=float, default=0.0)
+    p.add_argument("-kstep", "--k_step", type=int, default=None)
+    p.add_argument("-speedup", "--speedup", type=int, default=10)
+    p.add_argument("-method", "--method", default=None)
+    p.add_argument("-step", "--infer_step", type=int, default=None)
+    p.add_argument("-ts", "--t_start", type=float, default=None)
+    p.add_argument("--stream", type=int, default=0, metavar="N_DEVICES")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs the "
+                        "plain PyTorch versions of the kernels)")
+    return p.parse_args(argv)
+
+
+def check_ported(options: argparse.Namespace) -> None:
+    """Refuse the JAX CLI's options this port does not have yet."""
+    left_out = {
+        "-mix (the speaker-mix dict)": options.spk_mix_dict != "None",
+        "-ddsp (an external DDSP model)": options.ddsp_model_path is not None,
+        "-fs (formant shift with the mel keyshift)": options.formant_shift_key != 0.0,
+        "--stream (time-sharded synthesis)": options.stream > 1,
+        "--voc_bf16 (bf16 vocoder)": options.voc_bf16,
+        "-step / -ts (the rectified-flow family)": (
+            options.infer_step is not None or options.t_start is not None),
+    }
+    for name, used in left_out.items():
+        if used:
+            raise NotImplementedError(f"{name} {_LEFT_OUT}")
+
+
+def cached_f0(options: argparse.Namespace, audio: np.ndarray, sample_rate: int,
+              hop_size: int) -> np.ndarray:
+    """The input's f0 (uv-interpolated, no key shift), read from or written
+    to the MD5-keyed cache beside the output."""
+    with open(options.input, "rb") as f:
+        md5_hash = hashlib.md5(f.read()).hexdigest()
+    cache_dir = os.path.join(os.path.dirname(options.output) or ".", "cache")
+    cache_file = os.path.join(
+        cache_dir, f"{options.pitch_extractor}_{hop_size}_{options.f0_min}_"
+                   f"{options.f0_max}_{md5_hash}.npy")
+    if os.path.exists(cache_file):
+        return np.load(cache_file)
+    f0 = F0Extractor(options.pitch_extractor, sample_rate, hop_size,
+                     options.f0_min, options.f0_max).extract(audio, uv_interp=True)
+    os.makedirs(cache_dir, exist_ok=True)
+    np.save(cache_file, f0)
+    return f0
+
+
+@torch.no_grad()
+def convert(pipeline, audio: np.ndarray, sample_rate: int,
+            options: argparse.Namespace, f0: np.ndarray | None = None
+            ) -> tuple[np.ndarray, int]:
+    """The CLI's conversion of a 1-D recording at ``sample_rate`` on a
+    ``SvcPipeline`` -> (audio (L',) float64 on the host, its sample rate).
+    ``options`` are ``parse_args``'s; ``f0`` (T,) the input's f0 before the
+    key shift (the pipeline's host tracker when not given)."""
+    check_ported(options)
+    args = pipeline.args
+    block = int(args.data.block_size)
+    model_sr = int(args.data.sampling_rate)
+    hop_size = pipeline.hop_size(sample_rate)
+    if f0 is None:
+        f0 = pipeline.f0_extractor(sample_rate).extract(audio, uv_interp=True)
+    f0 = np.asarray(f0, np.float32)[None, :, None] * np.float32(
+        2 ** (options.key / 12.0))
+    volume, frame_mask = pipeline.volume_and_mask(audio, options.threhold, hop_size)
+    mask = upsample(torch.as_tensor(frame_mask, dtype=torch.float32,
+                                    device=pipeline.device)[None, :, None],
+                    block)[..., 0]
+    adaptive_key = (options.enhancer_adaptive_key
+                    if options.enhancer_adaptive_key == "auto"
+                    else float(options.enhancer_adaptive_key))
+    method = options.method or (args.infer or {}).get("method") or "dpm-solver"
+    diff_spk_id = (options.spk_id if options.diff_spk_id == "auto"
+                   else int(options.diff_spk_id))
+
+    segments = split_audio(audio, sample_rate)
+    print(f"Cut the input audio into {len(segments)} slices")
+    result = np.zeros(0)
+    current_length = 0
+    out_sr = model_sr
+    for start_sample, seg in segments:
+        start_frame = start_sample // hop_size
+        seg_units = pipeline.encode_units(seg, sample_rate)
+        t_seg = seg_units.shape[1]
+        seg_f0 = f0[:, start_frame: start_frame + t_seg]
+        seg_volume = volume[:, start_frame: start_frame + t_seg]
+        if pipeline.family == "ddsp":
+            seg_out = pipeline.synth_ddsp(seg_units, seg_f0, seg_volume,
+                                          options.spk_id)
+            out_sr = model_sr
+        else:
+            mel = pipeline.cascade(seg_units, seg_f0, seg_volume, diff_spk_id,
+                                   options.k_step, options.speedup, method)
+            seg_out = pipeline.vocode(mel, seg_f0)
+            out_sr = pipeline.vocoder.vocoder_sample_rate
+        seg_out = seg_out * mask[:, start_frame * block:
+                                 start_frame * block + seg_out.shape[-1]]
+        if pipeline.enhancer is not None:
+            seg_out, out_sr = pipeline.enhance(seg_out, seg_f0, adaptive_key)
+        seg_np = seg_out[0].cpu().numpy()
+
+        silent_length = (round(start_frame * block * out_sr / model_sr)
+                         - current_length)
+        if silent_length >= 0:
+            result = np.append(result, np.zeros(silent_length))
+            result = np.append(result, seg_np)
+        else:
+            result = cross_fade(result, seg_np, current_length + silent_length)
+        current_length = current_length + silent_length + len(seg_np)
+    return result, out_sr
+
+
+def main(argv=None) -> None:
+    from ..infer.pipeline import SvcPipeline
+
+    options = parse_args(argv)
+    check_ported(options)
+    pipeline = SvcPipeline(options.model_path, device=options.device,
+                           enhance=options.enhance == "true",
+                           pitch_extractor=options.pitch_extractor,
+                           f0_min=options.f0_min, f0_max=options.f0_max)
+    audio, sample_rate = load_wav(options.input)
+    f0 = cached_f0(options, audio, sample_rate, pipeline.hop_size(sample_rate))
+    result, out_sr = convert(pipeline, audio, sample_rate, options, f0)
+    save_wav(options.output, result.astype(np.float32), out_sr)
+    print(f"Saved: {options.output} ({len(result) / out_sr:.2f}s)")
+
+
+if __name__ == "__main__":
+    main()

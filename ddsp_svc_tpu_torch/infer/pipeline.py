@@ -1,23 +1,32 @@
-"""The serving path from features (mirrors the direct path of
-ddsp_svc_tpu/infer/pipeline.py ``SvcPipeline.infer``) for two families:
+"""The voice-conversion pipeline (mirrors the direct, unbatched path of
+ddsp_svc_tpu/infer/pipeline.py ``SvcPipeline.infer``): a recording in,
+the converted recording out, for two families:
 
-- DiffusionFast (the jitted ``fwd`` with silence_front 0): cascade ->
-  NSF-HiFiGAN -> volume mask;
-- the DDSP family (Sins, CombSub, CombSubFast, CombSubSuperFast): synth ->
-  volume mask -> the NSF-HiFiGAN ``Enhancer`` when ``enhance`` is set and
-  the config names an ``enhancer``.
+- DiffusionFast: front end -> cascade -> NSF-HiFiGAN -> volume mask, with
+  the ``silence_front`` prefix left out of the vocoder (or, with
+  ``use_silence``, out of the whole cascade) and padded back as silence;
+- the DDSP family (Sins, CombSub, CombSubFast, CombSubSuperFast): front end
+  -> synth -> volume mask -> the NSF-HiFiGAN ``Enhancer`` when ``enhance``
+  is set and the config names an ``enhancer``.
 
-The front-end (units encoder, f0 tracker) is not ported yet, so the entry
-point takes the features it would produce: ``infer_features``.
+The front end (``front_end``) is the units encoder on the device, YIN f0
+on the host (or on the device with ``device_f0``) with the key shift, and
+the volume and its frame mask on the host. ``infer_features`` takes the
+features themselves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..features.f0 import F0Extractor
 from ..features.volume import VolumeExtractor
 from ..ops.interp import upsample
 from ..utils.device import resolve_device
+
+SPK_MIX_NOT_PORTED = ("the speaker-mix dict is not ported yet (ROADMAP A, "
+                      "'Left of slice 4')")
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -34,10 +43,15 @@ class SvcPipeline:
     CUDA card unless ``device`` says otherwise)."""
 
     def __init__(self, model_path: str, device: str | torch.device | None = None,
-                 seed: int = 0, enhance: bool = False):
-        """Load a JAX checkpoint, its config.yaml and the NSF-HiFiGAN payload
-        the config names (``vocoder`` or, with ``enhance``, ``enhancer``;
-        random init when that file does not exist)."""
+                 seed: int = 0, enhance: bool = False,
+                 pitch_extractor: str = "yin", f0_min: float = 50.0,
+                 f0_max: float = 1100.0, device_f0: bool = False):
+        """Load a JAX checkpoint, its config.yaml, the units encoder the
+        config names (its converted weights, or random ones from ``seed``;
+        a config that names none serves ``infer_features`` only) and the
+        NSF-HiFiGAN payload it names (``vocoder`` or, with ``enhance``,
+        ``enhancer``; random init when that file does not exist)."""
+        from ..cli.common import build_units_encoder
         from ..models.registry import (load_model, load_vocoder_or_random,
                                        model_family)
 
@@ -48,29 +62,48 @@ class SvcPipeline:
         else:
             vc = args.vocoder or {}
         vocoder = load_vocoder_or_random(vc.get("ckpt"), seed) if vc is not None else None
-        self._init(model, args, vocoder, dev, seed, enhance)
+        encoder = build_units_encoder(args, dev, seed) if args.data.encoder else None
+        self._init(model, args, vocoder, dev, seed, enhance, encoder,
+                   pitch_extractor, f0_min, f0_max, device_f0)
 
     @classmethod
     def from_parts(cls, model, params, args, vocoder,
                    device: str | torch.device | None = None,
-                   seed: int = 0, enhance: bool = False) -> "SvcPipeline":
+                   seed: int = 0, enhance: bool = False, units_encoder=None,
+                   pitch_extractor: str = "yin", f0_min: float = 50.0,
+                   f0_max: float = 1100.0,
+                   device_f0: bool = False) -> "SvcPipeline":
         """Build a pipeline in memory: ``model`` a module of a ported family,
         ``params`` its state dict (None keeps the model's weights), ``args``
         the DotDict config, ``vocoder`` a Vocoder (for the DDSP family, the
-        enhancer's; used when ``enhance`` is set and args has ``enhancer``)."""
+        enhancer's; used when ``enhance`` is set and args has ``enhancer``),
+        ``units_encoder`` a UnitsEncoder on the same device (``infer``
+        needs one; ``infer_features`` does not)."""
         dev = resolve_device(device)
         if params is not None:
             model.load_state_dict(params, strict=True)
         self = cls.__new__(cls)
-        self._init(model, args, vocoder, dev, seed, enhance)
+        self._init(model, args, vocoder, dev, seed, enhance, units_encoder,
+                   pitch_extractor, f0_min, f0_max, device_f0)
         return self
 
-    def _init(self, model, args, vocoder, device, seed, enhance):
+    def _init(self, model, args, vocoder, device, seed, enhance, units_encoder,
+              pitch_extractor, f0_min, f0_max, device_f0):
         from ..models.registry import model_family
         from ..models.vocoder import Enhancer
 
+        if units_encoder is not None and units_encoder.device != device:
+            raise ValueError(f"the units encoder is on {units_encoder.device}, "
+                             f"the pipeline on {device}")
         self.device = device
         self.args = args
+        self.units_encoder = units_encoder
+        self.pitch_extractor = pitch_extractor
+        self.f0_min, self.f0_max = f0_min, f0_max
+        # the device YIN mirrors the host 'yin' extractor only
+        self.device_f0 = bool(device_f0) and pitch_extractor == "yin"
+        self._f0_extractors: dict[int, F0Extractor] = {}
+        self._f0_fns: dict[tuple, object] = {}
         self.family = model_family(args.model.type)
         self.model = model.to(device).eval()
         self.vocoder = self.enhancer = None
@@ -84,12 +117,124 @@ class SvcPipeline:
         # per-request noise when none is injected
         self.generator = torch.Generator(device=device).manual_seed(seed)
 
-    def volume_and_mask(self, audio: np.ndarray, threshold: float = -60.0):
-        """Host-side features of a waveform at the model's rate: (volume
-        (1, T, 1), frame mask (T,)) with T = len // block + 1."""
-        vx = VolumeExtractor(int(self.args.data.block_size))
+    def hop_size(self, sample_rate: int) -> int:
+        """The model's frame hop in samples at ``sample_rate``."""
+        return int(self.args.data.block_size * sample_rate
+                   / self.args.data.sampling_rate)
+
+    def volume_and_mask(self, audio: np.ndarray, threshold: float = -60.0,
+                        hop_size: int | None = None):
+        """Host-side features of a waveform: (volume (1, T, 1), frame mask
+        (T,)) with T = len // hop + 1 (hop: the model's block size unless
+        given)."""
+        vx = VolumeExtractor(int(hop_size or self.args.data.block_size))
         volume = vx.extract(np.asarray(audio, np.float32))
         return volume[None, :, None], vx.get_mask(volume, threshold)
+
+    def encode_units(self, audio, sample_rate: int) -> torch.Tensor:
+        """audio (L,) -> units (1, L // hop + 1, n_unit) on the device,
+        inside the profiler range "units_encoder"."""
+        if self.units_encoder is None:
+            raise ValueError("this pipeline has no units encoder (from_parts "
+                             "takes one as units_encoder=)")
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        # a profiler range, so a trace can tell the encoder's kernels apart
+        with torch.profiler.record_function("units_encoder"):
+            return self.units_encoder.encode(audio[None], sample_rate,
+                                             self.hop_size(sample_rate))
+
+    def extract_f0(self, audio, sample_rate: int, key_shift: float = 0.0,
+                   silence_front: float = 0.0):
+        """audio (L,) -> f0 (1, L // hop + 1, 1) in Hz, unvoiced frames
+        interpolated and floored at f0_min, shifted by ``key_shift``
+        semitones in f32: a host array, or with ``device_f0`` a tensor on
+        the device (the device YIN; ``audio`` may then lie there already)."""
+        hop = self.hop_size(sample_rate)
+        start_frame = int(silence_front * sample_rate / hop)
+        if self.device_f0:
+            from ..features.yin_device import make_pipeline_f0_fn
+
+            audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+            key = (audio.shape[-1], sample_rate, hop, start_frame)
+            if key not in self._f0_fns:
+                self._f0_fns[key] = make_pipeline_f0_fn(
+                    audio.shape[-1], sample_rate, hop, self.f0_min,
+                    self.f0_max, start_frame)
+            return self._f0_fns[key](audio)[None, :, None] * 2 ** (key_shift / 12.0)
+        f0 = self.f0_extractor(sample_rate).extract(
+            np.asarray(audio), uv_interp=True, silence_front=silence_front)
+        return f0[None, :, None] * np.float32(2 ** (key_shift / 12.0))
+
+    def f0_extractor(self, sample_rate: int) -> F0Extractor:
+        """The host f0 tracker for inputs at ``sample_rate``."""
+        if sample_rate not in self._f0_extractors:
+            self._f0_extractors[sample_rate] = F0Extractor(
+                self.pitch_extractor, sample_rate, self.hop_size(sample_rate),
+                self.f0_min, self.f0_max)
+        return self._f0_extractors[sample_rate]
+
+    @torch.no_grad()
+    def front_end(self, audio: np.ndarray, sample_rate: int,
+                  key_shift: float = 0.0, threhold: float = -60.0,
+                  silence_front: float = 0.0) -> dict:
+        """1-D audio at any rate -> the model's inputs: ``units`` (1, T,
+        n_unit) on the device, ``f0`` (1, T, 1) (see ``extract_f0``),
+        ``volume`` (1, T, 1) and ``frame_mask`` (T,) on the host, T = L //
+        hop + 1 with hop the model's block at ``sample_rate``."""
+        audio = np.asarray(audio, np.float32)
+        # one upload serves the encoder and, with device_f0, the YIN
+        on_device = torch.as_tensor(audio, device=self.device)
+        units = self.encode_units(on_device, sample_rate)
+        t = units.shape[1]
+        f0 = self.extract_f0(on_device if self.device_f0 else audio, sample_rate,
+                             key_shift, silence_front)
+        volume, frame_mask = self.volume_and_mask(audio, threhold,
+                                                  self.hop_size(sample_rate))
+        return dict(units=units, f0=f0[:, :t], volume=volume[:, :t],
+                    frame_mask=frame_mask)
+
+    @torch.no_grad()
+    def infer(self, audio: np.ndarray, sample_rate: int, spk_id: int = 1,
+              key_shift: float = 0.0, threhold: float = -60.0,
+              silence_front: float = 0.0,
+              enhancer_adaptive_key: float | str = 0.0, spk_mix_dict=None,
+              use_silence: bool = False, k_step: int | None = None,
+              speedup: int = 10, method: str = "dpm-solver",
+              noise: dict | None = None) -> tuple[np.ndarray, int]:
+        """1-D float audio at ``sample_rate`` -> (converted audio (L',) on
+        the host, its sample rate).
+
+        ``silence_front`` seconds: the diffusion family crops that many
+        frames of the mel before NSF-HiFiGAN and pads the audio back with
+        silence; with ``use_silence`` the whole cascade runs on the cropped
+        frames. The DDSP family's enhancer skips them likewise. ``noise``
+        as in ``infer_features`` (with the DDPM chain's ``chain``), at the
+        frame count the model runs at."""
+        if spk_mix_dict is not None:
+            raise NotImplementedError(SPK_MIX_NOT_PORTED)
+        fe = self.front_end(audio, sample_rate, key_shift, threhold,
+                            silence_front)
+        units, f0, volume = fe["units"], fe["f0"], fe["volume"]
+        if self.family == "ddsp":
+            out, out_sr = self._infer_ddsp(
+                units, f0, volume, fe["frame_mask"], spk_id, noise or {},
+                enhancer_adaptive_key, silence_front)
+            return out[0].cpu().numpy(), out_sr
+        t = units.shape[1]
+        v = self.vocoder
+        start_frame = 0
+        if silence_front > 0:
+            start_frame = min(int(silence_front * v.vocoder_sample_rate
+                                  / v.vocoder_hop_size), t - 1)
+        if use_silence and start_frame > 0:
+            units, f0, volume = (a[:, start_frame:] for a in (units, f0, volume))
+        mel = self.cascade(units, f0, volume, spk_id, k_step, speedup, method,
+                           noise)
+        if not use_silence and start_frame > 0:
+            # never vocode the stale prefix
+            mel, f0 = mel[:, start_frame:], f0[:, start_frame:]
+        out = self.vocode(mel, f0, fe["frame_mask"], noise, start_frame)
+        return out[0].cpu().numpy(), v.vocoder_sample_rate
 
     @torch.no_grad()
     def infer_features(self, units, f0, volume, frame_mask, spk_id: int = 1,
@@ -101,8 +246,9 @@ class SvcPipeline:
         (T,) -> (audio (1, L) on the pipeline's device, its sample rate).
 
         ``noise`` may carry any of ``ddsp`` (1, T * block), ``diffusion``
-        (1, T, M), ``rand_ini`` (1, 1, 9) and ``sine`` (1, >= L, 9); what
-        is missing is drawn from the pipeline's generator. The diffusion
+        (1, T, M), the DDPM chain's ``chain`` (k_step, 1, T, M), ``rand_ini``
+        (1, 1, 9) and ``sine`` (1, >= L, 9); what is missing is drawn from
+        the pipeline's generator. The diffusion
         family reads k_step, speedup and method; the DDSP family's enhancer
         reads ``enhancer_adaptive_key`` and ``silence_front``."""
         if self.family == "ddsp":
@@ -114,7 +260,8 @@ class SvcPipeline:
         return (self.vocode(mel, f0, frame_mask, noise),
                 self.vocoder.vocoder_sample_rate)
 
-    def _volume_mask(self, audio, frame_mask):
+    def apply_volume_mask(self, audio, frame_mask):
+        """audio (1, L) times the frame mask (T,) upsampled to samples."""
         mask = upsample(_as_tensor(frame_mask, self.device)[None, :, None],
                         int(self.args.data.block_size))[..., 0]
         return audio * mask[:, :audio.shape[-1]]
@@ -123,30 +270,45 @@ class SvcPipeline:
                     adaptive_key, silence_front):
         """Synth -> volume mask -> enhancer (JAX: the masked direct forward,
         then ``Enhancer.enhance`` on the masked audio)."""
+        audio = self.apply_volume_mask(self.synth_ddsp(units, f0, volume, spk_id, noise),
+                                  frame_mask)
+        return self.enhance(audio, f0, adaptive_key, silence_front, noise)
+
+    @torch.no_grad()
+    def synth_ddsp(self, units, f0, volume, spk_id: int = 1,
+                   noise: dict | None = None) -> torch.Tensor:
+        """The DDSP family's synth alone: audio (1, T * block) at the
+        model's rate, unmasked."""
         dev = self.device
         units, f0, volume = (_as_tensor(a, dev) for a in (units, f0, volume))
         spk = torch.full((units.shape[0], 1), int(spk_id), device=dev,
                          dtype=torch.long)
         audio, _ = self.model(units, f0, volume, spk_id=spk,
-                              noise=_maybe(noise, "ddsp", dev),
+                              noise=_maybe(noise or {}, "ddsp", dev),
                               generator=self.generator)
-        audio = self._volume_mask(audio, frame_mask)
+        return audio
+
+    @torch.no_grad()
+    def enhance(self, audio, f0, adaptive_key: float | str = 0.0,
+                silence_front: float = 0.0, noise: dict | None = None):
+        """The DDSP family's enhancer on audio at the model's rate (itself
+        when the pipeline has none) -> (audio, sample rate)."""
+        sr = int(self.args.data.sampling_rate)
         if self.enhancer is None:
-            return audio, int(self.args.data.sampling_rate)
+            return audio, sr
         return self.enhancer.enhance(
-            audio, int(self.args.data.sampling_rate), f0,
-            int(self.args.data.block_size), adaptive_key=adaptive_key,
-            silence_front=silence_front, noise=noise, generator=self.generator)
+            audio, sr, _as_tensor(f0, self.device), int(self.args.data.block_size),
+            adaptive_key=adaptive_key, silence_front=silence_front, noise=noise,
+            generator=self.generator)
 
     @torch.no_grad()
     def cascade(self, units, f0, volume, spk_id: int = 1,
                 k_step: int | None = None, speedup: int = 10,
                 method: str = "dpm-solver", noise: dict | None = None):
         """The first half of ``infer_features`` for DiffusionFast: the mel
-        (1, T, M). k_step defaults to, and is clamped by, k_step_max."""
-        if method != "dpm-solver":
-            raise NotImplementedError(
-                f"method {method!r}: only 'dpm-solver' is ported")
+        (1, T, M). k_step defaults to, and is clamped by, k_step_max;
+        ``method`` is 'dpm-solver', 'unipc', 'pndm' or 'ddim' at ``speedup``,
+        or with ``speedup`` 1 the full DDPM chain."""
         args, dev = self.args, self.device
         noise = noise or {}
         units, f0, volume = (_as_tensor(a, dev) for a in (units, f0, volume))
@@ -161,16 +323,25 @@ class SvcPipeline:
             infer_speedup=speedup, sampler=method, k_step=k_step,
             ddsp_noise=_maybe(noise, "ddsp", dev),
             init_noise=_maybe(noise, "diffusion", dev),
+            chain_noise=_maybe(noise, "chain", dev),
             generator=self.generator)
 
     @torch.no_grad()
-    def vocode(self, mel, f0, frame_mask, noise: dict | None = None):
-        """The second half: NSF-HiFiGAN on the mel, then the volume mask."""
+    def vocode(self, mel, f0, frame_mask=None, noise: dict | None = None,
+               pad_frames: int = 0):
+        """The second half: NSF-HiFiGAN on the mel, ``pad_frames`` frames of
+        silence in front, then the volume mask over the padded length (none
+        without ``frame_mask``)."""
         dev = self.device
         noise = noise or {}
-        sine_kwargs = {key: _maybe(noise, name, dev)
-                       for key, name in (("rand_ini", "rand_ini"),
-                                         ("noise", "sine")) if name in noise}
+        n = mel.shape[1] * self.vocoder.vocoder_hop_size
+        sine_kwargs = {}
+        if "rand_ini" in noise:
+            sine_kwargs["rand_ini"] = _maybe(noise, "rand_ini", dev)
+        if "sine" in noise:
+            sine_kwargs["noise"] = _maybe(noise, "sine", dev)[:, :n]
         audio = self.vocoder.infer(mel, _as_tensor(f0, dev), sine_kwargs or None,
                                    generator=self.generator)
-        return self._volume_mask(audio, frame_mask)
+        if pad_frames:
+            audio = F.pad(audio, (pad_frames * self.vocoder.vocoder_hop_size, 0))
+        return audio if frame_mask is None else self.apply_volume_mask(audio, frame_mask)

@@ -18,6 +18,8 @@ set, or a ``KeyError`` names the leftovers.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -236,6 +238,78 @@ def generator_state_dict(params: dict, n_upsamples: int = 5,
     _put_conv(sd, tree, "conv_post", "conv_post")
     tree.finish()
     return sd
+
+
+def _put_attention(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
+    """flax MultiHeadDotProductAttention: query/key/value kernels (dim,
+    heads, head_dim) with (heads, head_dim) biases, the out kernel (heads,
+    head_dim, dim) -> four Linear layers."""
+    for proj in ("query", "key", "value"):
+        kernel = tree.take(f"{scope}/{proj}/kernel")
+        sd[f"{name}.{proj}.weight"] = np.ascontiguousarray(
+            kernel.reshape(kernel.shape[0], -1).T)
+        sd[f"{name}.{proj}.bias"] = tree.take(f"{scope}/{proj}/bias").reshape(-1)
+    kernel = tree.take(f"{scope}/out/kernel")
+    sd[f"{name}.out.weight"] = np.ascontiguousarray(
+        kernel.reshape(-1, kernel.shape[-1]).T)
+    sd[f"{name}.out.bias"] = tree.take(f"{scope}/out/bias")
+
+
+def hubert_state_dict(params: dict, config) -> dict:
+    """A ``HubertModel``'s JAX params (the tree under ``params`` of its
+    variables) -> the port's ``features/hubert.HubertModel`` state dict
+    (numpy) for ``config`` (a ``HubertConfig``)."""
+    tree = _Leaves(params)
+    sd: dict = {}
+    for i in range(7):
+        _put_conv(sd, tree, f"feature_extractor/conv{i}",
+                  f"feature_extractor.convs.{i}")
+        if config.extractor_layer_norm or i == 0:
+            _put_norm(sd, tree, f"feature_extractor/norm{i}",
+                      f"feature_extractor.norms.{i}")
+    _put_norm(sd, tree, "fp_norm", "fp_norm")
+    _put_dense(sd, tree, "fp_proj", "fp_proj")
+    _put_conv(sd, tree, "pos_conv/conv", "pos_conv.conv")
+    if config.final_norm:
+        _put_norm(sd, tree, "norm", "norm")
+    for i in range(config.layers_run):
+        s, n = f"layer{i}", f"layers.{i}"
+        _put_attention(sd, tree, f"{s}/attn", f"{n}.attn")
+        for part in ("norm1", "norm2"):
+            _put_norm(sd, tree, f"{s}/{part}", f"{n}.{part}")
+        for part in ("fc1", "fc2"):
+            _put_dense(sd, tree, f"{s}/{part}", f"{n}.{part}")
+    if config.proj_dim:
+        _put_dense(sd, tree, "proj", "proj")
+    tree.finish()
+    return sd
+
+
+def unflatten(flat: dict, sep: str = ".") -> dict:
+    """A flat {"a.b.c": array} dict (an .npz param file) -> nested tree
+    (the port's copy of ddsp_svc_tpu/convert/flatdict.py ``unflatten``)."""
+    out: dict = {}
+    for k, v in flat.items():
+        parts = k.split(sep)
+        cur = out
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return out
+
+
+def load_params(path: str | None):
+    """Converted flax params (.msgpack or .npz) -> tree, or None when there
+    is no such file (the port's copy of ddsp_svc_tpu/utils/params.py
+    ``load_params``)."""
+    if not path or not os.path.exists(path):
+        return None
+    if path.endswith(".msgpack"):
+        return read_msgpack(path)
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            return unflatten(dict(data))
+    return None
 
 
 def load_state(module: nn.Module, state: dict) -> nn.Module:

@@ -29,13 +29,13 @@ class Unit2WavFast(nn.Module):
     def forward(self, units, f0, volume, *, mel_extract_fn: Callable,
                 spk_id=None, aug_shift=None, infer_speedup: int = 10,
                 sampler: str = "dpm-solver", k_step: int | None = None,
-                ddsp_noise=None, init_noise=None,
+                ddsp_noise=None, init_noise=None, chain_noise=None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """Inference: units (B, T, n_unit), f0/volume (B, T, 1) -> mel
         (B, T, M); ``mel_extract_fn`` maps the DDSP audio to its mel. No
-        k_step (or 0) returns the DDSP mel. ``ddsp_noise`` (B, T * block)
-        and ``init_noise`` (B, T, M) are drawn from ``generator`` when not
-        given."""
+        k_step (or 0) returns the DDSP mel. ``ddsp_noise`` (B, T * block),
+        ``init_noise`` (B, T, M) and the DDPM chain's ``chain_noise``
+        (k_step, B, T, M) are drawn from ``generator`` when not given."""
         ddsp_wav, _ = self.ddsp_model(units, f0, volume, spk_id=spk_id,
                                       aug_shift=aug_shift, noise=ddsp_noise,
                                       generator=generator)
@@ -44,4 +44,5 @@ class Unit2WavFast(nn.Module):
             return cond
         return self.diff_model.infer(
             lambda x, t: self.denoise_fn(x, t, cond), cond, k_step,
-            infer_speedup, sampler, init_noise=init_noise, generator=generator)
+            infer_speedup, sampler, init_noise=init_noise,
+            chain_noise=chain_noise, generator=generator)

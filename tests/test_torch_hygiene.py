@@ -79,3 +79,55 @@ def test_kernel_sources_build_plain():
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
+
+
+def test_front_end_entry_points_default_to_cuda(monkeypatch):
+    """The units encoder, the encoder builder, the pipeline's constructors
+    and the CLI's --device all default to the card, and without one they
+    raise before any file is read."""
+    from ddsp_svc_tpu_torch.cli import infer as cli_infer
+    from ddsp_svc_tpu_torch.cli.common import build_units_encoder
+    from ddsp_svc_tpu_torch.features.hubert import UnitsEncoder
+
+    for entry in (UnitsEncoder, build_units_encoder):
+        assert inspect.signature(entry).parameters["device"].default is None, entry
+    for entry in (SvcPipeline, SvcPipeline.from_parts):
+        params = inspect.signature(entry).parameters
+        assert params["device"].default is None and params["device_f0"].default is False
+    options = cli_infer.parse_args(["-m", "m.ckpt", "-i", "in.wav", "-o", "out.wav"])
+    assert options.device is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: UnitsEncoder("tiny"),
+                 lambda: SvcPipeline("absent/model_1.ckpt"),
+                 lambda: cli_infer.main(["-m", "absent/model_1.ckpt", "-i",
+                                         "absent.wav", "-o", "out.wav"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_infer_needs_the_card_unless_told_cpu(monkeypatch):
+    """``SvcPipeline(...).infer`` on a machine without a card: refused with
+    "no CUDA device" unless device="cpu" is given, which runs the plain
+    versions."""
+    import numpy as np
+
+    from ddsp_svc_tpu_torch.features.hubert import UnitsEncoder
+    from ddsp_svc_tpu_torch.models.ddsp import CombSubSuperFast
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.utils.config import DotDict
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = DotDict({"data": {"sampling_rate": 16000, "block_size": 64,
+                             "encoder_out_channels": 256},
+                    "model": {"type": "CombSubSuperFast", "win_length": 256,
+                              "n_spk": 1}})
+    model = random_init_(CombSubSuperFast(16000, 64, 256, 256, 1),
+                         torch.Generator().manual_seed(0))
+    audio = (0.3 * np.sin(2 * np.pi * 220 * np.arange(4000) / 16000)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SvcPipeline.from_parts(model, None, args, None).infer(audio, 16000)
+    pipe = SvcPipeline.from_parts(model, None, args, None, device="cpu",
+                                  units_encoder=UnitsEncoder("tiny", device="cpu"))
+    out, sr = pipe.infer(audio, 16000)
+    assert sr == 16000 and out.shape == (4000 // 64 * 64 + 64,)
+    assert np.isfinite(out).all()

@@ -135,8 +135,23 @@ def test_slice_audio_matches_jax_direct_path(slice_run):
     assert snr >= 40.0
 
 
-def test_only_dpm_solver_is_ported(slice_run):
+@pytest.mark.parametrize("method,speedup", [("ddim", 10), ("pndm", 10),
+                                            ("unipc", 10), ("dpm-solver", 1)])
+def test_every_sampler_runs_in_the_pipeline(slice_run, method, speedup):
+    """Every sampler the JAX cascade accepts (each held step by step in
+    tests/test_torch_samplers.py) through ``infer_features``, speedup 1
+    being the full DDPM chain: finite audio of the request's length, the
+    volume mask applied. An unknown method raises."""
     x = slice_run["x"]
+    frame_mask = np.ones(T, np.float32)
+    frame_mask[T // 2: T // 2 + 5] = 0.0
+    audio, sr = slice_run["pipe"].infer_features(
+        x["units"], x["f0"], x["volume"], frame_mask, spk_id=2, k_step=K_MAX,
+        speedup=speedup, method=method)
+    got = audio.numpy()
+    assert sr == SR and got.shape == (1, T * BLOCK) and np.isfinite(got).all()
+    assert np.all(got[:, T // 2 * BLOCK:(T // 2 + 4) * BLOCK] == 0.0)
+    assert np.abs(got).max() > 0.0
     with pytest.raises(NotImplementedError):
         slice_run["pipe"].infer_features(x["units"], x["f0"], x["volume"],
-                                         np.ones(T, np.float32), method="unipc")
+                                         frame_mask, method="euler")
