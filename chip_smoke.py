@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one CUDA card: DiffusionFast
-and the DDSP family (Sins with the NSF-HiFiGAN enhancer), from features and
-from a recording.
+"""Drive the PyTorch port's serving paths on one CUDA card: every model
+family (DiffusionFast, RectifiedFlow, Diffusion, DiffusionNew and the DDSP
+family with Sins and its NSF-HiFiGAN enhancer), from features, from a
+recording, through the offline CLI and through the realtime engine, and
+the kernels' gradients.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -58,7 +60,28 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      launches = segments x the per-request counts, and a PCM16 file written
      and read back;
  11. one 2 s DiffusionFast request per other sampler (ddim, pndm, unipc at
-     speedup 10; the DDPM chain at k_step 100), K3's launches checked.
+     speedup 10; the DDPM chain at k_step 100), K3's launches checked;
+ 12. gradients: K2 (its C = 256 stage), K3 and K4 at the 10 s shapes with
+     grad on, the forward (1e-4 x max|out|) and every input's and weight's
+     .grad (1e-4 x max|grad|) against plain autograd on the card, one
+     kernel launch per forward and none in the backward; K1 refuses an f0
+     that requires grad;
+ 13. the rectified flow at configs/reflow.yaml widths (6 x 512 velocity
+     net): 10 s requests from features and from a wav with euler 20 and
+     rk4 5 at t_start 0.7, served as phase 4 serves DiffusionFast (K1 1,
+     K3 120, K2 5 per request), and card vs CPU from features at 2 s;
+ 14. Unit2Mel and Unit2Wav at configs/diffusion.yaml and
+     diffusion-new.yaml widths (20 x 512 WaveNets): one 10 s request each
+     (K2 5, no K1 or K3) and card vs CPU; cli.infer.convert with -ddsp and
+     -fs (Unit2Mel seeded by an external CombSubSuperFast) and with -mix
+     (Unit2Wav, two speakers); a rectified-flow request with a random
+     'nsf-hifigan-log10' ResBlock2 vocoder (plain convs: no K2), served
+     as the others and card vs CPU at 2 s;
+ 15. RealtimeVC on the card (0.3 s blocks, 2 s of extra context, 5 s of a
+     synthetic voice) for the DiffusionFast, rectified-flow and Sins
+     pipelines from a wav: block walls as drive_blocks measures them,
+     launches per block, and the first blocks against the port on the CPU
+     with the same blocks and noise.
 It then prints one JSON line describing the kernels and, last, one JSON
 line {"ok": true, "device": {...}}. TF32 is off for the whole run.
 """
@@ -91,11 +114,30 @@ SINS = dict(n_harmonics=128, n_mag_allpass=256, n_mag_noise=80)  # sins.yaml
 # the repo ships no CombSub config: the legacy combsub schema's widths
 COMBSUB = dict(n_mag_allpass=256, n_mag_harmonic=512, n_mag_noise=256)
 SNR_LIMIT_DB = 40.0
-ENCODER = "contentvec768l12"  # diffusion-fast.yaml and sins.yaml
+ENCODER = "contentvec768l12"  # every config's encoder
+N_UNIT = 768  # its width, every config's encoder_out_channels
 # (method, speedup, K3 launches per request: 6 layers x denoiser calls)
 SAMPLERS = (("ddim", 10, 60), ("pndm", 10, 66), ("unipc", 10, 60),
             ("dpm-solver", 1, 600))  # speedup 1: the full DDPM chain
 CLI_SILENCES = ((5.3, 5.9), (10.6, 11.2))  # seconds of a 12 s recording
+# configs/reflow.yaml, configs/diffusion.yaml, configs/diffusion-new.yaml
+REFLOW = dict(type="RectifiedFlow", win_length=WIN, n_layers=6, n_chans=512,
+              use_pitch_aug=True, t_start=0.7)
+UNIT2MEL = dict(type="Diffusion", n_layers=20, n_chans=512, n_hidden=256,
+                use_pitch_aug=True, k_step_max=1000)
+UNIT2WAV = dict(type="DiffusionNew", n_layers=20, n_chans=512, k_step_max=100,
+                use_pitch_aug=True, pcmer_norm=False)
+# (sampler, infer_step): the config's euler 20 at t_start 0.7, and rk4 5;
+# K3 launches per request: 6 layers x 20 velocity calls either way
+REFLOW_SAMPLERS = (("euler", 20), ("rk4", 5))
+EXPECT_REFLOW = {"combtooth": 1, "resblock_group": 5, "conformer_layer": 120,
+                 "harmonic_bank": 0}
+EXPECT_WAVENET = {"combtooth": 0, "resblock_group": 5, "conformer_layer": 0,
+                  "harmonic_bank": 0}
+GRAD_TOL = 1e-4  # x max|grad|: the forward tolerance of K2 and K3
+MIX = {1: 0.5, 2: 0.5}
+RT = dict(block_time=0.3, crossfade_time=0.04, extra_time=2.0)
+RT_SECONDS, RT_CPU_BLOCKS = 5.0, 7
 
 
 def fail(msg: str) -> None:
@@ -498,7 +540,8 @@ def phase_kernels(torch, card: str) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-def random_parts(torch, model_cfg: dict, enhancer: bool = False):
+def random_parts(torch, model_cfg: dict, enhancer: bool = False, n_spk: int = 1,
+                 vocoder_type: str = "nsf-hifigan", vocoder_cfg=None):
     """(args, model, NSF-HiFiGAN) on the CPU, random weights (and FAVOR+
     buffers) from one seeded generator. The vocoder is the diffusion
     model's, or with ``enhancer`` the DDSP model's enhancer."""
@@ -508,14 +551,14 @@ def random_parts(torch, model_cfg: dict, enhancer: bool = False):
     from ddsp_svc_tpu_torch.utils.config import DotDict
 
     cfg = {"data": {"sampling_rate": SR, "block_size": BLOCK,
-                    "encoder_out_channels": 768},
-           "model": dict(model_cfg, n_spk=1)}
+                    "encoder_out_channels": N_UNIT},
+           "model": dict(model_cfg, n_spk=n_spk)}
     if enhancer:
         cfg["enhancer"] = {"type": "nsf-hifigan", "ckpt": None}
     args = DotDict(cfg)
     gen = torch.Generator().manual_seed(SEED)
     model = random_init_(build_model(args), gen)
-    vocoder = random_init_(Vocoder("nsf-hifigan"), gen)
+    vocoder = random_init_(Vocoder(vocoder_type, vocoder_cfg), gen)
     return args, model, vocoder
 
 
@@ -534,8 +577,19 @@ def request_inputs(pipe, seconds: float, rng: np.random.Generator):
     wave = synthetic_wave(seconds, rng)
     volume, mask = pipe.volume_and_mask(wave, threshold=-60.0)
     t = volume.shape[1]
-    units = rng.standard_normal((1, t, 768)).astype(np.float32)
+    units = rng.standard_normal((1, t, N_UNIT)).astype(np.float32)
     return dict(units=units, f0=f0_contour(t), volume=volume, frame_mask=mask)
+
+
+def request_noise(rng: np.random.Generator, t: int, draws: str = "normal") -> dict:
+    """Every draw of a request of T frames: the DDSP noise (N(0, 1) or U(-1,
+    1)), the cascades' initial noise, the sine source's phases and noise."""
+    ddsp = (rng.standard_normal((1, t * BLOCK)) if draws == "normal"
+            else rng.uniform(-1.0, 1.0, (1, t * BLOCK)))
+    noise = {"ddsp": ddsp, "diffusion": rng.standard_normal((1, t, 128)),
+             "rand_ini": np.concatenate([[0.0], rng.random(8)])[None, None],
+             "sine": rng.standard_normal((1, t * BLOCK, 9))}
+    return {k: v.astype(np.float32) for k, v in noise.items()}
 
 
 def check_audio(audio, t: int, what: str) -> np.ndarray:
@@ -606,34 +660,62 @@ def range_kernels_us(torch, prof, name: str) -> tuple[dict, dict]:
     return found, ops
 
 
-def profile_breakdown(torch, request, card: str, what: str,
-                      expect: dict, ranges=None) -> None:
-    """One warm request under torch.profiler: device time by kernel group
-    and the device's busy share of the request's wall time. A kernel group
-    whose wrapper launched (``expect``) but which shows no device time
-    fails the run. ``ranges`` {group: record_function name}: the kernels
-    launched inside that range form the group, whatever their names."""
+# torch.profiler's trace on the card loses the device records of the first
+# few device ops it sees: when a request's h2d copies and K1 opened the
+# trace, K1's record was among them though K1 ran. So LEAD_OPS spin kernels
+# (torch.cuda._sleep, LEAD_CYCLES each) run inside the trace before the
+# request, and every device record but theirs counts. They are told apart
+# by name, not by time: on one run the trace placed request records before
+# the request began on the host.
+LEAD_OPS = 64
+LEAD_CYCLES = 250_000
+LEAD_KERNEL = "spin_kernel"
+
+
+def _profiled(torch, request, ranges: dict):
+    """One request under torch.profiler, after LEAD_OPS spin kernels traced
+    before it -> (profile, wall in us, {device kernel: self device time in
+    us} of the request, its device ops, the lead's device records kept)."""
     from torch.profiler import ProfilerActivity, profile
 
-    ranges = ranges or {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=bool(ranges)) as prof:
+        for _ in range(LEAD_OPS):
+            torch.cuda._sleep(LEAD_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         request()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels_us, launches = {}, 0
+    kernels_us, launches, lead_kept = {}, 0, 0
     for evt in prof.key_averages():
         # a range shows on the device as an annotation spanning its kernels
         if (evt.device_type != torch.autograd.DeviceType.CUDA
                 or evt.key in ranges.values()):
+            continue
+        if LEAD_KERNEL in evt.key:
+            lead_kept += evt.count
             continue
         us = getattr(evt, "self_device_time_total", 0) or getattr(
             evt, "self_cuda_time_total", 0)
         if us > 0:
             kernels_us[evt.key] = kernels_us.get(evt.key, 0.0) + us
             launches += evt.count
+    return prof, wall_us, kernels_us, launches, lead_kept
+
+
+def profile_breakdown(torch, request, card: str, what: str,
+                      expect: dict, ranges=None) -> None:
+    """One warm request under torch.profiler (``_profiled``): device time
+    by kernel group and the device's busy share of the request's wall
+    time. A kernel group whose wrapper launched (``expect``) but which
+    shows no device time fails the run. ``ranges`` {group: record_function
+    name}: the kernels launched inside that range form the group, whatever
+    their names."""
+    ranges = ranges or {}
+    prof, wall_us, kernels_us, launches, lead_kept = _profiled(torch, request,
+                                                               ranges)
     busy = sum(kernels_us.values())
     if busy <= 0:
         fail(f"{what} profile: the profiler saw no device time")
@@ -663,7 +745,8 @@ def profile_breakdown(torch, request, card: str, what: str,
                  "no kernel of its group shows device time")
     log(f"[profile] {what} 10 s request: wall {wall_us / 1e3:.2f} ms (profiler "
         f"on), device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f} % of "
-        f"wall, {len(kernels_us)} distinct kernels, {launches} device ops [{card}]")
+        f"wall, {len(kernels_us)} distinct kernels, {launches} device ops; the "
+        f"trace kept {lead_kept} of the lead's {LEAD_OPS} device ops [{card}]")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {name}: {us / 1e3:.3f} ms ({100 * us / busy:.1f} % of "
             "device time)")
@@ -757,11 +840,7 @@ def phase_card_vs_cpu(torch, args, cpu_model, cpu_vocoder, card: str) -> None:
                                  device="cpu", seed=SEED)
     inputs = request_inputs(cpu, 2, rng)
     t = inputs["volume"].shape[1]
-    noise = {"ddsp": rng.standard_normal((1, t * BLOCK)),
-             "diffusion": rng.standard_normal((1, t, 128)),
-             "rand_ini": np.concatenate([[0.0], rng.random(8)])[None, None],
-             "sine": rng.standard_normal((1, t * BLOCK, 9))}
-    noise = {k: v.astype(np.float32) for k, v in noise.items()}
+    noise = request_noise(rng, t)
     mels, audios = {}, {}
     for name, pipe in (("card", gpu), ("cpu", cpu)):
         mel = pipe.cascade(inputs["units"], inputs["f0"], inputs["volume"],
@@ -982,12 +1061,7 @@ def phase_wav_card_vs_cpu(torch, card: str, pipes: dict, cpu_parts: dict) -> Non
         enhance = gpu.enhancer is not None
         cpu = wav_pipeline(cpu_parts[what], enhance, device="cpu",
                            encoder=cpu_encoder)
-        noise = {"ddsp": (rng.uniform(-1.0, 1.0, (1, t * BLOCK)) if enhance
-                          else rng.standard_normal((1, t * BLOCK))),
-                 "diffusion": rng.standard_normal((1, t, 128)),
-                 "rand_ini": np.concatenate([[0.0], rng.random(8)])[None, None],
-                 "sine": rng.standard_normal((1, t * BLOCK, 9))}
-        noise = {k: v.astype(np.float32) for k, v in noise.items()}
+        noise = request_noise(rng, t, "uniform" if enhance else "normal")
         audios = {}
         for name, pipe in (("card", gpu), ("cpu", cpu)):
             units[name] = pipe.encode_units(wave, SR).float().cpu().numpy()
@@ -1098,6 +1172,326 @@ def phase_samplers(torch, card: str, pipe) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+
+def _backward(fn, leaves, grad_out):
+    for leaf in leaves:
+        leaf.grad = None
+    out = fn()
+    out.backward(grad_out)
+    return out.detach(), [leaf.grad.clone() for leaf in leaves]
+
+
+def phase_gradients(torch, card: str) -> None:
+    """K2 (its C = 256 stage), K3 and K4 at the 10 s request's shapes with
+    grad on: each wrapper's forward (the kernel, one launch) and backward
+    (autograd through the plain version, no launch), the forward within
+    GRAD_TOL x max|out| and every input's and weight's .grad within GRAD_TOL
+    x max|grad| of plain autograd on the card; K1 refuses an f0 that
+    requires grad."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_oscillator, cuda_resblock
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth
+    from ddsp_svc_tpu_torch.ops.source import cumsum_phase_source
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    t = frames_for(10)
+
+    def leaves(*shapes_scales):
+        return [_rand(torch, gen, shape, scale).to(dev).requires_grad_()
+                for shape, scale in shapes_scales]
+
+    c, per_frame = K2_STAGES[0]
+    x, = leaves(((1, t * per_frame, c), 1.0))
+    weights = [[tuple(leaves(((c, c, k), (c * k) ** -0.5), ((c,), (c * k) ** -0.5)))
+                for _ in range(2 * len(d))] for k, d in zip(K2_KERNEL_SIZES, K2_DILATIONS)]
+    k2 = (cuda_resblock.resblock_group,
+          [x] + [p for rbw in weights for wb in rbw for p in wb],
+          lambda: cuda_resblock.resblock_group(
+              x, cuda_resblock.PackedResblocks(weights), K2_KERNEL_SIZES, K2_DILATIONS),
+          lambda: cuda_resblock.resblock_group_plain(
+              x, weights, K2_KERNEL_SIZES, K2_DILATIONS))
+    c, hc, inner, k = 512, 128, 1024, 31
+    k3_leaves = leaves(((1, t, c), 1.0), ((1, t, hc), 1.0), ((1, c), 1.0),
+                       ((c, hc), hc ** -0.5), ((c,), 0.1), ((2 * inner, c), c ** -0.5),
+                       ((2 * inner,), 0.1), ((inner, k), k ** -0.5), ((inner,), 0.1),
+                       ((c, inner), inner ** -0.5), ((c,), 0.1))
+    k3 = (cuda_conformer.conformer_layer, k3_leaves,
+          lambda: cuda_conformer.conformer_layer(*k3_leaves[:3], k3_leaves[3:]),
+          lambda: cuda_conformer.conformer_layer_plain(*k3_leaves[:3], k3_leaves[3:]))
+    f0 = torch.from_numpy(f0_contour(t)).to(dev)
+    phase = cumsum_phase_source(torch.repeat_interleave(f0, BLOCK, dim=1), SR,
+                                BLOCK).contiguous().requires_grad_()
+    amps, = leaves(((1, t, SINS["n_harmonics"]), 0.02))
+    k4 = (cuda_oscillator.harmonic_bank, [phase, amps],
+          lambda: cuda_oscillator.harmonic_bank(phase, amps, BLOCK),
+          lambda: cuda_oscillator.harmonic_bank_plain(phase, amps, BLOCK))
+    problems = []
+    for kid, (wrapper, inputs, call, plain) in (("K2 resblock_group C=256", k2),
+                                                 ("K3 conformer_layer", k3),
+                                                 ("K4 harmonic_bank", k4)):
+        with torch.no_grad():
+            grad_out = torch.randn(plain().shape, generator=gen).to(dev)
+        n0 = wrapper.launches
+        got, got_grads = _backward(call, inputs, grad_out)
+        torch.cuda.synchronize()
+        launched = wrapper.launches - n0
+        want, want_grads = _backward(plain, inputs, grad_out)
+        torch.cuda.synchronize()
+        errs = [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got_grads, want_grads)]
+        fwd = float((got - want).abs().max() / want.abs().max())
+        ok = (launched == 1 and wrapper.launches - n0 == 1
+              and fwd <= GRAD_TOL and max(errs) <= GRAD_TOL)
+        if not ok:
+            problems.append(f"{kid}: launches {launched}, forward rel err "
+                            f"{fwd:.3e}, .grad rel err {max(errs):.3e}")
+        log(f"[grad] {kid} at the 10 s shapes, grad on: forward {fwd:.3e} x "
+            f"max|out| from plain, {len(errs)} gradients (every input and weight) "
+            f"within {max(errs):.3e} x max|grad| of plain autograd (tol "
+            f"{GRAD_TOL:g}); kernel launches: forward {launched}, backward "
+            f"{wrapper.launches - n0 - launched} [{card}]")
+    f0_grad = f0.clone().requires_grad_()
+    try:
+        combtooth(f0_grad, SR, BLOCK)
+        problems.append("K1 combtooth returned on an f0 that requires grad")
+    except RuntimeError as e:
+        log(f"[grad] K1 combtooth on an f0 that requires grad: raises ({e})")
+    if problems:
+        fail("gradients: " + "; ".join(problems))
+
+
+# ---------------------------------------------------------------- phase 13
+
+
+def features_card_vs_cpu(torch, card: str, what: str, parts, seconds: float,
+                         draws: str, seed: int = SEED + 8, **kwargs) -> float:
+    """``seconds`` of features through ``infer_features`` on the card and
+    on the CPU, the same weights and injected noise (``draws``: the DDSP
+    noise's law, 'normal' or 'uniform'; inputs and noise drawn from
+    ``seed``) -> the audio SNR, >= SNR_LIMIT_DB."""
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    args, model, vocoder = parts
+    rng = np.random.default_rng(seed)
+    gpu = SvcPipeline.from_parts(copy.deepcopy(model), None, args,
+                                 copy.deepcopy(vocoder), seed=SEED)
+    cpu = SvcPipeline.from_parts(copy.deepcopy(model), None, args,
+                                 copy.deepcopy(vocoder), device="cpu", seed=SEED)
+    inputs = request_inputs(cpu, seconds, rng)
+    t = inputs["volume"].shape[1]
+    noise = request_noise(rng, t, draws)
+    audios = {}
+    for name, pipe in (("card", gpu), ("cpu", cpu)):
+        audio, _ = pipe.infer_features(**inputs, noise=noise, **kwargs)
+        audios[name] = check_audio(audio, t, f"{what} {seconds:g} s on {name}")
+    snr = snr_db(audios["cpu"], audios["card"])
+    log(f"[parity] {what} {seconds:g} s request from features, card (kernels) vs "
+        f"CPU (plain), same weights and noise: audio SNR {snr:.2f} dB (limit >= "
+        f"{SNR_LIMIT_DB:.0f} dB) [{card}]")
+    if not snr >= SNR_LIMIT_DB:
+        fail(f"{what} card vs CPU audio SNR {snr:.2f} dB < {SNR_LIMIT_DB} dB")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return snr
+
+
+def phase_reflow(torch, card: str, encoder) -> tuple[dict, dict]:
+    """The rectified-flow path at configs/reflow.yaml widths: 10 s requests
+    from features and from a wav, euler 20 and rk4 5 at t_start 0.7, each
+    served as phase 4 serves DiffusionFast; card vs CPU from features at
+    2 s. Returns ({path: launch counts}, the CPU parts and the wav
+    pipeline)."""
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    parts = random_parts(torch, REFLOW)
+    args, model, vocoder = parts
+    feat = SvcPipeline.from_parts(copy.deepcopy(model), None, args,
+                                  copy.deepcopy(vocoder), seed=SEED)
+    wav = wav_pipeline((args, copy.deepcopy(model), copy.deepcopy(vocoder)), False,
+                       encoder=encoder)
+    check_on_card(wav, "reflow")
+    rng = np.random.default_rng(SEED + 9)
+    seconds = REQUEST_SECONDS[-1]
+    inputs = request_inputs(feat, seconds, rng)
+    wave = voice_wave(seconds, rng)
+    launches = {}
+    for sampler, steps in REFLOW_SAMPLERS:
+        kw = dict(method=sampler, infer_step=steps, t_start=0.7)
+        for what, t, call in (
+                (f"reflow {sampler} {steps}", inputs["volume"].shape[1],
+                 lambda kw=kw: feat.infer_features(**inputs, **kw)),
+                (f"reflow {sampler} {steps} from a wav", len(wave) // BLOCK + 1,
+                 lambda kw=kw: wav.infer(wave, SR, **kw))):
+            launches[what] = serve_requests(
+                torch, what, EXPECT_REFLOW, card, [(seconds, t, call)],
+                ENCODER_RANGE if what.endswith("wav") else None)[0]
+    for sampler, steps in REFLOW_SAMPLERS:
+        features_card_vs_cpu(torch, card, f"reflow {sampler} {steps}", parts, 2,
+                             "normal", method=sampler, infer_step=steps)
+    return launches, {"parts": parts, "wav": wav}
+
+
+# ---------------------------------------------------------------- phase 14
+
+
+def phase_wavenet_families(torch, card: str, encoder, reflow_parts) -> dict:
+    """Unit2Mel and Unit2Wav at configs/diffusion.yaml and
+    configs/diffusion-new.yaml widths (the latter with two speakers, for the
+    mix): one 10 s request each from features, served as phase 4 serves
+    DiffusionFast, and card vs CPU (Unit2Mel at 1 s: its 100 WaveNet calls
+    of 20 layers are slow on the host); cli.infer.convert of phase 10's
+    12 s recording with -ddsp and -fs (Unit2Mel seeded by an external
+    CombSubSuperFast) and with -mix (Unit2Wav); one rectified-flow request
+    with a random log10 ResBlock2 vocoder, served as the others, and card
+    vs CPU at 2 s. Returns {path: launch counts}."""
+    from ddsp_svc_tpu_torch.cli import infer as cli
+    from ddsp_svc_tpu_torch.features.slicer import split_audio
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    launches = {}
+    rng = np.random.default_rng(SEED + 10)
+    families = (("unit2mel", random_parts(torch, UNIT2MEL), 1),
+                ("unit2wav", random_parts(torch, UNIT2WAV, n_spk=2), 2))
+    seconds = REQUEST_SECONDS[-1]
+    for what, parts, cpu_seconds in families:
+        args, model, vocoder = parts
+        pipe = SvcPipeline.from_parts(copy.deepcopy(model), None, args,
+                                      copy.deepcopy(vocoder), seed=SEED)
+        inputs = request_inputs(pipe, seconds, rng)
+        launches[what] = serve_requests(
+            torch, what, EXPECT_WAVENET, card,
+            [(seconds, inputs["volume"].shape[1],
+              lambda pipe=pipe, inputs=inputs: pipe.infer_features(**inputs))])[0]
+        del pipe
+        features_card_vs_cpu(torch, card, what, parts, cpu_seconds,
+                             "uniform" if what == "unit2wav" else "normal")
+
+    wrappers = counts()
+    wave = voice_wave(12, rng, silences=CLI_SILENCES)
+    segments = split_audio(wave, SR)
+    ddsp_args, ddsp_model, _ = random_parts(
+        torch, {"type": "CombSubSuperFast", "win_length": WIN})
+    ddsp_model = ddsp_model.to(encoder.device).eval()
+    for what, parts, flags, per_segment in (
+            ("unit2mel CLI -ddsp -fs 2", families[0][1],
+             ["-ddsp", "in-memory", "-fs", "2", "-kstep", "100"],
+             dict(EXPECT_WAVENET, combtooth=1)),
+            ("unit2wav CLI -mix", families[1][1], ["-mix", str(MIX)], EXPECT_WAVENET)):
+        args, model, vocoder = parts
+        pipe = wav_pipeline((args, copy.deepcopy(model), copy.deepcopy(vocoder)),
+                            False, encoder=encoder)
+        options = cli.parse_args(["-m", "in-memory", "-i", "in.wav", "-o",
+                                  "out.wav"] + flags)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, sr = cli.convert(pipe, wave, SR, options,
+                                ddsp_model=ddsp_model if "-ddsp" in flags else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[what] = {n: w.launches for n, w in wrappers.items()}
+        expect = {n: len(segments) * c for n, c in per_segment.items()}
+        if launches[what] != expect:
+            fail(f"{what}: launches {launches[what]}, expected {expect}")
+        if sr != SR or not np.isfinite(audio).all() or np.abs(audio).max() <= 1e-4:
+            fail(f"{what}: {audio.shape} samples at {sr} Hz, non-finite or silent")
+        log(f"[cli] {what}: 12 s recording -> {len(segments)} segments, "
+            f"{len(audio)} samples at {sr} Hz, wall {wall * 1e3:.1f} ms (first "
+            f"run of its shapes), launches {launches[what]} [{card}]")
+        del pipe
+
+    args, model, _ = reflow_parts
+    _, _, log10_voc = random_parts(
+        torch, REFLOW, vocoder_type="nsf-hifigan-log10",
+        vocoder_cfg={"resblock": "2", "resblock_dilation_sizes": ((1, 3),) * 3})
+    pipe = SvcPipeline.from_parts(copy.deepcopy(model), None, args, log10_voc,
+                                  seed=SEED)
+    inputs = request_inputs(pipe, seconds, rng)
+    what = "reflow, log10 ResBlock2 vocoder"
+    launches[what] = serve_requests(
+        torch, what, dict(EXPECT_REFLOW, resblock_group=0), card,
+        [(seconds, inputs["volume"].shape[1], lambda: pipe.infer_features(**inputs))])[0]
+    del pipe
+    # inputs that no earlier request on these weights had
+    features_card_vs_cpu(torch, card, what, (args, model, log10_voc), 2, "normal",
+                         seed=SEED + 11)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 15
+
+
+def phase_realtime(torch, card: str, pipes: dict, cpu_parts: dict) -> dict:
+    """RealtimeVC on the card over RT_SECONDS of a synthetic voice for the
+    DiffusionFast, rectified-flow and Sins pipelines from a wav: the block
+    walls of drive_blocks (median and max over all but the first two
+    blocks), the launches of every block, and the first RT_CPU_BLOCKS
+    blocks' spliced output against the port on the CPU with the same
+    blocks and noise. Returns {path: launch counts}."""
+    from ddsp_svc_tpu_torch.features.hubert import UnitsEncoder
+    from ddsp_svc_tpu_torch.infer.realtime import RealtimeVC, drive_blocks
+
+    rng = np.random.default_rng(SEED + 11)
+    wave = voice_wave(RT_SECONDS, rng)
+    context = int(RT["extra_time"] * SR) + int(RT["block_time"] * SR)
+    t = context // BLOCK + 1
+    cpu_encoder = UnitsEncoder(ENCODER, device="cpu", seed=SEED)
+    wrappers = counts()
+    launches = {}
+    for what, expect, kwargs in (
+            ("diffusion-fast", EXPECT_DIFFUSION, dict(k_step=100, speedup=10)),
+            ("reflow", EXPECT_REFLOW, {}),
+            ("sins", EXPECT_SINS, {})):
+        gpu = pipes[what]
+        check_on_card(gpu, f"realtime {what}")
+        enhance = gpu.enhancer is not None
+        noise = request_noise(rng, t, "uniform" if what == "sins" else "normal")
+        engines = {}
+        for name, pipe in (("card", gpu), ("cpu", wav_pipeline(
+                cpu_parts[what], enhance, device="cpu", encoder=cpu_encoder))):
+            engines[name] = RealtimeVC(pipe, SR, **RT, noise=noise, **kwargs)
+        vc = engines["card"]
+        per_block = []
+        process = vc.process_block
+
+        def counted(block, process=process, per_block=per_block):
+            before = {n: w.launches for n, w in wrappers.items()}
+            out = process(block)
+            per_block.append({n: w.launches - before[n] for n, w in wrappers.items()})
+            return out
+
+        vc.process_block = counted
+        for w in wrappers.values():
+            w.launches = 0
+        out, stats = drive_blocks(vc, wave)
+        launches[f"realtime {what}"] = {n: w.launches for n, w in wrappers.items()}
+        bad = [i for i, c in enumerate(per_block) if c != expect]
+        if bad:
+            fail(f"realtime {what}: block {bad[0]} launched {per_block[bad[0]]}, "
+                 f"expected {expect}")
+        steady = np.asarray(stats["times_s"][2:] or stats["times_s"]) * 1e3
+        if out.shape != wave.shape or not np.isfinite(out).all():
+            fail(f"realtime {what}: output {out.shape}, non-finite or mis-sized")
+        n_cmp = RT_CPU_BLOCKS * vc.block_frame
+        want = drive_blocks(engines["cpu"], wave[:n_cmp])[0]
+        snr = snr_db(want, out[:n_cmp])
+        log(f"[realtime] {what}: {stats['blocks']} blocks of {RT['block_time']} s "
+            f"with {RT['extra_time']} s of extra context over {RT_SECONDS:g} s; "
+            f"block wall median {np.median(steady):.2f} ms, max {steady.max():.2f} "
+            f"ms, mean {stats['block_ms']:.2f} ms (all but the first two blocks; "
+            f"first {stats['times_s'][0] * 1e3:.1f} ms), real-time factor "
+            f"{np.median(steady) / (RT['block_time'] * 1e3):.4f}; launches per "
+            f"block {expect}; first {RT_CPU_BLOCKS} blocks card vs CPU, same "
+            f"blocks and noise: SNR {snr:.2f} dB (limit >= {SNR_LIMIT_DB:.0f} dB) "
+            f"[{card}]")
+        if not snr >= SNR_LIMIT_DB:
+            fail(f"realtime {what} card vs CPU SNR {snr:.2f} dB < {SNR_LIMIT_DB} dB")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1137,6 +1531,19 @@ def main() -> None:
         "diffusion-fast from a wav": diffusion_cpu, "sins from a wav": sins_parts})
     paths.update(phase_cli(torch, card, pipes))
     paths.update(phase_samplers(torch, card, pipes["diffusion-fast from a wav"]))
+
+    phase_gradients(torch, card)
+    encoder = pipes["diffusion-fast from a wav"].units_encoder
+    reflow_launches, reflow = phase_reflow(torch, card, encoder)
+    paths.update(reflow_launches)
+    paths.update(phase_wavenet_families(torch, card, encoder, reflow["parts"]))
+    torch.cuda.empty_cache()
+    paths.update(phase_realtime(
+        torch, card,
+        {"diffusion-fast": pipes["diffusion-fast from a wav"],
+         "reflow": reflow["wav"], "sins": pipes["sins from a wav"]},
+        {"diffusion-fast": diffusion_cpu, "reflow": reflow["parts"],
+         "sins": sins_parts}))
 
     table = []
     for kname in ("combtooth", "resblock_group", "conformer_layer",

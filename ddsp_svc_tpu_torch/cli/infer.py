@@ -1,9 +1,10 @@
-"""Offline voice-conversion CLI (mirrors ddsp_svc_tpu/cli/infer.py for the
-ported families: DiffusionFast and the DDSP models).
+"""Offline voice-conversion CLI for every model family (mirrors
+ddsp_svc_tpu/cli/infer.py).
 
 python -m ddsp_svc_tpu_torch.cli.infer -m exp/model_10000.ckpt -i in.wav \\
-    -o out.wav [-k 0] [-id 1] [-th -60] [-pe yin] [-kstep 100] \\
-    [-method dpm-solver] [-speedup 10] [-e true -eak 0] [--device cpu]
+    -o out.wav [-k 0] [-id 1] [-mix "{1: 0.5, 2: 0.5}"] [-th -60] [-pe yin] \\
+    [-kstep 100] [-method dpm-solver] [-speedup 10] [-step 20] [-ts 0.7] \\
+    [-fs 0] [-ddsp exp/ddsp/model_N.ckpt] [-e true -eak 0] [--device cpu]
 
 The f0 of the whole input is cached under ``cache/`` beside the output,
 keyed by the input's MD5 (the JAX CLI's file name and .npy content, so
@@ -11,13 +12,15 @@ either CLI reads the other's cache); then the key shift, the volume mask
 with its 9-frame dilation, the silence split, one conversion per segment,
 and the zero-fill / linear cross-fade splice. ``main`` reads the checkpoint
 (which needs PyYAML and msgpack) and the wav; ``convert`` is the conversion
-on a pipeline in memory.
+on a pipeline in memory. Two of the JAX CLI's options are refused, each
+naming the ROADMAP item that brings it: ``--stream`` and ``--voc_bf16``.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import os
+from ast import literal_eval
 
 import numpy as np
 import torch
@@ -27,7 +30,12 @@ from ..features.f0 import F0Extractor
 from ..features.slicer import split_audio
 from ..ops.interp import upsample
 
-_LEFT_OUT = "is not ported yet (ROADMAP A, 'Left of slice 4')"
+# the JAX CLI's options this port refuses, each with the ROADMAP item that
+# brings it
+STREAM_REFUSED = ("--stream (time-sharded synthesis) is not ported yet "
+                  "(ROADMAP A item 8)")
+VOC_BF16_REFUSED = ("--voc_bf16 (bf16 vocoder) is not ported yet "
+                    "(ROADMAP B4, A item 7)")
 
 
 def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
@@ -44,8 +52,8 @@ def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="python -m ddsp_svc_tpu_torch.cli.infer",
-        description="Convert a wav with a DiffusionFast or DDSP checkpoint "
-                    "of the JAX package, on the CUDA card (or --device cpu).")
+        description="Convert a wav with a checkpoint of the JAX package, of "
+                    "any model family, on the CUDA card (or --device cpu).")
     p.add_argument("-m", "--model_path", required=True)
     p.add_argument("-i", "--input", required=True)
     p.add_argument("-o", "--output", required=True)
@@ -76,18 +84,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_ported(options: argparse.Namespace) -> None:
     """Refuse the JAX CLI's options this port does not have yet."""
-    left_out = {
-        "-mix (the speaker-mix dict)": options.spk_mix_dict != "None",
-        "-ddsp (an external DDSP model)": options.ddsp_model_path is not None,
-        "-fs (formant shift with the mel keyshift)": options.formant_shift_key != 0.0,
-        "--stream (time-sharded synthesis)": options.stream > 1,
-        "--voc_bf16 (bf16 vocoder)": options.voc_bf16,
-        "-step / -ts (the rectified-flow family)": (
-            options.infer_step is not None or options.t_start is not None),
-    }
-    for name, used in left_out.items():
-        if used:
-            raise NotImplementedError(f"{name} {_LEFT_OUT}")
+    if options.stream > 1:
+        raise NotImplementedError(STREAM_REFUSED)
+    if options.voc_bf16:
+        raise NotImplementedError(VOC_BF16_REFUSED)
 
 
 def cached_f0(options: argparse.Namespace, audio: np.ndarray, sample_rate: int,
@@ -111,12 +111,15 @@ def cached_f0(options: argparse.Namespace, audio: np.ndarray, sample_rate: int,
 
 @torch.no_grad()
 def convert(pipeline, audio: np.ndarray, sample_rate: int,
-            options: argparse.Namespace, f0: np.ndarray | None = None
-            ) -> tuple[np.ndarray, int]:
+            options: argparse.Namespace, f0: np.ndarray | None = None,
+            ddsp_model=None) -> tuple[np.ndarray, int]:
     """The CLI's conversion of a 1-D recording at ``sample_rate`` on a
     ``SvcPipeline`` -> (audio (L',) float64 on the host, its sample rate).
     ``options`` are ``parse_args``'s; ``f0`` (T,) the input's f0 before the
-    key shift (the pipeline's host tracker when not given)."""
+    key shift (the pipeline's host tracker when not given); ``ddsp_model``
+    the external DDSP model of ``-ddsp`` on the pipeline's device, whose
+    mel (f0 lowered and the mel's keyshift raised by ``-fs``) starts a
+    Diffusion (Unit2Mel) model shallow at k_step."""
     check_ported(options)
     args = pipeline.args
     block = int(args.data.block_size)
@@ -133,9 +136,21 @@ def convert(pipeline, audio: np.ndarray, sample_rate: int,
     adaptive_key = (options.enhancer_adaptive_key
                     if options.enhancer_adaptive_key == "auto"
                     else float(options.enhancer_adaptive_key))
-    method = options.method or (args.infer or {}).get("method") or "dpm-solver"
+    infer_cfg = args.infer or {}
+    spk_mix_dict = literal_eval(options.spk_mix_dict)
     diff_spk_id = (options.spk_id if options.diff_spk_id == "auto"
                    else int(options.diff_spk_id))
+    fs = options.formant_shift_key
+    t_start = None
+    if pipeline.family == "reflow":
+        t_start = float(args.model.t_start or 0.0)
+        if options.t_start is not None:
+            t_start = max(options.t_start, t_start)
+    sampler = dict(k_step=options.k_step, speedup=options.speedup,
+                   method=options.method or infer_cfg.get("method"),
+                   infer_step=(options.infer_step or infer_cfg.get("infer_step")
+                               or 20),
+                   t_start=t_start)
 
     segments = split_audio(audio, sample_rate)
     print(f"Cut the input audio into {len(segments)} slices")
@@ -150,11 +165,19 @@ def convert(pipeline, audio: np.ndarray, sample_rate: int,
         seg_volume = volume[:, start_frame: start_frame + t_seg]
         if pipeline.family == "ddsp":
             seg_out = pipeline.synth_ddsp(seg_units, seg_f0, seg_volume,
-                                          options.spk_id)
+                                          options.spk_id,
+                                          spk_mix_dict=spk_mix_dict)
             out_sr = model_sr
         else:
+            gt_spec = None
+            if ddsp_model is not None:
+                ddsp_out = pipeline.synth_ddsp(
+                    seg_units, 2 ** (-fs / 12.0) * seg_f0, seg_volume,
+                    options.spk_id, spk_mix_dict=spk_mix_dict, model=ddsp_model)
+                gt_spec = pipeline.vocoder.extract(ddsp_out, model_sr, keyshift=fs)
             mel = pipeline.cascade(seg_units, seg_f0, seg_volume, diff_spk_id,
-                                   options.k_step, options.speedup, method)
+                                   spk_mix_dict=spk_mix_dict, formant_shift=fs,
+                                   gt_spec=gt_spec, **sampler)
             seg_out = pipeline.vocode(mel, seg_f0)
             out_sr = pipeline.vocoder.vocoder_sample_rate
         seg_out = seg_out * mask[:, start_frame * block:
@@ -174,6 +197,20 @@ def convert(pipeline, audio: np.ndarray, sample_rate: int,
     return result, out_sr
 
 
+def load_ddsp_model(path: str, pipeline):
+    """The ``-ddsp`` model on the pipeline's device, its config checked
+    against the pipeline's (the rate, the hop and the encoder)."""
+    from ..models.registry import load_model
+
+    model, ddsp_args = load_model(path, device=pipeline.device)
+    for key in ("sampling_rate", "block_size", "encoder"):
+        if ddsp_args.data[key] != pipeline.args.data[key]:
+            raise ValueError(f"-ddsp: the DDSP model's data.{key} "
+                             f"{ddsp_args.data[key]!r} differs from the "
+                             f"model's {pipeline.args.data[key]!r}")
+    return model.eval()
+
+
 def main(argv=None) -> None:
     from ..infer.pipeline import SvcPipeline
 
@@ -183,9 +220,12 @@ def main(argv=None) -> None:
                            enhance=options.enhance == "true",
                            pitch_extractor=options.pitch_extractor,
                            f0_min=options.f0_min, f0_max=options.f0_max)
+    ddsp_model = (load_ddsp_model(options.ddsp_model_path, pipeline)
+                  if options.ddsp_model_path else None)
     audio, sample_rate = load_wav(options.input)
     f0 = cached_f0(options, audio, sample_rate, pipeline.hop_size(sample_rate))
-    result, out_sr = convert(pipeline, audio, sample_rate, options, f0)
+    result, out_sr = convert(pipeline, audio, sample_rate, options, f0,
+                             ddsp_model)
     save_wav(options.output, result.astype(np.float32), out_sr)
     print(f"Saved: {options.output} ({len(result) / out_sr:.2f}s)")
 

@@ -1,8 +1,9 @@
 """The voice-conversion pipeline (mirrors the direct, unbatched path of
 ddsp_svc_tpu/infer/pipeline.py ``SvcPipeline.infer``): a recording in,
-the converted recording out, for two families:
+the converted recording out, for every model family:
 
-- DiffusionFast: front end -> cascade -> NSF-HiFiGAN -> volume mask, with
+- the mel cascades (Diffusion, DiffusionNew, DiffusionFast,
+  RectifiedFlow): front end -> cascade -> NSF-HiFiGAN -> volume mask, with
   the ``silence_front`` prefix left out of the vocoder (or, with
   ``use_silence``, out of the whole cascade) and padded back as silence;
 - the DDSP family (Sins, CombSub, CombSubFast, CombSubSuperFast): front end
@@ -12,7 +13,8 @@ the converted recording out, for two families:
 The front end (``front_end``) is the units encoder on the device, YIN f0
 on the host (or on the device with ``device_f0``) with the key shift, and
 the volume and its frame mask on the host. ``infer_features`` takes the
-features themselves.
+features themselves. A speaker mix ``spk_mix_dict`` {id: weight} replaces
+``spk_id`` on every path.
 """
 from __future__ import annotations
 
@@ -25,10 +27,6 @@ from ..features.volume import VolumeExtractor
 from ..ops.interp import upsample
 from ..utils.device import resolve_device
 
-SPK_MIX_NOT_PORTED = ("the speaker-mix dict is not ported yet (ROADMAP A, "
-                      "'Left of slice 4')")
-
-
 def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -37,10 +35,14 @@ def _maybe(noise: dict, name: str, device):
     return _as_tensor(noise[name], device) if name in noise else None
 
 
+def _speaker(spk_id, batch: int, device) -> torch.Tensor:
+    return torch.full((batch, 1), int(spk_id), device=device, dtype=torch.long)
+
+
 class SvcPipeline:
-    """A model of a ported family and its NSF-HiFiGAN (the vocoder of the
-    diffusion family, the enhancer of the DDSP family) on one device (the
-    CUDA card unless ``device`` says otherwise)."""
+    """A model of any family and its NSF-HiFiGAN (the vocoder of the mel
+    cascades, the enhancer of the DDSP family) on one device (the CUDA card
+    unless ``device`` says otherwise)."""
 
     def __init__(self, model_path: str, device: str | torch.device | None = None,
                  seed: int = 0, enhance: bool = False,
@@ -61,7 +63,9 @@ class SvcPipeline:
             vc = args.enhancer if enhance else None
         else:
             vc = args.vocoder or {}
-        vocoder = load_vocoder_or_random(vc.get("ckpt"), seed) if vc is not None else None
+        vocoder = (load_vocoder_or_random(vc.get("ckpt"), seed,
+                                          vc.get("type") or "nsf-hifigan")
+                   if vc is not None else None)
         encoder = build_units_encoder(args, dev, seed) if args.data.encoder else None
         self._init(model, args, vocoder, dev, seed, enhance, encoder,
                    pitch_extractor, f0_min, f0_max, device_f0)
@@ -73,7 +77,7 @@ class SvcPipeline:
                    pitch_extractor: str = "yin", f0_min: float = 50.0,
                    f0_max: float = 1100.0,
                    device_f0: bool = False) -> "SvcPipeline":
-        """Build a pipeline in memory: ``model`` a module of a ported family,
+        """Build a pipeline in memory: ``model`` a module of any family,
         ``params`` its state dict (None keeps the model's weights), ``args``
         the DotDict config, ``vocoder`` a Vocoder (for the DDSP family, the
         enhancer's; used when ``enhance`` is set and args has ``enhancer``),
@@ -199,26 +203,25 @@ class SvcPipeline:
               silence_front: float = 0.0,
               enhancer_adaptive_key: float | str = 0.0, spk_mix_dict=None,
               use_silence: bool = False, k_step: int | None = None,
-              speedup: int = 10, method: str = "dpm-solver",
+              speedup: int = 10, method: str | None = None,
+              infer_step: int | None = None, t_start: float | None = None,
               noise: dict | None = None) -> tuple[np.ndarray, int]:
         """1-D float audio at ``sample_rate`` -> (converted audio (L',) on
         the host, its sample rate).
 
-        ``silence_front`` seconds: the diffusion family crops that many
-        frames of the mel before NSF-HiFiGAN and pads the audio back with
-        silence; with ``use_silence`` the whole cascade runs on the cropped
-        frames. The DDSP family's enhancer skips them likewise. ``noise``
-        as in ``infer_features`` (with the DDPM chain's ``chain``), at the
-        frame count the model runs at."""
-        if spk_mix_dict is not None:
-            raise NotImplementedError(SPK_MIX_NOT_PORTED)
+        ``silence_front`` seconds: the mel cascades crop that many frames of
+        the mel before NSF-HiFiGAN and pad the audio back with silence; with
+        ``use_silence`` the whole cascade runs on the cropped frames. The
+        DDSP family's enhancer skips them likewise. The sampler settings as
+        ``cascade`` resolves them; ``noise`` as in ``infer_features`` (with
+        the DDPM chain's ``chain``), at the frame count the model runs at."""
         fe = self.front_end(audio, sample_rate, key_shift, threhold,
                             silence_front)
         units, f0, volume = fe["units"], fe["f0"], fe["volume"]
         if self.family == "ddsp":
             out, out_sr = self._infer_ddsp(
                 units, f0, volume, fe["frame_mask"], spk_id, noise or {},
-                enhancer_adaptive_key, silence_front)
+                enhancer_adaptive_key, silence_front, spk_mix_dict)
             return out[0].cpu().numpy(), out_sr
         t = units.shape[1]
         v = self.vocoder
@@ -229,7 +232,8 @@ class SvcPipeline:
         if use_silence and start_frame > 0:
             units, f0, volume = (a[:, start_frame:] for a in (units, f0, volume))
         mel = self.cascade(units, f0, volume, spk_id, k_step, speedup, method,
-                           noise)
+                           noise, infer_step=infer_step, t_start=t_start,
+                           spk_mix_dict=spk_mix_dict)
         if not use_silence and start_frame > 0:
             # never vocode the stale prefix
             mel, f0 = mel[:, start_frame:], f0[:, start_frame:]
@@ -239,24 +243,27 @@ class SvcPipeline:
     @torch.no_grad()
     def infer_features(self, units, f0, volume, frame_mask, spk_id: int = 1,
                        k_step: int | None = None, speedup: int = 10,
-                       method: str = "dpm-solver", noise: dict | None = None,
+                       method: str | None = None, noise: dict | None = None,
                        enhancer_adaptive_key: float | str = 0.0,
-                       silence_front: float = 0.0):
+                       silence_front: float = 0.0, infer_step: int | None = None,
+                       t_start: float | None = None, spk_mix_dict=None):
         """units (1, T, n_unit), f0 (1, T, 1) Hz, volume (1, T, 1), frame_mask
         (T,) -> (audio (1, L) on the pipeline's device, its sample rate).
 
         ``noise`` may carry any of ``ddsp`` (1, T * block), ``diffusion``
-        (1, T, M), the DDPM chain's ``chain`` (k_step, 1, T, M), ``rand_ini``
-        (1, 1, 9) and ``sine`` (1, >= L, 9); what is missing is drawn from
-        the pipeline's generator. The diffusion
-        family reads k_step, speedup and method; the DDSP family's enhancer
-        reads ``enhancer_adaptive_key`` and ``silence_front``."""
+        (1, T, M; the rectified flow's and the diffusions' initial noise),
+        the DDPM chain's ``chain`` (k_step, 1, T, M), ``rand_ini`` (1, 1, 9)
+        and ``sine`` (1, >= L, 9); what is missing is drawn from the
+        pipeline's generator. The cascades read the sampler settings
+        (``cascade``); the DDSP family's enhancer reads
+        ``enhancer_adaptive_key`` and ``silence_front``."""
         if self.family == "ddsp":
             return self._infer_ddsp(units, f0, volume, frame_mask, spk_id,
                                     noise or {}, enhancer_adaptive_key,
-                                    silence_front)
+                                    silence_front, spk_mix_dict)
         mel = self.cascade(units, f0, volume, spk_id, k_step, speedup, method,
-                           noise)
+                           noise, infer_step=infer_step, t_start=t_start,
+                           spk_mix_dict=spk_mix_dict)
         return (self.vocode(mel, f0, frame_mask, noise),
                 self.vocoder.vocoder_sample_rate)
 
@@ -267,25 +274,27 @@ class SvcPipeline:
         return audio * mask[:, :audio.shape[-1]]
 
     def _infer_ddsp(self, units, f0, volume, frame_mask, spk_id, noise,
-                    adaptive_key, silence_front):
+                    adaptive_key, silence_front, spk_mix_dict=None):
         """Synth -> volume mask -> enhancer (JAX: the masked direct forward,
         then ``Enhancer.enhance`` on the masked audio)."""
-        audio = self.apply_volume_mask(self.synth_ddsp(units, f0, volume, spk_id, noise),
-                                  frame_mask)
+        audio = self.apply_volume_mask(
+            self.synth_ddsp(units, f0, volume, spk_id, noise, spk_mix_dict),
+            frame_mask)
         return self.enhance(audio, f0, adaptive_key, silence_front, noise)
 
     @torch.no_grad()
     def synth_ddsp(self, units, f0, volume, spk_id: int = 1,
-                   noise: dict | None = None) -> torch.Tensor:
-        """The DDSP family's synth alone: audio (1, T * block) at the
-        model's rate, unmasked."""
+                   noise: dict | None = None, spk_mix_dict=None,
+                   model=None) -> torch.Tensor:
+        """The DDSP family's synth alone (or ``model``, a DDSP model on the
+        pipeline's device): audio (1, T * block) at the model's rate,
+        unmasked."""
         dev = self.device
         units, f0, volume = (_as_tensor(a, dev) for a in (units, f0, volume))
-        spk = torch.full((units.shape[0], 1), int(spk_id), device=dev,
-                         dtype=torch.long)
-        audio, _ = self.model(units, f0, volume, spk_id=spk,
-                              noise=_maybe(noise or {}, "ddsp", dev),
-                              generator=self.generator)
+        audio, _ = (model or self.model)(
+            units, f0, volume, spk_id=_speaker(spk_id, units.shape[0], dev),
+            noise=_maybe(noise or {}, "ddsp", dev), generator=self.generator,
+            spk_mix_dict=spk_mix_dict)
         return audio
 
     @torch.no_grad()
@@ -301,30 +310,61 @@ class SvcPipeline:
             adaptive_key=adaptive_key, silence_front=silence_front, noise=noise,
             generator=self.generator)
 
+    def sampler_kwargs(self, k_step: int | None = None, speedup: int = 10,
+                       method: str | None = None, infer_step: int | None = None,
+                       t_start: float | None = None) -> dict:
+        """A cascade request's sampler settings, resolved as the JAX
+        pipeline's ``_sampler_kwargs``. The diffusions: k_step defaults to,
+        and is clamped by, k_step_max; ``method`` (default 'dpm-solver')
+        is 'dpm-solver', 'unipc', 'pndm' or 'ddim' at ``speedup``, or with
+        ``speedup`` 1 the full DDPM chain. The rectified flow:
+        ``infer_step`` (default 20) steps of ``method`` (default 'euler',
+        or 'rk4') from ``t_start`` (default the config's)."""
+        args = self.args
+        if self.family == "reflow":
+            return dict(
+                infer_step=20 if infer_step is None else int(infer_step),
+                sampler=method or "euler",
+                t_start=(float(args.model.t_start or 0.0) if t_start is None
+                         else float(t_start)))
+        k_max = int(args.model.k_step_max or 1000)
+        return dict(infer_speedup=speedup, sampler=method or "dpm-solver",
+                    k_step=min(int(k_step or k_max), k_max))
+
     @torch.no_grad()
     def cascade(self, units, f0, volume, spk_id: int = 1,
                 k_step: int | None = None, speedup: int = 10,
-                method: str = "dpm-solver", noise: dict | None = None):
-        """The first half of ``infer_features`` for DiffusionFast: the mel
-        (1, T, M). k_step defaults to, and is clamped by, k_step_max;
-        ``method`` is 'dpm-solver', 'unipc', 'pndm' or 'ddim' at ``speedup``,
-        or with ``speedup`` 1 the full DDPM chain."""
+                method: str | None = None, noise: dict | None = None, *,
+                infer_step: int | None = None, t_start: float | None = None,
+                spk_mix_dict=None, formant_shift: float = 0.0, gt_spec=None):
+        """The first half of ``infer_features`` for the mel cascades: the mel
+        (1, T, M), with the sampler settings of ``sampler_kwargs``.
+        ``formant_shift`` semitones feed the pitch-aug embedding
+        (``aug_shift``); ``gt_spec`` (1, T, M), an external DDSP model's
+        mel, starts a Unit2Mel shallow at k_step."""
         args, dev = self.args, self.device
         noise = noise or {}
         units, f0, volume = (_as_tensor(a, dev) for a in (units, f0, volume))
-        k_max = int(args.model.k_step_max or 1000)
-        k_step = min(int(k_step or k_max), k_max)
-        spk = torch.full((units.shape[0], 1), int(spk_id), device=dev,
-                         dtype=torch.long)
-        return self.model(
-            units, f0, volume, spk_id=spk,
-            mel_extract_fn=lambda wav: self.vocoder.extract(
-                wav, int(args.data.sampling_rate)),
-            infer_speedup=speedup, sampler=method, k_step=k_step,
-            ddsp_noise=_maybe(noise, "ddsp", dev),
-            init_noise=_maybe(noise, "diffusion", dev),
-            chain_noise=_maybe(noise, "chain", dev),
-            generator=self.generator)
+        kwargs = self.sampler_kwargs(k_step, speedup, method, infer_step, t_start)
+        kwargs.update(spk_id=_speaker(spk_id, units.shape[0], dev),
+                      spk_mix_dict=spk_mix_dict, generator=self.generator,
+                      init_noise=_maybe(noise, "diffusion", dev))
+        if formant_shift:
+            kwargs["aug_shift"] = torch.full((units.shape[0], 1, 1),
+                                             float(formant_shift), device=dev)
+        if self.family != "reflow":
+            kwargs["chain_noise"] = _maybe(noise, "chain", dev)
+        if self.family == "unit2mel":
+            kwargs["gt_spec"] = None if gt_spec is None else _as_tensor(gt_spec, dev)
+        else:
+            if gt_spec is not None:
+                raise ValueError("gt_spec (an external DDSP model's mel) seeds "
+                                 "the Diffusion (Unit2Mel) family only; the "
+                                 "other cascades run their own DDSP stage")
+            kwargs.update(ddsp_noise=_maybe(noise, "ddsp", dev),
+                          mel_extract_fn=lambda wav: self.vocoder.extract(
+                              wav, int(args.data.sampling_rate)))
+        return self.model(units, f0, volume, **kwargs)
 
     @torch.no_grad()
     def vocode(self, mel, f0, frame_mask=None, noise: dict | None = None,

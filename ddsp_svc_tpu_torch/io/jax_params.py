@@ -195,14 +195,9 @@ def ddsp_state_dict(params: dict, buffers: dict | None = None,
     return sd
 
 
-def unit2wav_fast_state_dict(params: dict, n_layers: int) -> dict:
-    """Unit2WavFast params (``ddsp_model/...``, ``denoise_fn/...``) -> the
-    port's ``models/cascade.Unit2WavFast`` state dict (numpy)."""
-    tree = _Leaves(params)
-    sd: dict = {}
-    _put_unit2control(sd, tree, None, "ddsp_model/unit2ctrl",
-                      "ddsp_model.unit2ctrl", pcmer=False)
-    d, dn = "denoise_fn", "denoise_fn"
+def _put_naive_v2_diff(sd: dict, tree: _Leaves, d: str, dn: str,
+                       n_layers: int) -> None:
+    """NaiveV2Diff at JAX scope ``d`` -> port module ``dn``."""
     _put_conv(sd, tree, f"{d}/input_projection", f"{dn}.input_projection")
     _put_dense(sd, tree, f"{d}/diff_emb_0", f"{dn}.diff_emb_0")
     _put_dense(sd, tree, f"{d}/diff_emb_1", f"{dn}.diff_emb_1")
@@ -214,25 +209,125 @@ def unit2wav_fast_state_dict(params: dict, n_layers: int) -> dict:
                   f"{n}.condition_projection")
         _put_conformer(sd, tree, f"{s}/conformer", f"{n}.conformer")
     _put_conv(sd, tree, f"{d}/output_projection", f"{dn}.output_projection")
+
+
+def _put_wavenet(sd: dict, tree: _Leaves, d: str, dn: str, n_layers: int) -> None:
+    """WaveNet at JAX scope ``d`` -> port module ``dn`` (its 1x1 convs' HIO
+    kernels become (O, I, 1))."""
+    _put_conv(sd, tree, f"{d}/input_projection", f"{dn}.input_projection")
+    _put_dense(sd, tree, f"{d}/mlp_0", f"{dn}.mlp_0")
+    _put_dense(sd, tree, f"{d}/mlp_1", f"{dn}.mlp_1")
+    for i in range(n_layers):
+        s, n = f"{d}/layer_{i}", f"{dn}.layers.{i}"
+        _put_dense(sd, tree, f"{s}/diffusion_projection", f"{n}.diffusion_projection")
+        for conv in ("dilated_conv", "conditioner_projection", "output_projection"):
+            _put_conv(sd, tree, f"{s}/{conv}", f"{n}.{conv}")
+    _put_conv(sd, tree, f"{d}/skip_projection", f"{dn}.skip_projection")
+    _put_conv(sd, tree, f"{d}/output_projection", f"{dn}.output_projection")
+
+
+def wavenet_state_dict(params: dict, n_layers: int) -> dict:
+    """A WaveNet's own params -> the port's ``models/wavenet.WaveNet``
+    state dict (numpy)."""
+    tree = _Leaves({"wavenet": params})
+    sd: dict = {}
+    _put_wavenet(sd, tree, "wavenet", "wavenet", n_layers)
+    tree.finish()
+    return {k.split(".", 1)[1]: v for k, v in sd.items()}
+
+
+def unit2wav_fast_state_dict(params: dict, n_layers: int) -> dict:
+    """Unit2WavFast params (``ddsp_model/...``, ``denoise_fn/...``) -> the
+    port's ``models/cascade.Unit2WavFast`` state dict (numpy)."""
+    tree = _Leaves(params)
+    sd: dict = {}
+    _put_unit2control(sd, tree, None, "ddsp_model/unit2ctrl",
+                      "ddsp_model.unit2ctrl", pcmer=False)
+    _put_naive_v2_diff(sd, tree, "denoise_fn", "denoise_fn", n_layers)
     tree.finish()
     return sd
 
 
+def reflow_state_dict(params: dict, n_layers: int) -> dict:
+    """ReflowUnit2Wav params (``ddsp_model/...``; the velocity net at
+    ``velocity_fn/``, beside ``ddsp_model`` rather than under
+    ``reflow_model/``, since the cascade's own scope builds it) -> the
+    port's ``models/cascade.ReflowUnit2Wav`` state dict (numpy)."""
+    tree = _Leaves(params)
+    sd: dict = {}
+    _put_unit2control(sd, tree, None, "ddsp_model/unit2ctrl",
+                      "ddsp_model.unit2ctrl", pcmer=False)
+    _put_naive_v2_diff(sd, tree, "velocity_fn", "velocity_fn", n_layers)
+    tree.finish()
+    return sd
+
+
+def unit2mel_state_dict(params: dict, n_layers: int) -> dict:
+    """Unit2Mel params (the embeddings; the WaveNet at ``denoise_fn/``,
+    beside them) -> the port's ``models/cascade.Unit2Mel`` state dict."""
+    tree = _Leaves(params)
+    sd: dict = {}
+    for emb in ("unit_embed", "f0_embed", "volume_embed"):
+        _put_dense(sd, tree, emb, emb)
+    if tree.has("spk_embed/embedding"):
+        sd["spk_embed.weight"] = tree.take("spk_embed/embedding")
+    if tree.has("aug_shift_embed/kernel"):
+        _put_dense(sd, tree, "aug_shift_embed", "aug_shift_embed")
+    _put_wavenet(sd, tree, "denoise_fn", "denoise_fn", n_layers)
+    tree.finish()
+    return sd
+
+
+def unit2wav_state_dict(params: dict, buffers: dict | None,
+                        n_layers: int) -> dict:
+    """Unit2Wav params (``ddsp_model/...`` a CombSubFast with its PCmer and
+    FAVOR+ ``buffers``; the WaveNet at ``denoise_fn/``) -> the port's
+    ``models/cascade.Unit2Wav`` state dict (numpy)."""
+    tree = _Leaves(params)
+    buf = _Leaves(buffers) if buffers is not None else None
+    sd: dict = {}
+    _put_unit2control(sd, tree, buf, "ddsp_model/unit2ctrl",
+                      "ddsp_model.unit2ctrl", pcmer=True)
+    _put_wavenet(sd, tree, "denoise_fn", "denoise_fn", n_layers)
+    tree.finish()
+    if buf is not None:
+        buf.finish()
+    return sd
+
+
+def model_state_dict(model_args, params: dict, buffers: dict | None = None) -> dict:
+    """A checkpoint's params (and buffers) -> the state dict of the port's
+    model for ``model_args`` (the config's ``model`` section)."""
+    mtype, n_layers = model_args.type, model_args.n_layers
+    if mtype in ("Sins", "CombSub", "CombSubFast", "CombSubSuperFast"):
+        return ddsp_state_dict(params, buffers, pcmer=mtype != "CombSubSuperFast")
+    if mtype == "Diffusion":
+        return unit2mel_state_dict(params, n_layers)
+    if mtype == "DiffusionNew":
+        return unit2wav_state_dict(params, buffers, n_layers)
+    if mtype == "RectifiedFlow":
+        return reflow_state_dict(params, n_layers)
+    return unit2wav_fast_state_dict(params, n_layers)
+
+
 def generator_state_dict(params: dict, n_upsamples: int = 5,
-                         n_kernels: int = 3, n_dilations: int = 3) -> dict:
+                         n_kernels: int = 3, n_dilations: int = 3,
+                         resblock: str = "1") -> dict:
     """NSF-HiFiGAN Generator params (the vocoder payload's ``params``) ->
-    the port's ``models/nsf_hifigan.Generator`` state dict (numpy)."""
+    the port's ``models/nsf_hifigan.Generator`` state dict (numpy), with
+    ResBlock1 (``convs1_n``, ``convs2_n``) or ResBlock2 (``convs_n``)."""
     tree = _Leaves(params)
     sd: dict = {}
     _put_dense(sd, tree, "m_source/l_linear", "m_source.l_linear")
     _put_conv(sd, tree, "conv_pre", "conv_pre")
+    convs = ("convs1", "convs2") if str(resblock) == "1" else ("convs",)
     for i in range(n_upsamples):
         _put_conv_transpose(sd, tree, f"ups_{i}", f"ups.{i}")
         _put_conv(sd, tree, f"noise_convs_{i}", f"noise_convs.{i}")
         for j in range(n_kernels):
             r = i * n_kernels + j
             for n in range(n_dilations):
-                for c in ("convs1", "convs2"):
+                for c in convs:
                     _put_conv(sd, tree, f"resblocks_{r}/{c}_{n}",
                               f"resblocks.{r}.{c}.{n}")
     _put_conv(sd, tree, "conv_post", "conv_post")

@@ -73,11 +73,12 @@ class Sins(nn.Module):
                             "group_delay": n_mag_allpass,
                             "noise_magnitude": n_mag_noise})
 
-    def controls(self, units, f0_frames, phase_frames, volume, spk_id=None):
+    def controls(self, units, f0_frames, phase_frames, volume, spk_id=None,
+                 spk_mix_dict=None):
         """-> (amplitudes (exp-scaled, fmax-masked), group_delay,
         noise_param, hidden)."""
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
-                                       spk_id=spk_id)
+                                       spk_id=spk_id, spk_mix_dict=spk_mix_dict)
         amplitudes = torch.exp(ctrls["amplitudes"]) / 128.0
         group_delay = math.pi * torch.tanh(ctrls["group_delay"])
         noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
@@ -87,13 +88,15 @@ class Sins(nn.Module):
 
     def forward(self, units, f0_frames, volume, spk_id=None,
                 initial_phase=None, noise=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, spk_mix_dict=None):
         """units (B, T, n_unit), f0/volume (B, T, 1) -> (signal (B, T *
-        block), hidden). ``noise`` (B, T * block) is the U(-1, 1) draw."""
+        block), hidden). ``noise`` (B, T * block) is the U(-1, 1) draw;
+        ``spk_mix_dict`` {id: weight} replaces ``spk_id``."""
         _, x, phase_frames = _phase_source(f0_frames, self.sampling_rate,
                                            self.block_size, initial_phase)
         amplitudes, group_delay, noise_param, hidden = self.controls(
-            units, f0_frames, phase_frames, volume, spk_id=spk_id)
+            units, f0_frames, phase_frames, volume, spk_id=spk_id,
+            spk_mix_dict=spk_mix_dict)
         sinusoids = harmonic_bank(x.contiguous(), amplitudes.contiguous(),
                                   self.block_size)
         harmonic = frequency_filter(
@@ -134,11 +137,13 @@ class CombSubSuperFast(nn.Module):
              "noise_magnitude": n_bins, "noise_phase": n_bins},
             use_pitch_aug=use_pitch_aug, use_naive_v2=True)
 
-    def controls(self, units, f0, phase, volume, spk_id=None, aug_shift=None):
+    def controls(self, units, f0, phase, volume, spk_id=None, aug_shift=None,
+                 spk_mix_dict=None):
         """-> (src_filter, noise_filter, hidden); complex filters
         (B, T, win // 2 + 1)."""
         ctrls, hidden = self.unit2ctrl(units, f0, phase, volume,
-                                       spk_id=spk_id, aug_shift=aug_shift)
+                                       spk_id=spk_id, aug_shift=aug_shift,
+                                       spk_mix_dict=spk_mix_dict)
         src_filter = torch.polar(torch.exp(ctrls["harmonic_magnitude"]),
                                  math.pi * ctrls["harmonic_phase"])
         noise_filter = torch.polar(torch.exp(ctrls["noise_magnitude"]),
@@ -146,13 +151,15 @@ class CombSubSuperFast(nn.Module):
         return src_filter, noise_filter, hidden
 
     def forward(self, units, f0, volume, spk_id=None, aug_shift=None,
-                noise=None, generator: torch.Generator | None = None):
+                noise=None, generator: torch.Generator | None = None,
+                spk_mix_dict=None):
         """units (B, T, n_unit), f0/volume (B, T, 1) -> (signal (B, T * block),
         hidden). ``noise`` (B, T * block) is drawn from ``generator`` when
-        not given."""
+        not given; ``spk_mix_dict`` {id: weight} replaces ``spk_id``."""
         comb, phase_frames = combtooth(f0, self.sampling_rate, self.block_size)
         src_filter, noise_filter, hidden = self.controls(
-            units, f0, phase_frames, volume, spk_id=spk_id, aug_shift=aug_shift)
+            units, f0, phase_frames, volume, spk_id=spk_id, aug_shift=aug_shift,
+            spk_mix_dict=spk_mix_dict)
         # duplicate the last filter frame for the (T+1)-th stft frame
         src_filter = torch.cat([src_filter, src_filter[:, -1:]], dim=1)
         noise_filter = torch.cat([noise_filter, noise_filter[:, -1:]], dim=1)
@@ -203,11 +210,12 @@ class CombSubFast(nn.Module):
             use_pitch_aug=use_pitch_aug, pcmer_norm=pcmer_norm)
 
     def controls(self, units, f0_frames, phase_frames, volume, spk_id=None,
-                 aug_shift=None):
+                 aug_shift=None, spk_mix_dict=None):
         """-> (src_filter complex, noise_filter real, hidden), (B, T,
         block + 1)."""
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
-                                       spk_id=spk_id, aug_shift=aug_shift)
+                                       spk_id=spk_id, aug_shift=aug_shift,
+                                       spk_mix_dict=spk_mix_dict)
         src_filter = torch.polar(torch.exp(ctrls["harmonic_magnitude"]),
                                  math.pi * ctrls["harmonic_phase"])
         noise_filter = torch.exp(ctrls["noise_magnitude"]) / 128.0
@@ -215,13 +223,13 @@ class CombSubFast(nn.Module):
 
     def forward(self, units, f0_frames, volume, spk_id=None, aug_shift=None,
                 initial_phase=None, noise=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, spk_mix_dict=None):
         """-> (signal (B, T * block), hidden); ``noise`` the U(-1, 1) draw."""
         f0, x, phase_frames = _phase_source(f0_frames, self.sampling_rate,
                                             self.block_size, initial_phase)
         src_filter, noise_filter, hidden = self.controls(
             units, f0_frames, phase_frames, volume, spk_id=spk_id,
-            aug_shift=aug_shift)
+            aug_shift=aug_shift, spk_mix_dict=spk_mix_dict)
         src_filter = torch.cat([src_filter, src_filter[:, -1:]], dim=1)
         noise_filter = torch.cat([noise_filter, noise_filter[:, -1:]], dim=1)
         comb = _comb_exciter(x, f0, self.sampling_rate)
@@ -246,10 +254,11 @@ class CombSub(nn.Module):
                             "harmonic_magnitude": n_mag_harmonic,
                             "noise_magnitude": n_mag_noise})
 
-    def controls(self, units, f0_frames, phase_frames, volume, spk_id=None):
+    def controls(self, units, f0_frames, phase_frames, volume, spk_id=None,
+                 spk_mix_dict=None):
         """-> (group_delay, src_param, noise_param, hidden)."""
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
-                                       spk_id=spk_id)
+                                       spk_id=spk_id, spk_mix_dict=spk_mix_dict)
         group_delay = math.pi * torch.tanh(ctrls["group_delay"])
         src_param = torch.exp(ctrls["harmonic_magnitude"])
         noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
@@ -257,12 +266,13 @@ class CombSub(nn.Module):
 
     def forward(self, units, f0_frames, volume, spk_id=None,
                 initial_phase=None, noise=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, spk_mix_dict=None):
         """-> (signal (B, T * block), hidden); ``noise`` the U(-1, 1) draw."""
         f0, x, phase_frames = _phase_source(f0_frames, self.sampling_rate,
                                             self.block_size, initial_phase)
         group_delay, src_param, noise_param, hidden = self.controls(
-            units, f0_frames, phase_frames, volume, spk_id=spk_id)
+            units, f0_frames, phase_frames, volume, spk_id=spk_id,
+            spk_mix_dict=spk_mix_dict)
         comb = _comb_exciter(x, f0, self.sampling_rate)
         harmonic = frequency_filter(
             comb, _unit_phasor(torch.cumsum(group_delay, dim=-1)),

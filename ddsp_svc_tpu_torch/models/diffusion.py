@@ -1,4 +1,4 @@
-"""Gaussian mel diffusion with shallow start and its samplers (mirrors
+"""Gaussian mel diffusion, shallow or from noise, and its samplers (mirrors
 ddsp_svc_tpu/models/diffusion.py: ``linear_schedule``,
 ``_DiscreteVPSchedule``, ``norm_spec``/``denorm_spec``, ``q_sample``, the
 full DDPM ancestral chain, DDIM, PLMS/PNDM, DPM-Solver++ 2M and UniPC bh2).
@@ -294,10 +294,15 @@ def sample_unipc_bh2(x: torch.Tensor, eps_fn: EpsFn, schedule_betas: np.ndarray,
 
 class GaussianDiffusion:
     """DDPM schedule (1000 linear steps, max beta 0.02, the values every
-    config uses) on normalised mel, shallow-diffusion inference with the
-    samplers above. Holds no parameters: the denoiser is passed in."""
+    config uses) on normalised mel, inference with the samplers above:
+    shallow from a given mel, or from noise at ``k_step`` (the model's
+    k_step_max) when there is none. Holds no parameters: the denoiser is
+    passed in."""
 
     spec_min, spec_max = -12.0, 2.0
+
+    def __init__(self, out_dims: int = 128, k_step: int = 1000):
+        self.out_dims, self.k_step = out_dims, k_step
 
     def schedule(self) -> dict:
         return linear_schedule()
@@ -315,23 +320,34 @@ class GaussianDiffusion:
         c1 = float(np.float32(s["sqrt_one_minus_alphas_cumprod"][t]))
         return c0 * x_start + c1 * noise
 
-    def infer(self, eps_fn: EpsFn, gt_spec: torch.Tensor, k_step: int,
-              infer_speedup: int = 10, sampler: str = "dpm-solver",
+    def infer(self, eps_fn: EpsFn, gt_spec: torch.Tensor | None,
+              k_step: int | None, infer_speedup: int = 10,
+              sampler: str = "dpm-solver",
               init_noise: torch.Tensor | None = None,
               chain_noise: torch.Tensor | None = None,
-              generator: torch.Generator | None = None) -> torch.Tensor:
+              generator: torch.Generator | None = None,
+              condition: torch.Tensor | None = None) -> torch.Tensor:
         """Shallow diffusion from ``gt_spec`` (B, T, M, un-normalised mel):
         q_sample to step k_step - 1, then ``sampler`` ('dpm-solver',
         'unipc', 'pndm' or 'ddim') with speedup ``infer_speedup``, or the
         full ancestral chain when ``infer_speedup`` is 1 (its per-step
         draws ``chain_noise`` (k_step, B, T, M) or from ``generator``);
-        returns the mel."""
-        k_step = int(k_step)
-        norm = self.norm_spec(gt_spec)
-        noise = init_noise if init_noise is not None else torch.randn(
-            norm.shape, generator=generator, device=norm.device,
-            dtype=norm.dtype)
-        x = self.q_sample(norm, k_step - 1, noise)
+        returns the mel. Without ``gt_spec`` (or ``k_step``) the sampler
+        starts from the noise itself at ``self.k_step``, on the
+        ``condition``'s (B, T) grid."""
+        if gt_spec is None or k_step is None:
+            k_step = self.k_step
+            shape = (condition.shape[0], condition.shape[1], self.out_dims)
+            x = init_noise if init_noise is not None else torch.randn(
+                shape, generator=generator, device=condition.device,
+                dtype=condition.dtype)
+        else:
+            k_step = int(k_step)
+            norm = self.norm_spec(gt_spec)
+            noise = init_noise if init_noise is not None else torch.randn(
+                norm.shape, generator=generator, device=norm.device,
+                dtype=norm.dtype)
+            x = self.q_sample(norm, k_step - 1, noise)
         betas = self.schedule()["betas"]
         if sampler is None or infer_speedup <= 1:
             x = sample_ddpm_chain(x, eps_fn, k_step, chain_noise, generator)

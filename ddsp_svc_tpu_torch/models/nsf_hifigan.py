@@ -1,9 +1,12 @@
 """NSF-HiFiGAN generator at inference (mirrors
-ddsp_svc_tpu/models/nsf_hifigan.py: ``ResBlock1``, ``SourceModuleHnNSF``,
-``Generator``). Each upsample stage's resblock mean runs through kernel K2
+ddsp_svc_tpu/models/nsf_hifigan.py: ``ResBlock1``, ``ResBlock2``,
+``SourceModuleHnNSF``, ``Generator``). With ResBlock1 (``resblock: "1"``)
+each upsample stage's resblock mean runs through kernel K2
 (ops/cuda_resblock.resblock_group) -- on all five stages, where the TPU
-path fused only the stages with C <= 128. Each stage's weights are packed
-for the kernel once per model (``Generator.stage_weights``)."""
+path fused only the stages with C <= 128 -- and each stage's weights are
+packed for the kernel once per model (``Generator.stage_weights``). K2
+serves ResBlock1 only, as the JAX package's fused path does
+(nsf_hifigan.py:201-204): a ResBlock2 generator runs its plain convs."""
 from __future__ import annotations
 
 import math
@@ -39,6 +42,23 @@ class ResBlock1(nn.Module):
         return out
 
 
+class ResBlock2(nn.Module):
+    """The ResBlock2 chain: one conv per dilation d, x = x +
+    conv_d(leaky_relu(x))."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Sequence[int] = (1, 3)):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, dilation=d,
+                   padding=(kernel_size - 1) * d // 2) for d in dilation)
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = conv(F.leaky_relu(x, LRELU_SLOPE)) + x
+        return x
+
+
 class SourceModuleHnNSF(nn.Module):
     """Sine bank -> Linear(h + 1, 1) -> tanh merged excitation."""
 
@@ -71,8 +91,9 @@ class Generator(nn.Module):
                  resblock_dilation_sizes: Sequence[Sequence[int]] = (
                      (1, 3, 5), (1, 3, 5), (1, 3, 5))):
         super().__init__()
-        if str(resblock) != "1":
-            raise NotImplementedError("only ResBlock1 generators are ported")
+        if str(resblock) not in ("1", "2"):
+            raise ValueError(f"resblock {resblock!r}: '1' or '2'")
+        self.resblock = str(resblock)
         n_up = len(upsample_rates)
         if upsample_initial_channel < 2 ** n_up:
             raise ValueError("upsample_initial_channel too small: channels "
@@ -97,8 +118,9 @@ class Generator(nn.Module):
                     Conv1d(1, c_cur, 2 * s, stride=s, padding=s // 2))
             else:
                 self.noise_convs.append(Conv1d(1, c_cur, 1))
+            block = ResBlock1 if self.resblock == "1" else ResBlock2
             for rk, rd in zip(self.kernel_sizes, self.dilations):
-                self.resblocks.append(ResBlock1(c_cur, rk, rd))
+                self.resblocks.append(block(c_cur, rk, rd))
         self.conv_post = Conv1d(c0 // 2 ** n_up, 1, 7, padding=3)
         self._packed = {}  # stage -> (weights' identity, PackedResblocks)
 
@@ -126,7 +148,12 @@ class Generator(nn.Module):
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             x = (x + noise_conv(har_source)).contiguous()
-            x = resblock_group(x, self.stage_weights(i), self.kernel_sizes,
-                               self.dilations)
+            if self.resblock == "1":
+                x = resblock_group(x, self.stage_weights(i), self.kernel_sizes,
+                                   self.dilations)
+            else:
+                n_k = len(self.kernel_sizes)
+                blocks = self.resblocks[i * n_k:(i + 1) * n_k]
+                x = sum(blk(x) for blk in blocks) / n_k
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)[..., 0]

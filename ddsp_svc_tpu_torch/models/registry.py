@@ -1,7 +1,8 @@
 """Model construction from the reference YAML schema (mirrors
-ddsp_svc_tpu/models/registry.py ``build_model``/``load_model`` for the
-DDSP family -- Sins, CombSub, CombSubFast, CombSubSuperFast -- and
-DiffusionFast, and ddsp_svc_tpu/train/solver.py ``model_family``)."""
+ddsp_svc_tpu/models/registry.py ``build_model``/``load_model`` for every
+``model.type``: the DDSP family -- Sins, CombSub, CombSubFast,
+CombSubSuperFast -- and the cascades Diffusion, DiffusionNew, DiffusionFast
+and RectifiedFlow; and ddsp_svc_tpu/train/solver.py ``model_family``)."""
 from __future__ import annotations
 
 import os
@@ -9,22 +10,23 @@ import os
 import torch
 
 from ..utils.device import resolve_device
-from .cascade import Unit2WavFast
+from .cascade import ReflowUnit2Wav, Unit2Mel, Unit2Wav, Unit2WavFast
 from .ddsp import CombSub, CombSubFast, CombSubSuperFast, Sins
 from .vocoder import DEFAULT_NSF_CONFIG, Vocoder
 
 FAMILIES = {"Sins": "ddsp", "CombSub": "ddsp", "CombSubFast": "ddsp",
-            "CombSubSuperFast": "ddsp", "DiffusionFast": "diffusion"}
+            "CombSubSuperFast": "ddsp", "Diffusion": "unit2mel",
+            "DiffusionNew": "diffusion", "DiffusionFast": "diffusion",
+            "RectifiedFlow": "reflow"}
 
 
 def model_family(model_type: str) -> str:
-    """'ddsp' or 'diffusion' for a ported ``model.type``."""
+    """'ddsp', 'unit2mel', 'diffusion' or 'reflow' for a ``model.type``."""
     try:
         return FAMILIES[model_type]
     except KeyError:
-        raise NotImplementedError(
-            f"model type {model_type!r}: ported types are "
-            + ", ".join(FAMILIES)) from None
+        raise ValueError(f"unknown model type {model_type!r}: "
+                         + ", ".join(FAMILIES)) from None
 
 
 def build_model(args, vocoder_dimension: int = 128) -> torch.nn.Module:
@@ -46,39 +48,44 @@ def build_model(args, vocoder_dimension: int = 128) -> torch.nn.Module:
     if m.type == "CombSubSuperFast":
         return CombSubSuperFast(d.sampling_rate, d.block_size, m.win_length,
                                 d.encoder_out_channels, m.n_spk)
-    return Unit2WavFast(
-        d.sampling_rate, d.block_size, m.win_length, d.encoder_out_channels,
-        m.n_spk, bool(m.use_pitch_aug), vocoder_dimension, m.n_layers,
-        m.n_chans)
+    if m.type == "Diffusion":
+        return Unit2Mel(d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
+                        vocoder_dimension, m.n_layers, m.n_chans, m.n_hidden,
+                        k_step_max=m.k_step_max or 1000)
+    if m.type == "DiffusionNew":
+        return Unit2Wav(d.sampling_rate, d.block_size, d.encoder_out_channels,
+                        m.n_spk, bool(m.use_pitch_aug), vocoder_dimension,
+                        m.n_layers, m.n_chans, pcmer_norm=bool(m.pcmer_norm),
+                        k_step_max=m.k_step_max or 1000)
+    cls = Unit2WavFast if m.type == "DiffusionFast" else ReflowUnit2Wav
+    return cls(d.sampling_rate, d.block_size, m.win_length,
+               d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
+               vocoder_dimension, m.n_layers, m.n_chans)
 
 
 def load_model(model_path: str, device: str | torch.device | None = None):
     """A JAX checkpoint (``model_<step>.ckpt``) and its sibling config.yaml
     -> (module with the checkpoint's weights and buffers on ``device``, the
     CUDA card by default; args)."""
-    from ..io.jax_params import (ddsp_state_dict, load_state, read_msgpack,
-                                 unit2wav_fast_state_dict)
+    from ..io.jax_params import load_state, model_state_dict, read_msgpack
     from ..utils.config import load_config
 
     dev = resolve_device(device)
     args = load_config(os.path.join(os.path.dirname(model_path), "config.yaml"))
     model = build_model(args, vocoder_dimension=args.model.out_dims or 128)
     payload = read_msgpack(model_path)
-    if model_family(args.model.type) == "ddsp":
-        state = ddsp_state_dict(payload["params"], payload.get("buffers"),
-                                pcmer=args.model.type != "CombSubSuperFast")
-    else:
-        state = unit2wav_fast_state_dict(payload["params"], args.model.n_layers)
-    load_state(model, state)
+    load_state(model, model_state_dict(args.model, payload["params"],
+                                       payload.get("buffers")))
     return model.to(dev), args
 
 
 def load_vocoder(ckpt_path: str | None,
-                 device: str | torch.device | None = None) -> Vocoder | None:
+                 device: str | torch.device | None = None,
+                 vocoder_type: str = "nsf-hifigan") -> Vocoder | None:
     """A converted NSF-HiFiGAN payload (``{"params", "config"}`` msgpack,
-    as ``models/vocoder.load_vocoder_params`` reads it) -> Vocoder on
-    ``device`` (the CUDA card by default), or None when the file does not
-    exist."""
+    as ``models/vocoder.load_vocoder_params`` reads it) -> Vocoder of
+    ``vocoder_type`` on ``device`` (the CUDA card by default), or None when
+    the file does not exist."""
     from ..io.jax_params import generator_state_dict, load_state, read_msgpack
 
     dev = resolve_device(device)
@@ -90,23 +97,24 @@ def load_vocoder(ckpt_path: str | None,
     payload = read_msgpack(path)
     config = dict(DEFAULT_NSF_CONFIG)
     config.update(payload.get("config", {}))
-    vocoder = Vocoder("nsf-hifigan", config)
+    vocoder = Vocoder(vocoder_type, config)
     load_state(vocoder.model, generator_state_dict(
         payload["params"], len(config["upsample_rates"]),
         len(config["resblock_kernel_sizes"]),
-        len(config["resblock_dilation_sizes"][0])))
+        len(config["resblock_dilation_sizes"][0]), str(config["resblock"])))
     return vocoder.to(dev)
 
 
-def load_vocoder_or_random(ckpt_path: str | None, seed: int = 0) -> Vocoder:
+def load_vocoder_or_random(ckpt_path: str | None, seed: int = 0,
+                           vocoder_type: str = "nsf-hifigan") -> Vocoder:
     """``load_vocoder`` on the CPU, or the default NSF-HiFiGAN with random
     weights from ``seed`` when the file does not exist (as the JAX
     wrapper's random init)."""
     from .nn import random_init_
 
-    vocoder = load_vocoder(ckpt_path, device="cpu")
+    vocoder = load_vocoder(ckpt_path, device="cpu", vocoder_type=vocoder_type)
     if vocoder is None:
         print(f" [!] vocoder checkpoint {ckpt_path!r} not found - random init")
-        vocoder = random_init_(Vocoder("nsf-hifigan"),
+        vocoder = random_init_(Vocoder(vocoder_type),
                                torch.Generator().manual_seed(seed))
     return vocoder

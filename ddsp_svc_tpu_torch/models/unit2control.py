@@ -1,6 +1,7 @@
 """Unit2Control: units + f0/phase/volume/speaker -> named control tensors
 (mirrors ddsp_svc_tpu/models/unit2control.py with its flags and defaults:
-a conv stack (``use_conv_stack``) or one conv, additive embeddings, a
+a conv stack (``use_conv_stack``) or one conv, additive embeddings (the
+speaker's, or a speaker mix), a
 3-layer decoder -- PCmer by default, the conv-only conformer with
 ``use_naive_v2`` -- LayerNorm and the output projection)."""
 from __future__ import annotations
@@ -23,6 +24,19 @@ def split_to_dict(tensor: torch.Tensor, splits: Mapping[str, int]) -> dict:
         out[name] = tensor[..., start:start + size]
         start += size
     return out
+
+
+def add_speaker(x: torch.Tensor, embed: nn.Embedding, spk_id=None,
+                spk_mix_dict: Mapping | None = None) -> torch.Tensor:
+    """x + the speaker embedding: of ``spk_id`` (B, 1), 1-based, or with
+    ``spk_mix_dict`` {id: weight} the weighted embeddings added one by one
+    in the dict's order, as JAX adds them (f32 addition does not commute
+    bit for bit)."""
+    if spk_mix_dict is None:
+        return x + embed(spk_id.long() - 1)
+    for k, v in spk_mix_dict.items():
+        x = x + v * embed.weight[int(k) - 1]
+    return x
 
 
 class Unit2Control(nn.Module):
@@ -49,16 +63,18 @@ class Unit2Control(nn.Module):
         self.norm = nn.LayerNorm(256)  # eps 1e-5, as JAX
         self.dense_out = nn.Linear(256, sum(self.output_splits.values()))
 
-    def forward(self, units, f0, phase, volume, spk_id=None, aug_shift=None):
+    def forward(self, units, f0, phase, volume, spk_id=None, aug_shift=None,
+                spk_mix_dict: Mapping | None = None):
         """units (B, T, n_unit), f0/phase/volume (B, T, 1), spk_id (B, 1)
-        1-based, aug_shift (B, 1, 1) -> (controls dict, hidden (B, T, 256))."""
+        1-based or the ``spk_mix_dict`` {id: weight}, aug_shift (B, 1, 1) ->
+        (controls dict, hidden (B, T, 256))."""
         x = self.stack_conv0(units)
         if self.stack_norm is not None:
             x = self.stack_conv1(F.leaky_relu(self.stack_norm(x), 0.01))
         x = (x + self.f0_embed(torch.log1p(f0 / 700.0))
              + self.phase_embed(phase / math.pi) + self.volume_embed(volume))
         if self.spk_embed is not None:
-            x = x + self.spk_embed(spk_id.long() - 1)
+            x = add_speaker(x, self.spk_embed, spk_id, spk_mix_dict)
         if self.aug_shift_embed is not None and aug_shift is not None:
             x = x + self.aug_shift_embed(aug_shift / 5.0)
         x = self.norm(self.decoder(x))

@@ -1,7 +1,8 @@
 """NSF-HiFiGAN vocoder wrapper and the DDSP models' output enhancer
 (mirrors ddsp_svc_tpu/models/vocoder.py: ``DEFAULT_NSF_CONFIG``,
 ``Vocoder.extract``, ``Vocoder.infer``, ``Enhancer.enhance``) for the
-'nsf-hifigan' type."""
+'nsf-hifigan' type and its 'nsf-hifigan-log10' variant, whose mels are
+scaled by log10(e) = 0.434294 on extract and back on infer."""
 from __future__ import annotations
 
 import numpy as np
@@ -31,13 +32,18 @@ DEFAULT_NSF_CONFIG = dict(
 )
 
 
+VOCODER_TYPES = ("nsf-hifigan", "nsf-hifigan-log10")
+LOG10_E = 0.434294
+
+
 class Vocoder(nn.Module):
     def __init__(self, vocoder_type: str = "nsf-hifigan",
                  config: dict | None = None):
         super().__init__()
-        if vocoder_type != "nsf-hifigan":
-            raise NotImplementedError(
-                f"vocoder type {vocoder_type!r}: only 'nsf-hifigan' is ported")
+        if vocoder_type not in VOCODER_TYPES:
+            raise ValueError(f"unknown vocoder type {vocoder_type!r}: "
+                             f"{', '.join(VOCODER_TYPES)}")
+        self.type = vocoder_type
         cfg = dict(DEFAULT_NSF_CONFIG)
         cfg.update(config or {})
         self.config = cfg
@@ -58,16 +64,21 @@ class Vocoder(nn.Module):
             resblock_dilation_sizes=tuple(
                 tuple(d) for d in cfg["resblock_dilation_sizes"]))
 
-    def extract(self, audio: torch.Tensor, sample_rate: int = 0) -> torch.Tensor:
-        """audio (B, L) at ``sample_rate`` (0: the vocoder's) -> mel (B, T, M)."""
+    def extract(self, audio: torch.Tensor, sample_rate: int = 0,
+                keyshift: float = 0.0) -> torch.Tensor:
+        """audio (B, L) at ``sample_rate`` (0: the vocoder's) -> mel (B, T, M),
+        with the mel's ``keyshift`` in semitones."""
         if sample_rate not in (0, self.vocoder_sample_rate):
             audio = resample(audio, sample_rate, self.vocoder_sample_rate)
-        return self.mel.extract(audio)
+        mel = self.mel.extract(audio, keyshift=keyshift)
+        return LOG10_E * mel if self.type == "nsf-hifigan-log10" else mel
 
     def infer(self, mel: torch.Tensor, f0: torch.Tensor, sine_kwargs=None,
               generator: torch.Generator | None = None) -> torch.Tensor:
         """mel (B, T, M), f0 (B, T', 1) or (B, T') -> audio (B, T * hop); f0
         is trimmed to the mel's frame count."""
+        if self.type == "nsf-hifigan-log10":
+            mel = mel / LOG10_E
         if f0.dim() == 3:
             f0 = f0[..., 0]
         return self.model(mel, f0[:, :mel.shape[1]], sine_kwargs, generator)
@@ -82,14 +93,17 @@ class Enhancer:
     def __init__(self, enhancer_type: str = "nsf-hifigan", ckpt: str | None = None,
                  device: str | torch.device | None = None,
                  vocoder: Vocoder | None = None, seed: int = 0):
-        if enhancer_type != "nsf-hifigan":
-            raise NotImplementedError(
-                f"enhancer type {enhancer_type!r}: only 'nsf-hifigan' is ported")
+        if enhancer_type not in VOCODER_TYPES:
+            raise ValueError(f"unknown enhancer type {enhancer_type!r}: "
+                             f"{', '.join(VOCODER_TYPES)}")
         self.device = resolve_device(device)
         if vocoder is None:
             from .registry import load_vocoder_or_random
 
-            vocoder = load_vocoder_or_random(ckpt, seed)
+            vocoder = load_vocoder_or_random(ckpt, seed, enhancer_type)
+        if vocoder.type != enhancer_type:
+            raise ValueError(f"enhancer type {enhancer_type!r} with a "
+                             f"{vocoder.type!r} vocoder")
         self.vocoder = vocoder.to(self.device).eval()
 
     @torch.no_grad()

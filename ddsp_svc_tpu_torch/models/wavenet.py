@@ -1,10 +1,19 @@
-"""Diffusion-step embedding (mirrors ddsp_svc_tpu/models/wavenet.py
-``sinusoidal_pos_emb``)."""
+"""The WaveNet noise predictor of the Diffusion and DiffusionNew cascades
+and the diffusion-step embedding (mirrors ddsp_svc_tpu/models/wavenet.py:
+``sinusoidal_pos_emb``, ``WaveNetResidualBlock``, ``WaveNet``).
+
+Feature-last (B, T, C) throughout. Its convs are plain ``F.conv1d``: the
+JAX package has no Pallas kernel for them.
+"""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .nn import Conv1d
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -15,3 +24,53 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
     freqs = torch.exp(torch.arange(half, dtype=t.dtype, device=t.device) * -scale)
     emb = t[:, None] * freqs[None, :]
     return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+
+
+class WaveNetResidualBlock(nn.Module):
+    """Gated residual block: x (B, T, C), cond (B, T, H), step (B, C) ->
+    ((x + residual) / sqrt 2, skip)."""
+
+    def __init__(self, residual_channels: int, n_hidden: int, dilation: int = 1):
+        super().__init__()
+        c = residual_channels
+        self.diffusion_projection = nn.Linear(c, c)
+        self.dilated_conv = Conv1d(c, 2 * c, 3, padding=dilation, dilation=dilation)
+        self.conditioner_projection = Conv1d(n_hidden, 2 * c, 1)
+        self.output_projection = Conv1d(c, 2 * c, 1)
+
+    def forward(self, x, cond, diffusion_step):
+        y = x + self.diffusion_projection(diffusion_step)[:, None, :]
+        y = self.dilated_conv(y) + self.conditioner_projection(cond)
+        gate, filt = y.chunk(2, dim=-1)
+        y = self.output_projection(torch.sigmoid(gate) * torch.tanh(filt))
+        residual, skip = y.chunk(2, dim=-1)
+        return (x + residual) / math.sqrt(2.0), skip
+
+
+class WaveNet(nn.Module):
+    """spec (B, T, M), diffusion_step (B,) float, cond (B, T, H) -> the
+    predicted noise (B, T, M)."""
+
+    def __init__(self, in_dims: int = 128, n_layers: int = 20,
+                 n_chans: int = 384, n_hidden: int = 256):
+        super().__init__()
+        self.n_chans = n_chans
+        self.input_projection = Conv1d(in_dims, n_chans, 1)
+        self.mlp_0 = nn.Linear(n_chans, 4 * n_chans)
+        self.mlp_1 = nn.Linear(4 * n_chans, n_chans)
+        self.layers = nn.ModuleList(WaveNetResidualBlock(n_chans, n_hidden)
+                                    for _ in range(n_layers))
+        self.skip_projection = Conv1d(n_chans, n_chans, 1)
+        self.output_projection = Conv1d(n_chans, in_dims, 1)
+
+    def forward(self, spec, diffusion_step, cond):
+        x = F.relu(self.input_projection(spec))
+        step = sinusoidal_pos_emb(diffusion_step.to(x.dtype), self.n_chans)
+        step = self.mlp_0(step)
+        step = self.mlp_1(step * torch.tanh(F.softplus(step)))  # Mish
+        skips = 0.0
+        for layer in self.layers:
+            x, skip = layer(x, cond, step)
+            skips = skips + skip
+        x = F.relu(self.skip_projection(skips / math.sqrt(len(self.layers))))
+        return self.output_projection(x)

@@ -7,6 +7,11 @@ b1, wd (I, k), bd, W2 (C, I), b2)``, which is the layout the kernel's
 tiles want, so nothing is packed. Activations are feature-last. The GEMMs
 multiply on the tensor cores in split TF32 at f32 accuracy (the scheme
 ``ops/cuda_resblock.tf32_split`` emulates).
+
+With grad on, ``ConformerLayerFunction`` puts the kernel behind the JAX
+package's custom VJP (``_fused_layer_bwd``, pallas_conformer.py:168-175):
+the backward is autograd through ``conformer_layer_plain`` recomputed from
+the saved x, cond, step_vec and the eight weights.
 """
 from __future__ import annotations
 
@@ -58,14 +63,38 @@ def _check(x, cond, step_vec, weights):
         raise ValueError("conformer_layer: tensors must be 16-byte aligned")
 
 
+class ConformerLayerFunction(torch.autograd.Function):
+    """``impl(x, cond, step_vec, weights)`` forward (the kernel; the plain
+    version in the CPU tests), backward through ``conformer_layer_plain``."""
+
+    @staticmethod
+    def forward(ctx, impl, x, cond, step_vec, *weights):
+        ctx.save_for_backward(x, cond, step_vec, *weights)
+        return impl(x, cond, step_vec, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = kernels.plain_backward(
+            lambda x, c, s, *w: conformer_layer_plain(x, c, s, w),
+            ctx.saved_tensors, ctx.needs_input_grad[1:], grad_out)
+        return (None,) + grads
+
+
 def conformer_layer(x, cond, step_vec, weights):
     """x (B, T, C), cond (B, T, Hc), step_vec (B, C) -> (B, T, C).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the layer's
     four kernels (three tensor-core GEMMs and the depthwise conv) and counts
-    one launch in ``conformer_layer.launches``."""
+    one launch in ``conformer_layer.launches``, through
+    ``ConformerLayerFunction`` when grad is on and an input requires it."""
     if x.device.type == "cpu":
         return conformer_layer_plain(x, cond, step_vec, weights)
+    if kernels.grad_wanted(x, cond, step_vec, *weights):
+        return ConformerLayerFunction.apply(_launch, x, cond, step_vec, *weights)
+    return _launch(x, cond, step_vec, weights)
+
+
+def _launch(x, cond, step_vec, weights):
     kernels.check_cuda_input(x, "conformer_layer x", 3)
     _check(x, cond, step_vec, weights)
     b, t, c = x.shape

@@ -8,6 +8,11 @@ the Pallas formula, ``sin((2 pi (k + 1)) x)``; the radians form of
 kernel follows each sample's harmonics by a three-term recurrence,
 restarted every 16 harmonics from an exact sincos of this plain version's
 rounded argument (tests/test_torch_osc_precision.py emulates its order).
+
+With grad on, ``HarmonicBankFunction`` gives the kernel a backward of its
+own: autograd through ``harmonic_bank_plain`` recomputed from the saved
+phase and amplitudes. It is the port's: the JAX Sins model differentiates
+its stock bank (ddsp_svc_tpu/models/ddsp.py:134) and never the Pallas one.
 """
 from __future__ import annotations
 
@@ -42,15 +47,40 @@ def harmonic_bank_plain(x: torch.Tensor, amplitudes_frames: torch.Tensor,
     return out.reshape(b, t * block_size)
 
 
+class HarmonicBankFunction(torch.autograd.Function):
+    """``impl(x, amplitudes, block_size)`` forward (the kernel; the plain
+    version in the CPU tests), backward through ``harmonic_bank_plain``."""
+
+    @staticmethod
+    def forward(ctx, impl, x, amplitudes_frames, block_size):
+        ctx.block_size = block_size
+        ctx.save_for_backward(x, amplitudes_frames)
+        return impl(x, amplitudes_frames, block_size)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = kernels.plain_backward(
+            lambda x, a: harmonic_bank_plain(x, a, ctx.block_size),
+            ctx.saved_tensors, ctx.needs_input_grad[1:3], grad_out)
+        return (None,) + grads + (None,)
+
+
 def harmonic_bank(x: torch.Tensor, amplitudes_frames: torch.Tensor,
                   block_size: int) -> torch.Tensor:
     """x (B, L, 1) wrapped phase in cycles, amplitudes (B, T, n_harm) ->
     (B, L), L = T * block.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``harmonic_bank.launches``)."""
+    (and counts the launch in ``harmonic_bank.launches``), through
+    ``HarmonicBankFunction`` when grad is on and an input requires it."""
     if x.device.type == "cpu":
         return harmonic_bank_plain(x, amplitudes_frames, block_size)
+    if kernels.grad_wanted(x, amplitudes_frames):
+        return HarmonicBankFunction.apply(_launch, x, amplitudes_frames, block_size)
+    return _launch(x, amplitudes_frames, block_size)
+
+
+def _launch(x, amplitudes_frames, block_size):
     kernels.check_cuda_input(x, "harmonic_bank x", 3)
     kernels.check_cuda_input(amplitudes_frames, "harmonic_bank amplitudes", 3)
     b, t, n_harm = amplitudes_frames.shape

@@ -14,6 +14,12 @@ caller that serves many requests packs once per model and passes the
 call. The kernel multiplies on the tensor cores in split TF32 at f32
 accuracy; ``tf32_split``, ``unpack_conv_weight`` and ``conv_packed_plain``
 are its arithmetic in plain PyTorch, for the tests.
+
+With grad on, ``ResblockGroupFunction`` puts the kernel behind the JAX
+package's custom VJP (``_fused_group_bwd``, pallas_resblock.py:343-350):
+the backward is autograd through ``resblock_group_plain`` recomputed from
+the saved x and the torch-layout weights, which take the gradients; the
+packed copy takes none.
 """
 from __future__ import annotations
 
@@ -160,24 +166,66 @@ def _check_weights(rb_weights, kernel_sizes, dilations, c, device):
                 raise ValueError("resblock_group: weights on another device")
 
 
+def _nest(flat, dilations) -> list:
+    """Flat (w, b, w, b, ...) in chain order -> one [(w, b), ...] list per
+    resblock (two convs per dilation)."""
+    pairs = list(zip(flat[0::2], flat[1::2]))
+    out, i = [], 0
+    for dils in dilations:
+        out.append(pairs[i:i + 2 * len(dils)])
+        i += 2 * len(dils)
+    return out
+
+
+class ResblockGroupFunction(torch.autograd.Function):
+    """``impl(x, packed, kernel_sizes, dilations)`` forward (the kernel; the
+    plain version in the CPU tests), backward through
+    ``resblock_group_plain``. ``weights``: the torch-layout (w, b) tensors
+    flat in chain order, those ``packed`` was made from."""
+
+    @staticmethod
+    def forward(ctx, impl, x, packed, kernel_sizes, dilations, *weights):
+        ctx.kernel_sizes, ctx.dilations = kernel_sizes, dilations
+        ctx.save_for_backward(x, *weights)
+        return impl(x, packed, kernel_sizes, dilations)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ks, ds = ctx.kernel_sizes, ctx.dilations
+        grads = kernels.plain_backward(
+            lambda x, *flat: resblock_group_plain(x, _nest(flat, ds), ks, ds),
+            ctx.saved_tensors,
+            (ctx.needs_input_grad[1],) + ctx.needs_input_grad[5:], grad_out)
+        return (None, grads[0], None, None, None) + grads[1:]
+
+
 def resblock_group(x, rb_weights, kernel_sizes, dilations):
     """x (B, L, C) -> mean over the stage's ResBlock1 chains, (B, L, C).
 
     ``rb_weights``: the nested torch-layout list, or its
     ``PackedResblocks``. A CPU tensor takes the plain version; a CUDA tensor
     (C a multiple of 16) launches 18 conv kernels (one stage) and counts one
-    launch in ``resblock_group.launches``.
+    launch in ``resblock_group.launches``. With grad on and x or a weight
+    requiring it, the launch goes through ``ResblockGroupFunction``.
     """
     if x.device.type == "cpu":
         return resblock_group_plain(x, rb_weights, kernel_sizes, dilations)
+    if not isinstance(rb_weights, PackedResblocks):
+        rb_weights = PackedResblocks(rb_weights)
+    flat = [t for rbw in rb_weights.torch_weights for wb in rbw for t in wb]
+    if kernels.grad_wanted(x, *flat):
+        return ResblockGroupFunction.apply(_launch, x, rb_weights, kernel_sizes,
+                                           dilations, *flat)
+    return _launch(x, rb_weights, kernel_sizes, dilations)
+
+
+def _launch(x, rb_weights: PackedResblocks, kernel_sizes, dilations):
     kernels.check_cuda_input(x, "resblock_group x", 3)
     b, length, c = x.shape
     if c % 16 != 0:
         raise ValueError(f"resblock_group: channels a multiple of 16, got {c}")
     if x.data_ptr() % 16 != 0:
         raise ValueError("resblock_group: x must be 16-byte aligned")
-    if not isinstance(rb_weights, PackedResblocks):
-        rb_weights = PackedResblocks(rb_weights)
     packed = rb_weights.packed
     _check_weights(packed, kernel_sizes, dilations, c, x.device)
     flat = [wb for rbw in packed for wb in rbw]

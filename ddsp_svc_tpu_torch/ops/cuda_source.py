@@ -6,6 +6,10 @@ function: the kernel takes f0 and writes the samples and ``phase_frames``,
 deriving s0, ds0, the quantised frame increments and their integer carry
 prefix itself. A call is two device operations (a memset of the scan's
 scratch and the kernel) and no host-to-device copy.
+
+The kernel has no backward, as ``combtooth_pallas`` has no VJP: f0 is
+data. The wrapper refuses an f0 that requires grad while grad is on, on
+either device, rather than return a tensor cut from the graph.
 """
 from __future__ import annotations
 
@@ -29,7 +33,12 @@ def combtooth(f0_frames: torch.Tensor, sampling_rate: int, block_size: int,
     everything before this block (streaming), on f0's device.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``combtooth.launches``)."""
+    (and counts the launch in ``combtooth.launches``). An f0 that requires
+    grad, with grad on, raises: the exciter has no backward."""
+    if kernels.grad_wanted(f0_frames):
+        raise RuntimeError("combtooth: f0 requires grad, but the combtooth "
+                           "exciter has no backward (f0 is data, as in the "
+                           "JAX package); pass f0.detach()")
     if f0_frames.device.type == "cpu":
         return combtooth_plain(f0_frames, sampling_rate, block_size,
                                carry_offset_q)

@@ -135,6 +135,26 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def grad_wanted(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these tensors: grad mode is on and
+    one of them requires grad. Serving (``no_grad``, ``inference_mode``)
+    never does."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def plain_backward(plain, inputs, needs, grad_out) -> tuple:
+    """The backward of a kernel's ``autograd.Function``, as the JAX
+    package's custom VJPs take it: autograd through ``plain(*inputs)``,
+    recomputed from the saved inputs (no kernel launch). Returns one
+    gradient per input, None where ``needs`` is false."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        wanted = [leaf for leaf, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(plain(*leaves), wanted, grad_out,
+                                         allow_unused=True) if wanted else ())
+    return tuple(next(grads) if n else None for n in needs)
+
+
 def check_cuda_input(t: torch.Tensor, name: str, ndim: int) -> None:
     """What every kernel takes: a contiguous float32 CUDA tensor."""
     if t.device.type != "cuda":

@@ -1,6 +1,6 @@
 """Log-mel front-end of the NSF-HiFiGAN vocoder (mirrors
-ddsp_svc_tpu/ops/mel.py: ``mel_filterbank``, ``LogMelSpectrogram`` at
-keyshift 0 and speed 1)."""
+ddsp_svc_tpu/ops/mel.py: ``mel_filterbank``, ``LogMelSpectrogram`` with its
+keyshift and speed)."""
 from __future__ import annotations
 
 import numpy as np
@@ -70,19 +70,40 @@ class LogMelSpectrogram(nn.Module):
             window = F.pad(window, (lpad, n_fft - win_size - lpad))
         self.register_buffer("window", window, persistent=False)
 
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
-        """audio (B, L) -> log-mel (B, n_mels, n_frames)."""
-        win, hop = self.win_size, self.hop_length
+    def _window(self, n_fft: int, win_size: int, device) -> torch.Tensor:
+        if (n_fft, win_size) == (self.n_fft, self.win_size):
+            return self.window
+        window = torch.from_numpy(hann_window(win_size)).to(device)
+        if win_size < n_fft:
+            lpad = (n_fft - win_size) // 2
+            window = F.pad(window, (lpad, n_fft - win_size - lpad))
+        return window
+
+    def forward(self, y: torch.Tensor, keyshift: float = 0.0,
+                speed: float = 1.0) -> torch.Tensor:
+        """audio (B, L) -> log-mel (B, n_mels, n_frames). ``keyshift``
+        semitones scale n_fft and the window by 2^(keyshift / 12) (the
+        magnitudes are cut or zero-padded back to n_fft // 2 + 1 bins and
+        rescaled by win_size / the new window); ``speed`` scales the hop."""
+        factor = 2.0 ** (keyshift / 12.0)
+        n_fft = int(np.round(self.n_fft * factor))
+        win = int(np.round(self.win_size * factor))
+        hop = int(np.round(self.hop_length * speed))
         pad_left = (win - hop) // 2
         pad_right = max((win - hop + 1) // 2, win - y.shape[-1] - pad_left)
         mode = "reflect" if pad_right < y.shape[-1] else "constant"
         y = F.pad(y[:, None, :], (pad_left, pad_right), mode=mode)[:, 0, :]
-        frames = frame_signal(y, self.n_fft, hop) * self.window
-        spec = torch.fft.rfft(frames, self.n_fft, dim=-1)
-        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
-        mel = torch.matmul(self.mel_basis, mag.transpose(1, 2))
+        frames = frame_signal(y, n_fft, hop) * self._window(n_fft, win, y.device)
+        spec = torch.fft.rfft(frames, n_fft, dim=-1)
+        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9).transpose(1, 2)
+        if keyshift != 0.0:
+            size = self.n_fft // 2 + 1
+            if mag.shape[1] < size:
+                mag = F.pad(mag, (0, 0, 0, size - mag.shape[1]))
+            mag = mag[:, :size, :] * (self.win_size / win)
+        mel = torch.matmul(self.mel_basis, mag)
         return torch.log(torch.clamp(mel, min=self.clip_val))
 
-    def extract(self, audio: torch.Tensor) -> torch.Tensor:
+    def extract(self, audio: torch.Tensor, keyshift: float = 0.0) -> torch.Tensor:
         """Vocoder.extract layout: audio (B, L) -> mel (B, n_frames, n_mels)."""
-        return self(audio).transpose(1, 2)
+        return self(audio, keyshift=keyshift).transpose(1, 2)

@@ -208,3 +208,84 @@ def test_harmonic_bank_kernel(cuda, b, t, n_harm):
     assert float((got - want).abs().max()) <= 3e-5
     with pytest.raises(ValueError):
         harmonic_bank(x[:, :-1].contiguous(), amps, 512)
+
+
+def _leaves(gen, device, *shapes_scales):
+    return [((torch.rand(s, generator=gen) * 2 - 1) * sc).to(device).requires_grad_()
+            for s, sc in shapes_scales]
+
+
+def _backward(fn, leaves, grad_out):
+    for leaf in leaves:
+        leaf.grad = None
+    out = fn()
+    out.backward(grad_out)
+    return out.detach(), [leaf.grad.clone() for leaf in leaves]
+
+
+@pytest.mark.parametrize("kernel", ["resblock_group", "conformer_layer",
+                                    "harmonic_bank"])
+def test_kernel_backward_matches_plain_autograd(cuda, kernel):
+    """With grad on, the wrapper launches its kernel once (through its
+    autograd.Function) and the backward launches nothing; every input's and
+    weight's .grad is plain autograd's within 1e-4 x max|grad| (the backward
+    recomputes the plain version; the forward tolerance is kept for the sums
+    cuDNN's backward may order otherwise)."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_oscillator, cuda_resblock
+    from ddsp_svc_tpu_torch.ops.source import cumsum_phase_source
+
+    gen = torch.Generator().manual_seed(7)
+    if kernel == "resblock_group":
+        c, length = 64, 777
+        x, = _leaves(gen, cuda, ((2, length, c), 1.0))
+        weights = [[tuple(_leaves(gen, cuda, ((c, c, k), (c * k) ** -0.5),
+                                  ((c,), (c * k) ** -0.5)))
+                    for _ in range(2 * len(d))] for k, d in zip(KS, DS)]
+        leaves = [x] + [t for rbw in weights for wb in rbw for t in wb]
+        wrapper = cuda_resblock.resblock_group
+        call = lambda: wrapper(x, cuda_resblock.PackedResblocks(weights), KS, DS)  # noqa: E731
+        plain = lambda: cuda_resblock.resblock_group_plain(x, weights, KS, DS)  # noqa: E731
+    elif kernel == "conformer_layer":
+        b, t, c, hc, inner, k = 2, 300, 512, 128, 1024, 31
+        leaves = _leaves(gen, cuda, ((b, t, c), 1.0), ((b, t, hc), 1.0), ((b, c), 1.0),
+                         ((c, hc), hc ** -0.5), ((c,), 0.1), ((2 * inner, c), c ** -0.5),
+                         ((2 * inner,), 0.1), ((inner, k), k ** -0.5), ((inner,), 0.1),
+                         ((c, inner), inner ** -0.5), ((c,), 0.1))
+        x, cond, step, *w = leaves
+        wrapper = cuda_conformer.conformer_layer
+        call = lambda: wrapper(x, cond, step, w)  # noqa: E731
+        plain = lambda: cuda_conformer.conformer_layer_plain(x, cond, step, w)  # noqa: E731
+    else:
+        b, t, n_harm = 2, 37, 128
+        f0 = 220.0 * torch.exp(0.2 * torch.randn((b, t, 1), generator=gen))
+        x = cumsum_phase_source(torch.repeat_interleave(f0, 512, dim=1), 44100,
+                                512).to(cuda).requires_grad_()
+        amps, = _leaves(gen, cuda, ((b, t, n_harm), 0.02))
+        leaves = [x, amps]
+        wrapper = cuda_oscillator.harmonic_bank
+        call = lambda: wrapper(x, amps, 512)  # noqa: E731
+        plain = lambda: cuda_oscillator.harmonic_bank_plain(x, amps, 512)  # noqa: E731
+    with torch.no_grad():
+        grad_out = torch.randn(plain().shape, generator=gen).to(cuda)
+    n0 = wrapper.launches
+    got, got_grads = _backward(call, leaves, grad_out)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    want, want_grads = _backward(plain, leaves, grad_out)
+    assert wrapper.launches == n0 + 1
+    assert _rel(got, want) <= 1e-4
+    for g, w_ in zip(got_grads, want_grads):
+        assert _rel(g, w_) <= 1e-4
+
+
+def test_combtooth_refuses_an_f0_that_requires_grad(cuda):
+    from ddsp_svc_tpu_torch.ops.cuda_source import combtooth
+
+    f0 = torch.full((1, 8, 1), 220.0, device=cuda, requires_grad=True)
+    n0 = combtooth.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        combtooth(f0, 44100, 512)
+    assert combtooth.launches == n0
+    with torch.no_grad():
+        combtooth(f0, 44100, 512)
+    assert combtooth.launches == n0 + 1

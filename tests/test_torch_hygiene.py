@@ -131,3 +131,17 @@ def test_infer_needs_the_card_unless_told_cpu(monkeypatch):
     out, sr = pipe.infer(audio, 16000)
     assert sr == 16000 and out.shape == (4000 // 64 * 64 + 64,)
     assert np.isfinite(out).all()
+
+
+def test_realtime_cli_defaults_to_cuda(monkeypatch):
+    """The realtime CLI's --device defaults to the card, and without one it
+    raises before any file is read; --voc_bf16 is refused first."""
+    from ddsp_svc_tpu_torch.cli import realtime as cli_realtime
+
+    argv = ["-m", "absent/model_1.ckpt", "-i", "absent.wav", "-o", "out.wav"]
+    assert cli_realtime.parse_args(argv).device is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_realtime.main(argv)
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        cli_realtime.main(argv + ["--voc_bf16"])

@@ -192,14 +192,22 @@ def test_front_end_matches_jax(encoders, cascade, nsf, sample_rate, key_shift,
 
 
 def test_infer_refuses_what_is_not_ported(cascade, nsf, encoders):
+    """What infer refuses: no units encoder, an unknown sampler for the
+    family, an encoder on another device. The speaker mix is ported: a
+    {id: weight} dict gives the weighted speaker's conversion (a one-hot
+    mix equals that speaker's id)."""
     args = DotDict(_diffusion_args())
     bare = SvcPipeline.from_parts(cascade[2], None, args, nsf[1], device="cpu")
     with pytest.raises(ValueError, match="no units encoder"):
         bare.infer(voice(), SR)
     pipe = SvcPipeline.from_parts(cascade[2], None, args, nsf[1], device="cpu",
                                   units_encoder=encoders[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.infer(voice(), SR, spk_mix_dict={1: 0.5, 2: 0.5})
+    noise = _noise(len(voice()) // BLOCK + 1, len(voice()) // BLOCK * BLOCK + BLOCK)
+    one_hot, _ = pipe.infer(voice(), SR, spk_mix_dict={2: 1.0}, noise=noise)
+    by_id, _ = pipe.infer(voice(), SR, spk_id=2, noise=noise)
+    np.testing.assert_array_equal(one_hot, by_id)
+    mixed, _ = pipe.infer(voice(), SR, spk_mix_dict={1: 0.5, 2: 0.5}, noise=noise)
+    assert np.isfinite(mixed).all() and not np.array_equal(mixed, by_id)
     with pytest.raises(NotImplementedError):
         pipe.infer(voice(), SR, method="euler")
     with pytest.raises(ValueError, match="encoder is on"):
