@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving paths on one CUDA card: every model
 family (DiffusionFast, RectifiedFlow, Diffusion, DiffusionNew and the DDSP
 family with Sins and its NSF-HiFiGAN enhancer), from features, from a
-recording, through the offline CLI and through the realtime engine, and
-the kernels' gradients.
+recording, through the offline CLI and through the realtime engine, the
+kernels' gradients, the bf16 vocoder, and batched serving through the HTTP
+server.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -11,9 +12,9 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build the hand-written kernels from ddsp_svc_tpu_torch/csrc (one nvcc
      per source, started together), print nvcc's -Xptxas -v lines, count
-     the tensor-core instructions (HMMA/HGMMA) in the SASS of K2's and K3's
-     kernels (none fails the run), and print the opcode mix of K1's and
-     K4's kernels as compiled;
+     the tensor-core instructions (HMMA/HGMMA) in the SASS of K2's, K2's
+     bf16 class's and K3's kernels (none fails the run), and print the
+     opcode mix of K1's and K4's kernels as compiled;
   3. each kernel against its plain PyTorch version on the card at the
      shapes of the 10 s request, with the tolerance stated, and its time
      beside the plain version's and the bound (K2 per stage and K3 with
@@ -22,7 +23,11 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      whose calls are shorter than a host launch, by replaying 200 calls
      captured in one CUDA graph, cross-checked by torch.profiler's device
      time. K1 also at a ten-minute input, with the host wall and device
-     operations of one combtooth() call; K4 also at B = 2;
+     operations of one combtooth() call; K4 also at B = 2; K2's bf16 class
+     at the four stages it serves (C = 128 ... 16) of the 10 s request and
+     at B = 8 rows of the 1024-frame bucket, within 1 bf16 ulp + 2^-7 x
+     max|out| per element and <= 2 % of the elements beyond 1 ulp, its
+     time beside the plain version's and the dense-bf16 bound;
   4. the DiffusionFast path at configs/diffusion-fast.yaml widths (6 x 512
      trunk, k_step 100, DPM-Solver++ with speedup 10, the default
      NSF-HiFiGAN) with random weights from a seeded torch.Generator:
@@ -81,7 +86,23 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      synthetic voice) for the DiffusionFast, rectified-flow and Sins
      pipelines from a wav: block walls as drive_blocks measures them,
      launches per block, and the first blocks against the port on the CPU
-     with the same blocks and noise.
+     with the same blocks and noise;
+ 16. the NSF-HiFiGAN in bf16 (vocoder_bf16): a 10 s DiffusionFast request
+     (K1 1, K3 60, K2-bf16 4, K2 0) and a 10 s Sins request with a bf16
+     enhancer, each against its f32 pipeline (>= 25 dB) with warm walls of
+     both, card against CPU with bf16 on both (>= 40 dB), and
+     cli.infer.convert with --voc_bf16;
+ 17. batched serving at diffusion-fast widths with contentvec768l12 and
+     host YIN (enable_batching, buckets 128/256/512/1024, max_batch 8):
+     (a) eight concurrent requests of one bucket, each row >= 80 dB against
+     the same request (same seed) served alone, launches exactly K1 1, K2 5,
+     K3 60 per batch; (b) the HTTP server (cli.api.make_handler on
+     127.0.0.1): 16 concurrent POSTs, /health and /stats, a request past the
+     largest bucket (direct), stream=1 (chunked), the i16 and mu-law
+     transfers against f32, a server with voc_bf16 and one with the fused
+     front end (batch_encoder, device_f0); (c) seconds of audio per wall
+     second at concurrency 1, 4, 8 and 16 (and 8, 16 with the fused front
+     end), and the device's busy share of one profiled round of each.
 It then prints one JSON line describing the kernels and, last, one JSON
 line {"ok": true, "device": {...}}. TF32 is off for the whole run.
 """
@@ -107,6 +128,7 @@ PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
 # f32 accuracy on the tensor cores: split TF32, three MMAs per product at
 # the dense TF32 rate (494.7 TFLOP/s), K2's and K3's route
 PEAK_TF32X3_FLOP_PER_S = 494.7e12 / 3
+PEAK_BF16_FLOP_PER_S = 989.4e12  # dense bf16 on the tensor cores: K2-bf16
 K2_KERNEL_SIZES = (3, 7, 11)
 K2_DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 K2_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256), (16, 512))  # (C, L/T)
@@ -236,8 +258,10 @@ def sass_text(lib_path, nvcc: str) -> str:
                           text=True, timeout=120, check=True).stdout
 
 
-# the tensor-core kernels of K2 and K3, by the name in their SASS
-TC_KERNELS = (("K2", "resblock_conv_tc_kernel"), ("K3", "gemm_tc_kernel"))
+# the tensor-core kernels of K2, K2's bf16 class and K3, by the name in
+# their SASS
+TC_KERNELS = (("K2", "resblock_conv_tc_kernel"),
+              ("K2-bf16", "resblock_conv_bf16_kernel"), ("K3", "gemm_tc_kernel"))
 
 
 def _opcode(text: str) -> str:
@@ -451,6 +475,8 @@ def phase_kernels(torch, card: str) -> dict:
         f"{tot['bound_fma']:.4f} ms at f32 FMA; no single PyTorch call "
         f"computes a stage [{card}]")
 
+    results["resblock_group_bf16"] = k2_bf16(torch, gen, t, card, problems)
+
     # K3 conformer layer: T=862, C=512, Hc=128, I=1024, k=31
     c, hc, inner, k = 512, 128, 1024, 31
     x = torch.randn((1, t, c), generator=gen).to(dev)
@@ -532,9 +558,153 @@ def phase_kernels(torch, card: str) -> dict:
         f"single PyTorch call computes it [{card}]")
     if problems:
         fail("kernel vs plain: " + "; ".join(problems))
-    log("[kernels] K1 combtooth ok, K2 resblock_group ok, K3 conformer_layer "
-        "ok, K4 harmonic_bank ok (each within tolerance of its plain version)")
+    log("[kernels] K1 combtooth ok, K2 resblock_group ok, K2-bf16 ok, K3 "
+        "conformer_layer ok, K4 harmonic_bank ok (each within tolerance of its "
+        "plain version)")
     return results
+
+
+def bf16_chain(torch, x, weights, fault=None):
+    """K2-bf16's function with exact sums (float64 convs on bf16-rounded
+    operands), or with a planted fault: "z" (each chain's residual sum
+    rounded to bf16), "total" (the running sum over the chains rounded to
+    bf16), "t" (every conv output rounded to bf16, as intermediates stored
+    in bf16 would be). x (B, L, C) bf16 -> (B, L, C) bf16."""
+    import torch.nn.functional as F
+
+    def r(v):
+        return v.to(torch.bfloat16).float()
+
+    xc = x.float().transpose(1, 2)
+    total = None
+    for k, dils, rbw in zip(K2_KERNEL_SIZES, K2_DILATIONS, weights):
+        z, ci = xc, 0
+        for d in dils:
+            v = z
+            for dd in (d, 1):
+                w, b = rbw[ci]
+                ci += 1
+                v = r(F.leaky_relu(v, 0.1))
+                v = F.conv1d(v.double(), r(w).double(), b.double(),
+                             padding=(k - 1) * dd // 2, dilation=dd).float()
+                if fault == "t":
+                    v = r(v)
+            z = v + z
+            if fault == "z":
+                z = r(z)
+        total = z if total is None else total + z
+        if fault == "total":
+            total = r(total)
+    return (total / len(weights)).transpose(1, 2).to(torch.bfloat16)
+
+
+def k2_bf16(torch, gen, t: int, card: str, problems: list) -> dict:
+    """K2's bf16 class against its plain version at the four stages it
+    serves (C = 128 ... 16) of the 10 s request, and at B = 8 rows of the
+    1024-frame bucket, by ``bf16_agreement`` (1 bf16 ulp + 2^-7 x max|out|
+    per element, <= 2 % of the elements beyond 1 ulp, <= 10 % differing).
+    At the 10 s shapes the kernel is also held to the exact-sum version
+    (``bf16_chain``), and the tolerance to its two sides: the plain version
+    on the card (cuDNN's sum order) and on the CPU pass it against the
+    exact sums, and three planted extra bf16 roundings fail it. Bound:
+    2 L C^2 126 flops per stage at the dense bf16 rate against the bytes of
+    x and out (bf16), the bf16 weights and the f32 biases, read or written
+    once."""
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
+                                                      bf16_agreement,
+                                                      resblock_group_bf16,
+                                                      resblock_group_bf16_plain)
+    from ddsp_svc_tpu_torch.tools.timing import cuda_ms
+
+    dev = torch.device("cuda")
+    taps = sum(k * 2 * len(d) for k, d in zip(K2_KERNEL_SIZES, K2_DILATIONS))
+    n_convs = sum(2 * len(d) for d in K2_DILATIONS)
+    tot = dict(ms=0.0, plain=0.0, bound=0.0, flops=0.0, bytes=0.0)
+    worst = 0.0
+    for batch, frames in ((1, t), (8, 1024)):
+        for c, per_frame in K2_STAGES[1:]:
+            length = frames * per_frame
+            x = torch.randn((batch, length, c), generator=gen).to(dev).to(torch.bfloat16)
+            weights = []
+            for k, dils in zip(K2_KERNEL_SIZES, K2_DILATIONS):
+                bound = 1.0 / math.sqrt(c * k)
+                weights.append([(_rand(torch, gen, (c, c, k), bound).to(dev),
+                                 _rand(torch, gen, (c,), bound).to(dev))
+                                for _ in range(2 * len(dils))])
+            packed = PackedResblocks(weights)
+            got = resblock_group_bf16(x, packed, K2_KERNEL_SIZES, K2_DILATIONS)
+            want = resblock_group_bf16_plain(x, weights, K2_KERNEL_SIZES,
+                                             K2_DILATIONS)
+            agree = bf16_agreement(got, want)
+            worst = max(worst, agree["max_abs_err"])
+            what = f"K2-bf16 C={c} B={batch} L={length}"
+            if not agree["ok"]:
+                problems.append(f"{what}: {agree}")
+            if batch == 1:
+                k2_bf16_witnesses(torch, x, weights, got, want, what, card,
+                                  problems)
+            iters = 20 if batch == 1 else 5
+            k_ms = cuda_ms(lambda: resblock_group_bf16(
+                x, packed, K2_KERNEL_SIZES, K2_DILATIONS), iters)
+            p_ms = cuda_ms(lambda: resblock_group_bf16_plain(
+                x, weights, K2_KERNEL_SIZES, K2_DILATIONS), max(3, iters // 4))
+            flops = 2.0 * batch * length * c * c * taps
+            nbytes = 2.0 * 2 * batch * length * c + 2.0 * c * c * taps + 4.0 * n_convs * c
+            b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+            if batch == 1:
+                for key, val in (("ms", k_ms), ("plain", p_ms), ("bound", b_ms),
+                                 ("flops", flops), ("bytes", nbytes)):
+                    tot[key] += val
+            log(f"[kernels] {what}: max abs err {agree['max_abs_err']:.3e} "
+                f"(max|out| {float(want.float().abs().max()):.3f}; tol 1 bf16 ulp "
+                f"+ 2^-7 x max|out|), {100 * agree['differ']:.3f} % of elements "
+                f"differ, {100 * agree['beyond_ulp']:.4f} % by more than 1 ulp "
+                f"(limits 2 % beyond, 10 % differ); kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} "
+                f"TFLOP/s), plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"dense bf16) [{card}]")
+            del x, weights, packed, got, want
+    log(f"[kernels] K2-bf16 four stages of one 10 s request: kernel "
+        f"{tot['ms']:.3f} ms, plain {tot['plain']:.3f} ms, bound "
+        f"{tot['bound']:.4f} ms; no single PyTorch call computes a stage "
+        f"[{card}]")
+    return dict(route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock.cu",
+                replaces="ddsp_svc_tpu/ops/pallas_resblock.py:356",
+                max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain"],
+                bound_ms=tot["bound"],
+                bound_by=bound_ms(tot["bytes"], tot["flops"],
+                                  PEAK_BF16_FLOP_PER_S)[1],
+                library_ms=None)
+
+
+def k2_bf16_witnesses(torch, x, weights, got, want, what, card, problems):
+    """The kernel (``got``), the plain version on the card (``want``) and
+    on the CPU against the exact sums must pass ``bf16_agreement``; the
+    planted faults against them must fail it."""
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (bf16_agreement,
+                                                      resblock_group_bf16_plain)
+
+    exact = bf16_chain(torch, x, weights)
+    cpu_w = [[(w.cpu(), b.cpu()) for w, b in rbw] for rbw in weights]
+    cpu_plain = resblock_group_bf16_plain(x.cpu(), cpu_w, K2_KERNEL_SIZES,
+                                          K2_DILATIONS)
+    parts = []
+    for name, val, should in (("kernel", got, True), ("plain", want, True),
+                              ("CPU plain", cpu_plain, True),
+                              ("fault z", None, False),
+                              ("fault total", None, False),
+                              ("fault t", None, False)):
+        if val is None:
+            val = bf16_chain(torch, x, weights, fault=name.split()[1])
+        a = bf16_agreement(val.to(exact.device), exact)
+        parts.append(f"{name} {100 * a['differ']:.3f} % differ, "
+                     f"{100 * a['beyond_ulp']:.4f} % beyond 1 ulp, max "
+                     f"{a['max_abs_err']:.3e} ({'passes' if a['ok'] else 'fails'})")
+        if a["ok"] != should:
+            problems.append(f"{what} vs exact sums: {name} "
+                            f"{'fails' if should else 'passes'} the bf16 "
+                            f"tolerance: {a}")
+    log(f"[kernels] {what} against the exact sums: " + "; ".join(parts)
+        + f" [{card}]")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1492,6 +1662,393 @@ def phase_realtime(torch, card: str, pipes: dict, cpu_parts: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+
+
+EXPECT_DIFFUSION_BF16 = dict(EXPECT_DIFFUSION, resblock_group=0,
+                             resblock_group_bf16=4)
+EXPECT_SINS_BF16 = dict(EXPECT_SINS, resblock_group=0, resblock_group_bf16=4)
+BF16_SNR_LIMIT_DB = 25.0  # bf16 against f32: the JAX package's gate
+
+
+def all_counts():
+    """``counts`` and K2's bf16 class, which only phases 16-17 launch."""
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import resblock_group_bf16
+
+    return dict(counts(), resblock_group_bf16=resblock_group_bf16)
+
+
+def _with_zeros(expect: dict) -> dict:
+    return {n: expect.get(n, 0) for n in all_counts()}
+
+
+def sibling(pipe, device=None, copy_weights: bool = False, **kwargs):
+    """A pipeline over ``pipe``'s model, NSF-HiFiGAN and encoder (shared,
+    or copied to ``device``) with other options (vocoder_bf16, device_f0)."""
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    voc = pipe.vocoder if pipe.vocoder is not None else pipe.enhancer.vocoder
+    model, enc = pipe.model, pipe.units_encoder
+    if copy_weights:
+        model, voc = (copy.deepcopy(m).to(device) for m in (model, voc))
+        enc = None
+    return SvcPipeline.from_parts(model, None, pipe.args, voc, device=device,
+                                  seed=SEED, enhance=pipe.enhancer is not None,
+                                  units_encoder=enc, **kwargs)
+
+
+def phase_bf16_vocoder(torch, card: str, pipes: dict) -> dict:
+    """The NSF-HiFiGAN in bf16 (vocoder_bf16): a 10 s DiffusionFast request
+    and a 10 s Sins request (bf16 enhancer) from features, their launches
+    exactly, their audio against the f32 pipeline on the card, warm walls
+    of both, the 2 s request card against CPU with bf16 on both sides, and
+    cli.infer.convert with --voc_bf16. Returns {path: launch counts}."""
+    from ddsp_svc_tpu_torch.cli import infer as cli
+    from ddsp_svc_tpu_torch.features.slicer import split_audio
+
+    wrappers = all_counts()
+    rng = np.random.default_rng(SEED + 16)
+    launches = {}
+    for what, f32, expect, draws, kwargs in (
+            ("diffusion-fast bf16 vocoder", pipes["diffusion-fast from a wav"],
+             EXPECT_DIFFUSION_BF16, "normal",
+             dict(k_step=100, speedup=10, method="dpm-solver")),
+            ("sins bf16 enhancer", pipes["sins from a wav"], EXPECT_SINS_BF16,
+             "uniform", {})):
+        bf16 = sibling(f32, vocoder_bf16=True)
+        inputs = request_inputs(bf16, 10, rng)
+        t = inputs["volume"].shape[1]
+        noise = request_noise(rng, t, draws)
+        for w in wrappers.values():
+            w.launches = 0
+        audio, _ = bf16.infer_features(**inputs, noise=noise, **kwargs)
+        torch.cuda.synchronize()
+        got = {n: w.launches for n, w in wrappers.items()}
+        if got != expect:
+            fail(f"{what}: launches {got}, expected {expect}")
+        launches[what] = got
+        a_bf16 = check_audio(audio, t, what)
+        a_f32 = check_audio(f32.infer_features(**inputs, noise=noise, **kwargs)[0],
+                            t, what + " (f32)")
+        snr = snr_db(a_f32, a_bf16)
+        walls = {}
+        for name, pipe in (("f32", f32), ("bf16", bf16)):
+            runs = []
+            for _ in range(WARM_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe.infer_features(**inputs, noise=noise, **kwargs)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            walls[name] = sorted(runs)[len(runs) // 2]
+        log(f"[bf16] {what} 10 s request T={t}: launches {got}; audio SNR "
+            f"{snr:.2f} dB against the f32 pipeline (limit >= "
+            f"{BF16_SNR_LIMIT_DB:.0f} dB); warm median wall bf16 "
+            f"{walls['bf16'] * 1e3:.2f} ms, f32 {walls['f32'] * 1e3:.2f} ms "
+            f"(n={WARM_RUNS}) [{card}]")
+        if not snr >= BF16_SNR_LIMIT_DB:
+            fail(f"{what}: bf16 vs f32 SNR {snr:.2f} dB < {BF16_SNR_LIMIT_DB} dB")
+        # card against CPU, bf16 on both sides, 2 s
+        cpu = sibling(f32, device="cpu", copy_weights=True, vocoder_bf16=True)
+        inputs = request_inputs(cpu, 2, rng)
+        t = inputs["volume"].shape[1]
+        noise = request_noise(rng, t, draws)
+        audios = {name: check_audio(p.infer_features(**inputs, noise=noise,
+                                                     **kwargs)[0], t,
+                                    f"{what} 2 s on {name}")
+                  for name, p in (("card", bf16), ("cpu", cpu))}
+        snr = snr_db(audios["cpu"], audios["card"])
+        log(f"[bf16] {what} 2 s request, card (K2-bf16) vs CPU (its plain "
+            f"version), bf16 on both, same weights and noise: audio SNR "
+            f"{snr:.2f} dB (limit >= {SNR_LIMIT_DB:.0f} dB) [{card}]")
+        if not snr >= SNR_LIMIT_DB:
+            fail(f"{what} card vs CPU SNR {snr:.2f} dB < {SNR_LIMIT_DB} dB")
+        del cpu, bf16
+        torch.cuda.empty_cache()
+    # the offline CLI's conversion with --voc_bf16 (mel cascades)
+    wave = voice_wave(12, np.random.default_rng(SEED + 5), silences=CLI_SILENCES)
+    segments = split_audio(wave, SR)
+    options = cli.parse_args(["-m", "in-memory", "-i", "in.wav", "-o", "out.wav",
+                              "--voc_bf16"])
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    audio, sr = cli.convert(pipes["diffusion-fast from a wav"], wave, SR, options)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    what = "diffusion-fast CLI --voc_bf16"
+    launches[what] = {n: w.launches for n, w in wrappers.items()}
+    expect = {n: len(segments) * c for n, c in EXPECT_DIFFUSION_BF16.items()}
+    if launches[what] != expect:
+        fail(f"{what}: launches {launches[what]}, expected {expect}")
+    if sr != SR or not np.isfinite(audio).all() or np.abs(audio).max() <= 1e-4:
+        fail(f"{what}: output at {sr} Hz non-finite or silent")
+    log(f"[bf16] {what}: 12 s recording, {len(segments)} segments, {len(audio)} "
+        f"samples, wall {wall * 1e3:.1f} ms, launches {launches[what]} [{card}]")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 17
+
+
+BUCKETS = (128, 256, 512, 1024)
+BATCH = 8
+BATCH_WAIT_MS = 100.0  # long enough for concurrent front ends to meet
+BATCH_ROW_SNR_DB = 80.0
+DIFF_KW = dict(k_step=100, speedup=10, method="dpm-solver")
+EXPECT_BATCH = dict(EXPECT_DIFFUSION)  # per batch, whatever its rows
+
+
+def _concurrently(fns) -> list:
+    """Run the callables in threads started together -> their results (an
+    exception in any fails the run)."""
+    import threading
+
+    out, errors = [None] * len(fns), []
+    barrier = threading.Barrier(len(fns))
+
+    def run(i):
+        try:
+            barrier.wait()
+            out[i] = fns[i]()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        fail(f"a concurrent request failed: {errors[0]!r}")
+    return out
+
+
+def _post(base: str, wave: np.ndarray, **fields):
+    import io
+    import urllib.request
+    import uuid
+
+    from scipy.io import wavfile
+
+    buf = io.BytesIO()
+    wavfile.write(buf, SR, np.clip(wave * 32767, -32768, 32767).astype(np.int16))
+    fields = {"sample": buf.getvalue(), "fPitchChange": 0.0, "sSpeakId": 1,
+              "sampleRate": SR, **fields}
+    boundary = uuid.uuid4().hex
+    body = b"".join(
+        f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
+        .encode() + (v if isinstance(v, bytes) else str(v).encode()) + b"\r\n"
+        for k, v in fields.items()) + f"--{boundary}--\r\n".encode()
+    req = urllib.request.Request(
+        base + "/voiceChangeModel", data=body, method="POST",
+        headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        status, payload, headers = r.status, r.read(), dict(r.headers)
+    out_sr, data = wavfile.read(io.BytesIO(payload))
+    return status, out_sr, data.astype(np.float32) / 32767.0, headers
+
+
+def _check_wav(status, sr, data, n_in: int, what: str) -> None:
+    n = (n_in // BLOCK + 1) * BLOCK
+    if status != 200 or sr != SR or data.shape != (n,):
+        fail(f"{what}: status {status}, {data.shape} samples at {sr} Hz, "
+             f"expected 200 and ({n},) at {SR}")
+    if not np.isfinite(data).all() or np.abs(data).max() <= 1e-4:
+        fail(f"{what}: non-finite or silent")
+
+
+def _serve(pipe):
+    import threading
+
+    from ddsp_svc_tpu_torch.cli.api import Server, make_handler
+
+    srv = Server(("127.0.0.1", 0), make_handler(pipe, DIFF_KW))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def phase_batched_serving(torch, card: str, wav_pipe) -> dict:
+    """Batched serving at configs/diffusion-fast.yaml widths with the
+    contentvec768l12 encoder and host YIN: (a) eight concurrent requests of
+    one bucket against each alone in a batch of one, and the one that fills
+    the bucket against the direct path (batching off, its row's draws
+    handed over by ``request_noise``); (b) the HTTP server; (c)
+    aggregate throughput at concurrency 1, 4, 8 and 16 and the device's
+    busy share of one profiled batch. Returns {path: launch counts}."""
+    import json
+    import urllib.request
+
+    wrappers = all_counts()
+    rng = np.random.default_rng(SEED + 17)
+    pipe = sibling(wav_pipe)
+    launches = {}
+
+    # (a) rows against solo requests; the last fills bucket 1024 exactly
+    lengths = [9.0 + 0.35 * i for i in range(BATCH - 1)]
+    waves = [voice_wave(s, rng) for s in lengths]
+    waves.append(voice_wave(12.0, rng)[:(BUCKETS[-1] - 1) * BLOCK])
+    lengths.append(len(waves[-1]) / SR)
+    seeds = [1000 + i for i in range(BATCH)]
+    direct = pipe.infer(waves[-1], SR, noise=pipe.request_noise(
+        seeds[-1], BUCKETS[-1]), **DIFF_KW)[0]
+    batcher = pipe.enable_batching(buckets=BUCKETS, max_batch=BATCH,
+                                   max_wait_ms=BATCH_WAIT_MS, **DIFF_KW)
+    solo = [pipe.infer(w, SR, seed=s, **DIFF_KW)[0] for w, s in zip(waves, seeds)]
+    before = batcher.stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    rows = _concurrently([lambda w=w, s=s: pipe.infer(w, SR, seed=s, **DIFF_KW)[0]
+                          for w, s in zip(waves, seeds)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: w.launches for n, w in wrappers.items()}
+    stats = batcher.stats()
+    n_b = stats["batches"] - before["batches"]
+    expect = {n: n_b * c for n, c in _with_zeros(EXPECT_BATCH).items()}
+    if got != expect:
+        fail(f"batched rows: launches {got} over {n_b} batches, expected {expect}")
+    launches["batched serving (a)"] = got
+    snrs = [snr_db(a, b) for a, b in zip(solo, rows)]
+    snr_direct = snr_db(direct, rows[-1]) if direct.shape == rows[-1].shape else -math.inf
+    for i, (w, r) in enumerate(zip(waves, rows)):
+        check_audio(r, len(w) // BLOCK + 1, f"batched row {i}")
+    log(f"[batch] (a) {BATCH} concurrent requests of {lengths[0]:.2f}-"
+        f"{lengths[-1]:.2f} s (bucket 1024): {n_b} batches, occupancy "
+        f"{stats['mean_batch_occupancy']}, fill {stats['mean_batch_fill']}, "
+        f"launches {got} ({EXPECT_BATCH} per batch), wall {wall * 1e3:.1f} ms; "
+        f"rows vs the same requests alone in a batch of one: SNR min "
+        f"{min(snrs):.1f} dB; the {lengths[-1]:.3f} s row (1024 frames) vs the "
+        f"direct path with its draws: {snr_direct:.1f} dB (limits >= "
+        f"{BATCH_ROW_SNR_DB:.0f} dB), recent batches "
+        f"{stats['recent_batches'][-n_b:]} [{card}]")
+    if not min(snrs) >= BATCH_ROW_SNR_DB:
+        fail(f"batched rows vs solo: SNR {min(snrs):.1f} dB < {BATCH_ROW_SNR_DB} dB")
+    if not snr_direct >= BATCH_ROW_SNR_DB:
+        fail(f"batched row vs the direct path: SNR {snr_direct:.1f} dB < "
+             f"{BATCH_ROW_SNR_DB} dB ({direct.shape} vs {rows[-1].shape})")
+
+    # (b) over HTTP
+    srv, base = _serve(pipe)
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            if json.loads(r.read()) != {"status": "ok"}:
+                fail("/health did not answer ok")
+        http_waves = [voice_wave(2.0 + 0.5 * i, rng) for i in range(16)]
+        before = batcher.stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        answers = _concurrently([lambda w=w: _post(base, w) for w in http_waves])
+        wall = time.perf_counter() - t0
+        launches["batched serving over HTTP"] = {n: w.launches
+                                                 for n, w in wrappers.items()}
+        for i, (w, (status, sr, data, _)) in enumerate(zip(http_waves, answers)):
+            _check_wav(status, sr, data, len(w), f"HTTP request {i}")
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())["batching"]
+        log(f"[batch] (b) 16 concurrent POSTs of 2-9.5 s: all 200 with the "
+            f"right length, wall {wall * 1e3:.1f} ms; /stats: "
+            f"{stats['requests'] - before['requests']} requests in "
+            f"{stats['batches'] - before['batches']} batches, occupancy "
+            f"{stats['mean_batch_occupancy']}, p50 {stats['latency_ms_p50']} ms, "
+            f"p99 {stats['latency_ms_p99']} ms [{card}]")
+        long_wave = voice_wave(13.0, rng)
+        n_req = batcher.stats()["requests"]
+        status, sr, data, _ = _post(base, long_wave)
+        _check_wav(status, sr, data, len(long_wave), "13 s request (direct)")
+        if batcher.stats()["requests"] != n_req:
+            fail("the request past the largest bucket went through the batcher")
+        stream_wave = voice_wave(3.0, rng)
+        status, sr, data, headers = _post(base, stream_wave, stream=1)
+        if (status != 200 or headers.get("Transfer-Encoding") != "chunked"
+                or data.shape != stream_wave.shape or not np.isfinite(data).all()):
+            fail(f"stream=1: status {status}, {headers.get('Transfer-Encoding')}, "
+                 f"{data.shape} samples for {stream_wave.shape}")
+        log(f"[batch] (b) a 13 s request ran direct ({len(data)} samples back), "
+            f"stream=1 answered chunked with {len(stream_wave)} samples [{card}]")
+    finally:
+        srv.shutdown()
+
+    # the codecs: the same requests (same seeds) through i16 and mu-law
+    for transfer in ("i16", "mulaw"):
+        pipe.enable_batching(buckets=BUCKETS, max_batch=BATCH,
+                             max_wait_ms=BATCH_WAIT_MS, transfer=transfer, **DIFF_KW)
+        coded = _concurrently([lambda w=w, s=s: pipe.infer(w, SR, seed=s, **DIFF_KW)[0]
+                               for w, s in zip(waves[:4], seeds[:4])])
+        snr = min(snr_db(a, b) for a, b in zip(rows[:4], coded))
+        # i16 rounds to 1/32767 (~80 dB at these levels), mu-law companding
+        # keeps ~38 dB on speech-scale signals
+        limit = 60.0 if transfer == "i16" else 30.0
+        log(f"[batch] (b) transfer {transfer}: 4 rows against f32, SNR min "
+            f"{snr:.2f} dB (limit >= {limit:.0f} dB) [{card}]")
+        if not snr >= limit:
+            fail(f"transfer {transfer}: SNR {snr:.2f} dB < {limit} dB")
+
+    # a server with the bf16 vocoder, one with the fused front end
+    for what, kwargs, batch_kw, expect_key in (
+            ("voc_bf16", dict(vocoder_bf16=True), {}, "resblock_group_bf16"),
+            ("batch_encoder + device_f0", dict(device_f0=True),
+             dict(batch_encoder=True), "resblock_group")):
+        other = sibling(wav_pipe, **kwargs)
+        other.enable_batching(buckets=BUCKETS, max_batch=BATCH,
+                              max_wait_ms=BATCH_WAIT_MS, **DIFF_KW, **batch_kw)
+        srv, base = _serve(other)
+        try:
+            for w in wrappers.values():
+                w.launches = 0
+            some = http_waves[:4]
+            answers = _concurrently([lambda w=w: _post(base, w) for w in some])
+            for i, (w, (status, sr, data, _)) in enumerate(zip(some, answers)):
+                _check_wav(status, sr, data, len(w), f"{what} request {i}")
+            got = {n: w.launches for n, w in wrappers.items()}
+            if got[expect_key] <= 0 or (expect_key == "resblock_group_bf16"
+                                        and got["resblock_group"] != 0):
+                fail(f"{what} server: launches {got}")
+            launches[f"HTTP {what}"] = got
+            enc = other.enc_batcher.stats() if other.enc_batcher is not None else None
+            if batch_kw and not (enc and enc["batches"] > 0):
+                fail(f"{what}: the encoder batcher ran no batch ({enc})")
+            log(f"[batch] (b) server with {what}: 4 concurrent POSTs answered, "
+                f"launches {got}, encoder batcher {enc and {k: enc[k] for k in ('requests', 'batches', 'mean_batch_occupancy')}} [{card}]")
+        finally:
+            srv.shutdown()
+            other.disable_batching()
+
+    # (c) aggregate throughput and the device's busy share of one round:
+    # the host YIN and solo encoder per request, then the fused front end
+    tput_waves = [voice_wave(5.0, rng) for _ in range(16)]
+    fused = sibling(wav_pipe, device_f0=True)
+    for what, p, levels, batch_kw in (
+            ("host YIN, solo encoder", pipe, (1, 4, 8, 16), {}),
+            ("fused front end (device YIN, batched encoder)", fused, (8, 16),
+             dict(batch_encoder=True))):
+        p.enable_batching(buckets=BUCKETS, max_batch=BATCH,
+                          max_wait_ms=BATCH_WAIT_MS, **DIFF_KW, **batch_kw)
+        for conc in levels:
+            per = 16 // conc
+            t0 = time.perf_counter()
+            _concurrently([lambda i=i, p=p: [
+                p.infer(tput_waves[(i * per + j) % 16], SR, **DIFF_KW)
+                for j in range(per)] for i in range(conc)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"[batch] (c) {what}, concurrency {conc}: 16 requests of 5 s in "
+                f"{wall:.3f} s wall = {16 * 5.0 / wall:.2f} s of audio per s "
+                f"[{card}]")
+        _, wall_us, kernels_us, n_ops, _ = _profiled(
+            torch, lambda p=p: _concurrently([lambda w=w: p.infer(w, SR, **DIFF_KW)
+                                              for w in tput_waves[:BATCH]]), {})
+        busy = sum(kernels_us.values())
+        log(f"[batch] (c) {what}: one round of {BATCH} concurrent 5 s requests "
+            f"under the profiler: wall {wall_us / 1e3:.2f} ms, device busy "
+            f"{busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f} % of wall, {n_ops} "
+            f"device ops [{card}]")
+        p.disable_batching()
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1544,16 +2101,21 @@ def main() -> None:
          "reflow": reflow["wav"], "sins": pipes["sins from a wav"]},
         {"diffusion-fast": diffusion_cpu, "reflow": reflow["parts"],
          "sins": sins_parts}))
+    torch.cuda.empty_cache()
+    paths.update(phase_bf16_vocoder(torch, card, pipes))
+    paths.update(phase_batched_serving(torch, card,
+                                       pipes["diffusion-fast from a wav"]))
 
     table = []
-    for kname in ("combtooth", "resblock_group", "conformer_layer",
-                  "harmonic_bank"):
+    for kname in ("combtooth", "resblock_group", "resblock_group_bf16",
+                  "conformer_layer", "harmonic_bank"):
         r = results[kname]
-        launches = sum(c[kname] for c in paths.values())
+        launches = sum(c.get(kname, 0) for c in paths.values())
         if launches <= 0:
             fail(f"kernel {kname} was not launched on a serving path")
         log(f"[done] {kname}: {launches} launches over the paths: "
-            + ", ".join(f"{p} {c[kname]}" for p, c in paths.items() if c[kname]))
+            + ", ".join(f"{p} {c[kname]}" for p, c in paths.items()
+                        if c.get(kname)))
         table.append({"name": kname, "route": r["route"], "source": r["source"],
                       "replaces": r["replaces"], "launches": launches,
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -12,8 +12,10 @@ either CLI reads the other's cache); then the key shift, the volume mask
 with its 9-frame dilation, the silence split, one conversion per segment,
 and the zero-fill / linear cross-fade splice. ``main`` reads the checkpoint
 (which needs PyYAML and msgpack) and the wav; ``convert`` is the conversion
-on a pipeline in memory. Two of the JAX CLI's options are refused, each
-naming the ROADMAP item that brings it: ``--stream`` and ``--voc_bf16``.
+on a pipeline in memory. ``--voc_bf16`` runs the mel cascades' NSF-HiFiGAN
+in bf16, as the JAX CLI does (cli/infer.py:62,134; the DDSP family's
+enhancer stays f32 there). ``--stream`` is refused, naming the ROADMAP item
+that brings it.
 """
 from __future__ import annotations
 
@@ -30,12 +32,9 @@ from ..features.f0 import F0Extractor
 from ..features.slicer import split_audio
 from ..ops.interp import upsample
 
-# the JAX CLI's options this port refuses, each with the ROADMAP item that
-# brings it
+# the JAX CLI's option this port refuses, with the ROADMAP item that brings it
 STREAM_REFUSED = ("--stream (time-sharded synthesis) is not ported yet "
                   "(ROADMAP A item 8)")
-VOC_BF16_REFUSED = ("--voc_bf16 (bf16 vocoder) is not ported yet "
-                    "(ROADMAP B4, A item 7)")
 
 
 def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
@@ -63,7 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("-diffid", "--diff_spk_id", default="auto")
     p.add_argument("-k", "--key", type=float, default=0.0)
     p.add_argument("-e", "--enhance", default="true")
-    p.add_argument("--voc_bf16", action="store_true")
+    p.add_argument("--voc_bf16", action="store_true",
+                   help="run the mel cascades' NSF-HiFiGAN vocoder in bf16")
     p.add_argument("-pe", "--pitch_extractor", default="yin")
     p.add_argument("-fmin", "--f0_min", type=float, default=50.0)
     p.add_argument("-fmax", "--f0_max", type=float, default=1100.0)
@@ -83,11 +83,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_ported(options: argparse.Namespace) -> None:
-    """Refuse the JAX CLI's options this port does not have yet."""
+    """Refuse the JAX CLI's option this port does not have yet."""
     if options.stream > 1:
         raise NotImplementedError(STREAM_REFUSED)
-    if options.voc_bf16:
-        raise NotImplementedError(VOC_BF16_REFUSED)
 
 
 def cached_f0(options: argparse.Namespace, audio: np.ndarray, sample_rate: int,
@@ -178,7 +176,8 @@ def convert(pipeline, audio: np.ndarray, sample_rate: int,
             mel = pipeline.cascade(seg_units, seg_f0, seg_volume, diff_spk_id,
                                    spk_mix_dict=spk_mix_dict, formant_shift=fs,
                                    gt_spec=gt_spec, **sampler)
-            seg_out = pipeline.vocode(mel, seg_f0)
+            seg_out = pipeline.vocode(
+                mel, seg_f0, dtype=torch.bfloat16 if options.voc_bf16 else None)
             out_sr = pipeline.vocoder.vocoder_sample_rate
         seg_out = seg_out * mask[:, start_frame * block:
                                  start_frame * block + seg_out.shape[-1]]

@@ -8,7 +8,8 @@ File mode drives the realtime block engine over a recording:
 Live mode needs the optional ``sounddevice`` package, imported only then:
   python -m ddsp_svc_tpu_torch.cli.realtime -m exp/model_N.ckpt --live
 
-``--voc_bf16`` is refused, as in ``cli/infer.py``.
+``--voc_bf16`` runs the NSF-HiFiGAN (the vocoder, or the DDSP family's
+enhancer) in bf16, as the JAX CLI's pipeline does (cli/realtime.py:35,53).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="mel cascades: run the cascade on the fresh frames "
                         "only (the pipeline's use_silence)")
     p.add_argument("--voc_bf16", action="store_true",
-                   help="refused: the bf16 vocoder is not ported yet")
+                   help="run the NSF-HiFiGAN (vocoder or enhancer) in bf16")
     p.add_argument("--device_f0", action="store_true",
                    help="the YIN f0 on the card (yin extractor only)")
     p.add_argument("--device", default=None,
@@ -73,16 +74,13 @@ def run_file(vc, input_path: str, output_path: str) -> dict:
 def main(argv=None) -> None:
     from ..infer.pipeline import SvcPipeline
     from ..infer.realtime import RealtimeVC
-    from .infer import VOC_BF16_REFUSED
 
     cmd = parse_args(argv)
-    if cmd.voc_bf16:
-        raise NotImplementedError(VOC_BF16_REFUSED)
     if not cmd.live and not (cmd.input and cmd.output):
         raise SystemExit("file mode needs -i and -o (or --live)")
     pipeline = SvcPipeline(cmd.model_path, device=cmd.device,
                            pitch_extractor=cmd.pitch_extractor,
-                           device_f0=cmd.device_f0)
+                           device_f0=cmd.device_f0, vocoder_bf16=cmd.voc_bf16)
     sr = pipeline.args.data.sampling_rate
     vc = RealtimeVC(pipeline, sample_rate=sr, block_time=cmd.block_time,
                     crossfade_time=cmd.crossfade_time, extra_time=cmd.extra_time,

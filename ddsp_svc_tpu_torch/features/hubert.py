@@ -1,8 +1,9 @@
 """HuBERT / ContentVec speech encoders and the units encoder (mirrors
 ddsp_svc_tpu/features/hubert.py: ``CONV_SPECS``, ``conv_out_frames``,
 ``FeatureExtractor``, ``PositionalConvEmbedding``, ``TransformerLayer``,
-``HubertConfig``, ``HubertModel``, ``ENCODER_CONFIGS``, ``UnitsEncoder``
-for the solo, unpadded forward).
+``HubertConfig``, ``HubertModel``, ``ENCODER_CONFIGS``, ``UnitsEncoder``,
+with the masked batched forward of zero-padded rows: ``valid_samples``,
+``valid_frames``, ``align_index``, ``encode_batched``).
 
 One parameterised model covers the encoder zoo: a 7-layer strided conv
 feature extractor (bias-free with a time-global GroupNorm after the first
@@ -64,14 +65,34 @@ class FeatureExtractor(nn.Module):
             [nn.LayerNorm(512, eps=1e-5) for _ in CONV_SPECS] if layer_norm_mode
             else [GroupNorm(512, 512)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_in=None) -> torch.Tensor:
+        """``valid_in`` (B,): each row's real input length. The convs are
+        valid convs, so a frame never reads past its receptive field; only
+        the time-global channel norm after conv0 needs statistics masked
+        to each row's real frames (JAX ``_ChannelNorm`` with ``valid_t``)."""
         x = x[..., None]
         for i, conv in enumerate(self.convs):
             x = conv(x)
-            if self.layer_norm_mode or i == 0:
+            if self.layer_norm_mode:
                 x = self.norms[i](x)
+            elif i == 0:
+                x = (self.norms[0](x) if valid_in is None else
+                     _masked_channel_norm(x, conv_out_frames(valid_in, 1),
+                                          self.norms[0]))
             x = _gelu(x)
         return x
+
+
+def _masked_channel_norm(x: torch.Tensor, valid_t: torch.Tensor,
+                         norm: GroupNorm) -> torch.Tensor:
+    """GroupNorm(C, C) over time with each row's statistics taken over its
+    first ``valid_t`` frames: x (B, T, C), valid_t (B,)."""
+    m = (torch.arange(x.shape[1], device=x.device) < valid_t[:, None])[..., None]
+    cnt = valid_t.clamp(min=1).to(x.dtype)[:, None, None]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    mean = torch.where(m, x, zero).sum(dim=1, keepdim=True) / cnt
+    var = torch.where(m, (x - mean) ** 2, zero).sum(dim=1, keepdim=True) / cnt
+    return (x - mean) * torch.rsqrt(var + norm.eps) * norm.weight + norm.bias
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -88,7 +109,8 @@ class PositionalConvEmbedding(nn.Module):
 
 class SelfAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` (qkv_features = out_features =
-    dim) on (B, T, dim), no mask."""
+    dim) on (B, T, dim); ``key_mask`` (B, T) bool: the keys a query may
+    attend to (the others get float32's lowest logit, as flax masks)."""
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
@@ -96,13 +118,17 @@ class SelfAttention(nn.Module):
         self.query, self.key, self.value, self.out = (
             nn.Linear(dim, dim) for _ in range(4))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask=None) -> torch.Tensor:
         b, t, dim = x.shape
         h = self.heads
         q, k, v = (proj(x).view(b, t, h, dim // h)
                    for proj in (self.query, self.key, self.value))
         q = q / math.sqrt(dim // h)
-        weights = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if key_mask is not None:
+            logits = logits.masked_fill(~key_mask[:, None, None, :],
+                                        torch.finfo(logits.dtype).min)
+        weights = torch.softmax(logits, dim=-1)
         return self.out(torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, t, dim))
 
 
@@ -119,11 +145,11 @@ class TransformerLayer(nn.Module):
     def ffn(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(_gelu(self.fc1(x)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask=None) -> torch.Tensor:
         if self.pre_norm:
-            x = x + self.attn(self.norm1(x))
+            x = x + self.attn(self.norm1(x), key_mask)
             return x + self.ffn(self.norm2(x))
-        x = self.norm1(x + self.attn(x))
+        x = self.norm1(x + self.attn(x, key_mask))
         return self.norm2(x + self.ffn(x))
 
 
@@ -166,21 +192,46 @@ class HubertModel(nn.Module):
             for _ in range(cfg.layers_run))
         self.proj = nn.Linear(cfg.dim, cfg.proj_dim) if cfg.proj_dim else None
 
-    def forward(self, audio: torch.Tensor) -> torch.Tensor:
-        """audio (B, L) at 16 kHz -> units (B, T, dim or proj_dim)."""
+    def forward(self, audio: torch.Tensor, valid_samples=None) -> torch.Tensor:
+        """audio (B, L) at 16 kHz -> units (B, T, dim or proj_dim).
+
+        ``valid_samples`` (B,) int tensor: each row's real sample count, the
+        rest zero padding. Every output frame below the row's valid frame
+        count then equals the solo forward of the unpadded row: the input
+        normalisation, the conv0 channel norm and the attention take their
+        statistics and keys from the valid part, and the positional conv
+        sees zeros past it (JAX ``HubertModel`` with ``valid_samples``)."""
         cfg = self.config
+        zero = torch.zeros((), dtype=audio.dtype, device=audio.device)
         if cfg.input_normalize:
-            mean = audio.mean(dim=-1, keepdim=True)
-            var = audio.var(dim=-1, keepdim=True, unbiased=False)
+            if valid_samples is None:
+                mean = audio.mean(dim=-1, keepdim=True)
+                var = audio.var(dim=-1, keepdim=True, unbiased=False)
+            else:
+                m = (torch.arange(audio.shape[-1], device=audio.device)
+                     < valid_samples[:, None])
+                cnt = valid_samples.clamp(min=1).to(audio.dtype)[:, None]
+                mean = torch.where(m, audio, zero).sum(-1, keepdim=True) / cnt
+                var = torch.where(m, (audio - mean) ** 2, zero).sum(
+                    -1, keepdim=True) / cnt
             audio = (audio - mean) / torch.sqrt(var + 1e-7)
+            if valid_samples is not None:
+                audio = torch.where(m, audio, zero)
+        valid_in = valid_samples
         if cfg.pad_center:
             audio = F.pad(audio, (40, 40))
-        x = self.fp_proj(self.fp_norm(self.feature_extractor(audio)))
+            valid_in = None if valid_in is None else valid_in + 80
+        x = self.fp_proj(self.fp_norm(self.feature_extractor(audio, valid_in)))
+        key_mask = None
+        if valid_in is not None:
+            key_mask = (torch.arange(x.shape[1], device=x.device)
+                        < conv_out_frames(valid_in)[:, None])
+            x = torch.where(key_mask[..., None], x, zero)
         x = x + self.pos_conv(x)
         if not cfg.pre_norm:
             x = self.norm(x)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, key_mask)
         if cfg.pre_norm and self.norm is not None:
             x = self.norm(x)
         if self.proj is not None:
@@ -239,6 +290,56 @@ class UnitsEncoder:
         self.model = model.to(self.device).eval()
         self.encoder_sample_rate = encoder_sample_rate
         self.encoder_hop_size = encoder_hop_size
+
+    def valid_frames(self, n_samples: int, sample_rate: int) -> int:
+        """Encoder frames a solo ``encode`` of ``n_samples`` produces: also
+        the count of exact rows of a masked batched forward."""
+        n = n_samples
+        if sample_rate != self.encoder_sample_rate:
+            n = -((-n * self.encoder_sample_rate) // sample_rate)  # ceil
+        n = max(n, 400)
+        if self.model.config.pad_center:
+            n += 80
+        return int(conv_out_frames(n))
+
+    def align_index(self, n_samples: int, sample_rate: int,
+                    hop_size: int) -> np.ndarray:
+        """``encode``'s nearest-index alignment onto the synth hop grid,
+        clipped to the request's own valid frame count: what a padded batch
+        row gathers with."""
+        n_frames = n_samples // hop_size + 1
+        ratio = (hop_size / sample_rate) / (
+            self.encoder_hop_size / self.encoder_sample_rate)
+        return np.clip(np.round(ratio * np.arange(n_frames)).astype(np.int64),
+                       0, self.valid_frames(n_samples, sample_rate) - 1)
+
+    @torch.no_grad()
+    def encode_batched(self, audio: torch.Tensor, sample_rate: int,
+                       valid_samples: torch.Tensor) -> torch.Tensor:
+        """Zero-padded rows (B, L) at ``sample_rate`` with ``valid_samples``
+        (B,) real samples each -> units (B, T, C) on the ENCODER grid, where
+        each row's first ``valid_frames(valid_samples[i], sample_rate)``
+        frames equal a solo ``encode`` of the unpadded row (JAX
+        ``make_batched_encode_fn``): each row's tail past its valid samples
+        (after a resample, past ceil(valid * enc / sr)) is zeroed, rows
+        shorter than 400 samples are padded to it, and the model runs
+        masked. The zeroing is done at the encoder's own rate too, where
+        JAX leaves the tail: a mu-law row's padding decodes to 8.5e-5, not
+        0, and the center pad of the encoders that have one would read it.
+        Align each row with ``align_index``."""
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        valid = torch.as_tensor(valid_samples, dtype=torch.int64,
+                                device=self.device)
+        enc_sr = self.encoder_sample_rate
+        if sample_rate != enc_sr:
+            audio = resample(audio, sample_rate, enc_sr)
+            valid = -((-valid * enc_sr) // sample_rate)  # ceil, as resample
+        audio = torch.where(torch.arange(audio.shape[-1], device=self.device)
+                            < valid[:, None], audio,
+                            torch.zeros((), device=self.device))
+        if audio.shape[-1] < 400:
+            audio = F.pad(audio, (0, 400 - audio.shape[-1]))
+        return self.model(audio, valid_samples=valid.clamp(min=400))
 
     @torch.no_grad()
     def encode(self, audio, sample_rate: int, hop_size: int) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Frame-level RMS volume and the volume gate (the port's own copy of
-ddsp_svc_tpu/features/volume.py ``VolumeExtractor``; host numpy)."""
+ddsp_svc_tpu/features/volume.py: ``VolumeExtractor`` on the host in numpy,
+``get_mask_batch`` the same gate over a batch of rows on any device)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 class VolumeExtractor:
@@ -28,3 +31,13 @@ class VolumeExtractor:
         mp = np.pad(mask, (pad, pad), constant_values=(mask[0], mask[-1]))
         windows = np.lib.stride_tricks.sliding_window_view(mp, win)
         return windows.max(axis=-1)
+
+
+def get_mask_batch(volume: torch.Tensor, gate: float, win: int = 9) -> torch.Tensor:
+    """``VolumeExtractor.get_mask`` over a batch of rows (JAX
+    ``get_mask_jnp``): ``volume`` (B, T), ``gate`` the linear threshold
+    10^(dB / 20) -> (B, T) float32: the gate, each row edge-padded by
+    win // 2, max-dilated over ``win`` frames."""
+    m = (volume > gate).float()[:, None, :]
+    m = F.pad(m, (win // 2, win // 2), mode="replicate")
+    return F.max_pool1d(m, win, stride=1)[:, 0]

@@ -22,16 +22,16 @@ from .f0 import decimation_filter
 def interp_unvoiced(f0: torch.Tensor) -> torch.Tensor:
     """Torch mirror of features/f0.py ``_interp_unvoiced`` (np.interp over
     the voiced frames, clamped at the edges; an all-unvoiced track is
-    returned unchanged). (T,) in, (T,) out."""
-    n = f0.shape[0]
+    returned unchanged). (T,) or rows (B, T) in, the same shape out."""
+    n = f0.shape[-1]
     voiced = f0 > 0
-    idx = torch.arange(n, device=f0.device)
+    idx = torch.arange(n, device=f0.device).expand_as(f0)
     # nearest voiced index at/before i (-1: none), at/after i (n: none)
-    prev = torch.cummax(torch.where(voiced, idx, -1), 0).values
-    nxt_rev = torch.cummax(torch.where(voiced.flip(0), idx, -1), 0).values.flip(0)
+    prev = torch.cummax(torch.where(voiced, idx, -1), -1).values
+    nxt_rev = torch.cummax(torch.where(voiced.flip(-1), idx, -1), -1).values.flip(-1)
     nxt = torch.where(nxt_rev >= 0, (n - 1) - nxt_rev, n)
-    fp = f0[prev.clamp(0, n - 1)]
-    fn = f0[nxt.clamp(0, n - 1)]
+    fp = torch.gather(f0, -1, prev.clamp(0, n - 1))
+    fn = torch.gather(f0, -1, nxt.clamp(0, n - 1))
     have_p, have_n = prev >= 0, nxt <= n - 1
     t = (idx - prev).to(f0.dtype) / (nxt - prev).clamp(min=1).to(f0.dtype)
     interp = torch.where(have_p & have_n, fp + (fn - fp) * t,
@@ -44,9 +44,10 @@ def make_yin_fn(n_samples: int, sample_rate: int, hop_size: int,
                 f0_min: float = 65.0, f0_max: float = 800.0,
                 threshold: float = 0.1, voicing_threshold: float = 0.35,
                 decimate: bool = True):
-    """``fn(audio (n_samples,)) -> f0 (n_samples // hop_size + 1,)``
-    matching ``yin_f0(audio, sample_rate, hop_size, ...)`` (0 = unvoiced)
-    on the device of ``audio``, in f32."""
+    """``fn(audio (n_samples,) or rows (B, n_samples)) -> f0 (n_samples //
+    hop_size + 1,) or (B, ...)`` matching ``yin_f0(audio, sample_rate,
+    hop_size, ...)`` row by row (0 = unvoiced) on the device of ``audio``,
+    in f32 (JAX: the same function vmapped over rows)."""
     factor = 1
     if decimate:
         while (sample_rate / (factor * 2) >= 16.0 * f0_max
@@ -65,47 +66,48 @@ def make_yin_fn(n_samples: int, sample_rate: int, hop_size: int,
     n_frames = n_dec // hop_dec + 1
     n_fft = 1 << int(np.ceil(np.log2(2 * frame_len)))
 
-    def fn(audio: torch.Tensor) -> torch.Tensor:
+    def rows(audio: torch.Tensor) -> torch.Tensor:  # (B, n) -> (B, T)
         dev = audio.device
+        b = audio.shape[0]
         audio = audio.to(torch.float32)
         if factor > 1:
             half = taps.shape[0] // 2
-            audio = F.conv1d(audio[None, None], taps.to(dev)[None, None],
-                             stride=factor, padding=half)[0, 0, :n_dec]
+            audio = F.conv1d(audio[:, None], taps.to(dev)[None, None],
+                             stride=factor, padding=half)[:, 0, :n_dec]
         x = F.pad(audio, (frame_len // 2, frame_len))
         idx = (torch.arange(n_frames, device=dev)[:, None] * hop_dec
                + torch.arange(frame_len, device=dev)[None, :])
-        frames = x[idx]  # (T, frame_len)
+        frames = x[:, idx]  # (B, T, frame_len)
 
         # d(tau) = e0 + e_tau - 2 c(tau) via one FFT cross-correlation per frame
-        head = torch.fft.rfft(frames[:, :win], n_fft, dim=1)
-        full = torch.fft.rfft(frames, n_fft, dim=1)
-        corr = torch.fft.irfft(torch.conj(head) * full, n_fft, dim=1)[:, :tau_max]
-        csum = F.pad(torch.cumsum(frames * frames, dim=1), (1, 0))
+        head = torch.fft.rfft(frames[..., :win], n_fft, dim=-1)
+        full = torch.fft.rfft(frames, n_fft, dim=-1)
+        corr = torch.fft.irfft(torch.conj(head) * full, n_fft, dim=-1)[..., :tau_max]
+        csum = F.pad(torch.cumsum(frames * frames, dim=-1), (1, 0))
         taus = torch.arange(tau_max, device=dev)
-        e0 = csum[:, win] - csum[:, 0]
-        e_tau = csum[:, taus + win] - csum[:, taus]
-        d = torch.clamp(e0[:, None] + e_tau - 2.0 * corr, min=0.0)
+        e0 = csum[..., win] - csum[..., 0]
+        e_tau = csum[..., taus + win] - csum[..., taus]
+        d = torch.clamp(e0[..., None] + e_tau - 2.0 * corr, min=0.0)
 
-        dsum = torch.cumsum(d[:, 1:], dim=1)
+        dsum = torch.cumsum(d[..., 1:], dim=-1)
         lags = torch.arange(1, tau_max, device=dev, dtype=torch.float32)
-        cmndf = torch.cat([torch.ones((n_frames, 1), device=dev),
-                           d[:, 1:] * lags / torch.clamp(dsum, min=1e-12)], dim=1)
+        cmndf = torch.cat([torch.ones((b, n_frames, 1), device=dev),
+                           d[..., 1:] * lags / torch.clamp(dsum, min=1e-12)], dim=-1)
 
-        region = cmndf[:, tau_min:tau_max]
-        n_tau = region.shape[1]
+        region = cmndf[..., tau_min:tau_max]
+        n_tau = region.shape[-1]
         below = region < threshold
-        first = torch.where(below.any(dim=1), below.to(torch.uint8).argmax(dim=1),
-                            region.argmin(dim=1))
-        rising = torch.cat([region[:, 1:] >= region[:, :-1],
-                            torch.ones((n_frames, 1), dtype=torch.bool,
-                                       device=dev)], dim=1)
-        eligible = rising & (torch.arange(n_tau, device=dev)[None, :]
-                             >= first[:, None])
-        tau = eligible.to(torch.uint8).argmax(dim=1) + tau_min
+        first = torch.where(below.any(dim=-1), below.to(torch.uint8).argmax(dim=-1),
+                            region.argmin(dim=-1))
+        rising = torch.cat([region[..., 1:] >= region[..., :-1],
+                            torch.ones((b, n_frames, 1), dtype=torch.bool,
+                                       device=dev)], dim=-1)
+        eligible = rising & (torch.arange(n_tau, device=dev)
+                             >= first[..., None])
+        tau = eligible.to(torch.uint8).argmax(dim=-1) + tau_min
 
         tau_c = torch.clamp(tau, tau_min + 1, tau_max - 2)
-        d0, d1, d2 = (torch.gather(cmndf, 1, (tau_c + o)[:, None])[:, 0]
+        d0, d1, d2 = (torch.gather(cmndf, -1, (tau_c + o)[..., None])[..., 0]
                       for o in (-1, 0, 1))
         denom = d0 + d2 - 2.0 * d1
         delta = torch.where(
@@ -122,7 +124,10 @@ def make_yin_fn(n_samples: int, sample_rate: int, hop_size: int,
         voiced = ((d1 < voicing_threshold) & (f0 >= f0_min) & (f0 <= f0_max)
                   & (e0 > 1e-8))
         f0 = torch.where(voiced, f0, torch.zeros_like(f0))
-        return f0[:n_frames_out]
+        return f0[..., :n_frames_out]
+
+    def fn(audio: torch.Tensor) -> torch.Tensor:
+        return rows(audio[None])[0] if audio.dim() == 1 else rows(audio)
 
     return fn
 
@@ -133,15 +138,16 @@ def make_pipeline_f0_fn(n_samples: int, sample_rate: int, hop_size: int,
     after ``start_frame`` frames, the front zero pad, the unvoiced
     interpolation and the ``f0_min`` floor -- the host sequence
     ``F0Extractor('yin').extract(audio, uv_interp=True, silence_front=...)``.
-    ``fn(audio (n_samples,)) -> f0 (n_samples // hop_size + 1,)``."""
+    ``fn(audio (n_samples,) or rows (B, n_samples)) -> f0 (n_samples //
+    hop_size + 1,) or (B, ...)``, each row on its own."""
     n_frames = n_samples // hop_size + 1
     n_suffix = n_samples - start_frame * hop_size
     yin = make_yin_fn(n_suffix, sample_rate, hop_size, f0_min, f0_max)
     n_keep = n_frames - start_frame
 
     def fn(audio: torch.Tensor) -> torch.Tensor:
-        f0 = yin(audio[n_samples - n_suffix:])[:n_keep]
-        f0 = F.pad(f0, (start_frame, max(0, n_keep - f0.shape[0])))
+        f0 = yin(audio[..., n_samples - n_suffix:])[..., :n_keep]
+        f0 = F.pad(f0, (start_frame, max(0, n_keep - f0.shape[-1])))
         return torch.clamp(interp_unvoiced(f0), min=f0_min)
 
     return fn

@@ -116,9 +116,12 @@ def _put_conv(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
 
 
 def _put_conv_transpose(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
-    v = tree.take(f"{scope}/kernel_v")  # (k, in, out)
-    g = tree.take(f"{scope}/kernel_g")  # (in,)
-    kernel = _wn_fold(v, g, (0, 2), (1, -1, 1))
+    if tree.has(f"{scope}/kernel"):  # a generator without weight norm
+        kernel = tree.take(f"{scope}/kernel")
+    else:
+        v = tree.take(f"{scope}/kernel_v")  # (k, in, out)
+        g = tree.take(f"{scope}/kernel_g")  # (in,)
+        kernel = _wn_fold(v, g, (0, 2), (1, -1, 1))
     sd[f"{name}.weight"] = np.ascontiguousarray(kernel.transpose(1, 2, 0))
     _put_bias(sd, tree, scope, name)
 

@@ -19,7 +19,12 @@ import torch.nn.functional as F
 
 
 class Conv1d(nn.Module):
-    """torch.nn.Conv1d semantics on (B, T, C_in) -> (B, T_out, C_out)."""
+    """torch.nn.Conv1d semantics on (B, T, C_in) -> (B, T_out, C_out).
+
+    The call's ``dtype``: the type the conv runs in, as the JAX Conv1d's
+    ``dtype`` (nn.py:98-110): x and the weight cast to it, convolved, then
+    the bias cast to it added (a separate rounding in bf16). Parameters stay
+    float32. None: x's own type."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
@@ -31,16 +36,24 @@ class Conv1d(nn.Module):
             torch.empty(out_channels, in_channels // groups, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, self.stride,
-                     self.padding, self.dilation, self.groups)
-        return y.transpose(1, 2)
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        dtype = dtype or x.dtype
+        if dtype == self.weight.dtype:
+            y = F.conv1d(x.transpose(1, 2).to(dtype), self.weight, self.bias,
+                         self.stride, self.padding, self.dilation, self.groups)
+            return y.transpose(1, 2)
+        y = F.conv1d(x.transpose(1, 2).to(dtype), self.weight.to(dtype), None,
+                     self.stride, self.padding, self.dilation, self.groups)
+        y = y.transpose(1, 2)
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class ConvTranspose1d(nn.Module):
     """torch.nn.ConvTranspose1d on (B, T, C): out_len = (T-1)*stride - 2*pad + k.
     The weight is (in, out, k): the JAX kernel (k, in, out) permuted
     (1, 2, 0), unflipped (the JAX flip belongs to its lhs-dilated lowering).
+    The call's ``dtype`` as in ``Conv1d``.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -51,10 +64,16 @@ class ConvTranspose1d(nn.Module):
             torch.empty(in_channels, out_channels, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias,
-                               self.stride, self.padding)
-        return y.transpose(1, 2)
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        dtype = dtype or x.dtype
+        if dtype == self.weight.dtype:
+            y = F.conv_transpose1d(x.transpose(1, 2).to(dtype), self.weight,
+                                   self.bias, self.stride, self.padding)
+            return y.transpose(1, 2)
+        y = F.conv_transpose1d(x.transpose(1, 2).to(dtype), self.weight.to(dtype),
+                               None, self.stride, self.padding)
+        return y.transpose(1, 2) + self.bias.to(dtype)
 
 
 class GroupNorm(nn.Module):

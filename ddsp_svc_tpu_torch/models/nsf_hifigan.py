@@ -6,7 +6,14 @@ each upsample stage's resblock mean runs through kernel K2
 path fused only the stages with C <= 128 -- and each stage's weights are
 packed for the kernel once per model (``Generator.stage_weights``). K2
 serves ResBlock1 only, as the JAX package's fused path does
-(nsf_hifigan.py:201-204): a ResBlock2 generator runs its plain convs."""
+(nsf_hifigan.py:201-204): a ResBlock2 generator runs its plain convs.
+
+Called with ``dtype=torch.bfloat16`` (the JAX generator's ``dtype``, nsf_hifigan.py
+:128-227) the convs run in bf16 and the activations between them are bf16;
+the parameters stay float32 and the sine source f32. The fused stages
+follow the JAX dispatch (nsf_hifigan.py:200-221): K2's bf16 class
+(``resblock_group_bf16``) where C <= 128 and 128 % C == 0, the stock bf16
+ResBlock1 chain elsewhere (the C = 256 stage at the default widths)."""
 from __future__ import annotations
 
 import math
@@ -21,18 +28,36 @@ from ..ops.source import sine_gen
 from .nn import Conv1d, ConvTranspose1d
 
 
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """JAX ``leaky_relu`` (nn.py:396): ``where(x >= 0, x, slope * x)``, with
+    the slope taken in x's type (weakly typed in JAX, so rounded to bf16 on a
+    bf16 x before the product)."""
+    if x.dtype == torch.float32:
+        return F.leaky_relu(x, slope)
+    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype))
+
+
 class ResBlock1(nn.Module):
     """Parameters of one ResBlock1 chain (``convs1.i`` dilated by the
-    chain's i-th dilation, ``convs2.i`` undilated); the chain itself, with
-    its 'same' padding, runs inside ``resblock_group``."""
+    chain's i-th dilation, ``convs2.i`` undilated). The chain runs inside
+    ``resblock_group``; ``forward`` is the stock chain, which a bf16
+    generator runs at the stages K2's bf16 class does not serve."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilation: Sequence[int] = (1, 3, 5)):
         super().__init__()
         self.convs1 = nn.ModuleList(
-            Conv1d(channels, channels, kernel_size) for _ in dilation)
+            Conv1d(channels, channels, kernel_size, dilation=d,
+                   padding=(kernel_size - 1) * d // 2) for d in dilation)
         self.convs2 = nn.ModuleList(
-            Conv1d(channels, channels, kernel_size) for _ in dilation)
+            Conv1d(channels, channels, kernel_size,
+                   padding=(kernel_size - 1) // 2) for _ in dilation)
+
+    def forward(self, x, dtype: torch.dtype | None = None):
+        for c1, c2 in zip(self.convs1, self.convs2):
+            xt = c1(leaky_relu(x, LRELU_SLOPE), dtype)
+            x = c2(leaky_relu(xt, LRELU_SLOPE), dtype) + x
+        return x
 
     def chain_weights(self) -> list:
         """(weight, bias) pairs in chain order convs1_0, convs2_0, ..."""
@@ -53,9 +78,9 @@ class ResBlock2(nn.Module):
             Conv1d(channels, channels, kernel_size, dilation=d,
                    padding=(kernel_size - 1) * d // 2) for d in dilation)
 
-    def forward(self, x):
+    def forward(self, x, dtype: torch.dtype | None = None):
         for conv in self.convs:
-            x = conv(F.leaky_relu(x, LRELU_SLOPE)) + x
+            x = conv(leaky_relu(x, LRELU_SLOPE), dtype) + x
         return x
 
 
@@ -139,21 +164,27 @@ class Generator(nn.Module):
         return cached[1]
 
     def forward(self, mel, f0, sine_kwargs=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype | None = None):
         """``sine_kwargs``: optional ``rand_ini`` (1, 1, 9) and ``noise``
         (B, T * upp, 9) for the sine source; drawn from ``generator``
-        otherwise."""
+        otherwise. ``dtype`` (default float32): the type the convs and
+        activations run in; the audio comes back in it."""
+        dtype = dtype or torch.float32
         har_source = self.m_source(f0, self.upp, sine_kwargs, generator)
-        x = self.conv_pre(mel)
+        x = self.conv_pre(mel, dtype)
+        n_k = len(self.kernel_sizes)
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
-            x = (x + noise_conv(har_source)).contiguous()
-            if self.resblock == "1":
+            x = up(leaky_relu(x, LRELU_SLOPE), dtype)
+            x = (x + noise_conv(har_source, dtype)).contiguous()
+            c = x.shape[-1]
+            fused = self.resblock == "1" and (
+                dtype == torch.float32 or (c <= 128 and 128 % c == 0))
+            if fused:
                 x = resblock_group(x, self.stage_weights(i), self.kernel_sizes,
                                    self.dilations)
             else:
-                n_k = len(self.kernel_sizes)
                 blocks = self.resblocks[i * n_k:(i + 1) * n_k]
-                x = sum(blk(x) for blk in blocks) / n_k
-        x = self.conv_post(F.leaky_relu(x, 0.01))
+                x = sum(blk(x, dtype) for blk in blocks) / n_k
+        x = self.conv_post(leaky_relu(x, 0.01), dtype)
         return torch.tanh(x)[..., 0]

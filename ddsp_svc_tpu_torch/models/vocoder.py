@@ -37,6 +37,11 @@ LOG10_E = 0.434294
 
 
 class Vocoder(nn.Module):
+    """``infer(..., dtype=torch.bfloat16)`` runs the generator in bf16 (the
+    JAX Vocoder's ``dtype``, vocoder.py:61-160); the parameters stay float32
+    and ``infer`` returns float32 audio. The type is chosen per call, so one
+    set of weights serves both."""
+
     def __init__(self, vocoder_type: str = "nsf-hifigan",
                  config: dict | None = None):
         super().__init__()
@@ -74,25 +79,32 @@ class Vocoder(nn.Module):
         return LOG10_E * mel if self.type == "nsf-hifigan-log10" else mel
 
     def infer(self, mel: torch.Tensor, f0: torch.Tensor, sine_kwargs=None,
-              generator: torch.Generator | None = None) -> torch.Tensor:
-        """mel (B, T, M), f0 (B, T', 1) or (B, T') -> audio (B, T * hop); f0
-        is trimmed to the mel's frame count."""
+              generator: torch.Generator | None = None,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+        """mel (B, T, M), f0 (B, T', 1) or (B, T') -> audio (B, T * hop)
+        float32; f0 is trimmed to the mel's frame count. ``dtype``: the
+        generator's compute type (default float32)."""
         if self.type == "nsf-hifigan-log10":
             mel = mel / LOG10_E
         if f0.dim() == 3:
             f0 = f0[..., 0]
-        return self.model(mel, f0[:, :mel.shape[1]], sine_kwargs, generator)
+        return self.model(mel, f0[:, :mel.shape[1]], sine_kwargs, generator,
+                          dtype=dtype).float()
 
 
 class Enhancer:
     """NSF-HiFiGAN re-synthesis of a DDSP model's output, on one device
     (the CUDA card unless ``device`` says otherwise). ``vocoder`` is a
     Vocoder in memory; without one the converted payload ``ckpt`` is read,
-    and random weights from ``seed`` stand in when that file is absent."""
+    and random weights from ``seed`` stand in when that file is absent.
+    ``dtype=torch.bfloat16`` runs its generator in bf16 (the JAX Enhancer's
+    ``dtype``, vocoder.py:161-167); the vocoder's weights are shared as they
+    are."""
 
     def __init__(self, enhancer_type: str = "nsf-hifigan", ckpt: str | None = None,
                  device: str | torch.device | None = None,
-                 vocoder: Vocoder | None = None, seed: int = 0):
+                 vocoder: Vocoder | None = None, seed: int = 0,
+                 dtype: torch.dtype | None = None):
         if enhancer_type not in VOCODER_TYPES:
             raise ValueError(f"unknown enhancer type {enhancer_type!r}: "
                              f"{', '.join(VOCODER_TYPES)}")
@@ -105,6 +117,7 @@ class Enhancer:
             raise ValueError(f"enhancer type {enhancer_type!r} with a "
                              f"{vocoder.type!r} vocoder")
         self.vocoder = vocoder.to(self.device).eval()
+        self.dtype = dtype
 
     @torch.no_grad()
     def enhance(self, audio: torch.Tensor, sample_rate: int, f0: torch.Tensor,
@@ -148,7 +161,7 @@ class Enhancer:
                               for row in f0_np], axis=0)
         f0_grid = torch.as_tensor(np.asarray(f0_np, np.float32), device=self.device)
         enhanced = v.infer(mel, f0_grid, self._sine_kwargs(noise, mel.shape[1]),
-                           generator=generator)
+                           generator=generator, dtype=self.dtype)
         out_sr = v.vocoder_sample_rate
         if adaptive_sr != out_sr:
             enhanced = resample(enhanced, adaptive_sr, out_sr)

@@ -111,7 +111,7 @@ def _launch(x, cond, step_vec, weights):
         h.data_ptr(), u.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1],
         inner, k, kernels.stream_handle(x.device))
     kernels.check(err, "conformer_layer")
-    conformer_layer.launches += 1
+    kernels.count_launch(conformer_layer)
     return out
 
 

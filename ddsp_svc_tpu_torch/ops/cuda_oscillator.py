@@ -94,7 +94,7 @@ def _launch(x, amplitudes_frames, block_size):
         x.data_ptr(), amplitudes_frames.data_ptr(), out.data_ptr(), b, t,
         block_size, n_harm, kernels.stream_handle(x.device))
     kernels.check(err, "harmonic_bank")
-    harmonic_bank.launches += 1
+    kernels.count_launch(harmonic_bank)
     return out
 
 

@@ -20,6 +20,13 @@ package's custom VJP (``_fused_group_bwd``, pallas_resblock.py:343-350):
 the backward is autograd through ``resblock_group_plain`` recomputed from
 the saved x and the torch-layout weights, which take the gradients; the
 packed copy takes none.
+
+K2's bf16 class (the JAX kernel run on bf16 activations under
+``--voc_bf16``) is ``resblock_group_bf16``: bf16 x and out, bf16 weights
+packed once per model (``pack_conv_weight_bf16``), f32 accumulation, bias,
+residuals and mean; ``resblock_group_bf16_plain`` is its plain version and
+``resblock_group`` dispatches to it on a bf16 x. It counts its launches in
+``resblock_group_bf16.launches``.
 """
 from __future__ import annotations
 
@@ -54,6 +61,70 @@ def resblock_group_plain(x, rb_weights, kernel_sizes, dilations):
     return (total / float(len(rb_weights))).transpose(1, 2)
 
 
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def resblock_group_bf16_plain(x, rb_weights, kernel_sizes, dilations):
+    """K2's bf16 class in plain PyTorch (JAX ``_rb_group_kernel`` with bf16
+    x and weights): each conv's input leaky'd in f32 and rounded to bf16,
+    the weights rounded to bf16, f32 convs (a bf16 x bf16 product is exact
+    in f32), the f32 bias, residuals and mean, one rounding to bf16 at the
+    end. x (B, L, C) bf16 -> (B, L, C) bf16."""
+    if isinstance(rb_weights, PackedResblocks):
+        rb_weights = rb_weights.torch_weights
+    xc = x.float().transpose(1, 2)
+    total = None
+    for k, dils, rbw in zip(kernel_sizes, dilations, rb_weights):
+        z = xc
+        ci = 0
+        for d in dils:
+            t = z
+            for dd in (d, 1):
+                w, b = rbw[ci]
+                ci += 1
+                t = _bf16_round(F.leaky_relu(t, LRELU_SLOPE))
+                t = F.conv1d(t, _bf16_round(w), b.float(),
+                             padding=(k - 1) * dd // 2, dilation=dd)
+            z = t + z
+        total = z if total is None else total + z
+    out = total / float(len(rb_weights))
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+# K2-bf16's tolerance against its plain version (or against the same
+# function with exact sums): per element one bf16 ulp of the reference
+# value plus BF16_ATOL x max|ref|; at most BF16_MAX_BEYOND_ULP of the
+# elements beyond one ulp; at most BF16_MAX_DIFFER of them differing at all.
+# Any other f32 sum order flips some of the bf16 roundings of the conv
+# inputs; a flipped activation moves by one bf16 ulp of its own size and
+# carries through the convs after it, so an output element can move by
+# about one ulp of the typical activation whatever its own size. Two plain
+# f32 sum orders on the CPU (tests/test_torch_bf16.py, and chip_smoke.py
+# phase 3 at the 10 s shapes) differ from the exact sums in this way in
+# 0.1-2.5 % of the elements. A planted extra bf16 rounding of the chains'
+# sums or of the conv outputs moves 17-34 % of the elements, which
+# BF16_MAX_DIFFER rejects.
+BF16_ATOL = 2.0 ** -7
+BF16_MAX_BEYOND_ULP = 0.02
+BF16_MAX_DIFFER = 0.10
+
+
+def bf16_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How a bf16 result agrees with its reference: ``ok`` (the tolerance
+    above), ``differ`` (the share of elements that differ at all),
+    ``beyond_ulp`` (the share beyond one ulp) and ``max_abs_err``."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    beyond = float((diff > ulp).double().mean())
+    differ = float((diff > 0).double().mean())
+    ok = (bool((diff <= ulp + BF16_ATOL * want.abs().max()).all())
+          and beyond <= BF16_MAX_BEYOND_ULP and differ <= BF16_MAX_DIFFER)
+    return dict(ok=ok, differ=differ, beyond_ulp=beyond,
+                max_abs_err=float(diff.max()))
+
+
 # ---------------------------------------------------------------- packing
 
 
@@ -82,6 +153,23 @@ def unpack_conv_weight(wp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                  for p in wp)
 
 
+def pack_conv_weight_bf16(w: torch.Tensor) -> torch.Tensor:
+    """Torch Conv1d weight (C_out, C_in, k) -> the bf16 kernel's B tiles,
+    (k, C_in / 16, C_out / 8, 2, 8, 8) bf16: for each tap and block of
+    sixteen input channels, each group of eight output channels is two 8 x 8
+    core matrices (rows: output channels, 16 bytes: eight input channels),
+    the K-major layout of a wgmma k16 step."""
+    c_out, c_in, k = w.shape
+    v = w.detach().to(torch.bfloat16).reshape(c_out // 8, 8, c_in // 16, 2, 8, k)
+    return v.permute(5, 2, 0, 3, 1, 4).contiguous()
+
+
+def unpack_conv_weight_bf16(wp: torch.Tensor) -> torch.Tensor:
+    """``pack_conv_weight_bf16``'s tiles back in the torch layout."""
+    k, n_ci, n_co = wp.shape[:3]
+    return wp.permute(2, 4, 1, 3, 5, 0).reshape(8 * n_co, 16 * n_ci, k)
+
+
 class PackedResblocks:
     """A stage's resblock weights packed for the kernel, with the torch
     layout kept (by reference) for the plain version and the checks. The
@@ -91,13 +179,25 @@ class PackedResblocks:
     def __init__(self, rb_weights):
         self.torch_weights = [list(rbw) for rbw in rb_weights]
         self._packed = None
+        self._packed_bf16 = None
 
     @property
     def packed(self):
+        """Split-TF32 tiles for the f32 kernel (made on first use)."""
         if self._packed is None:
             self._packed = [[(pack_conv_weight(w), b.detach().contiguous())
                              for w, b in rbw] for rbw in self.torch_weights]
         return self._packed
+
+    @property
+    def packed_bf16(self):
+        """bf16 tiles for the bf16 kernel (made on first use); the bias
+        stays f32."""
+        if self._packed_bf16 is None:
+            self._packed_bf16 = [
+                [(pack_conv_weight_bf16(w), b.detach().float().contiguous())
+                 for w, b in rbw] for rbw in self.torch_weights]
+        return self._packed_bf16
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -141,7 +241,8 @@ def conv_packed_plain(x, wp, b, dilation, products="3xtf32"):
 # ---------------------------------------------------------------- kernel
 
 
-def _check_weights(rb_weights, kernel_sizes, dilations, c, device):
+def _check_weights(rb_weights, kernel_sizes, dilations, c, device,
+                   bf16: bool = False):
     n_dil = len(dilations[0])
     if len(rb_weights) != len(kernel_sizes) or len(dilations) != len(kernel_sizes):
         raise ValueError("resblock_group: one weight list, kernel size and "
@@ -154,11 +255,13 @@ def _check_weights(rb_weights, kernel_sizes, dilations, c, device):
             raise ValueError(f"resblock_group: odd kernel sizes only, got {k}")
         if len(rbw) != 2 * n_dil:
             raise ValueError("resblock_group: two convs per dilation")
+        shape = ((k, c // 16, c // 8, 2, 8, 8) if bf16
+                 else (2, k, c // 8, c // 8, 2, 8, 4))
         for w, b in rbw:
-            kernels.check_cuda_input(w, "resblock weight", 7)
+            kernels.check_cuda_input(w, "resblock weight", len(shape),
+                                     torch.bfloat16 if bf16 else torch.float32)
             kernels.check_cuda_input(b, "resblock bias", 1)
-            if (tuple(w.shape) != (2, k, c // 8, c // 8, 2, 8, 4)
-                    or tuple(b.shape) != (c,)):
+            if tuple(w.shape) != shape or tuple(b.shape) != (c,):
                 raise ValueError(f"resblock_group: packed weight "
                                  f"{tuple(w.shape)} / bias {tuple(b.shape)} "
                                  f"for C={c}, k={k}")
@@ -177,6 +280,14 @@ def _nest(flat, dilations) -> list:
     return out
 
 
+def _group_backward(ctx, grad_out, plain):
+    ks, ds = ctx.kernel_sizes, ctx.dilations
+    grads = kernels.plain_backward(
+        lambda x, *flat: plain(x, _nest(flat, ds), ks, ds), ctx.saved_tensors,
+        (ctx.needs_input_grad[1],) + ctx.needs_input_grad[5:], grad_out)
+    return (None, grads[0], None, None, None) + grads[1:]
+
+
 class ResblockGroupFunction(torch.autograd.Function):
     """``impl(x, packed, kernel_sizes, dilations)`` forward (the kernel; the
     plain version in the CPU tests), backward through
@@ -191,23 +302,33 @@ class ResblockGroupFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        ks, ds = ctx.kernel_sizes, ctx.dilations
-        grads = kernels.plain_backward(
-            lambda x, *flat: resblock_group_plain(x, _nest(flat, ds), ks, ds),
-            ctx.saved_tensors,
-            (ctx.needs_input_grad[1],) + ctx.needs_input_grad[5:], grad_out)
-        return (None, grads[0], None, None, None) + grads[1:]
+        return _group_backward(ctx, grad_out, resblock_group_plain)
+
+
+class ResblockGroupBf16Function(ResblockGroupFunction):
+    """The same for K2's bf16 class: the backward runs autograd through
+    ``resblock_group_bf16_plain`` (bf16 x in, bf16 gradient of x out)."""
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return _group_backward(ctx, grad_out, resblock_group_bf16_plain)
 
 
 def resblock_group(x, rb_weights, kernel_sizes, dilations):
     """x (B, L, C) -> mean over the stage's ResBlock1 chains, (B, L, C).
 
     ``rb_weights``: the nested torch-layout list, or its
-    ``PackedResblocks``. A CPU tensor takes the plain version; a CUDA tensor
-    (C a multiple of 16) launches 18 conv kernels (one stage) and counts one
-    launch in ``resblock_group.launches``. With grad on and x or a weight
-    requiring it, the launch goes through ``ResblockGroupFunction``.
+    ``PackedResblocks``. A float32 x takes this kernel, a bfloat16 x K2's
+    bf16 class (``resblock_group_bf16``); another dtype raises. A CPU tensor
+    takes the plain version; a CUDA tensor (C a multiple of 16) launches 18
+    conv kernels (one stage) and counts one launch in
+    ``resblock_group.launches``. With grad on and x or a weight requiring
+    it, the launch goes through ``ResblockGroupFunction``.
     """
+    if x.dtype == torch.bfloat16:
+        return resblock_group_bf16(x, rb_weights, kernel_sizes, dilations)
+    if x.dtype != torch.float32:
+        raise ValueError(f"resblock_group: float32 or bfloat16 x, got {x.dtype}")
     if x.device.type == "cpu":
         return resblock_group_plain(x, rb_weights, kernel_sizes, dilations)
     if not isinstance(rb_weights, PackedResblocks):
@@ -240,8 +361,61 @@ def _launch(x, rb_weights: PackedResblocks, kernel_sizes, dilations):
         len(dilations[0]), out.data_ptr(), t_buf.data_ptr(), z_buf.data_ptr(),
         s_buf.data_ptr(), b, length, c, kernels.stream_handle(x.device))
     kernels.check(err, "resblock_group")
-    resblock_group.launches += 1
+    kernels.count_launch(resblock_group)
     return out
 
 
 resblock_group.launches = 0
+
+
+def resblock_group_bf16(x, rb_weights, kernel_sizes, dilations):
+    """K2's bf16 class: x (B, L, C) bf16 -> the stage's resblock mean,
+    (B, L, C) bf16 (see ``resblock_group_bf16_plain``). A CPU tensor takes
+    the plain version; a CUDA tensor launches the bf16 kernels (18 convs)
+    and counts one launch in ``resblock_group_bf16.launches``. With grad on
+    and x or a weight requiring it, the launch goes through
+    ``ResblockGroupBf16Function``."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"resblock_group_bf16: bfloat16 x, got {x.dtype}")
+    if x.device.type == "cpu":
+        return resblock_group_bf16_plain(x, rb_weights, kernel_sizes, dilations)
+    if not isinstance(rb_weights, PackedResblocks):
+        rb_weights = PackedResblocks(rb_weights)
+    flat = [t for rbw in rb_weights.torch_weights for wb in rbw for t in wb]
+    if kernels.grad_wanted(x, *flat):
+        return ResblockGroupBf16Function.apply(
+            _launch_bf16, x, rb_weights, kernel_sizes, dilations, *flat)
+    return _launch_bf16(x, rb_weights, kernel_sizes, dilations)
+
+
+def _launch_bf16(x, rb_weights: PackedResblocks, kernel_sizes, dilations):
+    kernels.check_cuda_input(x, "resblock_group_bf16 x", 3, torch.bfloat16)
+    b, length, c = x.shape
+    if c % 16 != 0:
+        raise ValueError(f"resblock_group_bf16: channels a multiple of 16, "
+                         f"got {c}")
+    if x.data_ptr() % 16 != 0:
+        raise ValueError("resblock_group_bf16: x must be 16-byte aligned")
+    packed = rb_weights.packed_bf16
+    _check_weights(packed, kernel_sizes, dilations, c, x.device, bf16=True)
+    flat = [wb for rbw in packed for wb in rbw]
+    w_ptrs = (ctypes.c_void_p * len(flat))(*(w.data_ptr() for w, _ in flat))
+    b_ptrs = (ctypes.c_void_p * len(flat))(*(bb.data_ptr() for _, bb in flat))
+    ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
+    ds_flat = [d for dils in dilations for d in dils]
+    ds = (ctypes.c_int * len(ds_flat))(*ds_flat)
+    out = torch.empty_like(x)
+    t_buf, z_buf = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+                    for _ in range(2))
+    s_buf = torch.empty((2,) + tuple(x.shape), dtype=torch.float32,
+                        device=x.device)
+    err = kernels.library().ddsp_resblock_group_bf16(
+        x.data_ptr(), w_ptrs, b_ptrs, ks, ds, len(kernel_sizes),
+        len(dilations[0]), out.data_ptr(), t_buf.data_ptr(), z_buf.data_ptr(),
+        s_buf.data_ptr(), b, length, c, kernels.stream_handle(x.device))
+    kernels.check(err, "resblock_group_bf16")
+    kernels.count_launch(resblock_group_bf16)
+    return out
+
+
+resblock_group_bf16.launches = 0

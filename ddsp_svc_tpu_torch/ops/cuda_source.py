@@ -68,7 +68,7 @@ def combtooth(f0_frames: torch.Tensor, sampling_rate: int, block_size: int,
         phase_frames.data_ptr(), scratch.data_ptr(), b, t, block_size,
         float(sampling_rate), kernels.stream_handle(dev))
     kernels.check(err, "combtooth")
-    combtooth.launches += 1
+    kernels.count_launch(combtooth)
     return out, phase_frames
 
 

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -42,6 +43,9 @@ _SIGNATURES = {
     #  out, t_buf, z_buf, s_buf, batch, length, channels, stream)
     "ddsp_resblock_group": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _I, _I, _I, _P),
+    # the same for K2's bf16 class (x, out bf16; s_buf twice x's size)
+    "ddsp_resblock_group_bf16": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                                 _I, _I, _I, _P),
     # (x, cond, step_vec, wc, bc, w1, b1, wd, bd, w2, b2, out, h, u, s,
     #  batch, t, c, hc, inner, k, stream)
     "ddsp_conformer_layer": (_P,) * 15 + (_I,) * 6 + (_P,),
@@ -155,12 +159,24 @@ def plain_backward(plain, inputs, needs, grad_out) -> tuple:
     return tuple(next(grads) if n else None for n in needs)
 
 
-def check_cuda_input(t: torch.Tensor, name: str, ndim: int) -> None:
-    """What every kernel takes: a contiguous float32 CUDA tensor."""
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: serving threads (the
+    batchers' workers, the HTTP handlers) may launch at the same time."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def check_cuda_input(t: torch.Tensor, name: str, ndim: int,
+                     dtype: torch.dtype = torch.float32) -> None:
+    """What every kernel takes: a contiguous CUDA tensor of ``dtype``
+    (float32 unless the kernel says otherwise)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -129,12 +129,12 @@ def test_ddsp_cli_matches_jax(tmp_path, ddsp_ckpt, monkeypatch):
                                   ["-step", "20"], ["--voc_bf16"],
                                   ["--stream", "2"], ["-ddsp", "other.ckpt"]])
 def test_cli_refuses_unported_options(flag):
-    """Only --stream and --voc_bf16 are refused, each naming the ROADMAP
-    item that brings it; -mix, -fs, -step and -ddsp are ported
-    (tests/test_torch_cli_families.py)."""
+    """Only --stream is refused, naming the ROADMAP item that brings it;
+    -mix, -fs, -step and -ddsp are ported (tests/test_torch_cli_families.py)
+    and --voc_bf16 too (tests/test_torch_bf16.py)."""
     options = pcli.parse_args(["-m", "m", "-i", "i", "-o", "o"] + flag)
-    if flag[0] in ("--voc_bf16", "--stream"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP .*item [78]"):
+    if flag[0] == "--stream":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP .*item 8"):
             pcli.check_ported(options)
     else:
         pcli.check_ported(options)

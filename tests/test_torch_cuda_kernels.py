@@ -147,6 +147,70 @@ def test_resblock_group_kernel(cuda, c, length, packed):
     assert torch.equal(one[0], got[1])
 
 
+@pytest.mark.parametrize("c,length", [(128, 1001), (64, 45), (32, 3000),
+                                      (16, 7), (16, 27_585)])
+@pytest.mark.parametrize("b", [1, 2])
+def test_resblock_group_bf16_kernel(cuda, b, c, length):
+    """K2's bf16 class at the four widths it serves, ragged lengths, B = 1
+    and 2, within ``bf16_agreement``'s tolerance of its plain version: bf16
+    out, one launch in its own counter (none in K2's f32 counter), and a
+    row computed alone equals the same row of the batch."""
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
+                                                      bf16_agreement,
+                                                      resblock_group,
+                                                      resblock_group_bf16,
+                                                      resblock_group_bf16_plain)
+
+    gen = torch.Generator().manual_seed(c + length + b)
+    x = torch.randn((b, length, c), generator=gen).to(cuda).to(torch.bfloat16)
+    weights = []
+    for k, dils in zip(KS, DS):
+        bd = 1 / math.sqrt(c * k)
+        weights.append([(((torch.rand((c, c, k), generator=gen) * 2 - 1) * bd).to(cuda),
+                         ((torch.rand((c,), generator=gen) * 2 - 1) * bd).to(cuda))
+                        for _ in range(2 * len(dils))])
+    packed = PackedResblocks(weights)
+    n0, f0 = resblock_group_bf16.launches, resblock_group.launches
+    got = resblock_group(x, packed, KS, DS)
+    torch.cuda.synchronize()
+    assert (resblock_group_bf16.launches, resblock_group.launches) == (n0 + 1, f0)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = resblock_group_bf16_plain(x, weights, KS, DS)
+    agree = bf16_agreement(got, want)
+    assert agree["ok"], agree
+    one = resblock_group_bf16(x[-1:].contiguous(), packed, KS, DS)
+    assert torch.equal(one[0], got[-1])
+
+
+def test_bf16_generator_never_reaches_the_plain_version(cuda, monkeypatch):
+    """A bf16 generator on the card runs K2-bf16 at C = 128 ... 16 (four
+    launches) and the stock chain at C = 256; the plain version, patched to
+    raise on a CUDA tensor, is never reached."""
+    from ddsp_svc_tpu_torch.models import nsf_hifigan
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.ops import cuda_resblock
+
+    def refuse(x, *args):
+        if x.is_cuda:
+            raise AssertionError("resblock_group_bf16_plain on a CUDA tensor")
+        return plain(x, *args)
+
+    plain = cuda_resblock.resblock_group_bf16_plain
+    monkeypatch.setattr(cuda_resblock, "resblock_group_bf16_plain", refuse)
+    gen = nsf_hifigan.Generator(44100)
+    random_init_(gen, torch.Generator().manual_seed(3))
+    gen = gen.to(cuda).eval()
+    mel = torch.randn((1, 20, 128), generator=torch.Generator().manual_seed(4)).to(cuda)
+    f0 = torch.full((1, 20), 220.0, device=cuda)
+    n0, f0_n = cuda_resblock.resblock_group_bf16.launches, cuda_resblock.resblock_group.launches
+    with torch.no_grad():
+        out = gen(mel, f0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert cuda_resblock.resblock_group_bf16.launches == n0 + 4
+    assert cuda_resblock.resblock_group.launches == f0_n
+
+
 @pytest.mark.parametrize("b,t,c,hc,k", [(1, 862, 512, 128, 31), (2, 37, 64, 32, 7),
                                         (2, 37, 512, 128, 31),
                                         (3, 300, 512, 128, 31)])
