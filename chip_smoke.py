@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one CUDA card: every model
-family (DiffusionFast, RectifiedFlow, Diffusion, DiffusionNew and the DDSP
-family with Sins and its NSF-HiFiGAN enhancer), from features, from a
-recording, through the offline CLI and through the realtime engine, the
-kernels' gradients, the bf16 vocoder, and batched serving through the HTTP
-server.
+"""Drive the PyTorch port's serving and training paths on one CUDA card:
+every model family (DiffusionFast, RectifiedFlow, Diffusion, DiffusionNew
+and the DDSP family with Sins and its NSF-HiFiGAN enhancer), from features,
+from a recording, through the offline CLI and through the realtime engine,
+the kernels' gradients, the bf16 vocoder, batched serving through the HTTP
+server, and training from preprocess to checkpoint and resume.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -13,8 +13,8 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
   2. build the hand-written kernels from ddsp_svc_tpu_torch/csrc (one nvcc
      per source, started together), print nvcc's -Xptxas -v lines, count
      the tensor-core instructions (HMMA/HGMMA) in the SASS of K2's, K2's
-     bf16 class's and K3's kernels (none fails the run), and print the
-     opcode mix of K1's and K4's kernels as compiled;
+     bf16 class's, K3's and K3's bf16 class's (B3) kernels (none fails the
+     run), and print the opcode mix of K1's and K4's kernels as compiled;
   3. each kernel against its plain PyTorch version on the card at the
      shapes of the 10 s request, with the tolerance stated, and its time
      beside the plain version's and the bound (K2 per stage and K3 with
@@ -27,7 +27,13 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      at the four stages it serves (C = 128 ... 16) of the 10 s request and
      at B = 8 rows of the 1024-frame bucket, within 1 bf16 ulp + 2^-7 x
      max|out| per element and <= 2 % of the elements beyond 1 ulp, its
-     time beside the plain version's and the dense-bf16 bound;
+     time beside the plain version's and the dense-bf16 bound; B3 (K3's
+     bf16 class) at the 10 s shapes and at the training shapes (B 48 x T
+     172) within ``bf16_layer_agreement`` of its plain version, the kernel
+     and both plain versions (card, CPU) against float64 sums and two
+     planted extra bf16 roundings failing, > 35 dB from K3's f32 output,
+     its time beside the plain version's and the bound (GEMMs at the dense
+     bf16 rate, the depthwise conv at f32);
   4. the DiffusionFast path at configs/diffusion-fast.yaml widths (6 x 512
      trunk, k_step 100, DPM-Solver++ with speedup 10, the default
      NSF-HiFiGAN) with random weights from a seeded torch.Generator:
@@ -59,18 +65,19 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      with the same weights and injected noise: the units' error and the
      audio SNR (>= 40 dB) for both paths;
  10. the offline CLI's conversion (cli.infer.convert, on the pipelines in
-     memory: this machine cannot read a checkpoint) of a 12 s recording
+     memory; phase 18 runs cli.infer.main from files) of a 12 s recording
      with two silences, so the slicer cuts it and the splice runs, for both
      paths: the output length as the JAX CLI computes it, finite audio,
      launches = segments x the per-request counts, and a PCM16 file written
      and read back;
  11. one 2 s DiffusionFast request per other sampler (ddim, pndm, unipc at
      speedup 10; the DDPM chain at k_step 100), K3's launches checked;
- 12. gradients: K2 (its C = 256 stage), K3 and K4 at the 10 s shapes with
-     grad on, the forward (1e-4 x max|out|) and every input's and weight's
-     .grad (1e-4 x max|grad|) against plain autograd on the card, one
-     kernel launch per forward and none in the backward; K1 refuses an f0
-     that requires grad;
+ 12. gradients: K2 (its C = 256 stage), K3, B3 and K4 at the 10 s shapes
+     with grad on, the forward (1e-4 x max|out|; B3 by its bf16 agreement)
+     and every input's and weight's .grad (1e-4 x max|grad|) against plain
+     autograd on the card (B3's backward is the f32 chain's), one kernel
+     launch per forward and none in the backward; K1 refuses an f0 that
+     requires grad;
  13. the rectified flow at configs/reflow.yaml widths (6 x 512 velocity
      net): 10 s requests from features and from a wav with euler 20 and
      rk4 5 at t_start 0.7, served as phase 4 serves DiffusionFast (K1 1,
@@ -102,7 +109,26 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      transfers against f32, a server with voc_bf16 and one with the fused
      front end (batch_encoder, device_f0); (c) seconds of audio per wall
      second at concurrency 1, 4, 8 and 16 (and 8, 16 with the fused front
-     end), and the device's busy share of one profiled round of each.
+     end), and the device's busy share of one profiled round of each;
+ 18. training on the card at config widths, random weights from the seed:
+     (a) ten synthetic 3-5 s recordings and two for validation, written to a
+     temporary data/; cli.preprocess on the card (contentvec768l12 with
+     random weights, YIN); cli.train.main from a copy of
+     configs/diffusion-fast.yaml written by the port's config writer (paths
+     and intervals changed; batch 48, 2 s crops, lr 2e-4): 20 steps with
+     saves at 10 and 20, retention and validation, then a second
+     cli.train.main that resumes at step 20 for 5 steps; launches exactly K1
+     1 and K3 6 per step (none in the backward), finite losses;
+     cli.infer.main on the saved checkpoint and config; (b) DiffusionFast
+     with the bf16 trunk through train.solver.train (B3 6, K3 0 per step),
+     then a 10 s request with it (B3 60, K3 0) against the same request on
+     the f32 trunk; (c) three steps of Sins (K4 1), RectifiedFlow (K1 1, K3
+     6), Unit2Mel and Unit2Wav (no kernel) at their configs' widths and
+     batch sizes; (d) one DiffusionFast and one Sins step at batch 4 on the
+     card against the port on the CPU with the same batch, parameters and
+     draws: the loss and every gradient; (e) step times (median, min, max of
+     the warm steps), samples and audio seconds per second, peak memory, and
+     the device's busy share of one profiled DiffusionFast step.
 It then prints one JSON line describing the kernels and, last, one JSON
 line {"ok": true, "device": {...}}. TF32 is off for the whole run.
 """
@@ -158,6 +184,20 @@ EXPECT_WAVENET = {"combtooth": 0, "resblock_group": 5, "conformer_layer": 0,
                   "harmonic_bank": 0}
 GRAD_TOL = 1e-4  # x max|grad|: the forward tolerance of K2 and K3
 MIX = {1: 0.5, 2: 0.5}
+# phase 18: the run's sizes, and the card-vs-CPU limits for one training
+# step, stated before its first run: the loss relative, the gradients as
+# L2 over every leaf (all and each) relative to the CPU's. The RSS loss and
+# the log-mel weight near-zero bins by 1 / |S| (tests/test_torch_train_
+# losses.py), so a few elements of a gradient carry the FFTs' rounding: an
+# L2 measure, not a max; a DDSP synth's gradients are held under a linear
+# loss (``train_card_vs_cpu``).
+TRAIN_STEPS, RESUME_STEPS, BF16_STEPS, FAMILY_STEPS = 20, 5, 10, 3
+TRAIN_FILES, VAL_FILES = 10, 2
+CARD_CPU_BATCH = 4
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LEAF_TOL = 1e-2
+BF16_TRUNK_SNR_DB = 30.0
 RT = dict(block_time=0.3, crossfade_time=0.04, extra_time=2.0)
 RT_SECONDS, RT_CPU_BLOCKS = 5.0, 7
 
@@ -258,10 +298,11 @@ def sass_text(lib_path, nvcc: str) -> str:
                           text=True, timeout=120, check=True).stdout
 
 
-# the tensor-core kernels of K2, K2's bf16 class and K3, by the name in
-# their SASS
+# the tensor-core kernels of K2, K2's bf16 class, K3 and K3's bf16 class
+# (B3), by the name in their SASS
 TC_KERNELS = (("K2", "resblock_conv_tc_kernel"),
-              ("K2-bf16", "resblock_conv_bf16_kernel"), ("K3", "gemm_tc_kernel"))
+              ("K2-bf16", "resblock_conv_bf16_kernel"), ("K3", "gemm_tc_kernel"),
+              ("B3", "gemm_bf16_kernel"))
 
 
 def _opcode(text: str) -> str:
@@ -511,6 +552,8 @@ def phase_kernels(torch, card: str) -> dict:
         f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms at 3xTF32 / {b_fma:.4f} ms at f32 FMA ({b_by}); no "
         f"single PyTorch call computes it [{card}]")
+    results["conformer_layer_bf16"] = k3_bf16(torch, gen, (x, cond, step, w),
+                                              got, card, problems)
     # K4 harmonic bank: x (B, T*512, 1) cycles, amps (B, T, 128); 3e-5 abs
     from ddsp_svc_tpu_torch.ops.cuda_oscillator import (harmonic_bank,
                                                         harmonic_bank_plain)
@@ -559,9 +602,127 @@ def phase_kernels(torch, card: str) -> dict:
     if problems:
         fail("kernel vs plain: " + "; ".join(problems))
     log("[kernels] K1 combtooth ok, K2 resblock_group ok, K2-bf16 ok, K3 "
-        "conformer_layer ok, K4 harmonic_bank ok (each within tolerance of its "
-        "plain version)")
+        "conformer_layer ok, B3 conformer_layer_bf16 ok, K4 harmonic_bank ok "
+        "(each within tolerance of its plain version)")
     return results
+
+
+def conformer_bf16_chain(torch, x, cond, step, w, fault=None):
+    """B3's function with exact (float64) GEMM sums, or with a planted extra
+    bf16 rounding: "h" (h's f32 sum before its bias) or "gemm" (each GEMM's
+    output)."""
+    import torch.nn.functional as F
+
+    def r(v):
+        return v.to(torch.bfloat16).float()
+
+    def mm(a, b):
+        y = torch.matmul(r(a).double(), r(b).t().double()).float()
+        return r(y) if fault == "gemm" else y
+
+    wc, bc, w1, b1, wd, bd, w2, b2 = w
+    h = x + step[:, None, :] + mm(cond, wc)
+    if fault == "h":
+        h = r(h)
+    g = mm(h + bc, w1) + b1
+    a, gate = g.chunk(2, dim=-1)
+    u = a * torch.sigmoid(gate)
+    k = wd.shape[-1]
+    v = F.conv1d(u.transpose(1, 2), wd[:, None, :], padding=(k - 1) // 2,
+                 groups=u.shape[-1]).transpose(1, 2) + bd
+    s = v * torch.sigmoid(v)
+    return x + mm(s, w2) + b2
+
+
+def k3_bf16(torch, gen, k3_inputs, k3_out, card: str, problems: list) -> dict:
+    """B3 (K3's bf16 class) against its plain version by
+    ``bf16_layer_agreement`` at the 10 s shapes (K3's inputs) and at the
+    training shapes (B 48, T 172); at the 10 s shapes the kernel, the card's
+    and the CPU's plain versions against float64 sums (each must pass) and
+    two planted extra bf16 roundings (each must fail), and the SNR against
+    K3's f32 output (> 35 dB, the JAX package's class check). Bound: the
+    GEMMs' 2 T (Hc C + 3 I C) flops at the dense bf16 rate plus the
+    depthwise conv's 2 T I k at f32, against x, cond, out (f32), the bf16
+    GEMM weights and the f32 biases and depthwise taps read or written
+    once."""
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import (bf16_gemm_weights,
+                                                       bf16_layer_agreement,
+                                                       conformer_layer_bf16,
+                                                       conformer_layer_bf16_plain)
+    from ddsp_svc_tpu_torch.tools.timing import cuda_ms
+
+    dev = torch.device("cuda")
+    x, cond, step, w = k3_inputs
+    c, hc = x.shape[-1], cond.shape[-1]
+    inner, k = w[4].shape
+    out = {}
+    for batch, t in ((1, x.shape[1]), (48, 172)):
+        what = f"B3 conformer_layer_bf16 B={batch} T={t}"
+        if batch != 1:
+            x = torch.randn((batch, t, c), generator=gen).to(dev)
+            cond = torch.randn((batch, t, hc), generator=gen).to(dev)
+            step = torch.randn((batch, c), generator=gen).to(dev)
+        packed = bf16_gemm_weights(w)
+        got = conformer_layer_bf16(x, cond, step, w, packed)
+        want = conformer_layer_bf16_plain(x, cond, step, w)
+        agree = bf16_layer_agreement(got, want, x)
+        if not agree["ok"]:
+            problems.append(f"{what}: {agree}")
+        extra = ""
+        if batch == 1:
+            exact = conformer_bf16_chain(torch, x, cond, step, w)
+            cpu_plain = conformer_layer_bf16_plain(
+                x.cpu(), cond.cpu(), step.cpu(), [v.cpu() for v in w])
+            parts = []
+            for name, val, should in (("kernel", got, True), ("plain", want, True),
+                                      ("CPU plain", cpu_plain, True),
+                                      ("fault h", None, False),
+                                      ("fault gemm", None, False)):
+                if val is None:
+                    val = conformer_bf16_chain(torch, x, cond, step, w,
+                                               fault=name.split()[1])
+                a = bf16_layer_agreement(val.to(dev), exact, x)
+                parts.append(f"{name} {a['rel']:.3e} x max|branch|, "
+                             f"{100 * a['beyond']:.3f} % beyond 2^-10 "
+                             f"({'passes' if a['ok'] else 'fails'})")
+                if a["ok"] != should:
+                    problems.append(f"{what} vs exact sums: {name} "
+                                    f"{'fails' if should else 'passes'}: {a}")
+            log(f"[kernels] {what} against float64 sums: " + "; ".join(parts)
+                + f" [{card}]")
+            f32 = k3_out.double()
+            snr = 10 * math.log10(float((f32 ** 2).sum())
+                                  / max(float(((got.double() - f32) ** 2).sum()), 1e-30))
+            if not snr > 35.0:
+                problems.append(f"{what}: {snr:.2f} dB from K3's f32 output (> 35)")
+            extra = f", {snr:.2f} dB from K3's f32 output (> 35)"
+        iters = 100 if batch == 1 else 20
+        k_ms = cuda_ms(lambda: conformer_layer_bf16(x, cond, step, w, packed), iters)
+        p_ms = cuda_ms(lambda: conformer_layer_bf16_plain(x, cond, step, w),
+                       iters // 4)
+        m = batch * t
+        gemm = 2.0 * m * (hc * c + 3 * inner * c)
+        dw = 2.0 * m * inner * k
+        nbytes = (4.0 * (2 * m * c + m * hc) + 2.0 * (hc * c + 3 * inner * c)
+                  + 4.0 * (c + 2 * inner + inner * k + inner + c))
+        t_ops = (gemm / PEAK_BF16_FLOP_PER_S + dw / PEAK_F32_FLOP_PER_S) * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        out[batch] = dict(err=agree["max_abs_err"], ms=k_ms, plain=p_ms,
+                          bound=b_ms, by=b_by)
+        log(f"[kernels] {what}: {agree['rel']:.3e} x max|branch| from plain, "
+            f"{100 * agree['beyond']:.3f} % beyond 2^-10 (limits 2^-8, 2 %)"
+            f"{extra}; kernel {k_ms:.4f} ms ({(gemm + dw) / k_ms / 1e9:.1f} "
+            f"TFLOP/s), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{gemm / 1e9:.3f} GFLOP bf16 + {dw / 1e9:.3f} GFLOP f32, "
+            f"{nbytes / 1e6:.2f} MB); no single PyTorch call computes it [{card}]")
+    r = out[1]
+    return dict(route="cuda", source="ddsp_svc_tpu_torch/csrc/conformer.cu",
+                replaces="ddsp_svc_tpu/ops/pallas_conformer.py:125",
+                max_abs_err=max(o["err"] for o in out.values()), ms=r["ms"],
+                plain_ms=r["plain"], bound_ms=r["bound"], bound_by=r["by"],
+                library_ms=None, train_ms=out[48]["ms"],
+                train_plain_ms=out[48]["plain"], train_bound_ms=out[48]["bound"])
 
 
 def bf16_chain(torch, x, weights, fault=None):
@@ -796,6 +957,9 @@ KERNEL_GROUPS = (("K1 combtooth", "combtooth", ("combtooth_kernel",)),
                  ("K2 resblock", "resblock_group", ("resblock_conv_tc_kernel",)),
                  ("K3 conformer", "conformer_layer",
                   ("::gemm_tc_kernel<", "depthwise_silu_kernel")),
+                 # B3's GEMMs; its depthwise conv is K3's kernel, in K3's group
+                 ("B3 conformer bf16 GEMMs", "conformer_layer_bf16",
+                  ("::gemm_bf16_kernel<",)),
                  ("K4 harmonic bank", "harmonic_bank", ("harmonic_bank_kernel",)),
                  # the units encoder's kernels by where they were launched
                  # (ENCODER_RANGE), not by name
@@ -910,8 +1074,8 @@ def profile_breakdown(torch, request, card: str, what: str,
                      if any(sub.lower() in low for sub in subs)), "elementwise/other")
         groups[name] += us
     for name, wrapper, _ in KERNEL_GROUPS:
-        if wrapper is not None and expect[wrapper] > 0 and groups[name] <= 0:
-            fail(f"{what} profile: {name} launched {expect[wrapper]} times but "
+        if wrapper is not None and expect.get(wrapper, 0) > 0 and groups[name] <= 0:
+            fail(f"{what} profile: {name} launched {expect.get(wrapper)} times but "
                  "no kernel of its group shows device time")
     log(f"[profile] {what} 10 s request: wall {wall_us / 1e3:.2f} ms (profiler "
         f"on), device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f} % of "
@@ -1354,12 +1518,13 @@ def _backward(fn, leaves, grad_out):
 
 
 def phase_gradients(torch, card: str) -> None:
-    """K2 (its C = 256 stage), K3 and K4 at the 10 s request's shapes with
-    grad on: each wrapper's forward (the kernel, one launch) and backward
-    (autograd through the plain version, no launch), the forward within
-    GRAD_TOL x max|out| and every input's and weight's .grad within GRAD_TOL
-    x max|grad| of plain autograd on the card; K1 refuses an f0 that
-    requires grad."""
+    """K2 (its C = 256 stage), K3, B3 and K4 at the 10 s request's shapes
+    with grad on: each wrapper's forward (the kernel, one launch) and
+    backward (autograd through the plain version, no launch), the forward
+    within GRAD_TOL x max|out| (B3: ``bf16_layer_agreement`` with its bf16
+    plain version) and every input's and weight's .grad within GRAD_TOL x
+    max|grad| of plain autograd on the card (B3: of the f32 chain); K1
+    refuses an f0 that requires grad."""
     from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_oscillator, cuda_resblock
     from ddsp_svc_tpu_torch.ops.cuda_source import combtooth
     from ddsp_svc_tpu_torch.ops.source import cumsum_phase_source
@@ -1397,9 +1562,23 @@ def phase_gradients(torch, card: str) -> None:
     k4 = (cuda_oscillator.harmonic_bank, [phase, amps],
           lambda: cuda_oscillator.harmonic_bank(phase, amps, BLOCK),
           lambda: cuda_oscillator.harmonic_bank_plain(phase, amps, BLOCK))
+    # B3: the bf16 forward, the f32 chain's backward (as JAX's custom VJP);
+    # its forward is held to its bf16 plain version by bf16_layer_agreement
+    b3 = (cuda_conformer.conformer_layer_bf16, k3_leaves,
+          lambda: cuda_conformer.conformer_layer_bf16(*k3_leaves[:3], k3_leaves[3:]),
+          k3[3])
+
+    def b3_forward(got, _):
+        with torch.no_grad():
+            want = cuda_conformer.conformer_layer_bf16_plain(*k3_leaves[:3],
+                                                             k3_leaves[3:])
+        a = cuda_conformer.bf16_layer_agreement(got, want, k3_leaves[0].detach())
+        return a["rel"] if a["ok"] else float("inf")
+
     problems = []
     for kid, (wrapper, inputs, call, plain) in (("K2 resblock_group C=256", k2),
                                                  ("K3 conformer_layer", k3),
+                                                 ("B3 conformer_layer_bf16", b3),
                                                  ("K4 harmonic_bank", k4)):
         with torch.no_grad():
             grad_out = torch.randn(plain().shape, generator=gen).to(dev)
@@ -1411,14 +1590,20 @@ def phase_gradients(torch, card: str) -> None:
         torch.cuda.synchronize()
         errs = [float((g - w).abs().max() / w.abs().max())
                 for g, w in zip(got_grads, want_grads)]
-        fwd = float((got - want).abs().max() / want.abs().max())
+        if kid.startswith("B3"):
+            fwd = b3_forward(got, want)
+            fwd_ok = fwd <= cuda_conformer.BF16_LAYER_ATOL
+        else:
+            fwd = float((got - want).abs().max() / want.abs().max())
+            fwd_ok = fwd <= GRAD_TOL
         ok = (launched == 1 and wrapper.launches - n0 == 1
-              and fwd <= GRAD_TOL and max(errs) <= GRAD_TOL)
+              and fwd_ok and max(errs) <= GRAD_TOL)
         if not ok:
             problems.append(f"{kid}: launches {launched}, forward rel err "
                             f"{fwd:.3e}, .grad rel err {max(errs):.3e}")
         log(f"[grad] {kid} at the 10 s shapes, grad on: forward {fwd:.3e} x "
-            f"max|out| from plain, {len(errs)} gradients (every input and weight) "
+            f"max|{'branch' if kid.startswith('B3') else 'out'}| from plain, "
+            f"{len(errs)} gradients (every input and weight) "
             f"within {max(errs):.3e} x max|grad| of plain autograd (tol "
             f"{GRAD_TOL:g}); kernel launches: forward {launched}, backward "
             f"{wrapper.launches - n0 - launched} [{card}]")
@@ -1666,16 +1851,20 @@ def phase_realtime(torch, card: str, pipes: dict, cpu_parts: dict) -> dict:
 
 
 EXPECT_DIFFUSION_BF16 = dict(EXPECT_DIFFUSION, resblock_group=0,
-                             resblock_group_bf16=4)
-EXPECT_SINS_BF16 = dict(EXPECT_SINS, resblock_group=0, resblock_group_bf16=4)
+                             resblock_group_bf16=4, conformer_layer_bf16=0)
+EXPECT_SINS_BF16 = dict(EXPECT_SINS, resblock_group=0, resblock_group_bf16=4,
+                        conformer_layer_bf16=0)
 BF16_SNR_LIMIT_DB = 25.0  # bf16 against f32: the JAX package's gate
 
 
 def all_counts():
-    """``counts`` and K2's bf16 class, which only phases 16-17 launch."""
+    """``counts`` and the bf16 classes: K2's, which only phases 16-17
+    launch, and K3's (B3), which only phase 18 launches."""
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import conformer_layer_bf16
     from ddsp_svc_tpu_torch.ops.cuda_resblock import resblock_group_bf16
 
-    return dict(counts(), resblock_group_bf16=resblock_group_bf16)
+    return dict(counts(), resblock_group_bf16=resblock_group_bf16,
+                conformer_layer_bf16=conformer_layer_bf16)
 
 
 def _with_zeros(expect: dict) -> dict:
@@ -2049,6 +2238,398 @@ def phase_batched_serving(torch, card: str, wav_pipe) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 18
+
+
+CONFIGS = Path(__file__).resolve().parent / "configs"
+
+
+def expect_train(args, bf16_trunk: bool = False) -> dict:
+    """Kernel launches of one training step (forward only: the kernels'
+    backward is the plain chain): K1 once for CombSubSuperFast, K3 (or B3)
+    once per trunk layer, K4 once for Sins, nothing for Unit2Mel and
+    Unit2Wav."""
+    mtype = args.model.type
+    if mtype in ("DiffusionFast", "RectifiedFlow"):
+        trunk = "conformer_layer_bf16" if bf16_trunk else "conformer_layer"
+        return {"combtooth": 1, trunk: int(args.model.n_layers)}
+    return {"harmonic_bank": 1} if mtype == "Sins" else {}
+
+
+def train_config(root: Path, name: str, config: str):
+    """A copy of ``configs/<config>`` written by the port's config writer,
+    with only the paths and the intervals changed -> (path, args)."""
+    from ddsp_svc_tpu_torch.utils.config import load_config, save_config
+
+    args = load_config(CONFIGS / config)
+    args["data"]["train_path"] = str(root / "data" / "train")
+    args["data"]["valid_path"] = str(root / "data" / "val")
+    args["env"]["expdir"] = str(root / "exp" / name)
+    args["train"].update(interval_log=5, interval_val=10, interval_force_save=20)
+    path = root / f"{name}.yaml"
+    save_config(path, args)
+    return str(path), args
+
+
+class StepMeter:
+    """Wraps the solver's train steps: each step's wall (synchronized), its
+    loss terms and its kernel launches, which must be ``expect`` exactly
+    (forward launches only: a backward that launched would add to them)."""
+
+    def __init__(self, torch, what: str, expect: dict):
+        self.torch, self.what = torch, what
+        self.expect = _with_zeros(expect)
+        self.walls, self.losses, self.batch = [], [], 0
+
+    def wrap(self, step_fn):
+        wrappers = all_counts()
+
+        def step(state, batch, generator=None, draws=None):
+            before = {n: w.launches for n, w in wrappers.items()}
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step_fn(state, batch, generator, draws)
+            self.torch.cuda.synchronize()
+            self.walls.append(time.perf_counter() - t0)
+            delta = {n: w.launches - before[n] for n, w in wrappers.items()}
+            if delta != self.expect:
+                fail(f"[train] {self.what} step {state.step}: launches {delta}, "
+                     f"expected {self.expect}")
+            loss = float(metrics["loss"])
+            if not math.isfinite(loss):
+                fail(f"[train] {self.what} step {state.step}: loss {loss}")
+            self.losses.append(loss)
+            self.batch = batch["units"].shape[0]
+            return metrics
+        return step
+
+    def report(self, seconds: float, card: str) -> None:
+        warm = sorted(self.walls[2:] or self.walls)
+        med = warm[len(warm) // 2]
+        line = (f"{len(self.walls)} steps at batch {self.batch}: warm step "
+                f"median {med * 1e3:.1f} ms (min {warm[0] * 1e3:.1f}, max "
+                f"{warm[-1] * 1e3:.1f}, n={len(warm)}; first {self.walls[0] * 1e3:.1f}), "
+                f"{self.batch / med:.1f} samples/s, {self.batch * seconds / med:.1f} "
+                f"s of audio per s; losses {self.losses[0]:.4f} -> "
+                f"{self.losses[-1]:.4f} [{card}]")
+        log(f"[train] {self.what}: {line}")
+
+
+def metered(torch, solver, what: str, expect: dict):
+    """Install a StepMeter around ``solver.build_train_step`` -> (meter,
+    restore)."""
+    meter, original = StepMeter(torch, what, expect), solver.build_train_step
+
+    def build(args, mel_fn=None):
+        family, step = original(args, mel_fn)
+        return family, meter.wrap(step)
+
+    solver.build_train_step = build
+    return meter, lambda: setattr(solver, "build_train_step", original)
+
+
+def write_corpus(root: Path, rng) -> None:
+    from ddsp_svc_tpu_torch.features.audio import save_wav
+
+    for split, n in (("train", TRAIN_FILES), ("val", VAL_FILES)):
+        (root / "data" / split / "audio").mkdir(parents=True)
+        for i in range(n):
+            seconds = 3.0 + 2.0 * rng.random()
+            wave = voice_wave(seconds, rng) * (0.5 + rng.random())
+            save_wav(str(root / "data" / split / "audio" / f"{i}.wav"), wave, SR)
+
+
+def step_grads(torch, model, family: str, batch: dict, draws: dict, mel_fn,
+               probe=None):
+    """One training step's loss and every parameter's gradient (no update),
+    with the draws injected; with ``probe`` a DDSP synth's gradients are
+    those of sum(signal x probe), its loss still the RSS loss."""
+    from ddsp_svc_tpu_torch.ops.losses import RSSLoss
+
+    model.zero_grad(set_to_none=True)
+    if family == "ddsp":
+        signal, _ = model(batch["units"], batch["f0"], batch["volume"],
+                          noise=draws["noise"])
+        loss = RSSLoss(256, 2048, 4)(signal, batch["audio"], draws["rss_idx"])
+        target = loss if probe is None else (signal * probe).sum()
+    else:
+        ddsp_loss, diff_loss = model.loss(
+            batch["units"], batch["f0"], batch["volume"], batch["mel"],
+            mel_extract_fn=mel_fn, aug_shift=batch.get("aug_shift"), k_step=100,
+            ddsp_noise=draws["ddsp_noise"], t=draws["t"], noise=draws["noise"])
+        loss = target = ddsp_loss + diff_loss
+    target.backward()
+    return float(loss.detach()), {n: p.grad.detach().double().cpu()
+                                  for n, p in model.named_parameters()}
+
+
+def _grad_gap(g_c: dict, g_h: dict) -> tuple:
+    """(L2 over all leaves, (worst leaf's L2, its name)), relative to the
+    CPU's."""
+    num = sum(float(((g_c[n] - g_h[n]) ** 2).sum()) for n in g_h)
+    den = sum(float((g_h[n] ** 2).sum()) for n in g_h)
+    leaf = max((float((g_c[n] - g_h[n]).norm() / max(float(g_h[n].norm()), 1e-30)), n)
+               for n in g_h)
+    return math.sqrt(num / den), leaf
+
+
+def train_card_vs_cpu(torch, card: str, what: str, args, model, family: str,
+                      batch_np: dict) -> None:
+    """Phase 18 (d): one step of ``model`` (on the card) and of a CPU copy
+    on the same batch and draws: the loss within TRAIN_LOSS_TOL, the
+    gradients within TRAIN_GRAD_TOL (L2 over all leaves) and TRAIN_LEAF_TOL
+    (L2 of each leaf), relative to the CPU's. A DDSP synth's gradients are
+    held under sum(signal x probe): under RSS the 1 / |S| weight of its log
+    term turns the harmonic bank's allowed 3e-5 (K4 against its plain
+    version) into gradient gaps of up to ~5e-3 on the H100 (it moves with
+    the batch), which is printed beside it and not held."""
+    from ddsp_svc_tpu_torch.cli.common import build_mel_extractor
+    from ddsp_svc_tpu_torch.train.steps import to_device
+
+    rng = np.random.default_rng(SEED + 18)
+    b, t = batch_np["units"].shape[:2]
+    if family == "ddsp":
+        draws = {"noise": rng.uniform(-1, 1, (b, t * BLOCK)).astype(np.float32),
+                 "rss_idx": rng.integers(0, 16, 4)}
+        probe = rng.standard_normal((b, t * BLOCK)).astype(np.float32)
+    else:
+        draws = {"ddsp_noise": rng.standard_normal((b, t * BLOCK)).astype(np.float32),
+                 "t": rng.integers(0, 100, b),
+                 "noise": rng.standard_normal((b, t, 128)).astype(np.float32)}
+        probe = None
+    out, rss = {}, {}
+    cpu_model = copy.deepcopy(model).cpu()
+    for key, m in (("card", model), ("cpu", cpu_model)):
+        dev = next(m.parameters()).device
+        d = {k: (v if k == "rss_idx" else torch.from_numpy(np.asarray(v)).to(dev))
+             for k, v in draws.items()}
+        mel_fn = build_mel_extractor(args, dev).extract
+        batch = to_device(batch_np, dev)
+        out[key] = step_grads(torch, m, family, batch, d, mel_fn,
+                              None if probe is None else torch.from_numpy(probe).to(dev))
+        if probe is not None:
+            rss[key] = step_grads(torch, m, family, batch, d, mel_fn)[1]
+    (loss_c, g_c), (loss_h, g_h) = out["card"], out["cpu"]
+    loss_err = abs(loss_c - loss_h) / abs(loss_h)
+    total, leaf = _grad_gap(g_c, g_h)
+    held = "sum(signal x probe)" if probe is not None else "the loss"
+    extra = ""
+    if rss:
+        r_total, r_leaf = _grad_gap(rss["card"], rss["cpu"])
+        extra = (f"; under the RSS loss itself (not held): {r_total:.2e}, worst "
+                 f"leaf {r_leaf[0]:.2e} at {r_leaf[1]}")
+    log(f"[train] (d) {what} at batch {b}, card vs CPU: loss {loss_c:.6f} vs "
+        f"{loss_h:.6f} ({loss_err:.2e} relative, limit {TRAIN_LOSS_TOL:g}); "
+        f"gradients of {len(g_h)} leaves under {held}: {total:.2e} (L2 over "
+        f"all, limit {TRAIN_GRAD_TOL:g}), worst leaf {leaf[0]:.2e} at {leaf[1]} "
+        f"(limit {TRAIN_LEAF_TOL:g}){extra} [{card}]")
+    if not (loss_err <= TRAIN_LOSS_TOL and total <= TRAIN_GRAD_TOL
+            and leaf[0] <= TRAIN_LEAF_TOL):
+        fail(f"[train] (d) {what}: card vs CPU beyond the stated limits")
+
+
+def phase_training(torch, card: str) -> dict:
+    """Phase 18: see the module docstring. Returns {path: launch counts}."""
+    import tempfile
+
+    from ddsp_svc_tpu_torch.cli import infer as cli_infer
+    from ddsp_svc_tpu_torch.cli import preprocess as cli_preprocess
+    from ddsp_svc_tpu_torch.cli import train as cli_train
+    from ddsp_svc_tpu_torch.cli.common import build_mel_extractor
+    from ddsp_svc_tpu_torch.data.dataset import BatchSampler, get_datasets
+    from ddsp_svc_tpu_torch.features.audio import load_wav
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+    from ddsp_svc_tpu_torch.models.cascade import Unit2WavFast
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.models.registry import build_model, model_family
+    from ddsp_svc_tpu_torch.models.vocoder import Vocoder
+    from ddsp_svc_tpu_torch.train import solver
+    from ddsp_svc_tpu_torch.train.state import create_train_state
+    from ddsp_svc_tpu_torch.train.steps import to_device
+
+    dev = torch.device("cuda")
+    wrappers = all_counts()
+    paths = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    root = Path(tmp.name)
+    try:
+        # (a) the entry points: preprocess, train 20 steps, resume for 5
+        write_corpus(root, np.random.default_rng(SEED + 180))
+        cfg, args = train_config(root, "diffusion-fast", "diffusion-fast.yaml")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        cli_preprocess.main(["-c", cfg, "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        log(f"[train] (a) cli.preprocess on the card: {TRAIN_FILES} + {VAL_FILES} "
+            f"recordings in {time.perf_counter() - t0:.2f} s (contentvec768l12, "
+            f"random weights, YIN on the host) [{card}]")
+        meter, restore = metered(torch, solver, "(a) DiffusionFast, cli.train",
+                                 expect_train(args))
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state = cli_train.main(["-c", cfg, "--max_steps", str(TRAIN_STEPS)])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            expdir = Path(args.env.expdir)
+            saved = sorted(p.name for p in expdir.glob("model_*.ckpt"))
+            if state.step != TRAIN_STEPS or saved != [f"model_{TRAIN_STEPS}.ckpt"]:
+                fail(f"[train] (a) after {TRAIN_STEPS} steps: step {state.step}, "
+                     f"checkpoints {saved} (retention keeps model_20 only)")
+            log(f"[train] (a) peak device memory {peak:.2f} GiB (max_memory_allocated)"
+                f"; checkpoints {saved}; validation logged: "
+                f"{'validation' in (expdir / 'log_info.txt').read_text()} [{card}]")
+            state = cli_train.main(["-c", cfg, "--max_steps", str(RESUME_STEPS)])
+        finally:
+            restore()
+        want_lr = float(args.train.lr) * float(args.train.gamma) ** (
+            (TRAIN_STEPS + RESUME_STEPS) // int(args.train.decay_step))
+        adam_step = float(next(iter(state.optimizer.state.values()))["step"])
+        if (state.step != TRAIN_STEPS + RESUME_STEPS or adam_step != state.step
+                or abs(state.lr() - want_lr) > 1e-12 * want_lr):
+            fail(f"[train] (a) resume: step {state.step}, AdamW step {adam_step}, "
+                 f"lr {state.lr()} (expected {TRAIN_STEPS + RESUME_STEPS}, {want_lr})")
+        if len(meter.walls) != TRAIN_STEPS + RESUME_STEPS:
+            fail(f"[train] (a) {len(meter.walls)} metered steps")
+        log(f"[train] (a) resumed at step {TRAIN_STEPS} from "
+            f"model_{TRAIN_STEPS}.ckpt and trained to {state.step}: AdamW step "
+            f"{adam_step:g}, lr {state.lr():.3g}; launches per step K1 1, K3 6, "
+            f"none in the backward [{card}]")
+        val_wav = root / "data" / "val" / "audio" / "0.wav"
+        out_wav = root / "converted.wav"
+        cli_infer.main(["-m", str(expdir / f"model_{TRAIN_STEPS}.ckpt"), "-i",
+                        str(val_wav), "-o", str(out_wav)])
+        audio, sr = load_wav(str(out_wav))
+        n_in = len(load_wav(str(val_wav))[0])
+        if sr != SR or len(audio) < n_in - BLOCK or not np.isfinite(audio).all():
+            fail(f"[train] (a) cli.infer.main on the checkpoint: {len(audio)} "
+                 f"samples at {sr} Hz for {n_in}")
+        log(f"[train] (a) cli.infer.main read {expdir.name}/config.yaml and "
+            f"model_{TRAIN_STEPS}.ckpt and converted a {n_in / SR:.2f} s recording "
+            f"[{card}]")
+        meter.report(float(args.data.duration), card)
+        paths["training (a) DiffusionFast"] = {n: w.launches for n, w in wrappers.items()}
+
+        # (b) the bf16 trunk through train.solver.train, then a 10 s request
+        for w in wrappers.values():
+            w.launches = 0
+        _, bargs = train_config(root, "diffusion-fast-bf16", "diffusion-fast.yaml")
+        d, m = bargs.data, bargs.model
+        # random init with a live output projection (not the zero training
+        # init), so that the trunk shapes the request's mel in the check below
+        model = random_init_(Unit2WavFast(
+            d.sampling_rate, d.block_size, m.win_length, d.encoder_out_channels,
+            m.n_spk, bool(m.use_pitch_aug), 128, m.n_layers, m.n_chans,
+            k_step_max=m.k_step_max, trunk_bf16=True),
+            torch.Generator().manual_seed(SEED)).to(dev)
+        state = create_train_state(model, lr=float(bargs.train.lr))
+        meter, restore = metered(torch, solver, "(b) DiffusionFast bf16 trunk",
+                                 expect_train(bargs, bf16_trunk=True))
+        try:
+            solver.train(bargs, state, build_mel_extractor(bargs, dev).extract,
+                         device=dev, max_steps=BF16_STEPS)
+        finally:
+            restore()
+        meter.report(float(bargs.data.duration), card)
+        model.eval()
+        f32 = Unit2WavFast(d.sampling_rate, d.block_size, m.win_length,
+                           d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
+                           128, m.n_layers, m.n_chans, k_step_max=m.k_step_max)
+        f32.load_state_dict(model.state_dict())
+        vocoder = random_init_(Vocoder(), torch.Generator().manual_seed(SEED))
+        outs = {}
+        per_request = 10 * int(m.n_layers)  # DPM-Solver++, k_step 100, speedup 10
+        for what, mod, expect in (
+                ("bf16 trunk", model, {"combtooth": 1, "resblock_group": 5,
+                                       "conformer_layer_bf16": per_request}),
+                ("f32 trunk", f32.to(dev).eval(), {"combtooth": 1,
+                                                   "resblock_group": 5,
+                                                   "conformer_layer": per_request})):
+            pipe = SvcPipeline.from_parts(mod, None, bargs, vocoder, seed=SEED)
+            # the same features and draws for both
+            inputs = request_inputs(pipe, 10, np.random.default_rng(SEED + 182))
+            noise = request_noise(np.random.default_rng(SEED + 181),
+                                  inputs["volume"].shape[1])
+            before = {n: w.launches for n, w in wrappers.items()}
+            with torch.no_grad():
+                audio, _ = pipe.infer_features(**inputs, k_step=100, speedup=10,
+                                               method="dpm-solver", noise=noise)
+            torch.cuda.synchronize()
+            delta = {n: w.launches - before[n] for n, w in wrappers.items()}
+            if delta != _with_zeros(expect):
+                fail(f"[train] (b) 10 s request, {what}: launches {delta}")
+            outs[what] = check_audio(audio, inputs["volume"].shape[1],
+                                     f"(b) {what}")
+        snr = snr_db(outs["f32 trunk"], outs["bf16 trunk"])
+        log(f"[train] (b) a 10 s request with the trained bf16-trunk model: "
+            f"B3 {per_request}, K3 0; its audio {snr:.2f} dB from the same request on the "
+            f"f32 trunk (limit {BF16_TRUNK_SNR_DB:g} dB) [{card}]")
+        if not snr >= BF16_TRUNK_SNR_DB:
+            fail(f"[train] (b) bf16 trunk {snr:.2f} dB from the f32 trunk")
+        paths["training (b) bf16 trunk"] = {n: w.launches for n, w in wrappers.items()}
+        del model, f32, state
+
+        # (c) three steps of each other family at its config's widths
+        for mtype, config in (("Sins", "sins.yaml"), ("RectifiedFlow", "reflow.yaml"),
+                              ("Diffusion", "diffusion.yaml"),
+                              ("DiffusionNew", "diffusion-new.yaml")):
+            for w in wrappers.values():
+                w.launches = 0
+            _, fargs = train_config(root, mtype, config)
+            model = random_init_(build_model(fargs), torch.Generator().manual_seed(SEED),
+                                 training=True).to(dev)
+            state = create_train_state(model, lr=float(fargs.train.lr))
+            family = model_family(mtype)
+            mel_fn = (build_mel_extractor(fargs, dev).extract
+                      if family in ("diffusion", "reflow") else None)
+            _, step = solver.build_train_step(fargs, mel_fn)
+            meter = StepMeter(torch, f"(c) {mtype}", expect_train(fargs))
+            step = meter.wrap(step)
+            sampler = BatchSampler(get_datasets(fargs)[0], int(fargs.train.batch_size))
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            model.train()
+            for _ in range(FAMILY_STEPS):
+                step(state, to_device(sampler.sample(), dev), gen)
+            meter.report(float(fargs.data.duration), card)
+            paths[f"training (c) {mtype}"] = {n: w.launches for n, w in wrappers.items()}
+            if mtype == "Sins":
+                sins = (fargs, model)
+            else:
+                del model
+            del state
+            torch.cuda.empty_cache()
+
+        # (d) card vs CPU, one step at batch 4: DiffusionFast and Sins
+        df_model = random_init_(build_model(args), torch.Generator().manual_seed(SEED))
+        for what, fargs, model in (("DiffusionFast", args, df_model.to(dev)),
+                                   ("Sins", *sins)):
+            sampler = BatchSampler(get_datasets(fargs)[0], CARD_CPU_BATCH, seed=SEED)
+            train_card_vs_cpu(torch, card, what, fargs, model,
+                              model_family(fargs.model.type), sampler.sample())
+        del sins
+
+        # (e) the device's busy share of one profiled DiffusionFast step
+        state = create_train_state(df_model, lr=float(args.train.lr))
+        _, step = solver.build_train_step(args, build_mel_extractor(args, dev).extract)
+        sampler = BatchSampler(get_datasets(args)[0], int(args.train.batch_size),
+                               seed=SEED)
+        batch = to_device(sampler.sample(), dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        step(state, batch, gen)  # warm
+        _, wall_us, kernels_us, n_ops, kept = _profiled(
+            torch, lambda: step(state, batch, gen), {})
+        busy = sum(kernels_us.values())
+        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
+        log(f"[train] (e) one DiffusionFast step at batch "
+            f"{int(args.train.batch_size)} under the profiler: wall "
+            f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms = "
+            f"{100 * busy / wall_us:.1f} % of wall, {n_ops} device ops (the trace "
+            f"kept {kept} of the lead's {LEAD_OPS}); top: "
+            + "; ".join(f"{us / 1e3:.2f} ms {k[:50]}" for k, us in top) + f" [{card}]")
+    finally:
+        tmp.cleanup()
+    return paths
+
+
 def main() -> None:
     try:
         import torch
@@ -2105,14 +2686,17 @@ def main() -> None:
     paths.update(phase_bf16_vocoder(torch, card, pipes))
     paths.update(phase_batched_serving(torch, card,
                                        pipes["diffusion-fast from a wav"]))
+    del pipes, reflow, encoder
+    torch.cuda.empty_cache()
+    paths.update(phase_training(torch, card))
 
     table = []
     for kname in ("combtooth", "resblock_group", "resblock_group_bf16",
-                  "conformer_layer", "harmonic_bank"):
+                  "conformer_layer", "conformer_layer_bf16", "harmonic_bank"):
         r = results[kname]
         launches = sum(c.get(kname, 0) for c in paths.values())
         if launches <= 0:
-            fail(f"kernel {kname} was not launched on a serving path")
+            fail(f"kernel {kname} was not launched on a serving or training path")
         log(f"[done] {kname}: {launches} launches over the paths: "
             + ", ".join(f"{p} {c[kname]}" for p, c in paths.items()
                         if c.get(kname)))

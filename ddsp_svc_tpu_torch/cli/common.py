@@ -56,3 +56,20 @@ def build_units_encoder(args: DotDict, device: str | torch.device | None = None,
         encoder_hop_size=args.data.encoder_hop_size,
         cnhubertsoft_gate=args.data.cnhubertsoft_gate or 10,
         device=device, seed=seed)
+
+
+def build_mel_extractor(args: DotDict, device: str | torch.device = "cpu"):
+    """The vocoder's log-mel for the config's rate and hop (128 mels, n_fft
+    2048, 40-16000 Hz), on ``device``: the cascades' training mel and the
+    preprocess job's (JAX ``build_mel_extractor``)."""
+    from ..ops.mel import LogMelSpectrogram
+
+    return LogMelSpectrogram(sr=args.data.sampling_rate, n_mels=128,
+                             n_fft=2048, win_size=2048,
+                             hop_length=args.data.block_size, fmin=40.0,
+                             fmax=16000.0).to(device)
+
+
+def needs_mel(args: DotDict) -> bool:
+    return args.model.type in ("Diffusion", "DiffusionNew", "DiffusionFast",
+                               "RectifiedFlow")

@@ -1,0 +1,83 @@
+"""Train CLI (mirrors ddsp_svc_tpu/cli/train.py):
+
+    python -m ddsp_svc_tpu_torch.cli.train -c configs/diffusion-fast.yaml
+
+builds the config's model with random weights from ``train.seed``, resumes
+from the newest ``model_<step>.ckpt`` in ``env.expdir`` (a ``model_0``
+dropped into a fresh expdir warm-starts it, shape-tolerantly), restores the
+optimizer state where the checkpoint has it, and trains on ``--device``
+(the CUDA card by default). Checkpoints are the JAX package's format.
+``--max_steps`` ends the run after that many steps (the config's epochs
+otherwise, as in JAX).
+
+Refused, with the ROADMAP item that would add them: ``train.amp_dtype``
+bf16 / fp16 (mixed precision) and a multi-process launch
+(``JAX_COORDINATOR_ADDRESS``, multi-card training).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from ..models.nn import random_init_
+from ..models.registry import build_model, model_family
+from ..train import checkpoint as ckpt
+from ..train.solver import train
+from ..train.state import create_train_state, param_count, restore_opt_state
+from ..utils.config import load_config
+from ..utils.device import resolve_device
+from .common import build_mel_extractor, needs_mel
+
+AMP_REFUSED = ("train.amp_dtype {amp!r}: bf16 mixed-precision training is not "
+               "ported (ROADMAP A, item 13); use fp32")
+MULTI_REFUSED = ("JAX_COORDINATOR_ADDRESS is set: multi-process training is "
+                 "not ported (ROADMAP A, item 8)")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", required=True)
+    parser.add_argument("--device", default=None,
+                        help="device to train on (default: the CUDA card)")
+    parser.add_argument("--max_steps", type=int, default=None,
+                        help="stop after this many steps of this run")
+    cmd = parser.parse_args(argv)
+    args = load_config(cmd.config)
+    if os.environ.get("JAX_COORDINATOR_ADDRESS"):
+        raise SystemExit(MULTI_REFUSED)
+    amp = str(args.train.amp_dtype or "fp32").lower()
+    if amp not in ("fp32", "float32"):
+        raise SystemExit(AMP_REFUSED.format(amp=amp))
+    device = resolve_device(cmd.device)
+
+    model = build_model(args, vocoder_dimension=args.model.out_dims or 128)
+    random_init_(model, torch.Generator().manual_seed(int(args.train.seed or 0)),
+                 training=True)
+    print(f" [*] model: {args.model.type} ({model_family(args.model.type)})")
+
+    initial_step, opt_payload = 0, None
+    latest = ckpt.latest_checkpoint(args.env.expdir)
+    if latest:
+        payload, initial_step = ckpt.load_checkpoint(latest)
+        ckpt.restore_into(model, args.model, payload)
+        opt_payload = payload.get("opt_state")
+        print(f" [*] resumed from {latest} (step {initial_step})")
+    print(f" [*] parameters: {param_count(model):,}")
+    model.to(device)
+
+    state = create_train_state(
+        model, lr=float(args.train.lr),
+        weight_decay=float(args.train.weight_decay or 0.0),
+        decay_step=args.train.decay_step, gamma=args.train.gamma,
+        start_step=initial_step)
+    if opt_payload is not None:
+        restore_opt_state(state, args.model, opt_payload)
+    mel_fn = build_mel_extractor(args, device).extract if needs_mel(args) else None
+    return train(args, state, mel_fn, initial_step=initial_step, device=device,
+                 max_steps=cmd.max_steps)
+
+
+if __name__ == "__main__":
+    main()

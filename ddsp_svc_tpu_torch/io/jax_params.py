@@ -1,20 +1,24 @@
-"""JAX param trees -> the port's state dicts.
+"""JAX param trees <-> the port's state dicts.
 
 Reads the JAX package's params (a nested dict of numpy arrays, as
 ``flax`` keeps them) or its checkpoint file (``train/checkpoint.py``: one
-msgpack payload whose arrays are flax's ndarray ext type, decoded here by
-the port's own hook; ``msgpack`` is imported only when a file is read).
+flax msgpack payload, decoded by the port's own codec,
+``io/msgpack_codec.py``), and for the model families writes the port's state
+dict back as a JAX param tree (``model_params``), so that a checkpoint the
+port trains is one the JAX package reads.
 
 A model's ``buffers`` tree (the FAVOR+ projections of a PCmer decoder)
 maps to the port's buffers the same way, leaf by leaf.
 
 Layout rules (the inverse of the torch->flax converters): Dense kernel
 (in, out) -> Linear weight (out, in); Conv1d kernel (k, in, out) -> (out,
-in, k); ConvTranspose1d kernel (k, in, out) -> (in, out, k), no flip. Weight
-norm is folded as the JAX modules fold it, with the +1e-12: Conv1d / Dense
-normalise over every axis but the output one; ConvTranspose1d normalises
-per *input* channel. Every leaf must map, and every port parameter must be
-set, or a ``KeyError`` names the leftovers.
+in, k); ConvTranspose1d kernel (k, in, out) -> (in, out, k), no flip. The
+models' weight-normed Dense (``dense_out``) keeps v and g apart
+(``models/nn.WNLinear``); the vocoder's weight norm is folded as the JAX
+modules fold it, with the +1e-12: Conv1d / Dense normalise over every axis
+but the output one; ConvTranspose1d normalises per *input* channel. Every
+leaf must map, and every port parameter must be set, or a ``KeyError`` names
+the leftovers.
 """
 from __future__ import annotations
 
@@ -24,36 +28,15 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# flax.serialization's msgpack ext codes for arrays and numpy scalars
-_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
-
-
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
-    import msgpack
-
-    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
-    if dtype_name == b"bfloat16":
-        raise ValueError("bfloat16 leaves are not supported by the port")
-    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode()),
-                         count=-1).reshape(shape, order="C")
-
-
-def _ext_hook(code: int, data: bytes):
-    if code == _EXT_NDARRAY:
-        return _ndarray_from_bytes(data)
-    if code == _EXT_NPSCALAR:
-        return _ndarray_from_bytes(data)[()]
-    raise ValueError(f"msgpack ext type {code} is not a flax array")
+from . import msgpack_codec
 
 
 def read_msgpack(path: str) -> dict:
     """A flax msgpack file (a JAX checkpoint or vocoder payload) -> tree.
     (flax splits leaves above 1 GiB into chunks; no leaf of these models
     comes near that, and such a tree fails the leaf mapping by name.)"""
-    import msgpack
-
     with open(path, "rb") as f:
-        return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+        return msgpack_codec.unpackb(f.read())
 
 
 class _Leaves:
@@ -80,9 +63,48 @@ class _Leaves:
             raise KeyError(f"JAX param {path!r} missing")
         return self.leaves.pop(path)
 
+    def present(self, sd: dict, jax_path: str, port_key: str) -> bool:
+        """Whether an optional part is there: read from the JAX side."""
+        return jax_path in self.leaves
+
     def finish(self):
         if self.leaves:
             raise KeyError("JAX params left unmapped: " + ", ".join(sorted(self.leaves)))
+
+
+class _ToJax:
+    """The other direction: a port state dict -> JAX ``params`` and
+    ``buffers`` trees, written by the same mapping functions. ``present``
+    reads optional parts from the port side; ``finish`` raises on a port
+    entry no rule took."""
+
+    def __init__(self, sd: dict, with_buffers: bool = True):
+        self.sd = sd
+        self.with_buffers = with_buffers
+        self.params: dict = {}
+        self.buffers: dict = {}
+        self.used: set = set()
+
+    def present(self, sd: dict, jax_path: str, port_key: str) -> bool:
+        return port_key in sd
+
+    def get(self, key: str) -> np.ndarray:
+        self.used.add(key)
+        v = self.sd[key]
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+        return np.ascontiguousarray(np.asarray(v, dtype=np.float32))
+
+    def put(self, path: str, value: np.ndarray, tree: dict | None = None) -> None:
+        node = self.params if tree is None else tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value)
+
+    def finish(self):
+        left = sorted(set(self.sd) - self.used)
+        if left:
+            raise KeyError("port state left unmapped: " + ", ".join(left))
 
 
 def _wn_fold(v: np.ndarray, g: np.ndarray, axes: tuple, shape_g) -> np.ndarray:
@@ -100,18 +122,39 @@ def _kernel(tree: _Leaves, scope: str) -> np.ndarray:
 
 
 def _put_bias(sd, tree, scope, name):
-    if tree.has(f"{scope}/bias"):
+    if isinstance(tree, _ToJax):
+        if f"{name}.bias" in sd:
+            tree.put(f"{scope}/bias", tree.get(f"{name}.bias"))
+    elif tree.has(f"{scope}/bias"):
         sd[f"{name}.bias"] = tree.take(f"{scope}/bias")
 
 
 def _put_dense(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
-    sd[f"{name}.weight"] = np.ascontiguousarray(_kernel(tree, scope).T)
+    if isinstance(tree, _ToJax):
+        tree.put(f"{scope}/kernel", tree.get(f"{name}.weight").T)
+    else:
+        sd[f"{name}.weight"] = np.ascontiguousarray(_kernel(tree, scope).T)
+    _put_bias(sd, tree, scope, name)
+
+
+def _put_wn_dense(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
+    """A weight-normed Dense kept as v (transposed) and g (``WNLinear``)."""
+    if isinstance(tree, _ToJax):
+        tree.put(f"{scope}/kernel_v", tree.get(f"{name}.weight_v").T)
+        tree.put(f"{scope}/kernel_g", tree.get(f"{name}.weight_g"))
+    else:
+        sd[f"{name}.weight_v"] = np.ascontiguousarray(
+            tree.take(f"{scope}/kernel_v").T)
+        sd[f"{name}.weight_g"] = tree.take(f"{scope}/kernel_g")
     _put_bias(sd, tree, scope, name)
 
 
 def _put_conv(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
-    sd[f"{name}.weight"] = np.ascontiguousarray(
-        _kernel(tree, scope).transpose(2, 1, 0))
+    if isinstance(tree, _ToJax):
+        tree.put(f"{scope}/kernel", tree.get(f"{name}.weight").transpose(2, 1, 0))
+    else:
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            _kernel(tree, scope).transpose(2, 1, 0))
     _put_bias(sd, tree, scope, name)
 
 
@@ -127,8 +170,31 @@ def _put_conv_transpose(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
 
 
 def _put_norm(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
-    sd[f"{name}.weight"] = tree.take(f"{scope}/scale")
-    sd[f"{name}.bias"] = tree.take(f"{scope}/bias")
+    if isinstance(tree, _ToJax):
+        tree.put(f"{scope}/scale", tree.get(f"{name}.weight"))
+        tree.put(f"{scope}/bias", tree.get(f"{name}.bias"))
+    else:
+        sd[f"{name}.weight"] = tree.take(f"{scope}/scale")
+        sd[f"{name}.bias"] = tree.take(f"{scope}/bias")
+
+
+def _put_embed(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
+    if isinstance(tree, _ToJax):
+        tree.put(f"{scope}/embedding", tree.get(f"{name}.weight"))
+    else:
+        sd[f"{name}.weight"] = tree.take(f"{scope}/embedding")
+
+
+# the ``buffers`` of a tree without them (an optimizer moment tree)
+_NO_BUFFERS = object()
+
+
+def _put_buffer(sd: dict, tree, buffers, path: str, key: str) -> None:
+    if isinstance(tree, _ToJax):
+        if tree.with_buffers:
+            tree.put(path, tree.get(key), tree.buffers)
+    elif buffers is not _NO_BUFFERS:
+        sd[key] = buffers.take(path)
 
 
 def _put_conformer(sd, tree, scope, name, use_norm: bool = False):
@@ -142,7 +208,7 @@ def _put_pcmer(sd: dict, tree: _Leaves, buffers: _Leaves | None, scope: str,
                name: str, n_layers: int) -> None:
     """PCmer layers: norm, FAVOR+ attention (its projection matrix from the
     ``buffers`` tree at the same path), conformer with LayerNorm."""
-    if buffers is None:
+    if buffers is None and not isinstance(tree, _ToJax):
         raise KeyError("JAX buffers missing: a PCmer decoder needs its FAVOR+ "
                        "projection matrices")
     for i in range(n_layers):
@@ -151,8 +217,8 @@ def _put_pcmer(sd: dict, tree: _Leaves, buffers: _Leaves | None, scope: str,
         for proj in ("to_q", "to_k", "to_v", "to_out"):
             _put_dense(sd, tree, f"{s}/attn/{proj}", f"{n}.attn.{proj}")
         _put_conformer(sd, tree, f"{s}/conformer", f"{n}.conformer", use_norm=True)
-        sd[f"{n}.attn.projection_matrix"] = buffers.take(
-            f"{s}/attn/projection_matrix")
+        _put_buffer(sd, tree, buffers, f"{s}/attn/projection_matrix",
+                    f"{n}.attn.projection_matrix")
 
 
 def _put_unit2control(sd: dict, tree: _Leaves, buffers: _Leaves | None,
@@ -162,14 +228,15 @@ def _put_unit2control(sd: dict, tree: _Leaves, buffers: _Leaves | None,
     with their FAVOR+ projection buffers, or the conv-only conformer), the
     norm and the weight-normed ``dense_out``."""
     _put_conv(sd, tree, f"{u}/stack_conv0", f"{un}.stack_conv0")
-    if tree.has(f"{u}/stack_norm/scale"):
+    if tree.present(sd, f"{u}/stack_norm/scale", f"{un}.stack_norm.weight"):
         _put_norm(sd, tree, f"{u}/stack_norm", f"{un}.stack_norm")
         _put_conv(sd, tree, f"{u}/stack_conv1", f"{un}.stack_conv1")
     for emb in ("f0_embed", "phase_embed", "volume_embed"):
         _put_dense(sd, tree, f"{u}/{emb}", f"{un}.{emb}")
-    if tree.has(f"{u}/spk_embed/embedding"):
-        sd[f"{un}.spk_embed.weight"] = tree.take(f"{u}/spk_embed/embedding")
-    if tree.has(f"{u}/aug_shift_embed/kernel"):
+    if tree.present(sd, f"{u}/spk_embed/embedding", f"{un}.spk_embed.weight"):
+        _put_embed(sd, tree, f"{u}/spk_embed", f"{un}.spk_embed")
+    if tree.present(sd, f"{u}/aug_shift_embed/kernel",
+                    f"{un}.aug_shift_embed.weight"):
         _put_dense(sd, tree, f"{u}/aug_shift_embed", f"{un}.aug_shift_embed")
     if pcmer:
         _put_pcmer(sd, tree, buffers, f"{u}/decoder", f"{un}.decoder", 3)
@@ -179,23 +246,7 @@ def _put_unit2control(sd: dict, tree: _Leaves, buffers: _Leaves | None,
                            f"{u}/decoder/CFNEncoderLayer_{i}/ConformerConvModule_0",
                            f"{un}.decoder.layers.{i}.conformer")
     _put_norm(sd, tree, f"{u}/norm", f"{un}.norm")
-    _put_dense(sd, tree, f"{u}/dense_out", f"{un}.dense_out")
-
-
-def ddsp_state_dict(params: dict, buffers: dict | None = None,
-                    pcmer: bool = True) -> dict:
-    """A DDSP model's params (``unit2ctrl/...``) and buffers (the FAVOR+
-    projections, ``unit2ctrl/decoder/layer_i/attn/projection_matrix``) ->
-    the port's Sins / CombSub / CombSubFast (``pcmer``) or CombSubSuperFast
-    state dict (numpy)."""
-    tree = _Leaves(params)
-    buf = _Leaves(buffers) if buffers is not None else None
-    sd: dict = {}
-    _put_unit2control(sd, tree, buf, "unit2ctrl", "unit2ctrl", pcmer)
-    tree.finish()
-    if buf is not None:
-        buf.finish()
-    return sd
+    _put_wn_dense(sd, tree, f"{u}/dense_out", f"{un}.dense_out")
 
 
 def _put_naive_v2_diff(sd: dict, tree: _Leaves, d: str, dn: str,
@@ -239,78 +290,112 @@ def wavenet_state_dict(params: dict, n_layers: int) -> dict:
     return {k.split(".", 1)[1]: v for k, v in sd.items()}
 
 
-def unit2wav_fast_state_dict(params: dict, n_layers: int) -> dict:
-    """Unit2WavFast params (``ddsp_model/...``, ``denoise_fn/...``) -> the
-    port's ``models/cascade.Unit2WavFast`` state dict (numpy)."""
+def _fill_family(sd: dict, tree, buf, mtype: str, n_layers: int | None) -> None:
+    """The mapping of a model family, either way: ``tree`` is a ``_Leaves``
+    of JAX params (``buf`` its buffers, ``sd`` filled) or a ``_ToJax`` of
+    the state dict ``sd``. Scopes: a DDSP model at ``unit2ctrl/``; a
+    cascade's synth at ``ddsp_model/unit2ctrl/`` beside its denoiser
+    (``denoise_fn/``; the reflow velocity net at ``velocity_fn/``, beside
+    ``ddsp_model`` rather than under ``reflow_model/``, since the cascade's
+    own scope builds it); Unit2Mel's embeddings beside its WaveNet."""
+    if mtype in ("Sins", "CombSub", "CombSubFast", "CombSubSuperFast"):
+        _put_unit2control(sd, tree, buf, "unit2ctrl", "unit2ctrl",
+                          pcmer=mtype != "CombSubSuperFast")
+    elif mtype == "Diffusion":
+        for emb in ("unit_embed", "f0_embed", "volume_embed"):
+            _put_dense(sd, tree, emb, emb)
+        if tree.present(sd, "spk_embed/embedding", "spk_embed.weight"):
+            _put_embed(sd, tree, "spk_embed", "spk_embed")
+        if tree.present(sd, "aug_shift_embed/kernel", "aug_shift_embed.weight"):
+            _put_dense(sd, tree, "aug_shift_embed", "aug_shift_embed")
+        _put_wavenet(sd, tree, "denoise_fn", "denoise_fn", n_layers)
+    elif mtype == "DiffusionNew":
+        _put_unit2control(sd, tree, buf, "ddsp_model/unit2ctrl",
+                          "ddsp_model.unit2ctrl", pcmer=True)
+        _put_wavenet(sd, tree, "denoise_fn", "denoise_fn", n_layers)
+    elif mtype in ("DiffusionFast", "RectifiedFlow"):
+        net = "denoise_fn" if mtype == "DiffusionFast" else "velocity_fn"
+        _put_unit2control(sd, tree, None, "ddsp_model/unit2ctrl",
+                          "ddsp_model.unit2ctrl", pcmer=False)
+        _put_naive_v2_diff(sd, tree, net, net, n_layers)
+    else:
+        raise ValueError(f"unknown model type {mtype!r}")
+
+
+def _state_dict(mtype: str, params: dict, buffers,
+                n_layers: int | None = None) -> dict:
     tree = _Leaves(params)
+    buf = _Leaves(buffers) if isinstance(buffers, dict) else buffers
     sd: dict = {}
-    _put_unit2control(sd, tree, None, "ddsp_model/unit2ctrl",
-                      "ddsp_model.unit2ctrl", pcmer=False)
-    _put_naive_v2_diff(sd, tree, "denoise_fn", "denoise_fn", n_layers)
+    _fill_family(sd, tree, buf, mtype, n_layers)
     tree.finish()
+    if isinstance(buf, _Leaves):
+        buf.finish()
     return sd
+
+
+def ddsp_state_dict(params: dict, buffers: dict | None = None,
+                    pcmer: bool = True) -> dict:
+    """A DDSP model's params (``unit2ctrl/...``) and buffers (the FAVOR+
+    projections, ``unit2ctrl/decoder/layer_i/attn/projection_matrix``) ->
+    the port's Sins / CombSub / CombSubFast (``pcmer``) or CombSubSuperFast
+    state dict (numpy)."""
+    return _state_dict("Sins" if pcmer else "CombSubSuperFast", params, buffers)
+
+
+def unit2wav_fast_state_dict(params: dict, n_layers: int) -> dict:
+    """Unit2WavFast params -> the port's ``models/cascade.Unit2WavFast``
+    state dict (numpy)."""
+    return _state_dict("DiffusionFast", params, None, n_layers)
 
 
 def reflow_state_dict(params: dict, n_layers: int) -> dict:
-    """ReflowUnit2Wav params (``ddsp_model/...``; the velocity net at
-    ``velocity_fn/``, beside ``ddsp_model`` rather than under
-    ``reflow_model/``, since the cascade's own scope builds it) -> the
-    port's ``models/cascade.ReflowUnit2Wav`` state dict (numpy)."""
-    tree = _Leaves(params)
-    sd: dict = {}
-    _put_unit2control(sd, tree, None, "ddsp_model/unit2ctrl",
-                      "ddsp_model.unit2ctrl", pcmer=False)
-    _put_naive_v2_diff(sd, tree, "velocity_fn", "velocity_fn", n_layers)
-    tree.finish()
-    return sd
+    """ReflowUnit2Wav params -> the port's ``models/cascade.ReflowUnit2Wav``
+    state dict (numpy)."""
+    return _state_dict("RectifiedFlow", params, None, n_layers)
 
 
 def unit2mel_state_dict(params: dict, n_layers: int) -> dict:
-    """Unit2Mel params (the embeddings; the WaveNet at ``denoise_fn/``,
-    beside them) -> the port's ``models/cascade.Unit2Mel`` state dict."""
-    tree = _Leaves(params)
-    sd: dict = {}
-    for emb in ("unit_embed", "f0_embed", "volume_embed"):
-        _put_dense(sd, tree, emb, emb)
-    if tree.has("spk_embed/embedding"):
-        sd["spk_embed.weight"] = tree.take("spk_embed/embedding")
-    if tree.has("aug_shift_embed/kernel"):
-        _put_dense(sd, tree, "aug_shift_embed", "aug_shift_embed")
-    _put_wavenet(sd, tree, "denoise_fn", "denoise_fn", n_layers)
-    tree.finish()
-    return sd
+    """Unit2Mel params -> the port's ``models/cascade.Unit2Mel`` state
+    dict."""
+    return _state_dict("Diffusion", params, None, n_layers)
 
 
 def unit2wav_state_dict(params: dict, buffers: dict | None,
                         n_layers: int) -> dict:
-    """Unit2Wav params (``ddsp_model/...`` a CombSubFast with its PCmer and
-    FAVOR+ ``buffers``; the WaveNet at ``denoise_fn/``) -> the port's
-    ``models/cascade.Unit2Wav`` state dict (numpy)."""
-    tree = _Leaves(params)
-    buf = _Leaves(buffers) if buffers is not None else None
-    sd: dict = {}
-    _put_unit2control(sd, tree, buf, "ddsp_model/unit2ctrl",
-                      "ddsp_model.unit2ctrl", pcmer=True)
-    _put_wavenet(sd, tree, "denoise_fn", "denoise_fn", n_layers)
-    tree.finish()
-    if buf is not None:
-        buf.finish()
-    return sd
+    """Unit2Wav params (a CombSubFast with its PCmer and FAVOR+
+    ``buffers``) -> the port's ``models/cascade.Unit2Wav`` state dict."""
+    return _state_dict("DiffusionNew", params, buffers, n_layers)
 
 
 def model_state_dict(model_args, params: dict, buffers: dict | None = None) -> dict:
     """A checkpoint's params (and buffers) -> the state dict of the port's
     model for ``model_args`` (the config's ``model`` section)."""
-    mtype, n_layers = model_args.type, model_args.n_layers
-    if mtype in ("Sins", "CombSub", "CombSubFast", "CombSubSuperFast"):
-        return ddsp_state_dict(params, buffers, pcmer=mtype != "CombSubSuperFast")
-    if mtype == "Diffusion":
-        return unit2mel_state_dict(params, n_layers)
-    if mtype == "DiffusionNew":
-        return unit2wav_state_dict(params, buffers, n_layers)
-    if mtype == "RectifiedFlow":
-        return reflow_state_dict(params, n_layers)
-    return unit2wav_fast_state_dict(params, n_layers)
+    return _state_dict(model_args.type, params, buffers, model_args.n_layers)
+
+
+def model_params(model_args, state: dict) -> tuple[dict, dict | None]:
+    """The inverse of ``model_state_dict``: the port model's state dict
+    (tensors or numpy) -> (JAX params tree, JAX buffers tree or None), with
+    the JAX layout and names, v and g of the weight-normed Dense apart."""
+    tree = _ToJax(state)
+    _fill_family(state, tree, tree, model_args.type, model_args.n_layers)
+    tree.finish()
+    return tree.params, (tree.buffers or None)
+
+
+def moments_state_dict(model_args, tree: dict) -> dict:
+    """A tree shaped as the params (an optimizer's mu or nu) -> a dict by
+    the port's parameter names (no buffers)."""
+    return _state_dict(model_args.type, tree, _NO_BUFFERS, model_args.n_layers)
+
+
+def moments_params(model_args, named: dict) -> dict:
+    """The inverse: {port parameter name: tensor} -> the JAX params tree."""
+    tree = _ToJax(named, with_buffers=False)
+    _fill_family(named, tree, tree, model_args.type, model_args.n_layers)
+    tree.finish()
+    return tree.params
 
 
 def generator_state_dict(params: dict, n_upsamples: int = 5,

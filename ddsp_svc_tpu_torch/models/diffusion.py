@@ -296,8 +296,8 @@ class GaussianDiffusion:
     """DDPM schedule (1000 linear steps, max beta 0.02, the values every
     config uses) on normalised mel, inference with the samplers above:
     shallow from a given mel, or from noise at ``k_step`` (the model's
-    k_step_max) when there is none. Holds no parameters: the denoiser is
-    passed in."""
+    k_step_max) when there is none; and the training loss (``loss``). Holds
+    no parameters: the denoiser is passed in."""
 
     spec_min, spec_max = -12.0, 2.0
 
@@ -319,6 +319,33 @@ class GaussianDiffusion:
         c0 = float(np.float32(s["sqrt_alphas_cumprod"][t]))
         c1 = float(np.float32(s["sqrt_one_minus_alphas_cumprod"][t]))
         return c0 * x_start + c1 * noise
+
+    def loss(self, eps_fn: EpsFn, gt_spec: torch.Tensor,
+             k_step: int | None = None, t: torch.Tensor | None = None,
+             noise: torch.Tensor | None = None,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """The training loss (JAX ``infer=False``, diffusion.py:151-159):
+        t ~ U{0 .. k_step - 1} per row (``k_step`` defaults to the model's
+        k_step_max), the mel diffused to t with a normal draw, and the MSE
+        of the denoiser's noise prediction. ``t`` (B,) int and ``noise``
+        (B, T, M) are drawn from ``generator`` when not given."""
+        spec = self.norm_spec(gt_spec)
+        b = spec.shape[0]
+        t_max = self.k_step if k_step is None else int(k_step)
+        if t is None:
+            t = torch.randint(0, t_max, (b,), generator=generator,
+                              device=spec.device)
+        if noise is None:
+            noise = torch.randn(spec.shape, generator=generator,
+                                device=spec.device, dtype=spec.dtype)
+        s = self.schedule()
+        t = torch.as_tensor(t, device=spec.device).long()
+        coef = [torch.as_tensor(s[k].astype(np.float32), device=spec.device)[t]
+                [:, None, None] for k in ("sqrt_alphas_cumprod",
+                                          "sqrt_one_minus_alphas_cumprod")]
+        x_noisy = coef[0] * spec + coef[1] * noise
+        eps = eps_fn(x_noisy, t.to(spec.dtype))
+        return torch.mean((noise - eps) ** 2)
 
     def infer(self, eps_fn: EpsFn, gt_spec: torch.Tensor | None,
               k_step: int | None, infer_speedup: int = 10,

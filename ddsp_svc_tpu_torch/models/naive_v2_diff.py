@@ -1,13 +1,17 @@
 """NaiveV2Diff: the conv-only conformer denoiser of DiffusionFast (mirrors
 ddsp_svc_tpu/models/naive_v2_diff.py with use_mlp=False, conv_only=True,
 no norm, no wavenet_like). Each layer runs through kernel K3
-(ops/cuda_conformer.conformer_layer)."""
+(ops/cuda_conformer.conformer_layer), or with ``trunk_bf16`` through B3,
+K3's bf16 class (``conformer_layer_bf16``; JAX ``use_pallas=True,
+pallas_mxu_bf16=True``). No dropout fires in this trunk: JAX builds it
+conv-only with conv_dropout 0.0."""
 from __future__ import annotations
 
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda_conformer import conformer_layer
+from ..ops.cuda_conformer import (bf16_gemm_weights, conformer_layer,
+                                   conformer_layer_bf16)
 from .conformer import ConformerConvModule
 from .nn import Conv1d
 from .wavenet import sinusoidal_pos_emb
@@ -15,8 +19,10 @@ from .wavenet import sinusoidal_pos_emb
 
 class NaiveV2DiffLayer(nn.Module):
     def __init__(self, dim_model: int, dim_cond: int, expansion_factor: int = 2,
-                 kernel_size: int = 31):
+                 kernel_size: int = 31, trunk_bf16: bool = False):
         super().__init__()
+        self.trunk_bf16 = trunk_bf16
+        self._bf16 = (None, None)  # (the weights' versions, their bf16 copies)
         self.diffusion_step_projection = Conv1d(dim_model, dim_model, 1)
         self.condition_projection = Conv1d(dim_cond, dim_model, 1)
         self.conformer = ConformerConvModule(dim_model, expansion_factor,
@@ -32,27 +38,47 @@ class NaiveV2DiffLayer(nn.Module):
                 cm.depthwise.weight[:, 0, :], cm.depthwise.bias,
                 cm.conv2.weight[:, :, 0], cm.conv2.bias)
 
+    def bf16_weights(self, weights) -> tuple:
+        """B3's bf16 copies of Wc, W1, W2, rounded once and kept until a
+        weight changes: the key is each parameter's storage, device and
+        version counter, which every in-place update (an optimizer step,
+        ``load_state_dict``) advances, so training never reads stale
+        copies."""
+        params = (self.condition_projection.weight, self.conformer.conv1.weight,
+                  self.conformer.conv2.weight)
+        key = tuple((p.data_ptr(), p.device, p._version) for p in params)
+        if self._bf16[0] != key:
+            self._bf16 = (key, bf16_gemm_weights(weights))
+        return self._bf16[1]
+
     def forward(self, x, condition, diffusion_step):
         """x (B, T, C), condition (B, T, Hc), diffusion_step (B, 1, C)."""
         # the step projection of the (B, 1, C) embedding stays outside the
         # kernel, as in JAX
         step_vec = self.diffusion_step_projection(diffusion_step)[:, 0, :]
-        return conformer_layer(x, condition, step_vec.contiguous(),
-                               self.kernel_weights())
+        weights = self.kernel_weights()
+        if self.trunk_bf16:
+            packed = self.bf16_weights(weights) if x.is_cuda else None
+            return conformer_layer_bf16(x, condition, step_vec.contiguous(),
+                                        weights, packed)
+        return conformer_layer(x, condition, step_vec.contiguous(), weights)
 
 
 class NaiveV2Diff(nn.Module):
+    ZERO_INIT = ("output_projection",)  # zero weights at training init
+
     def __init__(self, mel_channels: int = 128, dim: int = 512,
                  condition_dim: int = 128, num_layers: int = 6,
                  mlp_factor: int = 4, expansion_factor: int = 2,
-                 kernel_size: int = 31):
+                 kernel_size: int = 31, trunk_bf16: bool = False):
         super().__init__()
         self.dim = dim
         self.input_projection = Conv1d(mel_channels, dim, 1)
         self.diff_emb_0 = nn.Linear(dim, dim * mlp_factor)
         self.diff_emb_1 = nn.Linear(dim * mlp_factor, dim)
         self.layers = nn.ModuleList(
-            NaiveV2DiffLayer(dim, condition_dim, expansion_factor, kernel_size)
+            NaiveV2DiffLayer(dim, condition_dim, expansion_factor, kernel_size,
+                             trunk_bf16)
             for _ in range(num_layers))
         self.output_projection = Conv1d(dim, mel_channels, 1)
 

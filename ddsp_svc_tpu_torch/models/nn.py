@@ -6,8 +6,9 @@ the last axis and compute the same functions.
 
 Parameters are in the torch layout (Conv1d (out, in / groups, k),
 ConvTranspose1d (in, out, k), Linear (out, in)); the modules transpose to
-(B, C, T) around ``F.conv1d`` internally. Weight norm is folded when JAX
-params are loaded (io/jax_params.py), so no module here carries it.
+(B, C, T) around ``F.conv1d`` internally. ``WNLinear`` keeps a weight-
+normed Dense as JAX trains it, direction and gain apart; the vocoder's
+weight norm is folded when JAX params are loaded (io/jax_params.py).
 """
 from __future__ import annotations
 
@@ -76,6 +77,28 @@ class ConvTranspose1d(nn.Module):
         return y.transpose(1, 2) + self.bias.to(dtype)
 
 
+class WNLinear(nn.Module):
+    """The JAX ``Dense(weight_norm=True)`` (nn.py:303-326) as two trained
+    parameters: ``weight_v`` (out, in), the JAX ``kernel_v`` transposed, and
+    ``weight_g`` (out,), its ``kernel_g``; the weight is v * g / (||v|| +
+    1e-12), the norm over the input axis of each output row, recomputed at
+    every call so that gradients and optimizer moments live on v and g as in
+    JAX."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight_v = nn.Parameter(torch.empty(out_features, in_features))
+        self.weight_g = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def weight(self) -> torch.Tensor:
+        norm = torch.sqrt(torch.sum(self.weight_v * self.weight_v, dim=1))
+        return self.weight_v * (self.weight_g / (norm + 1e-12))[:, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight(), self.bias)
+
+
 class GroupNorm(nn.Module):
     """torch GroupNorm (eps 1e-5) on (B, T, C): statistics over time and the
     channels of each group."""
@@ -92,12 +115,18 @@ class GroupNorm(nn.Module):
         return y.transpose(1, 2)
 
 
-def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+def random_init_(module: nn.Module, generator: torch.Generator,
+                 training: bool = False) -> nn.Module:
     """Fill every parameter from ``generator`` with torch's default-init
     ranges: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for conv and linear weights
-    and biases, ones/zeros for norms, N(0, 1) for embeddings, and a FAVOR+
-    projection buffer (models/pcmer.py) drawn as the reference draws it.
-    Unlike the JAX init, no projection is left at zero."""
+    and biases (JAX ``_kaiming_uniform_torch``), ones/zeros for norms,
+    N(0, 1 / features) for embeddings (flax ``Embed``), a weight-normed layer's gain g = ||v|| (as JAX inits
+    ``kernel_g``), and a FAVOR+ projection buffer (models/pcmer.py) drawn as
+    the reference draws it. With ``training`` the draw is the JAX training
+    init exactly: the denoisers' final projections (each module's
+    ``ZERO_INIT`` children, NaiveV2Diff's and WaveNet's ``output_projection``)
+    get zero weights. Without it no projection is left at zero, so a random
+    serving model's denoiser does real work."""
     for mod in module.modules():
         if hasattr(mod, "redraw_projection_matrix"):
             mod.redraw_projection_matrix(generator)
@@ -110,9 +139,18 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 mod.bias.fill_(0.0)
             continue
         if isinstance(mod, nn.Embedding):
-            with torch.no_grad():
+            with torch.no_grad():  # flax Embed: N(0, 1 / features)
                 mod.weight.copy_(torch.randn(mod.weight.shape,
-                                             generator=generator))
+                                             generator=generator)
+                                 / math.sqrt(mod.weight.shape[1]))
+            continue
+        if isinstance(mod, WNLinear):
+            bound = 1.0 / math.sqrt(mod.weight_v.shape[1])
+            with torch.no_grad():
+                for p in (mod.weight_v, mod.bias):
+                    p.copy_((torch.rand(p.shape, generator=generator) * 2.0
+                             - 1.0) * bound)
+                mod.weight_g.copy_(torch.linalg.norm(mod.weight_v, dim=1))
             continue
         w = params["weight"]
         if isinstance(mod, ConvTranspose1d):
@@ -124,4 +162,9 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             for p in params.values():
                 p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0)
                         * bound)
+    if training:
+        for mod in module.modules():
+            for name in getattr(mod, "ZERO_INIT", ()):
+                with torch.no_grad():
+                    getattr(mod, name).weight.zero_()
     return module

@@ -1,8 +1,8 @@
-"""Rectified flow on mel at inference (mirrors
-ddsp_svc_tpu/models/reflow.py ``RectifiedFlow``): the Euler or RK4 ODE of
-the velocity net from the shallow start x = t_start * norm_spec(mel) +
-(1 - t_start) * noise, or from the noise itself at t = 0 when there is no
-mel. Mel layout is (B, T, M).
+"""Rectified flow on mel (mirrors ddsp_svc_tpu/models/reflow.py
+``RectifiedFlow``): at inference the Euler or RK4 ODE of the velocity net
+from the shallow start x = t_start * norm_spec(mel) + (1 - t_start) *
+noise, or from the noise itself at t = 0 when there is no mel; in training
+the velocity loss (``loss``). Mel layout is (B, T, M).
 
 The time arithmetic is the JAX package's: t accumulates as a Python float,
 is filled as f32 per step and scaled by 1000 in f32 inside the velocity
@@ -35,6 +35,40 @@ class RectifiedFlow:
 
     def denorm_spec(self, x):
         return (x + 1.0) / 2.0 * (self.spec_max - self.spec_min) + self.spec_min
+
+    def loss(self, velocity_fn: VelocityFn, gt_spec: torch.Tensor,
+             t_start: float = 0.0, t: torch.Tensor | None = None,
+             x_0: torch.Tensor | None = None, loss_type: str = "l2_lognorm",
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """The training loss (JAX ``infer=False``, reflow.py:58-80): t =
+        t_start + (1 - t_start) U, clipped to [1e-7, 1 - 1e-7], x_t = x_0 +
+        t (x_1 - x_0) with x_1 the normalised mel and x_0 a normal draw, and
+        the velocity's error against x_1 - x_0 by ``loss_type`` ('l1',
+        'l2', or 'l2_lognorm': l2 weighted by the log-normal density of t).
+        ``t`` (B,) and ``x_0`` (B, T, M) are drawn from ``generator`` when
+        not given."""
+        x_1 = self.norm_spec(gt_spec)
+        b = x_1.shape[0]
+        t_start = max(float(t_start), 0.0)
+        if t is None:
+            u = torch.rand((b,), generator=generator, device=x_1.device,
+                           dtype=x_1.dtype)
+            t = torch.clamp(t_start + (1.0 - t_start) * u, 1e-7, 1.0 - 1e-7)
+        t = torch.as_tensor(t, dtype=x_1.dtype).to(x_1.device)
+        if x_0 is None:
+            x_0 = torch.randn(x_1.shape, generator=generator,
+                              device=x_1.device, dtype=x_1.dtype)
+        x_t = x_0 + t[:, None, None] * (x_1 - x_0)
+        err = (x_1 - x_0) - velocity_fn(x_t, 1000.0 * t)
+        if loss_type == "l1":
+            return torch.mean(torch.abs(err))
+        if loss_type == "l2":
+            return torch.mean(err ** 2)
+        if loss_type == "l2_lognorm":
+            w = 0.398942 / t / (1.0 - t) * torch.exp(
+                -0.5 * torch.log(t / (1.0 - t)) ** 2)
+            return torch.mean(w[:, None, None] * err ** 2)
+        raise NotImplementedError(f"loss_type {loss_type!r}")
 
     def infer(self, velocity_fn: VelocityFn, gt_spec: torch.Tensor | None,
               infer_step: int = 10, sampler: str = "euler",

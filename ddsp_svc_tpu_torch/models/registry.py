@@ -31,7 +31,9 @@ def model_family(model_type: str) -> str:
 
 def build_model(args, vocoder_dimension: int = 128) -> torch.nn.Module:
     """args: DotDict config (configs/*.yaml schema). Returns a module with
-    uninitialised parameters."""
+    uninitialised parameters. As in JAX, the config has no switch for the
+    bf16 trunk: build ``Unit2WavFast`` / ``ReflowUnit2Wav`` with
+    ``trunk_bf16=True`` for B3."""
     m, d = args.model, args.data
     model_family(m.type)
     if m.type == "Sins":
@@ -57,10 +59,12 @@ def build_model(args, vocoder_dimension: int = 128) -> torch.nn.Module:
                         m.n_spk, bool(m.use_pitch_aug), vocoder_dimension,
                         m.n_layers, m.n_chans, pcmer_norm=bool(m.pcmer_norm),
                         k_step_max=m.k_step_max or 1000)
-    cls = Unit2WavFast if m.type == "DiffusionFast" else ReflowUnit2Wav
-    return cls(d.sampling_rate, d.block_size, m.win_length,
-               d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
-               vocoder_dimension, m.n_layers, m.n_chans)
+    common = (d.sampling_rate, d.block_size, m.win_length,
+              d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
+              vocoder_dimension, m.n_layers, m.n_chans)
+    if m.type == "DiffusionFast":
+        return Unit2WavFast(*common, k_step_max=m.k_step_max or 1000)
+    return ReflowUnit2Wav(*common)
 
 
 def load_model(model_path: str, device: str | torch.device | None = None):

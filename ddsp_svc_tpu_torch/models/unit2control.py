@@ -3,7 +3,13 @@
 a conv stack (``use_conv_stack``) or one conv, additive embeddings (the
 speaker's, or a speaker mix), a
 3-layer decoder -- PCmer by default, the conv-only conformer with
-``use_naive_v2`` -- LayerNorm and the output projection)."""
+``use_naive_v2`` -- LayerNorm and the weight-normed output projection).
+
+JAX declares dropout in both decoders (PCmer's residual and attention
+dropout of 0.1, the naive encoder's attention dropout of 0.1) but applies
+none: PCmer's layers never call a Dropout, and the naive encoder is
+conv-only with conv_dropout 0.0. A training forward here is therefore the
+inference forward, in ``train()`` as in ``eval()``."""
 from __future__ import annotations
 
 import math
@@ -14,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .conformer import ConformerNaiveEncoder
-from .nn import Conv1d, GroupNorm
+from .nn import Conv1d, GroupNorm, WNLinear
 from .pcmer import PCmer
 
 
@@ -61,7 +67,8 @@ class Unit2Control(nn.Module):
         self.decoder = (ConformerNaiveEncoder(3, 256) if use_naive_v2
                         else PCmer(3, 8, 256, pcmer_norm=pcmer_norm))
         self.norm = nn.LayerNorm(256)  # eps 1e-5, as JAX
-        self.dense_out = nn.Linear(256, sum(self.output_splits.values()))
+        # weight-normed as in JAX (unit2control.py:119): v and g are trained
+        self.dense_out = WNLinear(256, sum(self.output_splits.values()))
 
     def forward(self, units, f0, phase, volume, spk_id=None, aug_shift=None,
                 spk_mix_dict: Mapping | None = None):

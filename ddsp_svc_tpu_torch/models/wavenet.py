@@ -50,6 +50,7 @@ class WaveNetResidualBlock(nn.Module):
 class WaveNet(nn.Module):
     """spec (B, T, M), diffusion_step (B,) float, cond (B, T, H) -> the
     predicted noise (B, T, M)."""
+    ZERO_INIT = ("output_projection",)  # zero weights at training init
 
     def __init__(self, in_dims: int = 128, n_layers: int = 20,
                  n_chans: int = 384, n_hidden: int = 256):

@@ -1,5 +1,6 @@
 """K3: one NaiveV2Diff denoiser layer as CUDA kernels
-(``csrc/conformer.cu``), its plain PyTorch version and its launch counter.
+(``csrc/conformer.cu``), its plain PyTorch version and its launch counter;
+and B3, the same layer in JAX's bf16 class (``mxu_bf16=True``).
 
 Replaces ddsp_svc_tpu/ops/pallas_conformer.py ``fused_conformer_layer``
 (f32 mode). Weights are in the torch layout: ``(Wc (C, Hc), bc, W1 (2I, C),
@@ -12,6 +13,14 @@ With grad on, ``ConformerLayerFunction`` puts the kernel behind the JAX
 package's custom VJP (``_fused_layer_bwd``, pallas_conformer.py:168-175):
 the backward is autograd through ``conformer_layer_plain`` recomputed from
 the saved x, cond, step_vec and the eight weights.
+
+B3 (``conformer_layer_bf16``) rounds the three GEMMs' operands -- cond, h,
+s and Wc, W1, W2 -- to bf16 (round to nearest even) and sums their products
+in f32; every other value stays f32. Its weights are rounded once per model
+(``bf16_gemm_weights``, cached by the caller on the parameters' version
+counters). Its backward is the f32 chain, as JAX's ``_fused_layer_bwd``
+differentiates ``_stock_layer`` at x's dtype (f32) whatever ``mxu_bf16``
+is (pallas_conformer.py:166-173).
 """
 from __future__ import annotations
 
@@ -21,20 +30,80 @@ import torch.nn.functional as F
 from . import kernels
 
 
-def conformer_layer_plain(x, cond, step_vec, weights):
-    """The layer in plain PyTorch (JAX ``_stock_layer``):
-    h = x + step + cond Wc^T + bc; u = GLU(h W1^T + b1);
-    v = depthwise(u) + bd; out = x + silu(v) W2^T + b2."""
+def _layer(x, cond, step_vec, weights, operand):
+    """The layer with each GEMM operand passed through ``operand``."""
     wc, bc, w1, b1, wd, bd, w2, b2 = weights
-    h = x + step_vec[:, None, :] + torch.matmul(cond, wc.t()) + bc
-    g = torch.matmul(h, w1.t()) + b1
+    h = x + step_vec[:, None, :] + torch.matmul(operand(cond), operand(wc).t()) + bc
+    g = torch.matmul(operand(h), operand(w1).t()) + b1
     a, gate = g.chunk(2, dim=-1)
     u = a * torch.sigmoid(gate)
     k = wd.shape[-1]
     v = F.conv1d(u.transpose(1, 2), wd[:, None, :], padding=(k - 1) // 2,
                  groups=u.shape[-1]).transpose(1, 2) + bd
     s = v * torch.sigmoid(v)
-    return x + torch.matmul(s, w2.t()) + b2
+    return x + torch.matmul(operand(s), operand(w2).t()) + b2
+
+
+def conformer_layer_plain(x, cond, step_vec, weights):
+    """The layer in plain PyTorch (JAX ``_stock_layer``):
+    h = x + step + cond Wc^T + bc; u = GLU(h W1^T + b1);
+    v = depthwise(u) + bd; out = x + silu(v) W2^T + b2."""
+    return _layer(x, cond, step_vec, weights, lambda t: t)
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 (ties to even), back in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def conformer_layer_bf16_plain(x, cond, step_vec, weights):
+    """B3 in plain PyTorch (JAX ``_layer_kernel`` with ``mxu_bf16``): the
+    layer with cond, h, s and Wc, W1, W2 rounded to bf16 and f32 matmuls (a
+    product of two bf16 values is exact in f32)."""
+    return _layer(x, cond, step_vec, weights, bf16_round)
+
+
+def bf16_gemm_weights(weights) -> tuple:
+    """(Wc, W1, W2) of ``weights`` rounded to bf16, as B3 reads them."""
+    wc, _, w1, _, _, _, w2, _ = weights
+    with torch.no_grad():
+        return tuple(w.detach().to(torch.bfloat16).contiguous()
+                     for w in (wc, w1, w2))
+
+
+# B3's tolerance against its plain version, or against the same function
+# with exact (float64) sums, taken on the layer's branch (out - x): every
+# element within BF16_LAYER_ATOL x max|branch|, and at most
+# BF16_LAYER_MAX_BEYOND of the elements beyond BF16_LAYER_NEAR x max|branch|.
+# h and s are rounded to bf16 after an f32 sum, and any other sum order
+# flips some of those roundings: a flipped h moves a row of g by one bf16 ulp
+# of h through W1, a flipped s a row of the output by one ulp of s through
+# W2. On the CPU, torch's f32 sums and a split-K order sit at most 3.7e-4 x
+# max|branch| from the exact sums (B 1, T 862 and B 4, T 172 at C 512, and
+# a narrow layer), with no element beyond 2^-10; a planted extra bf16
+# rounding of h before its bias, or of each GEMM's output, puts 16-21 % of
+# the elements beyond 2^-10 (so does the f32 layer, which rounds nothing).
+BF16_LAYER_ATOL = 2.0 ** -8
+BF16_LAYER_NEAR = 2.0 ** -10
+BF16_LAYER_MAX_BEYOND = 0.02
+
+
+def bf16_layer_agreement(got: torch.Tensor, want: torch.Tensor,
+                         x: torch.Tensor) -> dict:
+    """How B3's output ``got`` agrees with a reference ``want`` for the
+    layer input ``x``: ``ok`` (the tolerance above), ``beyond`` (the share
+    of branch elements beyond BF16_LAYER_NEAR), ``rel`` (the largest
+    difference over max|branch|) and ``max_abs_err``."""
+    x = x.double().to(want.device)
+    branch = want.double() - x
+    diff = (got.double().to(want.device) - x - branch).abs()
+    scale = float(branch.abs().max())
+    beyond = float((diff > BF16_LAYER_NEAR * scale).double().mean())
+    rel = float(diff.max()) / max(scale, 1e-30)
+    return dict(ok=rel <= BF16_LAYER_ATOL and beyond <= BF16_LAYER_MAX_BEYOND,
+                beyond=beyond, rel=rel,
+                max_abs_err=float((got.double().to(want.device)
+                                   - want.double()).abs().max()))
 
 
 def _check(x, cond, step_vec, weights):
@@ -116,3 +185,67 @@ def _launch(x, cond, step_vec, weights):
 
 
 conformer_layer.launches = 0
+
+# B3 reuses K3's Function: its forward launches the bf16 kernel, its
+# backward is the same f32 plain chain
+ConformerLayerBf16Function = ConformerLayerFunction
+
+
+def conformer_layer_bf16(x, cond, step_vec, weights, packed=None):
+    """B3: x (B, T, C), cond (B, T, Hc), step_vec (B, C) -> (B, T, C) f32.
+    ``packed``: ``bf16_gemm_weights(weights)``, made here when None.
+
+    A CPU tensor takes the plain version (through
+    ``ConformerLayerBf16Function`` when grad is wanted, so the gradient is
+    the f32 chain's); a CUDA tensor launches the bf16 kernels and counts
+    one launch in ``conformer_layer_bf16.launches``."""
+    if x.device.type == "cpu":
+        if kernels.grad_wanted(x, cond, step_vec, *weights):
+            return ConformerLayerBf16Function.apply(
+                conformer_layer_bf16_plain, x, cond, step_vec,
+                *weights)
+        return conformer_layer_bf16_plain(x, cond, step_vec, weights)
+    if packed is None:
+        packed = bf16_gemm_weights(weights)
+
+    def launch(x, cond, step_vec, weights):
+        return _launch_bf16(x, cond, step_vec, weights, packed)
+
+    if kernels.grad_wanted(x, cond, step_vec, *weights):
+        return ConformerLayerBf16Function.apply(launch, x, cond, step_vec,
+                                                *weights)
+    return launch(x, cond, step_vec, weights)
+
+
+def _launch_bf16(x, cond, step_vec, weights, packed):
+    kernels.check_cuda_input(x, "conformer_layer_bf16 x", 3)
+    _check(x, cond, step_vec, weights)
+    b, t, c = x.shape
+    wc, bc, w1, b1, wd, bd, w2, b2 = weights
+    inner, k = wd.shape
+    if c % 8 or cond.shape[-1] % 8 or inner % 8:
+        raise ValueError(f"conformer_layer_bf16: C, Hc and I multiples of 8, "
+                         f"got {c}, {cond.shape[-1]}, {inner}")
+    for name, p, w in zip(("wc", "w1", "w2"), packed, (wc, w1, w2)):
+        kernels.check_cuda_input(p, f"conformer_layer_bf16 {name} (bf16)", 2,
+                                 torch.bfloat16)
+        if p.shape != w.shape or p.device != x.device:
+            raise ValueError(f"conformer_layer_bf16: packed {name} does not "
+                             f"match its weight")
+    out = torch.empty_like(x)
+    h = torch.empty_like(x)
+    u = torch.empty(b, t, inner, device=x.device, dtype=x.dtype)
+    s = torch.empty_like(u)
+    pc, p1, p2 = packed
+    err = kernels.library().ddsp_conformer_layer_bf16(
+        x.data_ptr(), cond.data_ptr(), step_vec.data_ptr(), pc.data_ptr(),
+        bc.data_ptr(), p1.data_ptr(), b1.data_ptr(), wd.data_ptr(),
+        bd.data_ptr(), p2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        h.data_ptr(), u.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1],
+        inner, k, kernels.stream_handle(x.device))
+    kernels.check(err, "conformer_layer_bf16")
+    kernels.count_launch(conformer_layer_bf16)
+    return out
+
+
+conformer_layer_bf16.launches = 0

@@ -49,6 +49,8 @@ _SIGNATURES = {
     # (x, cond, step_vec, wc, bc, w1, b1, wd, bd, w2, b2, out, h, u, s,
     #  batch, t, c, hc, inner, k, stream)
     "ddsp_conformer_layer": (_P,) * 15 + (_I,) * 6 + (_P,),
+    # the same for K3's bf16 class (wc, w1, w2 bf16)
+    "ddsp_conformer_layer_bf16": (_P,) * 15 + (_I,) * 6 + (_P,),
     # (x, amps, out, batch, n_frames, block, n_harm, stream)
     "ddsp_harmonic_bank": (_P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -62,3 +62,13 @@ def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
     y = y / torch.clamp(norm, min=1e-11)
     y = y[:, n_fft // 2: y.shape[1] - n_fft // 2]
     return y if length is None else y[:, :length]
+
+
+def spectrogram(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """Magnitude spectrogram with torchaudio's Spectrogram(power=1,
+    normalized=True, center=False) semantics, as the SSS loss takes it:
+    (B, L) -> (B, n_fft // 2 + 1, n_frames)."""
+    window = _hann(n_fft, x)
+    frames = frame_signal(x, n_fft, hop_length) * window
+    mag = torch.abs(torch.fft.rfft(frames, n_fft, dim=-1))
+    return (mag / torch.sqrt(torch.sum(window * window))).transpose(1, 2)

@@ -5,7 +5,8 @@ every worker collects the same tests; here they skip without one.
 
 TF32 is off for the plain versions. Tolerances: K1 5e-5 absolute on the
 samples and 1e-6 rad on ``phase_frames``; K2 and K3 1e-4 relative to
-max|out|, since sums run in another order; K4 3e-5 absolute."""
+max|out|, since sums run in another order; K2's and K3's bf16 classes
+their ``bf16_agreement`` / ``bf16_layer_agreement``; K4 3e-5 absolute."""
 import math
 
 import numpy as np
@@ -234,6 +235,93 @@ def test_conformer_layer_kernel(cuda, b, t, c, hc, k):
     assert conformer_layer.launches == n0 + 1
     want = conformer_layer_plain(x, cond, step, w)
     assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("b,t,c,hc,k", [(1, 862, 512, 128, 31), (48, 172, 512, 128, 31),
+                                        (1, 37, 64, 32, 7), (2, 101, 128, 16, 31)])
+def test_conformer_layer_bf16_kernel(cuda, b, t, c, hc, k):
+    """B3 against its plain version within ``bf16_layer_agreement`` (other
+    f32 sum orders flip bf16 roundings of h and s), at the 10 s and the
+    training shapes and at B = 1, 2 with ragged T; one launch per call."""
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import (bf16_layer_agreement,
+                                                       conformer_layer_bf16,
+                                                       conformer_layer_bf16_plain)
+
+    gen = torch.Generator().manual_seed(t)
+    inner = 2 * c
+
+    def r(*shape, scale):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).to(cuda)
+
+    x, cond, step = r(b, t, c, scale=1.0), r(b, t, hc, scale=1.0), r(b, c, scale=1.0)
+    w = (r(c, hc, scale=hc ** -0.5), r(c, scale=0.1), r(2 * inner, c, scale=c ** -0.5),
+         r(2 * inner, scale=0.1), r(inner, k, scale=k ** -0.5), r(inner, scale=0.1),
+         r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
+    n0 = conformer_layer_bf16.launches
+    got = conformer_layer_bf16(x, cond, step, w)
+    torch.cuda.synchronize()
+    assert conformer_layer_bf16.launches == n0 + 1
+    agree = bf16_layer_agreement(got, conformer_layer_bf16_plain(x, cond, step, w), x)
+    assert agree["ok"], agree
+
+
+def test_conformer_layer_bf16_backward(cuda):
+    """B3 with grad on: one launch in the forward, none in the backward,
+    every .grad plain autograd's of the f32 chain within 1e-4 x max|grad|
+    (JAX's ``_fused_layer_bwd`` differentiates the f32 layer whatever
+    ``mxu_bf16`` is)."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer as cc
+
+    gen = torch.Generator().manual_seed(8)
+    b, t, c, hc, inner, k = 2, 300, 512, 128, 1024, 31
+    leaves = _leaves(gen, cuda, ((b, t, c), 1.0), ((b, t, hc), 1.0), ((b, c), 1.0),
+                     ((c, hc), hc ** -0.5), ((c,), 0.1), ((2 * inner, c), c ** -0.5),
+                     ((2 * inner,), 0.1), ((inner, k), k ** -0.5), ((inner,), 0.1),
+                     ((c, inner), inner ** -0.5), ((c,), 0.1))
+    x, cond, step, *w = leaves
+    grad_out = torch.randn((b, t, c), generator=gen).to(cuda)
+    n0 = cc.conformer_layer_bf16.launches
+    got, got_grads = _backward(lambda: cc.conformer_layer_bf16(x, cond, step, w),
+                               leaves, grad_out)
+    torch.cuda.synchronize()
+    assert cc.conformer_layer_bf16.launches == n0 + 1
+    _, want_grads = _backward(lambda: cc.conformer_layer_plain(x, cond, step, w),
+                              leaves, grad_out)
+    assert cc.conformer_layer_bf16.launches == n0 + 1
+    assert cc.bf16_layer_agreement(got, cc.conformer_layer_bf16_plain(
+        x.detach(), cond.detach(), step.detach(), [v.detach() for v in w]),
+        x.detach())["ok"]
+    for g, w_ in zip(got_grads, want_grads):
+        assert _rel(g, w_) <= 1e-4
+
+
+def test_bf16_trunk_never_serves_stale_weights(cuda):
+    """A bf16 trunk layer after an optimizer step launches B3 with its new
+    weights (its output is the plain version's on them), where the bf16
+    copies made before the step give another output."""
+    from ddsp_svc_tpu_torch.models.naive_v2_diff import NaiveV2DiffLayer
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.ops import cuda_conformer as cc
+
+    layer = random_init_(NaiveV2DiffLayer(512, 128, trunk_bf16=True),
+                         torch.Generator().manual_seed(1)).to(cuda)
+    gen = torch.Generator().manual_seed(2)
+    x, cond = (torch.randn(s, generator=gen).to(cuda) for s in ((1, 200, 512),
+                                                               (1, 200, 128)))
+    diff_step = torch.randn((1, 1, 512), generator=gen).to(cuda)
+    opt = torch.optim.AdamW(layer.parameters(), lr=1e-2)
+    layer(x, cond, diff_step).square().mean().backward()
+    stale = layer.bf16_weights(layer.kernel_weights())
+    opt.step()
+    with torch.no_grad():
+        got = layer(x, cond, diff_step)
+        step_vec = layer.diffusion_step_projection(diff_step)[:, 0, :].contiguous()
+        weights = layer.kernel_weights()
+        want = cc.conformer_layer_bf16_plain(x, cond, step_vec, weights)
+        old = cc.conformer_layer_bf16(x, cond, step_vec, weights, stale)
+    torch.cuda.synchronize()
+    assert cc.bf16_layer_agreement(got, want, x)["ok"]
+    assert not cc.bf16_layer_agreement(old, want, x)["ok"]
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

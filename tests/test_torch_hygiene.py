@@ -1,7 +1,8 @@
 """Static checks of the port: no module of it (nor chip_smoke.py) imports
-JAX, Flax, Optax or the JAX package -- by an AST scan, since the test
-interpreter may have imported jax already -- yaml and msgpack only inside
-functions, and its entry points default to the CUDA card."""
+JAX, Flax, Optax, the JAX package, PyYAML, msgpack, tqdm or matplotlib --
+by an AST scan, since the test interpreter may have imported them already;
+the card machine has none of them -- and its entry points default to the
+CUDA card."""
 import ast
 import inspect
 from pathlib import Path
@@ -16,8 +17,8 @@ from ddsp_svc_tpu_torch.models.vocoder import Enhancer, Vocoder
 from ddsp_svc_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddsp_svc_tpu")
-LAZY_ONLY = ("yaml", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddsp_svc_tpu", "yaml", "msgpack",
+             "tqdm", "matplotlib")
 
 
 def _sources():
@@ -27,25 +28,21 @@ def _sources():
 
 
 def _imports(tree):
-    """(module name, at module level?) for every import statement."""
-    top = {id(n) for n in tree.body}
+    """The module name of every absolute import statement."""
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield alias.name, id(node) in top
+                yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module, id(node) in top
+            yield node.module
 
 
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    for name, at_top in _imports(tree):
-        root = name.split(".")[0]
-        assert root not in FORBIDDEN, f"{path}: imports {name}"
-        assert not (at_top and root in LAZY_ONLY), (
-            f"{path}: imports {name} at module level")
+    for name in _imports(tree):
+        assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -146,3 +143,20 @@ def test_realtime_cli_defaults_to_cuda(monkeypatch):
     assert cli_realtime.parse_args(argv + ["--voc_bf16"]).voc_bf16
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_realtime.main(argv + ["--voc_bf16"])
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """cli.train and cli.preprocess: --device defaults to the card, and
+    without one both raise "no CUDA device" before any model is built."""
+    from ddsp_svc_tpu_torch.cli import preprocess as cli_preprocess
+    from ddsp_svc_tpu_torch.cli import train as cli_train
+    from ddsp_svc_tpu_torch.utils.config import save_config
+
+    cfg = str(tmp_path / "config.yaml")
+    save_config(cfg, {"data": {"sampling_rate": 16000, "block_size": 64},
+                      "model": {"type": "CombSubSuperFast"},
+                      "train": {"amp_dtype": "fp32"}, "env": {"expdir": "exp"}})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (cli_train.main, cli_preprocess.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["-c", cfg])

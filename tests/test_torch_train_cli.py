@@ -1,0 +1,162 @@
+"""The training entry points end to end on the CPU: ``cli.preprocess`` on a
+small corpus, then ``cli.train`` (``--device cpu``) warm-started from a
+``model_0`` the JAX package wrote, three steps whose losses match the JAX
+loop's on the same batches, parameters and draws, a save, a resume at the
+right step with the learning rate the schedule gives there, retention, and
+the refusal of ``amp_dtype: bf16`` and of a multi-process launch.
+
+Tolerance of the losses: step 1 starts from the same parameters, 1e-5
+relative. AdamW's first updates are about lr x sign(g) per element, so an
+element whose gradient the two packages round to opposite signs moves by
+2 lr; at the configs' rate (2e-4) steps 2 and 3 stay within 2.8e-6
+relative over four preprocess seeds (at 2e-3: up to 1.2e-3), and are held
+at 1e-4. The preprocess draws are seeded (``--seed 3``)."""
+import os
+
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+import jax
+import jax.numpy as jnp
+
+import ddsp_svc_tpu.data.dataset as jds
+from ddsp_svc_tpu.models.registry import build_model as jax_build_model
+from ddsp_svc_tpu.train.checkpoint import save_checkpoint as jax_save
+from ddsp_svc_tpu.train.state import create_train_state as jax_train_state
+from ddsp_svc_tpu_torch.cli import preprocess as pprep
+from ddsp_svc_tpu_torch.cli import train as ptrain
+from ddsp_svc_tpu_torch.train import solver
+from ddsp_svc_tpu_torch.train.checkpoint import latest_checkpoint
+from ddsp_svc_tpu_torch.utils.config import save_config
+from torch_train_helpers import jax_mel_fn, jax_variables, tiny_config
+
+SR, HOP, STEPS, LR = 44100, 512, 3, 2e-4
+
+
+def _corpus(root, seconds, seed):
+    rng = np.random.default_rng(seed)
+    for i, sec in enumerate(seconds):
+        n = np.arange(int(SR * sec))
+        f = (170.0 + 25 * i) * (1 + 0.03 * np.sin(2 * np.pi * 5 * n / SR))
+        a = 0.3 * np.sin(2 * np.pi * np.cumsum(f) / SR) + 0.01 * rng.standard_normal(len(n))
+        path = os.path.join(root, "audio", f"f{i}.wav")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        wavfile.write(path, SR, (a * 32767).astype(np.int16))
+
+
+def _config(tmp_path, **train):
+    args = tiny_config("DiffusionFast", **dict(dict(
+        batch_size=2, cache_all_data=True, interval_log=1, interval_val=STEPS,
+        interval_force_save=0, save_opt=True, decay_step=4, gamma=0.5, lr=LR,
+        weight_decay=0.01, epochs=100000, amp_dtype="fp32"), **train))
+    args["data"].update(encoder="tiny", encoder_ckpt=str(tmp_path / "absent.npz"),
+                        encoder_out_channels=256,
+                        train_path=str(tmp_path / "data" / "train"),
+                        valid_path=str(tmp_path / "data" / "val"))
+    args["env"]["expdir"] = str(tmp_path / "exp")
+    path = str(tmp_path / "config.yaml")
+    save_config(path, args)
+    return args, path
+
+
+def _draws(step, b, t):
+    """The draws of step ``step``: the synth noise, and the diffusion t and
+    noise as JAX draws them from the step's key."""
+    rng = np.random.default_rng(100 + step)
+    key = jax.random.PRNGKey(200 + step)
+    key_t, key_n = jax.random.split(key)
+    return key, {
+        "ddsp_noise": rng.standard_normal((b, t * HOP)).astype(np.float32),
+        "t": np.asarray(jax.random.randint(key_t, (b,), 0, 100)),
+        "noise": np.asarray(jax.random.normal(key_n, (b, t, 128), jnp.float32))}
+
+
+def _jax_losses(args, params, n):
+    """The JAX loop with the same draws: its sampler and model, AdamW."""
+    train_ds, _ = jds.get_datasets(args)
+    sampler = jds.BatchSampler(train_ds, 2, seed=0)
+    model = jax_build_model(args)
+    state = jax_train_state(model, params, lr=LR, weight_decay=0.01,
+                            decay_step=4, gamma=0.5)
+    mel = jax_mel_fn()
+    out = []
+    for step in range(n):
+        batch = {k: jnp.asarray(v) for k, v in sampler.sample().items()}
+        key, d = _draws(step, 2, batch["units"].shape[1])
+
+        def loss_fn(p):
+            ddsp_loss, diff_loss = model.apply(
+                {"params": p}, batch["units"], batch["f0"], batch["volume"],
+                aug_shift=batch["aug_shift"], mel_extract_fn=mel,
+                gt_spec=batch["mel"], infer=False, key=key, k_step=100,
+                deterministic=True, ddsp_noise=jnp.asarray(d["ddsp_noise"]))
+            return ddsp_loss + diff_loss
+
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(state.params)
+        state = state.apply_gradients(grads)
+        out.append(float(loss))
+    return out
+
+
+def test_preprocess_train_resume(tmp_path, monkeypatch):
+    _corpus(str(tmp_path / "data" / "train"), (1.1, 0.9, 1.3), seed=1)
+    _corpus(str(tmp_path / "data" / "val"), (0.8,), seed=2)
+    args, cfg = _config(tmp_path)
+    pprep.main(["-c", cfg, "--device", "cpu", "--seed", "3"])
+    for kind in ("units", "f0", "volume", "mel", "aug_mel", "aug_vol"):
+        assert len(os.listdir(tmp_path / "data" / "train" / kind)) == 3, kind
+    assert os.path.exists(tmp_path / "data" / "train" / "pitch_aug_dict.npy")
+
+    jmodel = jax_build_model(args)
+    params = jax_variables(args, jmodel, seed=9)["params"]
+    jax_save(str(tmp_path / "exp"), 0, params)  # model_0: the warm start
+    want = _jax_losses(args, params, STEPS)
+
+    got, original = [], solver.build_train_step
+
+    def injecting(args_, mel_fn):
+        family, step = original(args_, mel_fn)
+
+        def wrapped(state, batch, generator=None, draws=None):
+            _, d = _draws(state.step, *batch["units"].shape[:2])
+            metrics = step(state, batch, generator,
+                           {k: torch.from_numpy(v) for k, v in d.items()})
+            got.append(float(metrics["loss"]))
+            return metrics
+        return family, wrapped
+
+    monkeypatch.setattr(solver, "build_train_step", injecting)
+    state = ptrain.main(["-c", cfg, "--device", "cpu", "--max_steps", str(STEPS)])
+    assert state.step == STEPS and len(got) == STEPS
+    assert abs(got[0] - want[0]) <= 1e-5 * abs(want[0]), (got, want)
+    for g, w in zip(got[1:], want[1:]):
+        assert abs(g - w) <= 1e-4 * abs(w), (got, want)
+    exp = tmp_path / "exp"
+    assert latest_checkpoint(str(exp)).endswith(f"model_{STEPS}.ckpt")
+    log = (exp / "log_info.txt").read_text()
+    assert "validation" in log and "step: 3" in log
+
+    # resume: the newest checkpoint, its step, the optimizer state, and the
+    # rate at steps 4-6 (lr x 0.5 from step 4)
+    state = ptrain.main(["-c", cfg, "--device", "cpu", "--max_steps", str(STEPS)])
+    assert state.step == 2 * STEPS
+    assert state.lr() == pytest.approx(LR * 0.5)
+    assert float(next(iter(state.optimizer.state.values()))["step"]) == 2 * STEPS
+    # each run keeps its own last save, as the JAX loop does
+    assert sorted(f for f in os.listdir(exp) if f.endswith(".ckpt")) == [
+        "model_0.ckpt", f"model_{STEPS}.ckpt", f"model_{2 * STEPS}.ckpt"]
+    assert len(got) == 2 * STEPS
+
+
+def test_refusals(tmp_path, monkeypatch):
+    """bf16 mixed precision and a multi-process launch are refused, naming
+    their ROADMAP items, before any model is built."""
+    _, cfg = _config(tmp_path, amp_dtype="bf16")
+    with pytest.raises(SystemExit, match=r"ROADMAP A, item 13"):
+        ptrain.main(["-c", cfg, "--device", "cpu"])
+    _, cfg = _config(tmp_path)
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
+    with pytest.raises(SystemExit, match=r"ROADMAP A, item 8"):
+        ptrain.main(["-c", cfg, "--device", "cpu"])
