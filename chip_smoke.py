@@ -24,16 +24,18 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      captured in one CUDA graph, cross-checked by torch.profiler's device
      time. K1 also at a ten-minute input, with the host wall and device
      operations of one combtooth() call; K4 also at B = 2; K2's bf16 class
-     at the four stages it serves (C = 128 ... 16) of the 10 s request and
-     at B = 8 rows of the 1024-frame bucket, within 1 bf16 ulp + 2^-7 x
-     max|out| per element and <= 2 % of the elements beyond 1 ulp, its
-     time beside the plain version's and the dense-bf16 bound; B3 (K3's
+     (B4, the fused kernel) at the four stages it serves (C = 128 ... 16)
+     of the 10 s request and at B = 8 rows of the 1024-frame bucket, within
+     1 bf16 ulp + 2^-7 x max|out| per element and <= 2 % of the elements
+     beyond 1 ulp, its time beside the plain version's and the dense-bf16
+     bound, and the bytes its launch plan moves per stage; B3 (K3's
      bf16 class) at the 10 s shapes and at the training shapes (B 48 x T
      172) within ``bf16_layer_agreement`` of its plain version, the kernel
      and both plain versions (card, CPU) against float64 sums and two
      planted extra bf16 roundings failing, > 35 dB from K3's f32 output,
-     its time beside the plain version's and the bound (GEMMs at the dense
-     bf16 rate, the depthwise conv at f32);
+     its device time (CUDA graph replay; also CUDA events over
+     back-to-back calls) beside the plain version's and the bound (GEMMs
+     at the dense bf16 rate, the depthwise conv at f32);
   4. the DiffusionFast path at configs/diffusion-fast.yaml widths (6 x 512
      trunk, k_step 100, DPM-Solver++ with speedup 10, the default
      NSF-HiFiGAN) with random weights from a seeded torch.Generator:
@@ -95,7 +97,7 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      launches per block, and the first blocks against the port on the CPU
      with the same blocks and noise;
  16. the NSF-HiFiGAN in bf16 (vocoder_bf16): a 10 s DiffusionFast request
-     (K1 1, K3 60, K2-bf16 4, K2 0) and a 10 s Sins request with a bf16
+     (K1 1, K3 60, B4 4, K2 0) and a 10 s Sins request with a bf16
      enhancer, each against its f32 pipeline (>= 25 dB) with warm walls of
      both, card against CPU with bf16 on both (>= 40 dB), and
      cli.infer.convert with --voc_bf16;
@@ -154,7 +156,7 @@ PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
 # f32 accuracy on the tensor cores: split TF32, three MMAs per product at
 # the dense TF32 rate (494.7 TFLOP/s), K2's and K3's route
 PEAK_TF32X3_FLOP_PER_S = 494.7e12 / 3
-PEAK_BF16_FLOP_PER_S = 989.4e12  # dense bf16 on the tensor cores: K2-bf16
+PEAK_BF16_FLOP_PER_S = 989.4e12  # dense bf16 on the tensor cores: B4 and B3
 K2_KERNEL_SIZES = (3, 7, 11)
 K2_DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 K2_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256), (16, 512))  # (C, L/T)
@@ -183,6 +185,16 @@ EXPECT_REFLOW = {"combtooth": 1, "resblock_group": 5, "conformer_layer": 120,
 EXPECT_WAVENET = {"combtooth": 0, "resblock_group": 5, "conformer_layer": 0,
                   "harmonic_bank": 0}
 GRAD_TOL = 1e-4  # x max|grad|: the forward tolerance of K2 and K3
+# each kernel's design for the H100, as the kernels line names it
+REDESIGNED = {
+    "combtooth": "one launch, frame increments carried by a look-back scan",
+    "resblock_group": "wgmma in split TF32, one launch per conv",
+    "resblock_group_bf16": "fused on the SM: a tile and its halo through the "
+                           "stage (a conv pair at C = 128), TMA + wgmma bf16",
+    "conformer_layer": "mma.sync in split TF32",
+    "conformer_layer_bf16": "TMA + wgmma bf16, three launches, h and s in "
+                            "bf16, the depthwise conv in GEMM 2's epilogue",
+    "harmonic_bank": "three-term recurrence over harmonics"}
 MIX = {1: 0.5, 2: 0.5}
 # phase 18: the run's sizes, and the card-vs-CPU limits for one training
 # step, stated before its first run: the loss relative, the gradients as
@@ -301,8 +313,8 @@ def sass_text(lib_path, nvcc: str) -> str:
 # the tensor-core kernels of K2, K2's bf16 class, K3 and K3's bf16 class
 # (B3), by the name in their SASS
 TC_KERNELS = (("K2", "resblock_conv_tc_kernel"),
-              ("K2-bf16", "resblock_conv_bf16_kernel"), ("K3", "gemm_tc_kernel"),
-              ("B3", "gemm_bf16_kernel"))
+              ("B4", "resblock_fused_bf16_kernel"), ("K3", "gemm_tc_kernel"),
+              ("B3", "conformer_bf16_kernel"))
 
 
 def _opcode(text: str) -> str:
@@ -601,7 +613,7 @@ def phase_kernels(torch, card: str) -> dict:
         f"single PyTorch call computes it [{card}]")
     if problems:
         fail("kernel vs plain: " + "; ".join(problems))
-    log("[kernels] K1 combtooth ok, K2 resblock_group ok, K2-bf16 ok, K3 "
+    log("[kernels] K1 combtooth ok, K2 resblock_group ok, B4 ok, K3 "
         "conformer_layer ok, B3 conformer_layer_bf16 ok, K4 harmonic_bank ok "
         "(each within tolerance of its plain version)")
     return results
@@ -649,7 +661,7 @@ def k3_bf16(torch, gen, k3_inputs, k3_out, card: str, problems: list) -> dict:
                                                        bf16_layer_agreement,
                                                        conformer_layer_bf16,
                                                        conformer_layer_bf16_plain)
-    from ddsp_svc_tpu_torch.tools.timing import cuda_ms
+    from ddsp_svc_tpu_torch.tools.timing import cuda_ms, graph_ms
 
     dev = torch.device("cuda")
     x, cond, step, w = k3_inputs
@@ -697,7 +709,11 @@ def k3_bf16(torch, gen, k3_inputs, k3_out, card: str, problems: list) -> dict:
                 problems.append(f"{what}: {snr:.2f} dB from K3's f32 output (> 35)")
             extra = f", {snr:.2f} dB from K3's f32 output (> 35)"
         iters = 100 if batch == 1 else 20
-        k_ms = cuda_ms(lambda: conformer_layer_bf16(x, cond, step, w, packed), iters)
+        call = lambda: conformer_layer_bf16(x, cond, step, w, packed)  # noqa: E731
+        # device time by CUDA graph replay (a 10 s layer is shorter than the
+        # host's work per call), and CUDA events over back-to-back calls
+        k_ms = graph_ms(call, 50 if batch == 1 else 10)
+        e_ms = cuda_ms(call, iters)
         p_ms = cuda_ms(lambda: conformer_layer_bf16_plain(x, cond, step, w),
                        iters // 4)
         m = batch * t
@@ -708,12 +724,14 @@ def k3_bf16(torch, gen, k3_inputs, k3_out, card: str, problems: list) -> dict:
         t_ops = (gemm / PEAK_BF16_FLOP_PER_S + dw / PEAK_F32_FLOP_PER_S) * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        out[batch] = dict(err=agree["max_abs_err"], ms=k_ms, plain=p_ms,
-                          bound=b_ms, by=b_by)
+        out[batch] = dict(err=agree["max_abs_err"], ms=k_ms, events=e_ms,
+                          plain=p_ms, bound=b_ms, by=b_by)
         log(f"[kernels] {what}: {agree['rel']:.3e} x max|branch| from plain, "
             f"{100 * agree['beyond']:.3f} % beyond 2^-10 (limits 2^-8, 2 %)"
-            f"{extra}; kernel {k_ms:.4f} ms ({(gemm + dw) / k_ms / 1e9:.1f} "
-            f"TFLOP/s), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{extra}; kernel {k_ms:.4f} ms device time by CUDA graph replay "
+            f"({(gemm + dw) / k_ms / 1e9:.1f} TFLOP/s), {e_ms:.4f} ms by CUDA "
+            f"events over back-to-back calls (the host's rate where it is "
+            f"slower), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
             f"{gemm / 1e9:.3f} GFLOP bf16 + {dw / 1e9:.3f} GFLOP f32, "
             f"{nbytes / 1e6:.2f} MB); no single PyTorch call computes it [{card}]")
     r = out[1]
@@ -721,12 +739,12 @@ def k3_bf16(torch, gen, k3_inputs, k3_out, card: str, problems: list) -> dict:
                 replaces="ddsp_svc_tpu/ops/pallas_conformer.py:125",
                 max_abs_err=max(o["err"] for o in out.values()), ms=r["ms"],
                 plain_ms=r["plain"], bound_ms=r["bound"], bound_by=r["by"],
-                library_ms=None, train_ms=out[48]["ms"],
+                library_ms=None, events_ms=r["events"], train_ms=out[48]["ms"],
                 train_plain_ms=out[48]["plain"], train_bound_ms=out[48]["bound"])
 
 
 def bf16_chain(torch, x, weights, fault=None):
-    """K2-bf16's function with exact sums (float64 convs on bf16-rounded
+    """B4's function with exact sums (float64 convs on bf16-rounded
     operands), or with a planted fault: "z" (each chain's residual sum
     rounded to bf16), "total" (the running sum over the chains rounded to
     bf16), "t" (every conv output rounded to bf16, as intermediates stored
@@ -759,6 +777,43 @@ def bf16_chain(torch, x, weights, fault=None):
     return (total / len(weights)).transpose(1, 2).to(torch.bfloat16)
 
 
+def b4_traffic(c: int, length: int, batch: int, plan) -> tuple[float, float]:
+    """What B4's launch plan (``cuda_resblock.FUSED_PLAN``: convs per
+    launch, output rows per block) moves for one stage: (bytes of
+    activations through device memory, bytes of weights its blocks stream
+    from L2). Every run's frame (the block's rows and the run's halo, whole
+    tiles) is read once per block, bf16 x or f32 z; a run of one pair
+    reads its residual z again at its own rows; each launch writes its rows
+    once (f32 z, the f32 running sum, the bf16 output), and the chains
+    after the first read the running sum."""
+    mode, bm = plan
+    convs = [(k, 1 if i % 2 else dils[i // 2])
+             for k, dils in zip(K2_KERNEL_SIZES, K2_DILATIONS)
+             for i in range(2 * len(dils))]
+    per_chain, n_rb = 2 * len(K2_DILATIONS[0]), len(K2_KERNEL_SIZES)
+    per = {"stage": len(convs), "chain": per_chain, "pair": 2}[mode]
+    blocks = batch * math.ceil(length / bm)
+    own = batch * length * c
+    act = wts = 0.0
+    for c0 in range(0, len(convs), per):
+        i = c0
+        while i < c0 + per:
+            chain = i // per_chain
+            end = min(c0 + per, (chain + 1) * per_chain)
+            half = sum((k - 1) * d // 2 for k, d in convs[i:end])
+            z_bytes = 2 if i % per_chain < 2 else 4
+            act += blocks * (bm + 2 * half) * c * z_bytes
+            if per == 2:
+                act += own * z_bytes
+            if end == (chain + 1) * per_chain:
+                act += own * (2 if chain == n_rb - 1 else 4) + (own * 4 if chain else 0)
+            else:
+                act += own * 4
+            wts += blocks * sum(k for k, _ in convs[i:end]) * 2.0 * c * c
+            i = end
+    return act, wts
+
+
 def k2_bf16(torch, gen, t: int, card: str, problems: list) -> dict:
     """K2's bf16 class against its plain version at the four stages it
     serves (C = 128 ... 16) of the 10 s request, and at B = 8 rows of the
@@ -771,13 +826,17 @@ def k2_bf16(torch, gen, t: int, card: str, problems: list) -> dict:
     2 L C^2 126 flops per stage at the dense bf16 rate against the bytes of
     x and out (bf16), the bf16 weights and the f32 biases, read or written
     once."""
-    from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (FUSED_BLOCKS_PER_SM,
+                                                      FUSED_PLAN,
+                                                      PackedResblocks,
+                                                      fused_rows,
                                                       bf16_agreement,
                                                       resblock_group_bf16,
                                                       resblock_group_bf16_plain)
     from ddsp_svc_tpu_torch.tools.timing import cuda_ms
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     taps = sum(k * 2 * len(d) for k, d in zip(K2_KERNEL_SIZES, K2_DILATIONS))
     n_convs = sum(2 * len(d) for d in K2_DILATIONS)
     tot = dict(ms=0.0, plain=0.0, bound=0.0, flops=0.0, bytes=0.0)
@@ -798,7 +857,7 @@ def k2_bf16(torch, gen, t: int, card: str, problems: list) -> dict:
                                              K2_DILATIONS)
             agree = bf16_agreement(got, want)
             worst = max(worst, agree["max_abs_err"])
-            what = f"K2-bf16 C={c} B={batch} L={length}"
+            what = f"B4 C={c} B={batch} L={length}"
             if not agree["ok"]:
                 problems.append(f"{what}: {agree}")
             if batch == 1:
@@ -816,16 +875,23 @@ def k2_bf16(torch, gen, t: int, card: str, problems: list) -> dict:
                 for key, val in (("ms", k_ms), ("plain", p_ms), ("bound", b_ms),
                                  ("flops", flops), ("bytes", nbytes)):
                     tot[key] += val
+            mode, most = FUSED_PLAN[c]
+            plan = (mode, fused_rows(most, length, batch,
+                                     sms * FUSED_BLOCKS_PER_SM[c]))
+            act, wts = b4_traffic(c, length, batch, plan)
             log(f"[kernels] {what}: max abs err {agree['max_abs_err']:.3e} "
                 f"(max|out| {float(want.float().abs().max()):.3f}; tol 1 bf16 ulp "
                 f"+ 2^-7 x max|out|), {100 * agree['differ']:.3f} % of elements "
                 f"differ, {100 * agree['beyond_ulp']:.4f} % by more than 1 ulp "
-                f"(limits 2 % beyond, 10 % differ); kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} "
+                f"(limits 2 % beyond, 10 % differ); kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} "
                 f"TFLOP/s), plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
-                f"dense bf16) [{card}]")
+                f"dense bf16); plan {plan} (convs per launch, rows per block) "
+                f"moves {act / 1e6:.1f} MB of "
+                f"activations through device memory and streams {wts / 1e6:.1f} "
+                f"MB of weights from L2 [{card}]")
             del x, weights, packed, got, want
-    log(f"[kernels] K2-bf16 four stages of one 10 s request: kernel "
-        f"{tot['ms']:.3f} ms, plain {tot['plain']:.3f} ms, bound "
+    log(f"[kernels] B4 four stages of one 10 s request: kernel "
+        f"{tot['ms']:.4f} ms, plain {tot['plain']:.3f} ms, bound "
         f"{tot['bound']:.4f} ms; no single PyTorch call computes a stage "
         f"[{card}]")
     return dict(route="cuda", source="ddsp_svc_tpu_torch/csrc/resblock.cu",
@@ -957,9 +1023,11 @@ KERNEL_GROUPS = (("K1 combtooth", "combtooth", ("combtooth_kernel",)),
                  ("K2 resblock", "resblock_group", ("resblock_conv_tc_kernel",)),
                  ("K3 conformer", "conformer_layer",
                   ("::gemm_tc_kernel<", "depthwise_silu_kernel")),
-                 # B3's GEMMs; its depthwise conv is K3's kernel, in K3's group
-                 ("B3 conformer bf16 GEMMs", "conformer_layer_bf16",
-                  ("::gemm_bf16_kernel<",)),
+                 ("B4 resblock bf16", "resblock_group_bf16",
+                  ("resblock_fused_bf16_kernel",)),
+                 # B3's three launches, the depthwise conv inside the second
+                 ("B3 conformer bf16", "conformer_layer_bf16",
+                  ("conformer_bf16_kernel",)),
                  ("K4 harmonic bank", "harmonic_bank", ("harmonic_bank_kernel",)),
                  # the units encoder's kernels by where they were launched
                  # (ENCODER_RANGE), not by name
@@ -1947,7 +2015,7 @@ def phase_bf16_vocoder(torch, card: str, pipes: dict) -> dict:
                                     f"{what} 2 s on {name}")
                   for name, p in (("card", bf16), ("cpu", cpu))}
         snr = snr_db(audios["cpu"], audios["card"])
-        log(f"[bf16] {what} 2 s request, card (K2-bf16) vs CPU (its plain "
+        log(f"[bf16] {what} 2 s request, card (B4) vs CPU (its plain "
             f"version), bf16 on both, same weights and noise: audio SNR "
             f"{snr:.2f} dB (limit >= {SNR_LIMIT_DB:.0f} dB) [{card}]")
         if not snr >= SNR_LIMIT_DB:
@@ -2704,7 +2772,8 @@ def main() -> None:
                       "replaces": r["replaces"], "launches": launches,
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                      "redesigned": REDESIGNED[kname]})
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"[{card}]")
     print(json.dumps({"kernels": table}), flush=True)

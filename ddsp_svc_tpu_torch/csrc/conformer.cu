@@ -33,11 +33,8 @@
 // registers. No library GEMM is called. wgmma and TMA are later work.
 // Backward (training) stays the stock f32 chain, for B3 as for K3.
 //
-// B3 (ddsp_conformer_layer_bf16) is the same kernel pipeline in JAX's
-// mxu_bf16 class (pallas_conformer.py:125-150, the casts at :73-98 and
-// :196-202): the three GEMMs' operands rounded to bf16, f32 sums, every
-// other value f32. At one bf16 MMA per product its tensor-core ceiling is
-// the dense bf16 rate (989.4 TFLOP/s), six times split TF32's ceiling.
+// B3 (ddsp_conformer_layer_bf16, JAX's mxu_bf16 class) has its own
+// kernel on TMA and wgmma, at the end of this file.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -219,154 +216,6 @@ gemm_tc_kernel(const float* __restrict__ a, const float* __restrict__ w,
                    n0 + warp_n * NT * 8, g, q, m_rows, n_out, rows_per_batch);
 }
 
-// B3, K3's bf16 class: the same GEMM with its operands rounded to bf16
-// (round to nearest even, as astype(bfloat16)) and f32 accumulation, one
-// mma.sync m16n8k16 bf16 per product where the kernel above takes three
-// split-TF32 MMAs. W arrives rounded to bf16 once per model ((N, K) rows, K
-// a multiple of 8); A (cond, h or s, f32 in device memory) is staged in f32
-// as above and rounded to bf16 pairs as its fragments are loaded. The
-// epilogues are the f32 ones.
-constexpr int kWStride = BK + 8;  // bf16: 80-byte rows, conflict-free words
-
-__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// m16n8k16, bf16 inputs, f32 accumulators. A (16 x 16): a0 (g, 2q..2q+1),
-// a1 (g + 8, 2q..), a2 (g, 2q + 8..), a3 (g + 8, 2q + 8..); B (16 x 8,
-// n-major): b0 (k = 2q..2q+1, n = g), b1 (k = 2q + 8.., n = g); C as m16n8k8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-gemm_bf16_kernel(const float* __restrict__ a,
-                 const __nv_bfloat16* __restrict__ w,
-                 const float* __restrict__ bias, const float* __restrict__ x,
-                 const float* __restrict__ step, float* __restrict__ out,
-                 int m_rows, int n_out, int k_dim, int rows_per_batch) {
-  constexpr int kHalves = MODE == kGlu ? 2 : 1;
-  constexpr int WR = kHalves * BN;  // staged W rows
-  __shared__ __align__(16) float a_s[2][BM * kStride];
-  __shared__ __align__(16) __nv_bfloat16 w_s[2][WR * kWStride];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int q = lane & 3;
-  const int warp_m = warp >> 1;
-  const int warp_n = warp & 1;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  // A copies as the f32 kernel's: rows tid / 8 + 16 j, words 4 * (tid % 8);
-  // W copies: 16-byte runs of 8 bf16, rows tid / 4 + 32 j, 8 * (tid % 4)
-  constexpr int kVec = BK / 4;
-  constexpr int kRowStep = kThreads / kVec;
-  const int r0 = tid / kVec;
-  const int c4 = 4 * (tid % kVec);
-  const float* a_src[BM / kRowStep];
-  bool a_ok[BM / kRowStep];
-#pragma unroll
-  for (int j = 0; j < BM / kRowStep; ++j) {
-    const int m = m0 + r0 + kRowStep * j;
-    a_ok[j] = m < m_rows;
-    a_src[j] = a + (size_t)(a_ok[j] ? m : 0) * k_dim + c4;
-  }
-  constexpr int kWVec = BK / 8;
-  constexpr int kWRowStep = kThreads / kWVec;
-  const int wr0 = tid / kWVec;
-  const int c8 = 8 * (tid % kWVec);
-  const __nv_bfloat16* w_src[WR / kWRowStep];
-  bool w_ok[WR / kWRowStep];
-#pragma unroll
-  for (int j = 0; j < WR / kWRowStep; ++j) {
-    const int r = wr0 + kWRowStep * j;  // value rows, then gate rows
-    const int n = n0 + r % BN;
-    w_ok[j] = n < n_out;
-    w_src[j] = w + ((size_t)(w_ok[j] ? n : 0) + (r / BN) * (size_t)n_out) *
-                       k_dim + c8;
-  }
-  auto stage = [&](int kt, int buf) {
-    const int k0 = kt * BK;
-    const bool ka = k0 + c4 < k_dim;
-    const bool kw = k0 + c8 < k_dim;
-#pragma unroll
-    for (int j = 0; j < BM / kRowStep; ++j)
-      cp_async16(&a_s[buf][(r0 + kRowStep * j) * kStride + c4],
-                 a_ok[j] && ka ? a_src[j] + k0 : a, a_ok[j] && ka);
-#pragma unroll
-    for (int j = 0; j < WR / kWRowStep; ++j)
-      cp_async16(&w_s[buf][(wr0 + kWRowStep * j) * kWStride + c8],
-                 w_ok[j] && kw ? w_src[j] + k0 : w, w_ok[j] && kw);
-  };
-
-  float acc[kHalves][MT][NT][4];
-#pragma unroll
-  for (int h = 0; h < kHalves; ++h)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[h][mt][nt][i] = 0.0f;
-
-  const int n_k = (k_dim + BK - 1) / BK;
-  stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (kt + 1 < n_k) {
-      stage(kt + 1, (kt + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* as = a_s[kt & 1];
-    const __nv_bfloat16* ws = w_s[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* p = as + (warp_m * MT * 16 + mt * 16 + g) * kStride + ks + 2 * q;
-        const float2 v0 = *reinterpret_cast<const float2*>(p);
-        const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * kStride);
-        const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
-        const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * kStride + 8);
-        af[mt][0] = bf16x2_rn(v0.x, v0.y);
-        af[mt][1] = bf16x2_rn(v1.x, v1.y);
-        af[mt][2] = bf16x2_rn(v2.x, v2.y);
-        af[mt][3] = bf16x2_rn(v3.x, v3.y);
-      }
-#pragma unroll
-      for (int h = 0; h < kHalves; ++h) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* p =
-              ws + (h * BN + warp_n * NT * 8 + nt * 8 + g) * kWStride + ks + 2 * q;
-          const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(p),
-                                  *reinterpret_cast<const uint32_t*>(p + 8)};
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[h][mt][nt], af[mt], bf);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  store_tile<MODE>(acc, bias, x, step, out, m0 + warp_m * MT * 16,
-                   n0 + warp_n * NT * 8, g, q, m_rows, n_out, rows_per_batch);
-}
-
 // s = silu(depthwise_k(u) + bd) along time within each utterance; u rows
 // outside [0, t_len) are zero ('same' padding on the whole utterance). A
 // block owns kDwRows time rows x kDwCh channels of one utterance: it stages
@@ -460,39 +309,456 @@ DDSP_API int ddsp_conformer_layer(const float* x, const float* cond,
   return 0;
 }
 
-// B3: the same layer with the three GEMMs in bf16 (gemm_bf16_kernel): wc, w1
-// and w2 are bf16 (rounded once per model), everything else as above. c, hc
-// and inner are multiples of 8.
+
+// ---------------------------------------------------------------------------
+// B3, K3's bf16 class: the layer in JAX's mxu_bf16 class
+// (pallas_conformer.py:125 fused_conformer_layer with mxu_bf16=True at
+// :134; the casts at :73-98 and :196-202): cond, h, s and Wc, W1, W2 are
+// rounded to bf16 (nearest even) and their products summed in f32; every
+// other value is f32. h feeds only GEMM 2 and s only GEMM 3, each through
+// that one rounding, so they are stored as bf16 from the same f32 value.
+//
+// Bound on the H100: operations, the GEMMs' 2 M (Hc C + 3 I C) flops at the
+// dense bf16 rate of 989.4 TFLOP/s plus the depthwise conv's 2 M I k at
+// 67 TFLOP/s: 0.0037 ms at the 10 s request (M = 862, C = 512, Hc = 128,
+// I = 1024, k = 31), 0.0352 ms at the training shape (B 48 x T 172).
+//
+// What this replaces: three mma.sync GEMMs (64 x 32 tiles, a two-stage
+// cp.async ring of A staged in f32 and rounded per fragment) and a
+// depthwise kernel between them, four launches a layer at 42-64 TFLOP/s.
+//
+// Design: one kernel template, launched three times. A block is two
+// consumer warpgroups (BM = 128 MT rows, MT m64 tiles each) and a producer
+// warp whose one lane keeps a ring of 64-deep K slices full by TMA (2-D
+// tensor maps encoded on the host, 128-byte swizzle, zeros past every
+// edge); the consumers run wgmma m64nBNk16 with both operands read from
+// shared memory by descriptor and free a slice as soon as its products
+// are read.
+//   1. h = x + step + cond . Wc^T + bc, stored bf16. cond arrives f32: the
+//      consumers round it into the swizzled A tiles themselves (K = Hc).
+//   2. u = GLU(h . W1^T + b1) over the block's rows and a 15-row halo on
+//      each side (the B tiles are W1's value rows and its gate rows), kept
+//      f32 in shared memory; then s = silu(depthwise_k(u) + bd) for the
+//      block's own rows (taps outside the row's utterance read zero),
+//      stored bf16. u never reaches device memory.
+//   3. out = x + s . W2^T + b2.
+// Three launches a layer where K3 takes four. At M = 862 the tiles are
+// 128 x 32, 256 x 32 (226 own rows) and 128 x 32, so the three launch 112,
+// 128 and 112 blocks on 132 SMs; from M = 4096 on, 256 x 64, 256 x 64 and
+// 256 x 128.
+// Measured (tools/kernel_ab.py, parent and this kernel in turns on one
+// NVIDIA H100 80GB HBM3 at 700 W, device time by CUDA graph replay):
+// 0.032 ms a layer at M = 862 against 0.061 before, 0.236 ms at B 48 x
+// T 172 against 0.421. At M = 862 each launch is a few microseconds of
+// latency (TMA round trips, one wave); at B 48 x T 172 the GLU launch
+// takes ~70 % of the layer, its h and W1 slices re-read from L2 by every
+// block of its row or column.
+
+#include <mutex>
+
+#include "hopper_bf16.cuh"
+
+namespace {
+
+enum B3Mode { kB3Cond = 0, kB3GluDw = 1, kB3Out = 2 };
+constexpr int kB3Consumers = 256;
+constexpr int kB3Threads = kB3Consumers + 32;
+constexpr int kB3Halo = 15;      // the depthwise conv's largest pad (k <= 31)
+constexpr int kB3MaxCondK = 256;  // Hc
+
+struct B3Args {
+  const float* x;         // (M, C) f32
+  const float* cond;      // (M, Hc) f32        [1]
+  const float* step;      // (B, C) f32         [1]
+  const float* bias;      // bc, b1 (2I) or b2
+  const float* wd;        // (I, k) f32         [2]
+  const float* bd;        // (I,) f32           [2]
+  __nv_bfloat16* out_bf16;  // h (M, C) [1], s (M, I) [2]
+  float* out_f32;           // out (M, C)         [3]
+  int m_rows, n_out, k_dim, t_len, k_dw;
+};
+
+template <int MODE, int BN, int MT, int STAGES>
+struct B3Cfg {
+  static constexpr int BM = 128 * MT;
+  static constexpr int OWN = MODE == kB3GluDw ? BM - 2 * kB3Halo : BM;  // rows a block writes
+  static constexpr int NB = MODE == kB3GluDw ? 2 : 1;  // B tiles per slice
+  static constexpr int A_BYTES = MODE == kB3Cond ? 0 : BM * 128;
+  static constexpr int B_BYTES = BN * 128;
+  static constexpr int STAGE = A_BYTES + NB * B_BYTES;
+  static constexpr int S = STAGES;
+  static constexpr int US = BN + 8;  // u's row stride in floats
+};
+
+template <int MODE, int BN, int MT, int STAGES>
+size_t b3_smem_bytes(int k_dim) {
+  using G = B3Cfg<MODE, BN, MT, STAGES>;
+  size_t n = (size_t)G::S * G::STAGE;
+  if (MODE == kB3Cond) n += (size_t)((k_dim + 63) / 64) * G::BM * 128;
+  if (MODE == kB3GluDw) n += (size_t)G::BM * G::US * 4;
+  return n + 2 * G::S * 8 + 1024;  // the barriers, and room to align the base
+}
+
+template <int MODE, int BN, int MT, int STAGES>
+__global__ void __launch_bounds__(kB3Threads, MT == 1 ? 2 : 1)
+conformer_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const B3Args p) {
+  using G = B3Cfg<MODE, BN, MT, STAGES>;
+  constexpr int S = G::S;
+  extern __shared__ uint8_t b3_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(b3_smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int n_k = (p.k_dim + 63) / 64;
+  uint8_t* extra = smem + S * G::STAGE;  // cond's A tiles [1] or u [2]
+  size_t extra_bytes = 0;
+  if (MODE == kB3Cond) extra_bytes = (size_t)n_k * G::BM * 128;
+  if (MODE == kB3GluDw) extra_bytes = (size_t)G::BM * G::US * 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(extra + extra_bytes);
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * G::OWN - (MODE == kB3GluDw ? kB3Halo : 0);
+  const int n0 = blockIdx.x * BN;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kB3Consumers / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kB3Consumers) {
+    if (tid == kB3Consumers) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % S;
+        if (kt >= S) mbar_wait(&empty[s], ((kt / S) - 1) & 1);
+        uint8_t* st = smem + s * G::STAGE;
+        mbar_expect_tx(&full[s], G::STAGE);
+        if (MODE != kB3Cond) tma_load_2d(st, &map_a, kt * 64, m0, &full[s]);
+        tma_load_2d(st + G::A_BYTES, &map_b, kt * 64, n0, &full[s]);
+        if (MODE == kB3GluDw)  // the gate half: W1's rows I + n
+          tma_load_2d(st + G::A_BYTES + G::B_BYTES, &map_b, kt * 64,
+                      n0 + p.n_out, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+
+  if (MODE == kB3Cond) {
+    // cond's rows rounded to bf16 into swizzled A tiles, zeros past M and
+    // Hc; four items' reads are issued before any is used
+    const int chunks = n_k * 8;  // 16-byte chunks per row
+    const int n_items = G::BM * chunks;
+    constexpr int kBatch = 4;
+    for (int i0 = tid; i0 < n_items; i0 += kBatch * kB3Consumers) {
+      float4 v[kBatch][2];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kB3Consumers;
+        const int r = i / chunks;
+        const int k0 = (i - r * chunks) * 8;
+        const int m = m0 + r;
+        if (i < n_items && m < p.m_rows && k0 < p.k_dim) {
+          const float* src = p.cond + (size_t)m * p.k_dim + k0;
+          v[u][0] = *reinterpret_cast<const float4*>(src);
+          v[u][1] = *reinterpret_cast<const float4*>(src + 4);
+        } else {
+          v[u][0] = v[u][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kB3Consumers;
+        if (i >= n_items) break;
+        const int r = i / chunks;
+        const int kc = i - r * chunks;
+        __nv_bfloat162 h[4] = {__floats2bfloat162_rn(v[u][0].x, v[u][0].y),
+                               __floats2bfloat162_rn(v[u][0].z, v[u][0].w),
+                               __floats2bfloat162_rn(v[u][1].x, v[u][1].y),
+                               __floats2bfloat162_rn(v[u][1].z, v[u][1].w)};
+        *reinterpret_cast<uint4*>(extra + (size_t)(kc >> 3) * G::BM * 128 +
+                                  sw128_offset(r, (kc & 7) * 8)) =
+            *reinterpret_cast<const uint4*>(h);
+      }
+    }
+    fence_proxy_async();
+    consumer_sync(kB3Consumers);
+  }
+
+  float acc[MT][BN / 2];
+  float acc_g[MODE == kB3GluDw ? MT : 1][BN / 2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[i][e] = 0.0f;
+    wgmma_fence_operand(acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < (MODE == kB3GluDw ? MT : 1); ++i) {
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc_g[i][e] = 0.0f;
+    wgmma_fence_operand(acc_g[i]);
+  }
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % S;
+    mbar_wait(&full[s], (kt / S) & 1);
+    wgmma_fence();
+    const uint8_t* st = smem + s * G::STAGE;
+    const uint8_t* a_t = MODE == kB3Cond ? extra + (size_t)kt * G::BM * 128 : st;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bdesc = desc_sw128(st + G::A_BYTES + 32 * kk);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const uint64_t adesc = desc_sw128(a_t + (wg * MT + i) * 64 * 128 + 32 * kk);
+        wgmma_ss<BN>(acc[i], adesc, bdesc);
+        if constexpr (MODE == kB3GluDw)
+          wgmma_ss<BN>(acc_g[i], adesc,
+                       desc_sw128(st + G::A_BYTES + G::B_BYTES + 32 * kk));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % S]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) wgmma_fence_operand(acc[i]);
+#pragma unroll
+  for (int i = 0; i < (MODE == kB3GluDw ? MT : 1); ++i) wgmma_fence_operand(acc_g[i]);
+
+  float* u_s = reinterpret_cast<float*>(extra);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (wg * MT + i) * 64 + 16 * warp + g + 8 * h;
+      const int m = m0 + r;
+      if (MODE != kB3GluDw && m >= p.m_rows) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int cl = 8 * j + 2 * q;
+        const int n = n0 + cl;
+        const float c0 = acc[i][4 * j + 2 * h];
+        const float c1 = acc[i][4 * j + 2 * h + 1];
+        if constexpr (MODE == kB3GluDw) {
+          // every row of the frame, the halo's too; u past I is never read
+          if (n >= p.n_out) continue;
+          const float g0 = acc_g[i][4 * j + 2 * h] + p.bias[n + p.n_out];
+          const float g1 = acc_g[i][4 * j + 2 * h + 1] + p.bias[n + 1 + p.n_out];
+          *reinterpret_cast<float2*>(u_s + r * G::US + cl) =
+              make_float2((c0 + p.bias[n]) * ddsp_sigmoid(g0),
+                          (c1 + p.bias[n + 1]) * ddsp_sigmoid(g1));
+        } else {
+          if (n >= p.n_out) continue;
+          const size_t o = (size_t)m * p.n_out + n;
+          const float2 xv = *reinterpret_cast<const float2*>(p.x + o);
+          if constexpr (MODE == kB3Cond) {
+            const float* sv = p.step + (size_t)(m / p.t_len) * p.n_out + n;
+            *reinterpret_cast<__nv_bfloat162*>(p.out_bf16 + o) = __floats2bfloat162_rn(
+                xv.x + sv[0] + c0 + p.bias[n], xv.y + sv[1] + c1 + p.bias[n + 1]);
+          } else {
+            *reinterpret_cast<float2*>(p.out_f32 + o) =
+                make_float2(xv.x + c0 + p.bias[n], xv.y + c1 + p.bias[n + 1]);
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (MODE == kB3GluDw) {
+    consumer_sync(kB3Consumers);
+    // s = silu(depthwise(u) + bd) for the block's own rows. A thread takes
+    // one channel (its taps in registers; 256 is a multiple of BN, so a
+    // thread keeps its channel) and kDwR rows at a time: the rows' window
+    // of u, zeros outside their utterance, slides through registers. Rows
+    // that straddle two utterances (B > 1) take each row's own range.
+    constexpr int kDwR = 8;
+    constexpr int kWin = kDwR + 2 * kB3Halo;
+    const int cl = tid % BN;
+    const int n = n0 + cl;
+    if (n >= p.n_out) return;
+    const int k = p.k_dw;
+    const int pad = (k - 1) / 2;
+    float w[2 * kB3Halo + 1];
+#pragma unroll
+    for (int tau = 0; tau <= 2 * kB3Halo; ++tau)
+      w[tau] = tau < k ? p.wd[(size_t)n * k + tau] : 0.0f;
+    const float bias = p.bd[n];
+    for (int item = tid; item < (G::OWN + kDwR - 1) / kDwR * BN; item += kB3Consumers) {
+      const int r0 = (item / BN) * kDwR;
+      const int m0r = blockIdx.y * G::OWN + r0;
+      const int t0r = m0r % p.t_len;
+      // u rows r0 + kB3Halo - pad + jj hold times t0r - pad + jj
+      const float* u_col = u_s + (r0 + kB3Halo - pad) * G::US + cl;
+      if (t0r + kDwR <= p.t_len) {
+        float win[kWin];
+#pragma unroll
+        for (int jj = 0; jj < kWin; ++jj) {
+          const int tt = t0r - pad + jj;
+          const bool inside = jj < kDwR + k - 1 && r0 + kB3Halo - pad + jj < G::BM;
+          win[jj] = (inside && tt >= 0 && tt < p.t_len) ? u_col[jj * G::US] : 0.0f;
+        }
+#pragma unroll
+        for (int rr = 0; rr < kDwR; ++rr) {
+          const int m = m0r + rr;
+          if (r0 + rr >= G::OWN || m >= p.m_rows) break;
+          float a = 0.0f;
+#pragma unroll
+          for (int tau = 0; tau <= 2 * kB3Halo; ++tau) a = fmaf(win[rr + tau], w[tau], a);
+          const float v = a + bias;
+          p.out_bf16[(size_t)m * p.n_out + n] = __float2bfloat16_rn(v * ddsp_sigmoid(v));
+        }
+      } else {
+        for (int rr = 0; rr < kDwR; ++rr) {
+          const int m = m0r + rr;
+          if (r0 + rr >= G::OWN || m >= p.m_rows) break;
+          const int t = m % p.t_len;
+          float a = 0.0f;
+#pragma unroll
+          for (int tau = 0; tau <= 2 * kB3Halo; ++tau) {  // w in registers
+            const int tt = t + tau - pad;
+            if (tau < k && tt >= 0 && tt < p.t_len)
+              a = fmaf(u_col[(rr + tau) * G::US], w[tau], a);
+          }
+          const float v = a + bias;
+          p.out_bf16[(size_t)m * p.n_out + n] = __float2bfloat16_rn(v * ddsp_sigmoid(v));
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (the library links
+// no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a (rows, cols) bf16 matrix as boxes of 64 columns x box_rows rows in the
+// 128-byte swizzle, zeros outside
+int bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// bf16_map, remembered per (pointer, shape, box): at 10 s the host's work
+// per layer call is longer than the layer on the card, and five encodes a
+// call were most of what this file adds to it. A map holds only the
+// layout, so an entry is right for whatever lives at its pointer with its
+// shape: the weights (made once per model) and h and s (the caching
+// allocator hands them back at the same places). Serving threads share it.
+int cached_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  struct Entry {
+    const void* base;
+    int rows, cols, box_rows;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 64;
+  static std::mutex lock;
+  static Entry cache[kEntries];
+  static int next = 0;
+  std::lock_guard<std::mutex> guard(lock);
+  for (const Entry& e : cache)
+    if (e.base == base && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  const int err = bf16_map(map, base, rows, cols, box_rows);
+  if (err == 0) cache[next++ % kEntries] = Entry{base, rows, cols, box_rows, *map};
+  return err;
+}
+
+template <int MODE, int BN, int MT, int STAGES>
+int launch_b3(const void* a, int a_cols, const void* b, int b_rows, const B3Args& p,
+              cudaStream_t stream) {
+  using G = B3Cfg<MODE, BN, MT, STAGES>;
+  CUtensorMap map_a, map_b;
+  int err = cached_map(&map_b, b, b_rows, p.k_dim, BN);
+  if (err) return err;
+  if (MODE == kB3Cond) {
+    map_a = map_b;  // unused: the consumers make cond's tiles
+  } else {
+    err = cached_map(&map_a, a, p.m_rows, a_cols, G::BM);
+    if (err) return err;
+  }
+  const size_t smem = b3_smem_bytes<MODE, BN, MT, STAGES>(p.k_dim);
+  // raised once per instantiation (to the most any Hc <= 256 needs)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conformer_bf16_kernel<MODE, BN, MT, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)b3_smem_bytes<MODE, BN, MT, STAGES>(kB3MaxCondK));
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((p.n_out + BN - 1) / BN, (p.m_rows + G::OWN - 1) / G::OWN);
+  conformer_bf16_kernel<MODE, BN, MT, STAGES><<<grid, kB3Threads, smem, stream>>>(map_a, map_b, p);
+  DDSP_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace
+
+// B3: x, out: (batch, t_len, c) f32; cond (batch, t_len, hc) f32; step
+// (batch, c); wc (c, hc), w1 (2 inner, c), w2 (c, inner) bf16 (rounded once
+// per model); bc, b1, wd (inner, k), bd, b2 f32; h (batch t_len, c) and s
+// (batch t_len, inner) bf16 scratch. c, hc and inner multiples of 8, hc at
+// most 256, k odd and at most 31, every matrix 16-byte aligned.
 DDSP_API int ddsp_conformer_layer_bf16(
     const float* x, const float* cond, const float* step,
     const __nv_bfloat16* wc, const float* bc, const __nv_bfloat16* w1,
     const float* b1, const float* wd, const float* bd,
-    const __nv_bfloat16* w2, const float* b2, float* out, float* h, float* u,
-    float* s, int batch, int t_len, int c, int hc, int inner, int k,
+    const __nv_bfloat16* w2, const float* b2, float* out, __nv_bfloat16* h,
+    __nv_bfloat16* s, int batch, int t_len, int c, int hc, int inner, int k,
     void* stream) {
   const int m = batch * t_len;
   if (m == 0) return 0;
-  if (c % 8 != 0 || hc % 8 != 0 || inner % 8 != 0 || k > kDwMaxK)
+  if (c % 8 != 0 || hc % 8 != 0 || inner % 8 != 0 || hc > kB3MaxCondK ||
+      k > 2 * kB3Halo + 1 || k % 2 == 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 block(kThreads);
-  const dim3 grid_c((c + BN - 1) / BN, (m + BM - 1) / BM);
-  const dim3 grid_u((inner + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_bf16_kernel<kCond><<<grid_c, block, 0, st>>>(cond, wc, bc, x, step, h,
-                                                    m, c, hc, t_len);
-  DDSP_CHECK_LAUNCH();
-  gemm_bf16_kernel<kGlu><<<grid_u, block, 0, st>>>(h, w1, b1, nullptr, nullptr,
-                                                   u, m, inner, c, t_len);
-  DDSP_CHECK_LAUNCH();
-  const dim3 grid_d((t_len + kDwRows - 1) / kDwRows,
-                    (inner + kDwCh - 1) / kDwCh, batch);
-  const size_t smem_d = (size_t)(kDwRows + k - 1) * kDwCh * sizeof(float);
-  depthwise_silu_kernel<<<grid_d, kDwThreads, smem_d, st>>>(u, wd, bd, s,
-                                                           t_len, inner, k);
-  DDSP_CHECK_LAUNCH();
-  gemm_bf16_kernel<kResidual><<<grid_c, block, 0, st>>>(s, w2, b2, x, nullptr,
-                                                        out, m, c, inner,
-                                                        t_len);
-  DDSP_CHECK_LAUNCH();
-  return 0;
+  const bool large = m >= 4096;
+  B3Args p1{x, cond, step, bc, nullptr, nullptr, h, nullptr, m, c, hc, t_len, k};
+  B3Args p2{x, nullptr, nullptr, b1, wd, bd, s, nullptr, m, inner, c, t_len, k};
+  B3Args p3{x, nullptr, nullptr, b2, nullptr, nullptr, nullptr, out, m, c, inner, t_len, k};
+  int err = large ? launch_b3<kB3Cond, 64, 2, 4>(nullptr, 0, wc, c, p1, st)
+                  : launch_b3<kB3Cond, 32, 1, 4>(nullptr, 0, wc, c, p1, st);
+  if (err) return err;
+  err = large ? launch_b3<kB3GluDw, 64, 2, 3>(h, c, w1, 2 * inner, p2, st)
+              : launch_b3<kB3GluDw, 32, 2, 3>(h, c, w1, 2 * inner, p2, st);
+  if (err) return err;
+  return large ? launch_b3<kB3Out, 128, 2, 4>(s, inner, w2, c, p3, st)
+               : launch_b3<kB3Out, 32, 1, 4>(s, inner, w2, c, p3, st);
 }

@@ -357,400 +357,508 @@ DDSP_API int ddsp_resblock_group(const float* x, const float* const* weights,
 // K2's bf16 class (B4): the same stage when the generator runs in bf16.
 //
 // Replaces the same Pallas kernel with x.dtype == bf16
-// (pallas_resblock.py _fused_group_impl: weight_dtype = x.dtype, and
-// _rb_group_kernel with w_ref.dtype == bf16): x is read as bf16 and widened
-// to f32; each conv's input gets leaky_relu(0.1) in f32 (max(t, 0.1 t)) and
-// the utterance's zero padding, is rounded to bf16 once, and is multiplied
-// by the bf16-rounded weights with f32 accumulation, plus the f32 bias; the
-// residuals, the sum over chains and the 1/n_rb of the mean stay f32, and
-// the output is rounded to bf16 once. The intermediates (t, z and the
-// chains' running sums) stay f32 in device memory: rounding them to bf16
-// there would be another function.
+// (pallas_resblock.py:356 _fused_group_impl: weight_dtype = x.dtype at
+// :376, and _rb_group_kernel with w_ref.dtype == bf16): x is read as bf16
+// and widened to f32; each conv's input gets leaky_relu(0.1) in f32
+// (max(t, 0.1 t)) and the utterance's zero padding, is rounded to bf16
+// once, and is multiplied by the bf16-rounded weights with f32
+// accumulation, plus the f32 bias; the residuals, the sum over chains and
+// the 1/n_rb of the mean stay f32, and the output is rounded to bf16 once.
 //
-// Bound on the H100: operations, 2*L*C^2*126 flops per stage at the dense
-// bf16 rate of 989.4 TFLOP/s (the activations are 6 to 18 bytes per
-// element against C*126*2 flops).
+// Bound on the H100: operations, 2 L C^2 126 flops per stage at the dense
+// bf16 rate of 989.4 TFLOP/s: 0.230 / 0.115 / 0.058 / 0.029 ms at C = 128
+// / 64 / 32 / 16 for a 10 s request (L C = 7,061,504 at every stage). The
+// stage's own bytes (x and out in bf16, 28 MB) take 0.008 ms at 3.35 TB/s.
 //
-// Design: the f32 kernel's structure with bf16 operands. A ring stage holds
-// 16 input channels (one k16 step) of BM + (k-1)*d rows as they are stored
-// (f32 or bf16) and the k B tiles, packed once per model as bf16 K-major
-// core matrices (8 output channels x 8 input channels, 16 bytes a row:
-// pack_conv_weight_bf16), so a tile is one contiguous copy. Once a stage
-// has landed, one pass applies leaky_relu in f32 and rounds to bf16 into an
-// A plane with the same 32-byte rows and swizzle as the f32 kernel's, so
-// one ldmatrix.x4 loads a warp's m16k16 A fragment and one wgmma
-// m64nBNk16 (bf16 in, f32 accumulators) takes each tap, where split TF32
-// takes three. Four launches per resblock chain pair as in the f32 path;
-// the stage's 18 launches are counted as one.
+// What this replaces: a per-conv kernel (18 launches a stage) that kept t,
+// z and the chains' running sums in f32 in device memory. Every stage
+// moves the same L C elements, so each conv pair moved ~140 MB and a stage
+// ~1.3 GB, whatever its width; that kernel took 0.61 / 0.71 / 0.91 / 1.30
+// ms at C = 16 / 32 / 64 / 128 (tools/kernel_ab.py, NVIDIA H100 80GB HBM3,
+// 700 W).
+//
+// Design, as the JAX kernel keeps a time tile in VMEM: a block owns bm
+// output rows of one utterance and keeps the activation of bm rows plus
+// the run's halo on the SM through a run of convs. A run is a stretch of
+// one chain: the whole chain (one launch does the whole stage at C <= 64,
+// chain after chain) or a conv pair; its halo is the sum of
+// (k - 1) d over its convs (120 rows for a k = 11 chain). z lives in
+// shared memory in f32 (the residual), and each conv's input as a bf16 A
+// plane of leaky'd values, one 16-byte row per (8 channels, time row), so
+// that a tap's shift by tau d - pad rows is only a descriptor's start
+// address: wgmma m64nCk16 reads both operands from shared memory. Conv j
+// computes the rows the later convs need (the frame shrinks by its pad at
+// each end) in m64 tiles dealt to two consumer warpgroups; its epilogue
+// adds the bias (and the residual), writes rows outside [0, L) as zeros
+// (the 'same' padding on the whole utterance, before every conv, at both
+// ends and between the rows of a batch), and writes the next conv's A
+// plane in place, after both warpgroups have finished reading it. The
+// weights, packed once per model as bf16 K-major core matrices
+// (pack_conv_weight_bf16: a tap's C x C tile is 2 C^2 contiguous bytes),
+// stream from L2 through a ring of per-tap slots, filled by one producer
+// warp with bulk copies (the TMA unit) that complete on mbarriers; the
+// consumers keep up to D taps' products in flight and free a slot when
+// its products have been read. The sum over chains is an f32 buffer in
+// device memory, read and written by the same thread at the same place
+// for every chain (each chain's last conv deals the bm output rows to its
+// threads in the same way); the last chain adds it, divides by n_rb and
+// writes the bf16 output, so t and z never leave the SM. The host spreads
+// the rows over whole waves of the card's SMs (ops/cuda_resblock.py
+// fused_rows). C = 128 does not fit a chain's halo beside a useful tile (z
+// alone takes 544 bytes a row), so it runs one conv pair per launch by
+// design: 9 launches, z through device memory in f32 between them, the
+// residual read there at the block's own rows (no z window), which leaves
+// room for 240-row tiles and a 4-slot ring. One conv per launch (the
+// per-conv design on this operand path, since removed) measured 1.37 ms
+// against the pair's 0.92 ms at C = 128.
+//
+// Measured (tools/kernel_ab.py, parent and this kernel in turns on one
+// NVIDIA H100 80GB HBM3 at 700 W): 0.47 / 0.50 / 0.67 / 0.92 ms at C = 16
+// / 32 / 64 / 128, 2.56-2.58 ms for the four stages against 3.53-3.55 ms
+// before; 6-24 % of the bound. What holds it there: small-N wgmma (N = C)
+// at C <= 32, the epilogue and the barriers between convs, which the
+// tensor cores wait through, and at C = 128 the weights' L2 traffic (each
+// block streams all of its launch's taps: ~1 GB a stage).
 
-#include <cuda_bf16.h>
+#include "hopper_bf16.cuh"
 
 namespace {
 
-constexpr int KC16 = 16;  // input channels per ring stage: one k16 step
+constexpr int kMaxConvs = 48;
+constexpr int kConsumers = 256;              // two warpgroups
+constexpr int kFusedThreads = kConsumers + 32;  // and the producer warp
 
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b_desc);
+// The stage's convs in chain order (per chain: conv_d0, conv_10, conv_d1,
+// ...): bf16 packed weights, f32 biases, kernel sizes and dilations.
+struct StageBf16 {
+  const void* w[kMaxConvs];
+  const float* b[kMaxConvs];
+  int k[kMaxConvs];
+  int d[kMaxConvs];
+  int per_chain;  // convs per chain: 2 n_dil
+  int n_rb;
+};
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b_desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1)
-      : "memory");
-}
+struct FusedArgs {
+  const __nv_bfloat16* x;  // (B, L, C)
+  __nv_bfloat16* out;      // (B, L, C)
+  float* acc;              // the chains' running sum, f32 (B, L, C)
+  float* z_buf;            // z between launches inside a chain, f32, two
+                           // halves: pair p reads half (p - 1) % 2 (its
+                           // neighbours' halo rows too) and writes half p % 2
+  int length;
+  int c_begin, c_end;  // this launch's convs
+  int bm;              // output rows per block
+  int a_rows;          // rows of the A plane
+  int z_rows;          // rows of the z window
+  int z_global;        // runs of one pair: the residual rows are the
+                       // block's own, read from device memory (no window)
+};
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b_desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1)
-      : "memory");
-}
+template <int C>
+struct FusedCfg;
+// ring depth (per-tap slots of 2 C^2 bytes), taps in flight on the tensor
+// cores before a slot is freed, m64 tiles per warpgroup, blocks per SM
+template <> struct FusedCfg<16> { static constexpr int S = 16, D = 4, MT = 5, MIN_BLOCKS = 2; };
+template <> struct FusedCfg<32> { static constexpr int S = 8, D = 3, MT = 3, MIN_BLOCKS = 2; };
+template <> struct FusedCfg<64> { static constexpr int S = 8, D = 2, MT = 3, MIN_BLOCKS = 1; };
+template <> struct FusedCfg<128> { static constexpr int S = 4, D = 1, MT = 2, MIN_BLOCKS = 1; };
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b_desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1)
-      : "memory");
-}
+// z's row stride in floats: float2 rows 32 bytes apart
+template <int C>
+__host__ __device__ constexpr int z_stride() { return C + 8; }
 
-// leaky_relu in f32 and one rounding to bf16, two values packed as wgmma's
-// A operand takes them (the lower channel in the low half)
+// leaky_relu in f32 and one rounding to bf16, two values packed with the
+// lower channel in the low half
 __device__ __forceinline__ uint32_t leaky_bf16x2(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(a, kSlope * a),
                                                  fmaxf(b, kSlope * b));
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// words of one ring stage: the k B tiles ([k][BN / 8][2][8][8] bf16), the
-// bf16 A plane ([rows_in][8] words, swizzled as swz), then the staged input
-// as it is stored ([rows_in][16] elements of 4 or 2 bytes)
-__host__ __device__ constexpr int stage_words_bf16(int rows_in, int k, int bn,
-                                                   bool in_bf16) {
-  return k * bn * 8 + rows_in * 8 + rows_in * (in_bf16 ? 8 : 16);
+__device__ __forceinline__ void load8(const void* base, bool is_bf16,
+                                      size_t idx, float (&v)[8]) {
+  if (is_bf16) {
+    const uint4 p = *reinterpret_cast<const uint4*>(
+        reinterpret_cast<const __nv_bfloat16*>(base) + idx);
+    const uint32_t w[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else {
+    const float* f = reinterpret_cast<const float*>(base) + idx;
+    const float4 p0 = *reinterpret_cast<const float4*>(f);
+    const float4 p1 = *reinterpret_cast<const float4*>(f + 4);
+    v[0] = p0.x; v[1] = p0.y; v[2] = p0.z; v[3] = p0.w;
+    v[4] = p1.x; v[5] = p1.y; v[6] = p1.z; v[7] = p1.w;
+  }
 }
 
-// One conv of the chain: out = scale * (conv(leaky(in)) + bias + res +
-// acc_in), the product in bf16 with f32 accumulation. in: f32, or bf16
-// with kInBf16; res (optional) f32 or bf16 (res_bf16); acc_in (optional)
-// f32; out f32 or bf16 (out_bf16).
-template <int BN, int MT, bool kInBf16>
-__global__ void __launch_bounds__(kThreads)
-resblock_conv_bf16_kernel(const void* __restrict__ x,
-                          const uint32_t* __restrict__ wp,
-                          const float* __restrict__ bias, const void* res,
-                          int res_bf16, void* out, int out_bf16, int length,
-                          int channels, int k, int dilation, float scale,
-                          const float* acc_in) {
-  using T = ConvTile<BN, MT>;
-  extern __shared__ float4 smem4[];
-  uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
-  const int halo = (k - 1) * dilation;
-  const int pad = halo / 2;
-  const int rows_in = T::BM + halo;
-  const int stage_w = stage_words_bf16(rows_in, k, BN, kInBf16);
-  const int b_words = k * BN * 8;  // a stage's B tiles
-  constexpr int kTileWords = BN * 8;  // one tap's B tile
-  const int n_chunks = channels / KC16;
-  constexpr int kElem = kInBf16 ? 2 : 4;
-  constexpr int kRowVec = KC16 * kElem / 16;  // 16-byte copies per row
+__host__ __device__ inline int conv_pad(const StageBf16& st, int c) {
+  return (st.k[c] - 1) * st.d[c] / 2;
+}
+
+template <int C>
+__host__ __device__ inline size_t fused_smem_bytes(int a_rows, int z_rows) {
+  using F = FusedCfg<C>;
+  return (size_t)F::S * 2 * C * C + 2 * F::S * 8 + (size_t)(C / 8) * a_rows * 16 +
+         (size_t)z_rows * z_stride<C>() * 4;
+}
+
+template <int C>
+__global__ void __launch_bounds__(kFusedThreads, FusedCfg<C>::MIN_BLOCKS)
+resblock_fused_bf16_kernel(const StageBf16 st, const FusedArgs a) {
+  using F = FusedCfg<C>;
+  constexpr int S = F::S;
+  constexpr int MT = F::MT;
+  constexpr int kSlot = 2 * C * C;  // bytes of one tap's weights
+  constexpr int ZS = z_stride<C>();
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* ring = smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * kSlot);
+  uint64_t* empty = full + S;
+  uint8_t* a_pl = reinterpret_cast<uint8_t*>(empty + S);
+  float* z_s = reinterpret_cast<float*>(a_pl + (size_t)(C / 8) * a.a_rows * 16);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int L = a.length;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * a.bm;
+  const size_t row0 = (size_t)b * L;  // this utterance's first row
+  const size_t n_elems = (size_t)gridDim.y * L * C;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // the producer: one lane streams every tap of the launch's convs
+    if (tid == kConsumers) {
+      int it = 0;
+      for (int c = a.c_begin; c < a.c_end; ++c)
+        for (int tau = 0; tau < st.k[c]; ++tau, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(&empty[s], ((it / S) - 1) & 1);
+          mbar_expect_tx(&full[s], kSlot);
+          bulk_g2s(ring + s * kSlot,
+                   reinterpret_cast<const uint8_t*>(st.w[c]) + (size_t)tau * kSlot,
+                   kSlot, &full[s]);
+        }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3;
-  const int row0 = (tid >> 7) * MT * 64 + 16 * warp;
+  const int lane = tid & 31;
   const int g = lane >> 2;
   const int q = lane & 3;
-  const int t0 = blockIdx.x * T::BM;
-  const int co0 = blockIdx.y * BN;
-  const int b = blockIdx.z;
-  const char* xb = reinterpret_cast<const char*>(x) +
-                   (size_t)b * length * channels * kElem;
+  int it = 0;  // ring position, as the producer counts it
 
-  auto stage = [&](int chunk, int buf) {
-    uint32_t* w_s = smem + buf * stage_w;
-    uint32_t* raw = w_s + b_words + rows_in * 8;
-    const int ci0 = chunk * KC16;
-    for (int i = tid; i < rows_in * kRowVec; i += kThreads) {
-      const int r = i / kRowVec;
-      const int v = i - r * kRowVec;
-      const int t = t0 - pad + r;
-      const bool ok = t >= 0 && t < length;
-      const char* src =
-          ok ? xb + ((size_t)t * channels + ci0) * kElem + 16 * v : xb;
-      cp_async16(raw + r * (KC16 * kElem / 4) + 4 * v, src, ok);
-    }
-    constexpr int kVec = kTileWords / 4;
-    for (int i = tid; i < k * kVec; i += kThreads) {
-      const int tau = i / kVec;
-      const int v = i - tau * kVec;
-      const size_t src =
-          (((size_t)tau * n_chunks + chunk) * channels + co0) * 8 + 4 * v;
-      cp_async16(w_s + tau * kTileWords + 4 * v, wp + src, true);
-    }
-  };
+  for (int c = a.c_begin; c < a.c_end;) {
+    const int chain = c / st.per_chain;
+    const int chain_end = (chain + 1) * st.per_chain;
+    const int run_end = min(a.c_end, chain_end);
+    int half = 0;
+    for (int cc = c; cc < run_end; ++cc) half += conv_pad(st, cc);
+    const int rows = a.bm + 2 * half;  // the run's frame
+    const int lo = t0 - half;          // its first row in the utterance
+    const int local = c - chain * st.per_chain;  // even: runs start at a pair
+    // rows of z kept for residuals: those of the run's first conv_1 output
+    const int zo = conv_pad(st, c) + conv_pad(st, c + 1);
+    const void* z_src = (local < 2) ? (const void*)a.x
+                                    : (const void*)(a.z_buf + ((local / 2 - 1) & 1) * n_elems);
+    const bool z_bf16 = local < 2;
 
-  float acc[MT][T::NACC];
+    // load the run's input: z rows [lo, lo + rows), zeros outside
+    // the utterance, into the A plane (leaky, bf16) and z's window (f32);
+    // a batch of items' reads is issued before any is used
+    constexpr int kBatch = F::MIN_BLOCKS == 1 ? 8 : 4;  // registers allowing
+    const int n_items = rows * (C / 8);
+    for (int i0 = tid; i0 < n_items; i0 += kBatch * kConsumers) {
+      float v[kBatch][8];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kConsumers;
+        const int r = i / (C / 8);
+        const int gr = lo + r;
+        if (i < n_items && gr >= 0 && gr < L) {
+          load8(z_src, z_bf16, (row0 + gr) * C + 8 * (i - r * (C / 8)), v[u]);
+        } else {
 #pragma unroll
-    for (int i = 0; i < T::NACC; ++i) acc[mt][i] = 0.0f;
-
-  const int a_row = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_half = lane >> 4;
-
-  stage(0, 0);
-  cp_async_commit();
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      stage(ch + 1, (ch + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    uint32_t* b_s = smem + (ch & 1) * stage_w;
-    uint32_t* a_s = b_s + b_words;
-    const uint32_t* raw = a_s + rows_in * 8;
-    // leaky_relu in f32 and the bf16 rounding, once per staged element:
-    // eight channels (16 bytes of the A plane) per item
-    for (int i = tid; i < rows_in * 2; i += kThreads) {
-      const int r = i >> 1;
-      const int h = i & 1;
-      float v[8];
-      if constexpr (kInBf16) {
-        const uint4 p = *reinterpret_cast<const uint4*>(raw + r * 8 + 4 * h);
-        const uint32_t w[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          v[2 * j] = __uint_as_float(w[j] << 16);
-          v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+          for (int e = 0; e < 8; ++e) v[u][e] = 0.0f;
         }
-      } else {
-        const float4 p0 =
-            *reinterpret_cast<const float4*>(raw + r * 16 + 8 * h);
-        const float4 p1 =
-            *reinterpret_cast<const float4*>(raw + r * 16 + 8 * h + 4);
-        v[0] = p0.x; v[1] = p0.y; v[2] = p0.z; v[3] = p0.w;
-        v[4] = p1.x; v[5] = p1.y; v[6] = p1.z; v[7] = p1.w;
       }
-      *reinterpret_cast<uint4*>(a_s + swz(r, h)) =
-          make_uint4(leaky_bf16x2(v[0], v[1]), leaky_bf16x2(v[2], v[3]),
-                     leaky_bf16x2(v[4], v[5]), leaky_bf16x2(v[6], v[7]));
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kConsumers;
+        if (i >= n_items) break;
+        const int r = i / (C / 8);
+        const int j = i - r * (C / 8);
+        *reinterpret_cast<uint4*>(a_pl + ((size_t)j * a.a_rows + r) * 16) =
+            make_uint4(leaky_bf16x2(v[u][0], v[u][1]), leaky_bf16x2(v[u][2], v[u][3]),
+                       leaky_bf16x2(v[u][4], v[u][5]), leaky_bf16x2(v[u][6], v[u][7]));
+        if (!a.z_global && r >= zo && r < rows - zo) {
+          float* zp = z_s + (size_t)(r - zo) * ZS + 8 * j;
+          *reinterpret_cast<float4*>(zp) = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+          *reinterpret_cast<float4*>(zp + 4) = make_float4(v[u][4], v[u][5], v[u][6], v[u][7]);
+        }
+      }
     }
-    fence_proxy_async();  // the B tiles are read by wgmma
-    __syncthreads();
-    for (int tau = 0; tau < k; ++tau) {
-      uint32_t a[MT][4];
+    fence_proxy_async();  // the A plane is read by wgmma
+    consumer_sync(kConsumers);
+
+    int cum = 0;
+    for (int cc = c; cc < run_end; ++cc) {
+      const int kk = st.k[cc];
+      const int dd = st.d[cc];
+      const int pad = conv_pad(st, cc);
+      const bool second = (cc - chain * st.per_chain) & 1;
+      cum += pad;
+      const int n_tiles = (rows - 2 * cum + 63) / 64;
+      // this thread's bias columns, read while the products run (at
+      // C = 128 the registers go to the accumulators: read in the epilogue)
+      constexpr bool kBiasEarly = C <= 64;
+      float2 bias[kBiasEarly ? C / 8 : 1];
+      if constexpr (kBiasEarly)
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], reinterpret_cast<const float*>(
-                               a_s + swz(a_row + tau * dilation + 64 * mt,
-                                         a_half)));
-      // core matrices of 8 n-rows x 16 bytes: 128 bytes apart along K,
-      // 256 bytes apart along N
-      const uint64_t b_desc = wgmma_desc(b_s + tau * kTileWords, 128, 256);
+        for (int j = 0; j < C / 8; ++j)
+          bias[j] = *reinterpret_cast<const float2*>(st.b[cc] + 8 * j + 2 * q);
+
+      float acc[MT][C / 2];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) wgmma_fence_operand(acc[mt]);
-      wgmma_fence();
+      for (int i = 0; i < MT; ++i) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) wgmma_bf16<BN>(acc[mt], a[mt], b_desc);
-      wgmma_commit();
+        for (int e = 0; e < C / 2; ++e) acc[i][e] = 0.0f;
+        wgmma_fence_operand(acc[i]);
+      }
+      for (int tau = 0; tau < kk; ++tau, ++it) {
+        const int s = it % S;
+        mbar_wait(&full[s], (it / S) & 1);
+        wgmma_fence();
+        const uint8_t* wt = ring + s * kSlot;
+#pragma unroll
+        for (int ch = 0; ch < C / 16; ++ch) {
+          // a k16 step's B tile: C / 8 groups of 8 output channels, two
+          // 128-byte core matrices each (pack_conv_weight_bf16)
+          const uint64_t bdesc = desc_plain(wt + ch * 32 * C, 128, 256);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const int tile = wg + 2 * i;
+            if (tile < n_tiles) {
+              // output row r reads input row r - pad + tau d
+              const int r0 = cum + 64 * tile - pad + tau * dd;
+              const uint64_t adesc = desc_plain(
+                  a_pl + ((size_t)(2 * ch) * a.a_rows + r0) * 16, a.a_rows * 16, 128);
+              wgmma_ss<C>(acc[i], adesc, bdesc);
+            }
+          }
+        }
+        wgmma_commit();
+        // up to D taps stay in flight; the slot of the tap D back is free
+        wgmma_wait<F::D>();
+        if (tau >= F::D && lane == 0) mbar_arrive(&empty[(it - F::D) % S]);
+      }
       wgmma_wait<0>();
+      if (lane == 0)
+        for (int back = kk < F::D ? kk : F::D; back > 0; --back)
+          mbar_arrive(&empty[(it - back) % S]);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) wgmma_fence_operand(acc[mt]);
-    }
-    __syncthreads();
-  }
+      for (int i = 0; i < MT; ++i) wgmma_fence_operand(acc[i]);
+      consumer_sync(kConsumers);  // both warpgroups are done with the plane
 
+      const bool last = cc == run_end - 1;
+      const bool at_chain_end = cc == chain_end - 1;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+      for (int i = 0; i < MT; ++i) {
+        const int tile = wg + 2 * i;
+        if (tile >= n_tiles) continue;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int t = t0 + row0 + 64 * mt + g + 8 * half;
-      if (t >= length) continue;
-      const size_t row = ((size_t)b * length + t) * channels;
+        for (int h = 0; h < 2; ++h) {
+          const int r = cum + 64 * tile + 16 * warp + g + 8 * h;
+          if (r >= rows - cum) continue;  // past the rows the run needs
+          const int gr = lo + r;
+          const bool in = gr >= 0 && gr < L;
+          const size_t grow = (row0 + (in ? gr : 0)) * C;
+          float2 y[C / 8];
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int co = co0 + 8 * j + 2 * q;
-        float2 y = make_float2(acc[mt][4 * j + 2 * half] + bias[co],
-                               acc[mt][4 * j + 2 * half + 1] + bias[co + 1]);
-        if (res != nullptr) {
-          float2 r;
-          if (res_bf16)
-            r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                reinterpret_cast<const __nv_bfloat16*>(res) + row + co));
-          else
-            r = *reinterpret_cast<const float2*>(
-                reinterpret_cast<const float*>(res) + row + co);
-          y.x += r.x;
-          y.y += r.y;
+          for (int j = 0; j < C / 8; ++j) {
+            const float2 bj = kBiasEarly ? bias[kBiasEarly ? j : 0]
+                                         : *reinterpret_cast<const float2*>(
+                                               st.b[cc] + 8 * j + 2 * q);
+            y[j] = make_float2(acc[i][4 * j + 2 * h] + bj.x,
+                               acc[i][4 * j + 2 * h + 1] + bj.y);
+          }
+          if (!second) {  // t: the next conv's A plane
+#pragma unroll
+            for (int j = 0; j < C / 8; ++j)
+              *reinterpret_cast<uint32_t*>(a_pl + ((size_t)j * a.a_rows + r) * 16 + 4 * q) =
+                  in ? leaky_bf16x2(y[j].x, y[j].y) : 0u;
+            continue;
+          }
+          // the residual: from the z window, or (runs of a pair) from z
+          // in device memory at the block's own rows, which are the only
+          // rows such a run's conv_1 writes
+          float* zp = a.z_global ? nullptr : z_s + (size_t)(r - zo) * ZS + 2 * q;
+          if (a.z_global && !in) continue;
+#pragma unroll
+          for (int j = 0; j < C / 8; ++j) {
+            float2 z;
+            if (!a.z_global)
+              z = *reinterpret_cast<const float2*>(zp + 8 * j);
+            else if (z_bf16)
+              z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                  reinterpret_cast<const __nv_bfloat16*>(z_src) + grow + 8 * j + 2 * q));
+            else
+              z = *reinterpret_cast<const float2*>(
+                  reinterpret_cast<const float*>(z_src) + grow + 8 * j + 2 * q);
+            y[j].x += z.x;
+            y[j].y += z.y;
+          }
+          if (at_chain_end) {
+            if (!in) continue;
+            float* accp = a.acc + grow + 2 * q;
+            if (chain > 0) {
+              float2 prev[C / 8];  // every read issued before any is used
+#pragma unroll
+              for (int j = 0; j < C / 8; ++j)
+                prev[j] = *reinterpret_cast<const float2*>(accp + 8 * j);
+#pragma unroll
+              for (int j = 0; j < C / 8; ++j) {
+                y[j].x += prev[j].x;
+                y[j].y += prev[j].y;
+              }
+            }
+            if (chain == st.n_rb - 1) {
+              const float n = (float)st.n_rb;
+#pragma unroll
+              for (int j = 0; j < C / 8; ++j)
+                *reinterpret_cast<__nv_bfloat162*>(a.out + grow + 8 * j + 2 * q) =
+                    __floats2bfloat162_rn(y[j].x / n, y[j].y / n);
+            } else {
+#pragma unroll
+              for (int j = 0; j < C / 8; ++j)
+                *reinterpret_cast<float2*>(accp + 8 * j) = y[j];
+            }
+          } else if (last) {  // z to the next launch
+            float* zb = a.z_buf + (((cc - chain * st.per_chain) / 2) & 1) * n_elems;
+            if (in)
+#pragma unroll
+              for (int j = 0; j < C / 8; ++j)
+                *reinterpret_cast<float2*>(zb + grow + 8 * j + 2 * q) = y[j];
+          } else {
+#pragma unroll
+            for (int j = 0; j < C / 8; ++j) {
+              *reinterpret_cast<float2*>(zp + 8 * j) = y[j];
+              *reinterpret_cast<uint32_t*>(a_pl + ((size_t)j * a.a_rows + r) * 16 + 4 * q) =
+                  in ? leaky_bf16x2(y[j].x, y[j].y) : 0u;
+            }
+          }
         }
-        if (acc_in != nullptr) {
-          const float2 o = *reinterpret_cast<const float2*>(acc_in + row + co);
-          y.x += o.x;
-          y.y += o.y;
-        }
-        y.x *= scale;
-        y.y *= scale;
-        if (out_bf16)
-          *reinterpret_cast<__nv_bfloat162*>(
-              reinterpret_cast<__nv_bfloat16*>(out) + row + co) =
-              __floats2bfloat162_rn(y.x, y.y);
-        else
-          *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + row +
-                                     co) = y;
       }
+      fence_proxy_async();
+      consumer_sync(kConsumers);
     }
+    c = run_end;
   }
 }
 
-struct ConvBf16Args {
-  const void* in;
-  bool in_bf16;
-  const uint32_t* wp;
-  const float* bias;
-  const void* res;
-  bool res_bf16;
-  void* out;
-  bool out_bf16;
-  int k, dilation;
-  float scale;
-  const float* acc_in;
-};
-
-template <int BN, int MT, bool kInBf16>
-int launch_conv_bf16(const ConvBf16Args& a, int batch, int length,
-                     int channels, cudaStream_t stream) {
-  using T = ConvTile<BN, MT>;
-  const int rows_in = T::BM + (a.k - 1) * a.dilation;
-  const size_t smem =
-      2 * (size_t)stage_words_bf16(rows_in, a.k, BN, kInBf16) * 4;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        resblock_conv_bf16_kernel<BN, MT, kInBf16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int C>
+int launch_fused(const StageBf16& st, FusedArgs a, int batch, int per_launch,
+                 cudaStream_t stream) {
+  using F = FusedCfg<C>;
+  const int n_convs = st.n_rb * st.per_chain;
+  for (int c0 = 0; c0 < n_convs; c0 += per_launch) {
+    a.c_begin = c0;
+    a.c_end = c0 + per_launch;
+    // the largest run's frame sizes the A plane, the z window and the tiles
+    int max_read = 0, max_z = 0, max_tiles = 0;
+    for (int c = a.c_begin; c < a.c_end;) {
+      const int chain_end = (c / st.per_chain + 1) * st.per_chain;
+      const int run_end = a.c_end < chain_end ? a.c_end : chain_end;
+      int half = 0;
+      for (int cc = c; cc < run_end; ++cc) half += conv_pad(st, cc);
+      const int rows = a.bm + 2 * half;
+      const int zo = conv_pad(st, c) + conv_pad(st, c + 1);
+      max_z = max_z > rows - 2 * zo ? max_z : rows - 2 * zo;
+      // the A plane's rows: the load, and every tile's reads (a conv's last
+      // tile runs past its rows: the rows it reads are read, not used)
+      max_read = max_read > rows ? max_read : rows;
+      int cum = 0;
+      for (int cc = c; cc < run_end; ++cc) {
+        cum += conv_pad(st, cc);
+        const int tiles = (rows - 2 * cum + 63) / 64;
+        const int read = cum + conv_pad(st, cc) + 64 * tiles;
+        max_read = max_read > read ? max_read : read;
+        max_tiles = max_tiles > tiles ? max_tiles : tiles;
+      }
+      c = run_end;
+    }
+    a.a_rows = max_read | 1;  // odd: a warp's 16-byte rows spread over the banks
+    a.z_global = per_launch == 2;
+    a.z_rows = a.z_global ? 0 : max_z;
+    if (max_tiles > 2 * F::MT) return (int)cudaErrorInvalidValue;
+    const size_t smem = fused_smem_bytes<C>(a.a_rows, a.z_rows);
+    if (smem > 232448) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(resblock_fused_bf16_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
     if (e != cudaSuccess) return (int)e;
+    dim3 grid((a.length + a.bm - 1) / a.bm, batch);
+    resblock_fused_bf16_kernel<C><<<grid, kFusedThreads, smem, stream>>>(st, a);
+    DDSP_CHECK_LAUNCH();
   }
-  dim3 grid((length + T::BM - 1) / T::BM, channels / BN, batch);
-  resblock_conv_bf16_kernel<BN, MT, kInBf16><<<grid, kThreads, smem, stream>>>(
-      a.in, a.wp, a.bias, a.res, a.res_bf16 ? 1 : 0, a.out,
-      a.out_bf16 ? 1 : 0, length, channels, a.k, a.dilation, a.scale,
-      a.acc_in);
-  DDSP_CHECK_LAUNCH();
   return 0;
-}
-
-template <int BN>
-int launch_conv_bf16_rows(const ConvBf16Args& a, int batch, int length,
-                          int channels, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const long long blocks256 =
-      (long long)((length + 255) / 256) * (channels / BN) * batch;
-  const bool big = blocks256 >= 2LL * sms;
-  if (a.in_bf16)
-    return big ? launch_conv_bf16<BN, 2, true>(a, batch, length, channels, stream)
-               : launch_conv_bf16<BN, 1, true>(a, batch, length, channels, stream);
-  return big ? launch_conv_bf16<BN, 2, false>(a, batch, length, channels, stream)
-             : launch_conv_bf16<BN, 1, false>(a, batch, length, channels, stream);
-}
-
-int launch_conv_bf16_any(const ConvBf16Args& a, int batch, int length,
-                         int channels, cudaStream_t stream) {
-  if (channels % 64 == 0)
-    return launch_conv_bf16_rows<64>(a, batch, length, channels, stream);
-  if (channels % 32 == 0)
-    return launch_conv_bf16_rows<32>(a, batch, length, channels, stream);
-  return launch_conv_bf16_rows<16>(a, batch, length, channels, stream);
 }
 
 }  // namespace
 
-// x, out: (batch, length, channels) bf16, channels a multiple of 16;
+// x, out: (batch, length, channels) bf16, channels 16, 32, 64 or 128;
 // weights: n_rb * n_dil * 2 device pointers in chain order, each packed as
-// (k, C_in / 16, C_out / 8, 2, 8, 8) bf16; biases: f32 (C,); t_buf and
-// z_buf f32 scratch of x's element count, s_buf f32 scratch of twice it
-// (the chains' running sums).
-DDSP_API int ddsp_resblock_group_bf16(const void* x,
-                                      const void* const* weights,
+// (k, C_in / 16, C_out / 8, 2, 8, 8) bf16; biases: f32 (C,); acc: f32
+// scratch of x's element count, z_buf of twice it (unused when a launch
+// holds whole chains). per_launch: convs per launch (2, 2 n_dil or the
+// stage's n_rb 2 n_dil); bm: output rows per block.
+DDSP_API int ddsp_resblock_group_bf16(const void* x, const void* const* weights,
                                       const float* const* biases,
                                       const int* kernel_sizes,
-                                      const int* dilations, int n_rb,
-                                      int n_dil, void* out, float* t_buf,
-                                      float* z_buf, float* s_buf, int batch,
-                                      int length, int channels, void* stream) {
-  const long long n = (long long)batch * length * channels;
-  if (n == 0) return 0;
-  if (channels % 16 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  float* sums[2] = {s_buf, s_buf + n};
-  int wi = 0;
-  for (int rb = 0; rb < n_rb; ++rb) {
-    const int k = kernel_sizes[rb];
-    for (int di = 0; di < n_dil; ++di) {
-      const int d = dilations[rb * n_dil + di];
-      const bool first = di == 0;  // z is x itself (bf16)
-      ConvBf16Args c1{first ? x : (const void*)z_buf, first,
-                      (const uint32_t*)weights[wi], biases[wi], nullptr, false,
-                      t_buf, false, k, d, 1.0f, nullptr};
-      int err = launch_conv_bf16_any(c1, batch, length, channels, st);
-      if (err) return err;
-      ++wi;
-      const bool last = di == n_dil - 1;
-      const bool final_chain = rb == n_rb - 1;
-      void* dst = !last ? (void*)z_buf
-                        : (final_chain ? out : (void*)sums[rb % 2]);
-      ConvBf16Args c2{t_buf, false, (const uint32_t*)weights[wi], biases[wi],
-                      first ? x : (const void*)z_buf, first, dst,
-                      last && final_chain, k, 1,
-                      (last && final_chain) ? 1.0f / n_rb : 1.0f,
-                      (last && rb > 0) ? sums[(rb - 1) % 2] : nullptr};
-      err = launch_conv_bf16_any(c2, batch, length, channels, st);
-      if (err) return err;
-      ++wi;
-    }
+                                      const int* dilations, int n_rb, int n_dil,
+                                      void* out, float* acc, float* z_buf,
+                                      int batch, int length, int channels,
+                                      int per_launch, int bm, void* stream) {
+  if ((long long)batch * length * channels == 0) return 0;
+  const int per_chain = 2 * n_dil;
+  const int n_convs = n_rb * per_chain;
+  if (n_convs > kMaxConvs || per_launch < 2 || per_launch % 2 != 0 ||
+      n_convs % per_launch != 0 ||
+      (per_launch > per_chain ? per_launch != n_convs : per_chain % per_launch != 0) ||
+      bm < 16 || bm % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  StageBf16 st{};
+  st.per_chain = per_chain;
+  st.n_rb = n_rb;
+  for (int c = 0; c < n_convs; ++c) {
+    const int rb = c / per_chain, local = c % per_chain;
+    st.w[c] = weights[c];
+    st.b[c] = biases[c];
+    st.k[c] = kernel_sizes[rb];
+    st.d[c] = (local & 1) ? 1 : dilations[rb * n_dil + local / 2];
   }
-  return 0;
+  FusedArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+              acc, z_buf, length, 0, 0, bm, 0, 0, 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (channels) {
+    case 16: return launch_fused<16>(st, a, batch, per_launch, s);
+    case 32: return launch_fused<32>(st, a, batch, per_launch, s);
+    case 64: return launch_fused<64>(st, a, batch, per_launch, s);
+    case 128: return launch_fused<128>(st, a, batch, per_launch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

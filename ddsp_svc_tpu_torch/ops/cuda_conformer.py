@@ -197,7 +197,8 @@ def conformer_layer_bf16(x, cond, step_vec, weights, packed=None):
 
     A CPU tensor takes the plain version (through
     ``ConformerLayerBf16Function`` when grad is wanted, so the gradient is
-    the f32 chain's); a CUDA tensor launches the bf16 kernels and counts
+    the f32 chain's); a CUDA tensor launches the bf16 kernel three times
+    (h, then s with the GLU and the depthwise conv, then out) and counts
     one launch in ``conformer_layer_bf16.launches``."""
     if x.device.type == "cpu":
         if kernels.grad_wanted(x, cond, step_vec, *weights):
@@ -223,9 +224,9 @@ def _launch_bf16(x, cond, step_vec, weights, packed):
     b, t, c = x.shape
     wc, bc, w1, b1, wd, bd, w2, b2 = weights
     inner, k = wd.shape
-    if c % 8 or cond.shape[-1] % 8 or inner % 8:
+    if c % 8 or cond.shape[-1] % 8 or inner % 8 or cond.shape[-1] > 256:
         raise ValueError(f"conformer_layer_bf16: C, Hc and I multiples of 8, "
-                         f"got {c}, {cond.shape[-1]}, {inner}")
+                         f"Hc at most 256, got {c}, {cond.shape[-1]}, {inner}")
     for name, p, w in zip(("wc", "w1", "w2"), packed, (wc, w1, w2)):
         kernels.check_cuda_input(p, f"conformer_layer_bf16 {name} (bf16)", 2,
                                  torch.bfloat16)
@@ -233,16 +234,16 @@ def _launch_bf16(x, cond, step_vec, weights, packed):
             raise ValueError(f"conformer_layer_bf16: packed {name} does not "
                              f"match its weight")
     out = torch.empty_like(x)
-    h = torch.empty_like(x)
-    u = torch.empty(b, t, inner, device=x.device, dtype=x.dtype)
-    s = torch.empty_like(u)
+    # h and s in bf16, as the next GEMM reads them (u stays on the SM)
+    h = torch.empty((b, t, c), device=x.device, dtype=torch.bfloat16)
+    s = torch.empty((b, t, inner), device=x.device, dtype=torch.bfloat16)
     pc, p1, p2 = packed
     err = kernels.library().ddsp_conformer_layer_bf16(
         x.data_ptr(), cond.data_ptr(), step_vec.data_ptr(), pc.data_ptr(),
         bc.data_ptr(), p1.data_ptr(), b1.data_ptr(), wd.data_ptr(),
         bd.data_ptr(), p2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        h.data_ptr(), u.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1],
-        inner, k, kernels.stream_handle(x.device))
+        h.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1], inner, k,
+        kernels.stream_handle(x.device))
     kernels.check(err, "conformer_layer_bf16")
     kernels.count_launch(conformer_layer_bf16)
     return out

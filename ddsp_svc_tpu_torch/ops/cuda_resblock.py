@@ -26,11 +26,15 @@ K2's bf16 class (the JAX kernel run on bf16 activations under
 packed once per model (``pack_conv_weight_bf16``), f32 accumulation, bias,
 residuals and mean; ``resblock_group_bf16_plain`` is its plain version and
 ``resblock_group`` dispatches to it on a bf16 x. It counts its launches in
-``resblock_group_bf16.launches``.
+``resblock_group_bf16.launches``. Its kernel keeps a time tile and its halo
+on the SM through a run of convs (``FUSED_PLAN``: the whole stage at C <=
+64, a conv pair at C = 128); ``resblock_group_bf16_tiled`` walks the same
+tiles, halos and zero padding in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -123,6 +127,129 @@ def bf16_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
           and beyond <= BF16_MAX_BEYOND_ULP and differ <= BF16_MAX_DIFFER)
     return dict(ok=ok, differ=differ, beyond_ulp=beyond,
                 max_abs_err=float(diff.max()))
+
+
+# K2-bf16's launch plan per width: (convs per launch, the most output rows
+# a block takes). "stage": one launch runs the three chains one after
+# another; "chain" and "pair" launch per chain or per conv pair, with z in
+# f32 in device memory between a chain's pairs.
+# C = 128 takes a pair: a chain's 120-row halo does not fit beside a useful
+# tile there. FUSED_BLOCKS_PER_SM: how many blocks share an SM (their
+# shared memory; FusedCfg's MIN_BLOCKS in csrc/resblock.cu).
+FUSED_PLAN = {16: ("stage", 512), 32: ("stage", 232), 64: ("stage", 224),
+              128: ("pair", 240)}
+FUSED_BLOCKS_PER_SM = {16: 2, 32: 2, 64: 1, 128: 1}
+
+
+def _convs_per_launch(mode: str, n_rb: int, n_dil: int) -> int:
+    return {"stage": 2 * n_dil * n_rb, "chain": 2 * n_dil, "pair": 2}[mode]
+
+
+def fused_rows(bm: int, length: int, batch: int, slots: int) -> int:
+    """Output rows per block for a launch of ``batch`` x ``length`` rows on
+    ``slots`` resident blocks (SMs x blocks per SM): as many waves as
+    ``bm`` rows a block would take, with the rows spread evenly over them
+    (a multiple of 8, at least 64, below which the halo is most of the
+    work), so that the last wave is not a sliver."""
+    blocks = batch * -(-length // bm)
+    waves = -(-blocks // slots)
+    per_utterance = max(1, waves * slots // batch)
+    rows = -(-length // per_utterance)
+    return min(bm, max(64, -(-rows // 8) * 8))
+
+
+def resblock_group_bf16_tiled(x, rb_weights, kernel_sizes, dilations,
+                              plan=None, fault=None):
+    """``resblock_group_bf16``'s function computed as its kernel tiles it,
+    in plain PyTorch: per launch of the plan (``plan`` = (convs per launch,
+    rows per block); unless given, ``FUSED_PLAN[C]`` with the rows
+    ``fused_rows`` gives on 132 SMs), per block of ``bm`` output rows of one
+    utterance and per run of
+    convs inside one chain, the frame of ``bm`` rows plus the run's halo
+    (the sum of its convs' (k - 1) d) is read with zeros outside [0, L); each
+    conv computes the rows the later convs need and writes rows outside
+    [0, L) as zeros before the next conv reads them; z stays f32 in the
+    frame and passes between launches in f32, and the running sum over
+    chains in an f32 buffer that each chain's last conv adds to. ``fault=
+    "halo"`` skips that zeroing after each conv (the planted error the tests
+    show the tolerance catches). x (B, L, C) bf16 -> (B, L, C) bf16."""
+    if isinstance(rb_weights, PackedResblocks):
+        rb_weights = rb_weights.torch_weights
+    batch, length, c = x.shape
+    if plan is None:
+        mode, bm = FUSED_PLAN[c]
+        plan = mode, fused_rows(bm, length, batch, 132 * FUSED_BLOCKS_PER_SM[c])
+    mode, bm = plan
+    convs = []
+    for k, dils, rbw in zip(kernel_sizes, dilations, rb_weights):
+        for i, (w, b) in enumerate(rbw):
+            convs.append((_bf16_round(w), b.float(), k,
+                          1 if i % 2 else dils[i // 2]))
+    per_chain, n_rb = 2 * len(dilations[0]), len(rb_weights)
+    per_launch = _convs_per_launch(mode, n_rb, len(dilations[0]))
+    xf = x.float()
+    acc = torch.zeros_like(xf)
+    z_buf = [torch.zeros_like(xf), torch.zeros_like(xf)]
+    out = torch.empty_like(x)
+
+    def pad(cc):
+        return (convs[cc][2] - 1) * convs[cc][3] // 2
+
+    def plane(v, keep):  # a conv's input: leaky, bf16, zeros outside [0, L)
+        v = _bf16_round(F.leaky_relu(v, LRELU_SLOPE))
+        return v if fault == "halo" else v * keep[:, None]
+
+    for c0 in range(0, len(convs), per_launch):
+        for b in range(batch):
+            for t0 in range(0, length, bm):
+                c = c0
+                while c < c0 + per_launch:
+                    chain = c // per_chain
+                    run_end = min(c0 + per_launch, (chain + 1) * per_chain)
+                    half = sum(pad(cc) for cc in range(c, run_end))
+                    rows = bm + 2 * half
+                    lo = t0 - half
+                    idx = torch.arange(lo, lo + rows)
+                    keep = ((idx >= 0) & (idx < length)).float()
+                    local = c - chain * per_chain
+                    z_src = xf if local < 2 else z_buf[(local // 2 - 1) % 2]
+
+                    def gather(src):
+                        return src[b, idx.clamp(0, length - 1)] * keep[:, None]
+
+                    z = gather(z_src)
+                    a = plane(z, keep)
+                    cum = 0
+                    for cc in range(c, run_end):
+                        w, bias, k, d = convs[cc]
+                        p = pad(cc)
+                        cum += p
+                        seg = a[cum - p:rows - cum + p].t()[None]
+                        y = F.conv1d(seg, w, bias, dilation=d)[0].t()
+                        span = slice(cum, rows - cum)
+                        own = slice(t0, min(t0 + bm, length))
+                        n_own = own.stop - own.start
+                        second = (cc - chain * per_chain) % 2
+                        last = cc == run_end - 1
+                        if second:
+                            y = y + z[span]
+                            if cc == (chain + 1) * per_chain - 1:
+                                y = y[:n_own]
+                                if chain > 0:
+                                    y = y + acc[b, own]
+                                if chain == n_rb - 1:
+                                    out[b, own] = (y / float(n_rb)).to(x.dtype)
+                                else:
+                                    acc[b, own] = y
+                            elif last:
+                                z_buf[(cc - chain * per_chain) // 2 % 2][b, own] = y[:n_own]
+                            else:
+                                z[span] = y
+                                a[span] = plane(y, keep[span])
+                        else:
+                            a[span] = plane(y, keep[span])
+                    c = run_end
+    return out
 
 
 # ---------------------------------------------------------------- packing
@@ -371,8 +498,10 @@ resblock_group.launches = 0
 def resblock_group_bf16(x, rb_weights, kernel_sizes, dilations):
     """K2's bf16 class: x (B, L, C) bf16 -> the stage's resblock mean,
     (B, L, C) bf16 (see ``resblock_group_bf16_plain``). A CPU tensor takes
-    the plain version; a CUDA tensor launches the bf16 kernels (18 convs)
-    and counts one launch in ``resblock_group_bf16.launches``. With grad on
+    the plain version; a CUDA tensor (C = 16, 32, 64 or 128) launches the
+    fused bf16 kernel (one launch a stage at C <= 64, one per conv pair at
+    C = 128: ``FUSED_PLAN``) and counts one launch in
+    ``resblock_group_bf16.launches``. With grad on
     and x or a weight requiring it, the launch goes through
     ``ResblockGroupBf16Function``."""
     if x.dtype != torch.bfloat16:
@@ -388,11 +517,16 @@ def resblock_group_bf16(x, rb_weights, kernel_sizes, dilations):
     return _launch_bf16(x, rb_weights, kernel_sizes, dilations)
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_bf16(x, rb_weights: PackedResblocks, kernel_sizes, dilations):
     kernels.check_cuda_input(x, "resblock_group_bf16 x", 3, torch.bfloat16)
     b, length, c = x.shape
-    if c % 16 != 0:
-        raise ValueError(f"resblock_group_bf16: channels a multiple of 16, "
+    if c not in FUSED_PLAN:
+        raise ValueError(f"resblock_group_bf16: channels 16, 32, 64 or 128, "
                          f"got {c}")
     if x.data_ptr() % 16 != 0:
         raise ValueError("resblock_group_bf16: x must be 16-byte aligned")
@@ -404,15 +538,21 @@ def _launch_bf16(x, rb_weights: PackedResblocks, kernel_sizes, dilations):
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     ds_flat = [d for dils in dilations for d in dils]
     ds = (ctypes.c_int * len(ds_flat))(*ds_flat)
+    mode, bm = FUSED_PLAN[c]
+    bm = fused_rows(bm, length, b, _sm_count(x.device) * FUSED_BLOCKS_PER_SM[c])
+    per_launch = _convs_per_launch(mode, len(kernel_sizes), len(dilations[0]))
     out = torch.empty_like(x)
-    t_buf, z_buf = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
-                    for _ in range(2))
-    s_buf = torch.empty((2,) + tuple(x.shape), dtype=torch.float32,
-                        device=x.device)
+
+    def scratch(n):  # f32 scratch of n times x's size (or none)
+        return torch.empty((n,) + tuple(x.shape), dtype=torch.float32,
+                           device=x.device)
+
+    acc = scratch(1)
+    z_buf = scratch(2 if mode == "pair" else 0)
     err = kernels.library().ddsp_resblock_group_bf16(
         x.data_ptr(), w_ptrs, b_ptrs, ks, ds, len(kernel_sizes),
-        len(dilations[0]), out.data_ptr(), t_buf.data_ptr(), z_buf.data_ptr(),
-        s_buf.data_ptr(), b, length, c, kernels.stream_handle(x.device))
+        len(dilations[0]), out.data_ptr(), acc.data_ptr(), z_buf.data_ptr(),
+        b, length, c, per_launch, bm, kernels.stream_handle(x.device))
     kernels.check(err, "resblock_group_bf16")
     kernels.count_launch(resblock_group_bf16)
     return out

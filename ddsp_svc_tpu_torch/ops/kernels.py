@@ -43,14 +43,17 @@ _SIGNATURES = {
     #  out, t_buf, z_buf, s_buf, batch, length, channels, stream)
     "ddsp_resblock_group": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                             _I, _I, _I, _P),
-    # the same for K2's bf16 class (x, out bf16; s_buf twice x's size)
-    "ddsp_resblock_group_bf16": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                                 _I, _I, _I, _P),
+    # K2's bf16 class: (x, weights[], biases[], kernel_sizes[],
+    #  dilations[], n_rb, n_dil, out, acc, z_buf, batch, length, channels,
+    #  convs per launch, rows per block, stream)
+    "ddsp_resblock_group_bf16": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P),
     # (x, cond, step_vec, wc, bc, w1, b1, wd, bd, w2, b2, out, h, u, s,
     #  batch, t, c, hc, inner, k, stream)
     "ddsp_conformer_layer": (_P,) * 15 + (_I,) * 6 + (_P,),
-    # the same for K3's bf16 class (wc, w1, w2 bf16)
-    "ddsp_conformer_layer_bf16": (_P,) * 15 + (_I,) * 6 + (_P,),
+    # K3's bf16 class: (x, cond, step_vec, wc, bc, w1, b1, wd, bd, w2, b2,
+    #  out, h, s, batch, t, c, hc, inner, k, stream); wc, w1, w2, h, s bf16
+    "ddsp_conformer_layer_bf16": (_P,) * 14 + (_I,) * 6 + (_P,),
     # (x, amps, out, batch, n_frames, block, n_harm, stream)
     "ddsp_harmonic_bank": (_P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -16,7 +16,15 @@ its error against the plain version:
 - K1 (the whole ``combtooth()`` call, at T = 862 and at a ten-minute
   T = 51,680) and K4 by replaying calls captured in one CUDA graph, with
   torch.profiler's device time of the kernel, the device operations of one
-  call and, for K1, the host wall of one call up to ``synchronize()``.
+  call and, for K1, the host wall of one call up to ``synchronize()``;
+- K2's bf16 class (B4) per stage at C = 128 ... 16 and the four stages'
+  sum, by CUDA events, with its ``bf16_agreement`` against the plain
+  version (a copy whose ``cuda_resblock`` has ``FUSED_PLAN`` also times
+  one chain per launch at C <= 64, where it runs the whole stage); and
+  K3's bf16 class (B3) at B 1 x T 862 and B 48 x T 172, with its
+  ``bf16_layer_agreement``, by CUDA events over back-to-back calls and by
+  CUDA graph replay (device time: at 10 s the host's work per call is the
+  longer). A copy that predates either class skips it.
 
     python3 -m ddsp_svc_tpu_torch.tools.kernel_ab <dir_a> <dir_b> [...]
 """
@@ -91,6 +99,47 @@ w = tuple(((torch.rand(shape, generator=gen) * 2 - 1) * scale).cuda() for shape,
 err = rel(conformer_layer(x, cond, step, w), conformer_layer_plain(x, cond, step, w))
 out["K3"] = dict(ms=ms(lambda: conformer_layer(x, cond, step, w), 200), err=err)
 
+from ddsp_svc_tpu_torch.ops import cuda_conformer
+if hasattr(cuda_conformer, "conformer_layer_bf16"):
+    for b, tt in ((1, 862), (48, 172)):
+        xb, cb = (torch.randn((b, tt, n), generator=gen).cuda() for n in (c, hc))
+        sb = torch.randn((b, c), generator=gen).cuda()
+        packed = cuda_conformer.bf16_gemm_weights(w)
+        got = cuda_conformer.conformer_layer_bf16(xb, cb, sb, w, packed)
+        agree = cuda_conformer.bf16_layer_agreement(
+            got, cuda_conformer.conformer_layer_bf16_plain(xb, cb, sb, w), xb)
+        if not agree["ok"]:
+            sys.exit(f"B3 B={b} T={tt} disagrees with its plain version: {agree}")
+        call = lambda: cuda_conformer.conformer_layer_bf16(xb, cb, sb, w, packed)
+        out[f"B3 B={b} T={tt}"] = dict(ms=ms(call, 200 if b == 1 else 50),
+                                       graph_ms=timing.graph_ms(call, 50 if b == 1 else 10),
+                                       err=agree["rel"])
+if hasattr(cuda_resblock, "resblock_group_bf16"):
+    plans = getattr(cuda_resblock, "FUSED_PLAN", None)
+    others = {128: (), 64: ("chain",), 32: ("chain",), 16: ("chain",)}
+    for c2, per_frame in ((128, 64), (64, 128), (32, 256), (16, 512)):
+        x2 = torch.randn((1, 862 * per_frame, c2), generator=gen).cuda().to(torch.bfloat16)
+        w2 = [[tuple(((torch.rand(shape, generator=gen) * 2 - 1) / math.sqrt(c2 * k)).cuda()
+                     for shape in ((c2, c2, k), (c2,))) for _ in range(6)] for k in ks]
+        packed = cuda_resblock.PackedResblocks(w2)
+        want = cuda_resblock.resblock_group_bf16_plain(x2, w2, ks, ds)
+        default = plans[c2] if plans else None
+        variants = [default] + ([(mode, 128 if c2 == 128 else default[1])
+                                 for mode in others[c2]] if plans else [])
+        for plan in variants:
+            if plans:
+                plans[c2] = plan
+            try:
+                call = lambda: cuda_resblock.resblock_group_bf16(x2, packed, ks, ds)
+                agree = cuda_resblock.bf16_agreement(call(), want)
+                if not agree["ok"]:
+                    sys.exit(f"B4 C={c2} {plan} disagrees with its plain version: {agree}")
+                name = f"B4 C={c2}" + ("" if plan == default else f" {plan[0]} {plan[1]}")
+                out[name] = dict(ms=ms(call, 20), err=agree["max_abs_err"])
+            finally:
+                if plans:
+                    plans[c2] = default
+
 
 def f0_contour(t):
     """chip_smoke.py's: 220 Hz, 5.5 Hz vibrato, an unvoiced tenth."""
@@ -123,6 +172,8 @@ print("RESULT " + json.dumps(out))
 
 def _describe(name: str, res: dict) -> str:
     text = f"{name} {res['ms']:.5f} ms (err {res['err']:.1e}"
+    if "graph_ms" in res:
+        text += f"; device {res['graph_ms']:.5f} ms by CUDA graph replay"
     if "kernel_ms" in res:
         text += f"; kernel {res['kernel_ms']:.5f} ms by the profiler, {res['ops']:g} device ops"
     if "wall_ms" in res:
@@ -155,7 +206,10 @@ def main(argv: list[str]) -> None:
     for d in argv:
         for i, res in enumerate(runs[d]):
             k2 = [v["ms"] for name, v in res.items() if name.startswith("K2")]
+            b4 = [v["ms"] for name, v in res.items()
+                  if name.startswith("B4") and name.count(" ") == 1]
             head = f"K2 five stages {sum(k2):.3f} ms; " if k2 else ""
+            head += f"B4 four stages {sum(b4):.4f} ms; " if b4 else ""
             print(f"{d} run {i}: {head}" + "; ".join(
                 _describe(name, v) for name, v in res.items()), flush=True)
     if failed:

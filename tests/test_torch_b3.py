@@ -72,6 +72,37 @@ def test_plain_matches_pallas_bf16_class(t):
                                             _torch_weights(w)), got)
 
 
+def _layer_with_stored_bf16(x, cond, step_vec, weights):
+    """B3 as its kernel stores it: h and s kept as bf16 tensors, each
+    rounded once (nearest even) from its f32 value, and read back by the
+    next GEMM; u, the bias sums and the residual in f32."""
+    import torch.nn.functional as F
+
+    wc, bc, w1, b1, wd, bd, w2, b2 = weights
+    h = (x + step_vec[:, None, :] + torch.matmul(bf16_round(cond), bf16_round(wc).t())
+         + bc).to(torch.bfloat16)
+    g = torch.matmul(h.float(), bf16_round(w1).t()) + b1
+    a, gate = g.chunk(2, dim=-1)
+    u = a * torch.sigmoid(gate)
+    k = wd.shape[-1]
+    v = F.conv1d(u.transpose(1, 2), wd[:, None, :], padding=(k - 1) // 2,
+                 groups=u.shape[-1]).transpose(1, 2) + bd
+    s = (v * torch.sigmoid(v)).to(torch.bfloat16)
+    return x + torch.matmul(s.float(), bf16_round(w2).t()) + b2
+
+
+@pytest.mark.parametrize("b,t,c,hc,k", [(2, 40, 128, 32, 7), (1, 37, 64, 16, 31),
+                                        (2, 23, 512, 128, 31)])
+def test_stored_bf16_intermediates_equal_the_plain_version(b, t, c, hc, k):
+    """The kernel stores h and s in bf16 where the plain version rounds
+    them at their use: the same function, bit for bit."""
+    x, cond, sv, w = _inputs(b=b, t=t, c=c, hc=hc, k=k, seed=t)
+    args = (torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(sv),
+            _torch_weights(w))
+    assert torch.equal(_layer_with_stored_bf16(*args),
+                       conformer_layer_bf16_plain(*args))
+
+
 def test_snr_against_the_f32_layer():
     """The JAX package's class check (test_pallas_conformer.py:95-106):
     > 35 dB from the f32 layer, and not equal to it."""

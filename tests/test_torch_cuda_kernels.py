@@ -183,6 +183,44 @@ def test_resblock_group_bf16_kernel(cuda, b, c, length):
     assert torch.equal(one[0], got[-1])
 
 
+# samples per frame at each bf16 stage of the default generator
+PER_FRAME = {128: 64, 64: 128, 32: 256, 16: 512}
+
+
+@pytest.mark.parametrize("b,length", [(2, 1), (2, 50), (2, 333), (8, None)])
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
+def test_resblock_group_bf16_fused_edges(cuda, c, b, length):
+    """The fused kernel where its tiling is most fragile: one row, L below
+    the k = 11 chain's 60-row halo a side, ragged rows at B = 2, and the
+    B = 8 x 1024-frame bucket (``length`` None); within ``bf16_agreement``
+    of the plain version, exactly one launch counted, and every row alone
+    equal to the same row of the batch."""
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
+                                                      bf16_agreement,
+                                                      resblock_group_bf16,
+                                                      resblock_group_bf16_plain)
+
+    length = length or 1024 * PER_FRAME[c]
+    gen = torch.Generator().manual_seed(7 * c + b + length)
+    x = torch.randn((b, length, c), generator=gen).to(cuda).to(torch.bfloat16)
+    weights = []
+    for k, dils in zip(KS, DS):
+        bd = 1 / math.sqrt(c * k)
+        weights.append([(((torch.rand((c, c, k), generator=gen) * 2 - 1) * bd).to(cuda),
+                         ((torch.rand((c,), generator=gen) * 2 - 1) * bd).to(cuda))
+                        for _ in range(2 * len(dils))])
+    packed = PackedResblocks(weights)
+    n0 = resblock_group_bf16.launches
+    got = resblock_group_bf16(x, packed, KS, DS)
+    torch.cuda.synchronize()
+    assert resblock_group_bf16.launches == n0 + 1
+    agree = bf16_agreement(got, resblock_group_bf16_plain(x, weights, KS, DS))
+    assert agree["ok"], agree
+    for row in (0, b - 1):
+        assert torch.equal(resblock_group_bf16(x[row:row + 1].contiguous(), packed,
+                                               KS, DS)[0], got[row])
+
+
 def test_bf16_generator_never_reaches_the_plain_version(cuda, monkeypatch):
     """A bf16 generator on the card runs K2-bf16 at C = 128 ... 16 (four
     launches) and the stock chain at C = 256; the plain version, patched to
@@ -238,11 +276,15 @@ def test_conformer_layer_kernel(cuda, b, t, c, hc, k):
 
 
 @pytest.mark.parametrize("b,t,c,hc,k", [(1, 862, 512, 128, 31), (48, 172, 512, 128, 31),
-                                        (1, 37, 64, 32, 7), (2, 101, 128, 16, 31)])
+                                        (1, 37, 64, 32, 7), (2, 101, 128, 16, 31),
+                                        (1, 1, 512, 128, 31), (1, 15, 512, 128, 31),
+                                        (1, 16, 512, 128, 31), (3, 15, 512, 128, 31)])
 def test_conformer_layer_bf16_kernel(cuda, b, t, c, hc, k):
     """B3 against its plain version within ``bf16_layer_agreement`` (other
     f32 sum orders flip bf16 roundings of h and s), at the 10 s and the
-    training shapes and at B = 1, 2 with ragged T; one launch per call."""
+    training shapes, at B = 1, 2 with ragged T, and at T = 1, 15 and 16
+    (the depthwise conv's 15-row pad, rows of three utterances in one
+    tile); one launch per call."""
     from ddsp_svc_tpu_torch.ops.cuda_conformer import (bf16_layer_agreement,
                                                        conformer_layer_bf16,
                                                        conformer_layer_bf16_plain)
