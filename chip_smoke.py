@@ -130,7 +130,35 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      card against the port on the CPU with the same batch, parameters and
      draws: the loss and every gradient; (e) step times (median, min, max of
      the warm steps), samples and audio seconds per second, peak memory, and
-     the device's busy share of one profiled DiffusionFast step.
+     the device's busy share of one profiled DiffusionFast step;
+ 19. bf16 mixed-precision training on phase 18's corpus: (a)
+     configs/diffusion-new-bf16.yaml as shipped (DiffusionNew 20 x 512,
+     batch 48, 2 s crops, amp_dtype bf16) through cli.train.main for 20
+     steps, then 5 after a resume, with float32 parameters; (b)
+     DiffusionFast with amp_dtype bf16 through cli.train.main for 20 steps,
+     exactly B5 6 and K1 1 per step (none in the backward, K3 and B3 none);
+     (c) the f32 run from the same weights, batches and draws, its losses
+     against the bf16 run's within BF16_BAND each step, and step times and
+     peak memory, bf16 beside f32, for DiffusionFast and DiffusionNew; (d)
+     three bf16 steps each of RectifiedFlow (B5 6, K1 1), Sins (K4 1),
+     CombSubFast and Unit2Mel; (e) one bf16 DiffusionFast step at batch 4,
+     card (B5) against CPU (its plain version), within the stated limits;
+ 20. NSF-HiFiGAN GAN training at configs/nsf-hifigan.yaml's full width
+     (512 initial channels, rates 8, 8, 2, 2, 2, MPD + MSD, batch 16 x 0.5
+     s crops) on phase 18's corpus: (a) cli.train_vocoder.main for 10
+     iterations and a save, then 5 after a resume, K2 exactly once per
+     stage in each step (10 per iteration); iteration times (median, min,
+     max), samples per second and peak memory; (b) the device's busy share
+     of one profiled iteration and K2's part of it; (c) one discriminator
+     step and one generator step at batch 2, card against CPU, within the
+     stated limits; (d) K2 per stage at the training shapes with its bound,
+     B1's backward (the plain chain) and the repacking of a weight-normed
+     generator's weights.
+Phase 3 also holds B5 (K3's bf16 class on bf16 activations) to its plain
+version by ``bf16_io_agreement`` at B 48 x T 172 (cond f32 and bf16) and
+B 1 x T 862, the kernel and both plain versions against float64 sums with
+two planted faults failing, with its device time by CUDA graph replay and
+its bound.
 It then prints one JSON line describing the kernels and, last, one JSON
 line {"ok": true, "device": {...}}. TF32 is off for the whole run.
 """
@@ -194,6 +222,8 @@ REDESIGNED = {
     "conformer_layer": "mma.sync in split TF32",
     "conformer_layer_bf16": "TMA + wgmma bf16, three launches, h and s in "
                             "bf16, the depthwise conv in GEMM 2's epilogue",
+    "conformer_layer_bf16_io": "B3's three TMA + wgmma launches on bf16 x "
+                               "and out (cond by TMA when bf16)",
     "harmonic_bank": "three-term recurrence over harmonics"}
 MIX = {1: 0.5, 2: 0.5}
 # phase 18: the run's sizes, and the card-vs-CPU limits for one training
@@ -566,6 +596,7 @@ def phase_kernels(torch, card: str) -> dict:
         f"single PyTorch call computes it [{card}]")
     results["conformer_layer_bf16"] = k3_bf16(torch, gen, (x, cond, step, w),
                                               got, card, problems)
+    results["conformer_layer_bf16_io"] = k3_bf16_io(torch, gen, w, card, problems)
     # K4 harmonic bank: x (B, T*512, 1) cycles, amps (B, T, 128); 3e-5 abs
     from ddsp_svc_tpu_torch.ops.cuda_oscillator import (harmonic_bank,
                                                         harmonic_bank_plain)
@@ -741,6 +772,118 @@ def k3_bf16(torch, gen, k3_inputs, k3_out, card: str, problems: list) -> dict:
                 plain_ms=r["plain"], bound_ms=r["bound"], bound_by=r["by"],
                 library_ms=None, events_ms=r["events"], train_ms=out[48]["ms"],
                 train_plain_ms=out[48]["plain"], train_bound_ms=out[48]["bound"])
+
+
+def conformer_bf16_io_chain(torch, x, cond, step, w, fault=None):
+    """B5's function with exact (float64) sums, or with a planted fault:
+    "h" (an extra bf16 rounding of h before its bias) or "twice" (the
+    branch rounded to bf16 before x is added, so the output is rounded
+    twice)."""
+    import torch.nn.functional as F
+
+    def r(v):
+        return v.to(torch.bfloat16).double()
+
+    wc, bc, w1, b1, wd, bd, w2, b2 = (v.double() for v in w)
+    x, cond = x.double(), cond.double()
+    hp = torch.matmul(r(cond), r(wc).t())
+    if fault == "h":
+        hp = r(hp)
+    h = x + r(step)[:, None, :] + hp + bc
+    g = torch.matmul(r(h), r(w1).t()) + b1
+    a, gate = g.chunk(2, dim=-1)
+    u = a * torch.sigmoid(gate)
+    k = wd.shape[-1]
+    v = F.conv1d(u.transpose(1, 2), wd[:, None, :], padding=(k - 1) // 2,
+                 groups=u.shape[-1]).transpose(1, 2) + bd
+    s = v * torch.sigmoid(v)
+    y = torch.matmul(r(s), r(w2).t()) + b2
+    if fault == "twice":
+        y = r(y)
+    return (x + y).to(torch.bfloat16)
+
+
+def k3_bf16_io(torch, gen, w, card: str, problems: list) -> dict:
+    """B5 (K3's bf16 class on bf16 activations) against its plain version
+    by ``bf16_io_agreement`` at the training shape (B 48 x T 172, cond f32
+    as the DDSP mel arrives, and bf16) and at B 1 x T 862; at B 48 x T 172
+    the kernel, the card's and the CPU's plain versions against float64
+    sums (each must pass) and two planted faults (each must fail). Bound:
+    B3's operations; bytes with x and out in bf16."""
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import (bf16_gemm_weights,
+                                                       bf16_io_agreement,
+                                                       conformer_layer_bf16_io,
+                                                       conformer_layer_bf16_io_plain)
+    from ddsp_svc_tpu_torch.tools.timing import cuda_ms, graph_ms
+
+    dev = torch.device("cuda")
+    c, hc = w[0].shape
+    inner, k = w[4].shape
+    packed = bf16_gemm_weights(w)
+    out = {}
+    for batch, t, cond16 in ((48, 172, False), (48, 172, True), (1, 862, False)):
+        what = (f"B5 conformer_layer_bf16_io B={batch} T={t} cond "
+                f"{'bf16' if cond16 else 'f32'}")
+        x = torch.randn((batch, t, c), generator=gen).to(dev, torch.bfloat16)
+        cond = torch.randn((batch, t, hc), generator=gen).to(dev)
+        if cond16:
+            cond = cond.to(torch.bfloat16)
+        step = torch.randn((batch, c), generator=gen).to(dev)
+        got = conformer_layer_bf16_io(x, cond, step, w, packed)
+        want = conformer_layer_bf16_io_plain(x, cond, step, w)
+        agree = bf16_io_agreement(got, want, x)
+        if not agree["ok"]:
+            problems.append(f"{what}: {agree}")
+        if batch == 48 and not cond16:
+            exact = conformer_bf16_io_chain(torch, x, cond, step, w)
+            cpu_plain = conformer_layer_bf16_io_plain(
+                x.cpu(), cond.cpu(), step.cpu(), [v.cpu() for v in w])
+            parts = []
+            for name, val, should in (("kernel", got, True), ("plain", want, True),
+                                      ("CPU plain", cpu_plain, True),
+                                      ("fault h", None, False),
+                                      ("fault twice", None, False)):
+                if val is None:
+                    val = conformer_bf16_io_chain(torch, x, cond, step, w,
+                                                  fault=name.split()[1])
+                a = bf16_io_agreement(val.to(dev), exact, x)
+                parts.append(f"{name} {100 * a['differ']:.3f} % differ, "
+                             f"{100 * a['beyond_ulp']:.3f} % beyond 1 ulp, "
+                             f"{a['rel']:.3e} x max|branch| "
+                             f"({'passes' if a['ok'] else 'fails'})")
+                if a["ok"] != should:
+                    problems.append(f"{what} vs exact sums: {name} "
+                                    f"{'fails' if should else 'passes'}: {a}")
+            log(f"[kernels] {what} against float64 sums: " + "; ".join(parts)
+                + f" [{card}]")
+        call = lambda: conformer_layer_bf16_io(x, cond, step, w, packed)  # noqa: E731
+        k_ms = graph_ms(call, 10 if batch > 1 else 50)
+        p_ms = cuda_ms(lambda: conformer_layer_bf16_io_plain(x, cond, step, w), 5)
+        m = batch * t
+        gemm = 2.0 * m * (hc * c + 3 * inner * c)
+        dw = 2.0 * m * inner * k
+        nbytes = (2.0 * 2 * m * c + cond.element_size() * m * hc + 4.0 * batch * c
+                  + 2.0 * (hc * c + 3 * inner * c)
+                  + 4.0 * (c + 2 * inner + inner * k + inner + c))
+        t_ops = (gemm / PEAK_BF16_FLOP_PER_S + dw / PEAK_F32_FLOP_PER_S) * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        out[(batch, cond16)] = dict(err=agree["max_abs_err"], ms=k_ms,
+                                    plain=p_ms, bound=b_ms, by=b_by)
+        log(f"[kernels] {what}: {100 * agree['differ']:.3f} % differ from plain, "
+            f"{100 * agree['beyond_ulp']:.3f} % beyond 1 ulp, {agree['rel']:.3e} x "
+            f"max|branch| (limits 4 %, 0.5 %, 2^-8 + 1 ulp); kernel {k_ms:.4f} ms "
+            f"device time by CUDA graph replay ({(gemm + dw) / k_ms / 1e9:.1f} "
+            f"TFLOP/s), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{gemm / 1e9:.3f} GFLOP bf16 + {dw / 1e9:.3f} GFLOP f32, "
+            f"{nbytes / 1e6:.2f} MB); no single PyTorch call computes it [{card}]")
+    r = out[(48, False)]
+    return dict(route="cuda", source="ddsp_svc_tpu_torch/csrc/conformer.cu",
+                replaces="ddsp_svc_tpu/ops/pallas_conformer.py:125",
+                max_abs_err=max(o["err"] for o in out.values()), ms=r["ms"],
+                plain_ms=r["plain"], bound_ms=r["bound"], bound_by=r["by"],
+                library_ms=None, request_ms=out[(1, False)]["ms"],
+                request_bound_ms=out[(1, False)]["bound"])
 
 
 def bf16_chain(torch, x, weights, fault=None):
@@ -1026,7 +1169,7 @@ KERNEL_GROUPS = (("K1 combtooth", "combtooth", ("combtooth_kernel",)),
                  ("B4 resblock bf16", "resblock_group_bf16",
                   ("resblock_fused_bf16_kernel",)),
                  # B3's three launches, the depthwise conv inside the second
-                 ("B3 conformer bf16", "conformer_layer_bf16",
+                 ("B3 / B5 conformer bf16", "conformer_layer_bf16",
                   ("conformer_bf16_kernel",)),
                  ("K4 harmonic bank", "harmonic_bank", ("harmonic_bank_kernel",)),
                  # the units encoder's kernels by where they were launched
@@ -1919,20 +2062,24 @@ def phase_realtime(torch, card: str, pipes: dict, cpu_parts: dict) -> dict:
 
 
 EXPECT_DIFFUSION_BF16 = dict(EXPECT_DIFFUSION, resblock_group=0,
-                             resblock_group_bf16=4, conformer_layer_bf16=0)
+                             resblock_group_bf16=4, conformer_layer_bf16=0,
+                             conformer_layer_bf16_io=0)
 EXPECT_SINS_BF16 = dict(EXPECT_SINS, resblock_group=0, resblock_group_bf16=4,
-                        conformer_layer_bf16=0)
+                        conformer_layer_bf16=0, conformer_layer_bf16_io=0)
 BF16_SNR_LIMIT_DB = 25.0  # bf16 against f32: the JAX package's gate
 
 
 def all_counts():
     """``counts`` and the bf16 classes: K2's, which only phases 16-17
-    launch, and K3's (B3), which only phase 18 launches."""
-    from ddsp_svc_tpu_torch.ops.cuda_conformer import conformer_layer_bf16
+    launch, K3's (B3), which only phase 18 launches, and K3's on bf16
+    activations (B5), which only phase 19 launches."""
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import (conformer_layer_bf16,
+                                                       conformer_layer_bf16_io)
     from ddsp_svc_tpu_torch.ops.cuda_resblock import resblock_group_bf16
 
     return dict(counts(), resblock_group_bf16=resblock_group_bf16,
-                conformer_layer_bf16=conformer_layer_bf16)
+                conformer_layer_bf16=conformer_layer_bf16,
+                conformer_layer_bf16_io=conformer_layer_bf16_io)
 
 
 def _with_zeros(expect: dict) -> dict:
@@ -2314,12 +2461,15 @@ CONFIGS = Path(__file__).resolve().parent / "configs"
 
 def expect_train(args, bf16_trunk: bool = False) -> dict:
     """Kernel launches of one training step (forward only: the kernels'
-    backward is the plain chain): K1 once for CombSubSuperFast, K3 (or B3)
-    once per trunk layer, K4 once for Sins, nothing for Unit2Mel and
-    Unit2Wav."""
+    backward is the plain chain): K1 once for CombSubSuperFast, K3 (B3 with
+    the bf16 trunk, B5 in a bf16 model) once per trunk layer, K4 once for
+    Sins, nothing for Unit2Mel and Unit2Wav."""
     mtype = args.model.type
     if mtype in ("DiffusionFast", "RectifiedFlow"):
-        trunk = "conformer_layer_bf16" if bf16_trunk else "conformer_layer"
+        bf16 = str(args.train.amp_dtype or "fp32").lower() in (
+            "bf16", "bfloat16", "fp16", "float16")
+        trunk = ("conformer_layer_bf16_io" if bf16 else
+                 "conformer_layer_bf16" if bf16_trunk else "conformer_layer")
         return {"combtooth": 1, trunk: int(args.model.n_layers)}
     return {"harmonic_bank": 1} if mtype == "Sins" else {}
 
@@ -2496,10 +2646,43 @@ def train_card_vs_cpu(torch, card: str, what: str, args, model, family: str,
         fail(f"[train] (d) {what}: card vs CPU beyond the stated limits")
 
 
-def phase_training(torch, card: str) -> dict:
-    """Phase 18: see the module docstring. Returns {path: launch counts}."""
-    import tempfile
+def family_steps(torch, card: str, fargs, what: str, dtype=None):
+    """FAMILY_STEPS steps of the config's family at its widths and batch
+    (the model built with ``dtype``, the training init), each step's
+    launches held to ``expect_train`` -> (model, launch counts)."""
+    from ddsp_svc_tpu_torch.cli.common import build_mel_extractor
+    from ddsp_svc_tpu_torch.data.dataset import BatchSampler, get_datasets
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.models.registry import build_model, model_family
+    from ddsp_svc_tpu_torch.train import solver
+    from ddsp_svc_tpu_torch.train.state import create_train_state
+    from ddsp_svc_tpu_torch.train.steps import to_device
 
+    dev = torch.device("cuda")
+    wrappers = all_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    model = random_init_(build_model(fargs, dtype=dtype),
+                         torch.Generator().manual_seed(SEED), training=True).to(dev)
+    state = create_train_state(model, lr=float(fargs.train.lr))
+    family = model_family(fargs.model.type)
+    mel_fn = (build_mel_extractor(fargs, dev).extract
+              if family in ("diffusion", "reflow") else None)
+    _, step = solver.build_train_step(fargs, mel_fn)
+    meter = StepMeter(torch, what, expect_train(fargs))
+    step = meter.wrap(step)
+    sampler = BatchSampler(get_datasets(fargs)[0], int(fargs.train.batch_size))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model.train()
+    for _ in range(FAMILY_STEPS):
+        step(state, to_device(sampler.sample(), dev), gen)
+    meter.report(float(fargs.data.duration), card)
+    return model, {n: w.launches for n, w in wrappers.items()}
+
+
+def phase_training(torch, card: str, root: Path) -> dict:
+    """Phase 18: see the module docstring; the corpus it preprocesses under
+    ``root`` is phases 19's and 20's too. Returns {path: launch counts}."""
     from ddsp_svc_tpu_torch.cli import infer as cli_infer
     from ddsp_svc_tpu_torch.cli import preprocess as cli_preprocess
     from ddsp_svc_tpu_torch.cli import train as cli_train
@@ -2518,183 +2701,562 @@ def phase_training(torch, card: str) -> dict:
     dev = torch.device("cuda")
     wrappers = all_counts()
     paths = {}
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
-    root = Path(tmp.name)
+    # (a) the entry points: preprocess, train 20 steps, resume for 5
+    write_corpus(root, np.random.default_rng(SEED + 180))
+    cfg, args = train_config(root, "diffusion-fast", "diffusion-fast.yaml")
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    cli_preprocess.main(["-c", cfg, "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    log(f"[train] (a) cli.preprocess on the card: {TRAIN_FILES} + {VAL_FILES} "
+        f"recordings in {time.perf_counter() - t0:.2f} s (contentvec768l12, "
+        f"random weights, YIN on the host) [{card}]")
+    meter, restore = metered(torch, solver, "(a) DiffusionFast, cli.train",
+                             expect_train(args))
+    torch.cuda.reset_peak_memory_stats()
     try:
-        # (a) the entry points: preprocess, train 20 steps, resume for 5
-        write_corpus(root, np.random.default_rng(SEED + 180))
-        cfg, args = train_config(root, "diffusion-fast", "diffusion-fast.yaml")
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        cli_preprocess.main(["-c", cfg, "--seed", str(SEED)])
-        torch.cuda.synchronize()
-        log(f"[train] (a) cli.preprocess on the card: {TRAIN_FILES} + {VAL_FILES} "
-            f"recordings in {time.perf_counter() - t0:.2f} s (contentvec768l12, "
-            f"random weights, YIN on the host) [{card}]")
-        meter, restore = metered(torch, solver, "(a) DiffusionFast, cli.train",
-                                 expect_train(args))
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            state = cli_train.main(["-c", cfg, "--max_steps", str(TRAIN_STEPS)])
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            expdir = Path(args.env.expdir)
-            saved = sorted(p.name for p in expdir.glob("model_*.ckpt"))
-            if state.step != TRAIN_STEPS or saved != [f"model_{TRAIN_STEPS}.ckpt"]:
-                fail(f"[train] (a) after {TRAIN_STEPS} steps: step {state.step}, "
-                     f"checkpoints {saved} (retention keeps model_20 only)")
-            log(f"[train] (a) peak device memory {peak:.2f} GiB (max_memory_allocated)"
-                f"; checkpoints {saved}; validation logged: "
-                f"{'validation' in (expdir / 'log_info.txt').read_text()} [{card}]")
-            state = cli_train.main(["-c", cfg, "--max_steps", str(RESUME_STEPS)])
-        finally:
-            restore()
-        want_lr = float(args.train.lr) * float(args.train.gamma) ** (
-            (TRAIN_STEPS + RESUME_STEPS) // int(args.train.decay_step))
-        adam_step = float(next(iter(state.optimizer.state.values()))["step"])
-        if (state.step != TRAIN_STEPS + RESUME_STEPS or adam_step != state.step
-                or abs(state.lr() - want_lr) > 1e-12 * want_lr):
-            fail(f"[train] (a) resume: step {state.step}, AdamW step {adam_step}, "
-                 f"lr {state.lr()} (expected {TRAIN_STEPS + RESUME_STEPS}, {want_lr})")
-        if len(meter.walls) != TRAIN_STEPS + RESUME_STEPS:
-            fail(f"[train] (a) {len(meter.walls)} metered steps")
-        log(f"[train] (a) resumed at step {TRAIN_STEPS} from "
-            f"model_{TRAIN_STEPS}.ckpt and trained to {state.step}: AdamW step "
-            f"{adam_step:g}, lr {state.lr():.3g}; launches per step K1 1, K3 6, "
-            f"none in the backward [{card}]")
-        val_wav = root / "data" / "val" / "audio" / "0.wav"
-        out_wav = root / "converted.wav"
-        cli_infer.main(["-m", str(expdir / f"model_{TRAIN_STEPS}.ckpt"), "-i",
-                        str(val_wav), "-o", str(out_wav)])
-        audio, sr = load_wav(str(out_wav))
-        n_in = len(load_wav(str(val_wav))[0])
-        if sr != SR or len(audio) < n_in - BLOCK or not np.isfinite(audio).all():
-            fail(f"[train] (a) cli.infer.main on the checkpoint: {len(audio)} "
-                 f"samples at {sr} Hz for {n_in}")
-        log(f"[train] (a) cli.infer.main read {expdir.name}/config.yaml and "
-            f"model_{TRAIN_STEPS}.ckpt and converted a {n_in / SR:.2f} s recording "
-            f"[{card}]")
-        meter.report(float(args.data.duration), card)
-        paths["training (a) DiffusionFast"] = {n: w.launches for n, w in wrappers.items()}
-
-        # (b) the bf16 trunk through train.solver.train, then a 10 s request
-        for w in wrappers.values():
-            w.launches = 0
-        _, bargs = train_config(root, "diffusion-fast-bf16", "diffusion-fast.yaml")
-        d, m = bargs.data, bargs.model
-        # random init with a live output projection (not the zero training
-        # init), so that the trunk shapes the request's mel in the check below
-        model = random_init_(Unit2WavFast(
-            d.sampling_rate, d.block_size, m.win_length, d.encoder_out_channels,
-            m.n_spk, bool(m.use_pitch_aug), 128, m.n_layers, m.n_chans,
-            k_step_max=m.k_step_max, trunk_bf16=True),
-            torch.Generator().manual_seed(SEED)).to(dev)
-        state = create_train_state(model, lr=float(bargs.train.lr))
-        meter, restore = metered(torch, solver, "(b) DiffusionFast bf16 trunk",
-                                 expect_train(bargs, bf16_trunk=True))
-        try:
-            solver.train(bargs, state, build_mel_extractor(bargs, dev).extract,
-                         device=dev, max_steps=BF16_STEPS)
-        finally:
-            restore()
-        meter.report(float(bargs.data.duration), card)
-        model.eval()
-        f32 = Unit2WavFast(d.sampling_rate, d.block_size, m.win_length,
-                           d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
-                           128, m.n_layers, m.n_chans, k_step_max=m.k_step_max)
-        f32.load_state_dict(model.state_dict())
-        vocoder = random_init_(Vocoder(), torch.Generator().manual_seed(SEED))
-        outs = {}
-        per_request = 10 * int(m.n_layers)  # DPM-Solver++, k_step 100, speedup 10
-        for what, mod, expect in (
-                ("bf16 trunk", model, {"combtooth": 1, "resblock_group": 5,
-                                       "conformer_layer_bf16": per_request}),
-                ("f32 trunk", f32.to(dev).eval(), {"combtooth": 1,
-                                                   "resblock_group": 5,
-                                                   "conformer_layer": per_request})):
-            pipe = SvcPipeline.from_parts(mod, None, bargs, vocoder, seed=SEED)
-            # the same features and draws for both
-            inputs = request_inputs(pipe, 10, np.random.default_rng(SEED + 182))
-            noise = request_noise(np.random.default_rng(SEED + 181),
-                                  inputs["volume"].shape[1])
-            before = {n: w.launches for n, w in wrappers.items()}
-            with torch.no_grad():
-                audio, _ = pipe.infer_features(**inputs, k_step=100, speedup=10,
-                                               method="dpm-solver", noise=noise)
-            torch.cuda.synchronize()
-            delta = {n: w.launches - before[n] for n, w in wrappers.items()}
-            if delta != _with_zeros(expect):
-                fail(f"[train] (b) 10 s request, {what}: launches {delta}")
-            outs[what] = check_audio(audio, inputs["volume"].shape[1],
-                                     f"(b) {what}")
-        snr = snr_db(outs["f32 trunk"], outs["bf16 trunk"])
-        log(f"[train] (b) a 10 s request with the trained bf16-trunk model: "
-            f"B3 {per_request}, K3 0; its audio {snr:.2f} dB from the same request on the "
-            f"f32 trunk (limit {BF16_TRUNK_SNR_DB:g} dB) [{card}]")
-        if not snr >= BF16_TRUNK_SNR_DB:
-            fail(f"[train] (b) bf16 trunk {snr:.2f} dB from the f32 trunk")
-        paths["training (b) bf16 trunk"] = {n: w.launches for n, w in wrappers.items()}
-        del model, f32, state
-
-        # (c) three steps of each other family at its config's widths
-        for mtype, config in (("Sins", "sins.yaml"), ("RectifiedFlow", "reflow.yaml"),
-                              ("Diffusion", "diffusion.yaml"),
-                              ("DiffusionNew", "diffusion-new.yaml")):
-            for w in wrappers.values():
-                w.launches = 0
-            _, fargs = train_config(root, mtype, config)
-            model = random_init_(build_model(fargs), torch.Generator().manual_seed(SEED),
-                                 training=True).to(dev)
-            state = create_train_state(model, lr=float(fargs.train.lr))
-            family = model_family(mtype)
-            mel_fn = (build_mel_extractor(fargs, dev).extract
-                      if family in ("diffusion", "reflow") else None)
-            _, step = solver.build_train_step(fargs, mel_fn)
-            meter = StepMeter(torch, f"(c) {mtype}", expect_train(fargs))
-            step = meter.wrap(step)
-            sampler = BatchSampler(get_datasets(fargs)[0], int(fargs.train.batch_size))
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            model.train()
-            for _ in range(FAMILY_STEPS):
-                step(state, to_device(sampler.sample(), dev), gen)
-            meter.report(float(fargs.data.duration), card)
-            paths[f"training (c) {mtype}"] = {n: w.launches for n, w in wrappers.items()}
-            if mtype == "Sins":
-                sins = (fargs, model)
-            else:
-                del model
-            del state
-            torch.cuda.empty_cache()
-
-        # (d) card vs CPU, one step at batch 4: DiffusionFast and Sins
-        df_model = random_init_(build_model(args), torch.Generator().manual_seed(SEED))
-        for what, fargs, model in (("DiffusionFast", args, df_model.to(dev)),
-                                   ("Sins", *sins)):
-            sampler = BatchSampler(get_datasets(fargs)[0], CARD_CPU_BATCH, seed=SEED)
-            train_card_vs_cpu(torch, card, what, fargs, model,
-                              model_family(fargs.model.type), sampler.sample())
-        del sins
-
-        # (e) the device's busy share of one profiled DiffusionFast step
-        state = create_train_state(df_model, lr=float(args.train.lr))
-        _, step = solver.build_train_step(args, build_mel_extractor(args, dev).extract)
-        sampler = BatchSampler(get_datasets(args)[0], int(args.train.batch_size),
-                               seed=SEED)
-        batch = to_device(sampler.sample(), dev)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        step(state, batch, gen)  # warm
-        _, wall_us, kernels_us, n_ops, kept = _profiled(
-            torch, lambda: step(state, batch, gen), {})
-        busy = sum(kernels_us.values())
-        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
-        log(f"[train] (e) one DiffusionFast step at batch "
-            f"{int(args.train.batch_size)} under the profiler: wall "
-            f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms = "
-            f"{100 * busy / wall_us:.1f} % of wall, {n_ops} device ops (the trace "
-            f"kept {kept} of the lead's {LEAD_OPS}); top: "
-            + "; ".join(f"{us / 1e3:.2f} ms {k[:50]}" for k, us in top) + f" [{card}]")
+        state = cli_train.main(["-c", cfg, "--max_steps", str(TRAIN_STEPS)])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expdir = Path(args.env.expdir)
+        saved = sorted(p.name for p in expdir.glob("model_*.ckpt"))
+        if state.step != TRAIN_STEPS or saved != [f"model_{TRAIN_STEPS}.ckpt"]:
+            fail(f"[train] (a) after {TRAIN_STEPS} steps: step {state.step}, "
+                 f"checkpoints {saved} (retention keeps model_20 only)")
+        log(f"[train] (a) peak device memory {peak:.2f} GiB (max_memory_allocated)"
+            f"; checkpoints {saved}; validation logged: "
+            f"{'validation' in (expdir / 'log_info.txt').read_text()} [{card}]")
+        state = cli_train.main(["-c", cfg, "--max_steps", str(RESUME_STEPS)])
     finally:
-        tmp.cleanup()
+        restore()
+    want_lr = float(args.train.lr) * float(args.train.gamma) ** (
+        (TRAIN_STEPS + RESUME_STEPS) // int(args.train.decay_step))
+    adam_step = float(next(iter(state.optimizer.state.values()))["step"])
+    if (state.step != TRAIN_STEPS + RESUME_STEPS or adam_step != state.step
+            or abs(state.lr() - want_lr) > 1e-12 * want_lr):
+        fail(f"[train] (a) resume: step {state.step}, AdamW step {adam_step}, "
+             f"lr {state.lr()} (expected {TRAIN_STEPS + RESUME_STEPS}, {want_lr})")
+    if len(meter.walls) != TRAIN_STEPS + RESUME_STEPS:
+        fail(f"[train] (a) {len(meter.walls)} metered steps")
+    log(f"[train] (a) resumed at step {TRAIN_STEPS} from "
+        f"model_{TRAIN_STEPS}.ckpt and trained to {state.step}: AdamW step "
+        f"{adam_step:g}, lr {state.lr():.3g}; launches per step K1 1, K3 6, "
+        f"none in the backward [{card}]")
+    val_wav = root / "data" / "val" / "audio" / "0.wav"
+    out_wav = root / "converted.wav"
+    cli_infer.main(["-m", str(expdir / f"model_{TRAIN_STEPS}.ckpt"), "-i",
+                    str(val_wav), "-o", str(out_wav)])
+    audio, sr = load_wav(str(out_wav))
+    n_in = len(load_wav(str(val_wav))[0])
+    if sr != SR or len(audio) < n_in - BLOCK or not np.isfinite(audio).all():
+        fail(f"[train] (a) cli.infer.main on the checkpoint: {len(audio)} "
+             f"samples at {sr} Hz for {n_in}")
+    log(f"[train] (a) cli.infer.main read {expdir.name}/config.yaml and "
+        f"model_{TRAIN_STEPS}.ckpt and converted a {n_in / SR:.2f} s recording "
+        f"[{card}]")
+    meter.report(float(args.data.duration), card)
+    paths["training (a) DiffusionFast"] = {n: w.launches for n, w in wrappers.items()}
+
+    # (b) the bf16 trunk through train.solver.train, then a 10 s request
+    for w in wrappers.values():
+        w.launches = 0
+    _, bargs = train_config(root, "diffusion-fast-bf16", "diffusion-fast.yaml")
+    d, m = bargs.data, bargs.model
+    # random init with a live output projection (not the zero training
+    # init), so that the trunk shapes the request's mel in the check below
+    model = random_init_(Unit2WavFast(
+        d.sampling_rate, d.block_size, m.win_length, d.encoder_out_channels,
+        m.n_spk, bool(m.use_pitch_aug), 128, m.n_layers, m.n_chans,
+        k_step_max=m.k_step_max, trunk_bf16=True),
+        torch.Generator().manual_seed(SEED)).to(dev)
+    state = create_train_state(model, lr=float(bargs.train.lr))
+    meter, restore = metered(torch, solver, "(b) DiffusionFast bf16 trunk",
+                             expect_train(bargs, bf16_trunk=True))
+    try:
+        solver.train(bargs, state, build_mel_extractor(bargs, dev).extract,
+                     device=dev, max_steps=BF16_STEPS)
+    finally:
+        restore()
+    meter.report(float(bargs.data.duration), card)
+    model.eval()
+    f32 = Unit2WavFast(d.sampling_rate, d.block_size, m.win_length,
+                       d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
+                       128, m.n_layers, m.n_chans, k_step_max=m.k_step_max)
+    f32.load_state_dict(model.state_dict())
+    vocoder = random_init_(Vocoder(), torch.Generator().manual_seed(SEED))
+    outs = {}
+    per_request = 10 * int(m.n_layers)  # DPM-Solver++, k_step 100, speedup 10
+    for what, mod, expect in (
+            ("bf16 trunk", model, {"combtooth": 1, "resblock_group": 5,
+                                   "conformer_layer_bf16": per_request}),
+            ("f32 trunk", f32.to(dev).eval(), {"combtooth": 1,
+                                               "resblock_group": 5,
+                                               "conformer_layer": per_request})):
+        pipe = SvcPipeline.from_parts(mod, None, bargs, vocoder, seed=SEED)
+        # the same features and draws for both
+        inputs = request_inputs(pipe, 10, np.random.default_rng(SEED + 182))
+        noise = request_noise(np.random.default_rng(SEED + 181),
+                              inputs["volume"].shape[1])
+        before = {n: w.launches for n, w in wrappers.items()}
+        with torch.no_grad():
+            audio, _ = pipe.infer_features(**inputs, k_step=100, speedup=10,
+                                           method="dpm-solver", noise=noise)
+        torch.cuda.synchronize()
+        delta = {n: w.launches - before[n] for n, w in wrappers.items()}
+        if delta != _with_zeros(expect):
+            fail(f"[train] (b) 10 s request, {what}: launches {delta}")
+        outs[what] = check_audio(audio, inputs["volume"].shape[1],
+                                 f"(b) {what}")
+    snr = snr_db(outs["f32 trunk"], outs["bf16 trunk"])
+    log(f"[train] (b) a 10 s request with the trained bf16-trunk model: "
+        f"B3 {per_request}, K3 0; its audio {snr:.2f} dB from the same request on the "
+        f"f32 trunk (limit {BF16_TRUNK_SNR_DB:g} dB) [{card}]")
+    if not snr >= BF16_TRUNK_SNR_DB:
+        fail(f"[train] (b) bf16 trunk {snr:.2f} dB from the f32 trunk")
+    paths["training (b) bf16 trunk"] = {n: w.launches for n, w in wrappers.items()}
+    del model, f32, state
+
+    # (c) three steps of each other family at its config's widths
+    for mtype, config in (("Sins", "sins.yaml"), ("RectifiedFlow", "reflow.yaml"),
+                          ("Diffusion", "diffusion.yaml"),
+                          ("DiffusionNew", "diffusion-new.yaml")):
+        _, fargs = train_config(root, mtype, config)
+        model, counts_ = family_steps(torch, card, fargs, f"(c) {mtype}")
+        paths[f"training (c) {mtype}"] = counts_
+        if mtype == "Sins":
+            sins = (fargs, model)
+        del model
+        torch.cuda.empty_cache()
+
+    # (d) card vs CPU, one step at batch 4: DiffusionFast and Sins
+    df_model = random_init_(build_model(args), torch.Generator().manual_seed(SEED))
+    for what, fargs, model in (("DiffusionFast", args, df_model.to(dev)),
+                               ("Sins", *sins)):
+        sampler = BatchSampler(get_datasets(fargs)[0], CARD_CPU_BATCH, seed=SEED)
+        train_card_vs_cpu(torch, card, what, fargs, model,
+                          model_family(fargs.model.type), sampler.sample())
+    del sins
+
+    # (e) the device's busy share of one profiled DiffusionFast step
+    state = create_train_state(df_model, lr=float(args.train.lr))
+    _, step = solver.build_train_step(args, build_mel_extractor(args, dev).extract)
+    sampler = BatchSampler(get_datasets(args)[0], int(args.train.batch_size),
+                           seed=SEED)
+    batch = to_device(sampler.sample(), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step(state, batch, gen)  # warm
+    _, wall_us, kernels_us, n_ops, kept = _profiled(
+        torch, lambda: step(state, batch, gen), {})
+    busy = sum(kernels_us.values())
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[train] (e) one DiffusionFast step at batch "
+        f"{int(args.train.batch_size)} under the profiler: wall "
+        f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms = "
+        f"{100 * busy / wall_us:.1f} % of wall, {n_ops} device ops (the trace "
+        f"kept {kept} of the lead's {LEAD_OPS}); top: "
+        + "; ".join(f"{us / 1e3:.2f} ms {k[:50]}" for k, us in top) + f" [{card}]")
+    return paths
+
+
+# phase 19: bf16 training. Limits stated before its first run: card vs CPU
+# for one bf16 DiffusionFast step (B5 and cuDNN's bf16 convs against their
+# CPU versions: each bf16 rounding that a sum order flips moves the step
+# by about one bf16 ulp of a value), the loss within BF16_CARD_LOSS_TOL
+# relative and the gradients within BF16_CARD_GRAD_TOL in L2 over every
+# leaf; and the bf16 run's losses over its first BF16_BAND_STEPS steps
+# within BF16_BAND of the f32 run's from the same weights, batches and
+# draws, each step.
+BF16_CARD_LOSS_TOL = 1e-3
+BF16_CARD_GRAD_TOL = 2e-2
+BF16_BAND_STEPS, BF16_BAND = 20, 0.05
+# phase 20: vocoder training. Iterations of configs/nsf-hifigan.yaml, and
+# card vs CPU for one discriminator step and one generator step at batch 2:
+# losses within VOC_LOSS_TOL relative, each network's gradients within
+# VOC_GRAD_TOL in L2 over its leaves (K2 against its plain version is held
+# at 1e-4 x max|out| per stage; the MSD's spectral-normed first conv sums
+# its gradient to ~1e-3 of its terms, so its worst leaf is printed, not
+# held).
+VOC_STEPS, VOC_RESUME_STEPS, VOC_CPU_BATCH = 10, 5, 2
+VOC_LOSS_TOL, VOC_GRAD_TOL = 1e-4, 1e-3
+
+
+def _bf16_config(root: Path, name: str, config: str, **model):
+    """``train_config`` with ``train.amp_dtype: bf16`` (and the model keys
+    given) -> (path, args)."""
+    from ddsp_svc_tpu_torch.utils.config import save_config
+
+    path, args = train_config(root, name, config)
+    args["train"]["amp_dtype"] = "bf16"
+    args["model"].update(model)
+    save_config(path, args)
+    return path, args
+
+
+def _train_cli(torch, cli_train, solver, cfg, what, args, steps, card,
+               expect=None):
+    """``cli.train.main`` for ``steps`` steps under a StepMeter -> (state,
+    meter, peak GiB)."""
+    meter, restore = metered(torch, solver, what,
+                             expect_train(args) if expect is None else expect)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state = cli_train.main(["-c", cfg, "--max_steps", str(steps)])
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return state, meter, peak
+
+
+def phase_bf16_training(torch, card: str, root: Path) -> dict:
+    """Phase 19: bf16 mixed-precision training through ``cli.train.main`` on
+    phase 18's preprocessed corpus. Returns {path: launch counts}."""
+    from ddsp_svc_tpu_torch.cli import train as cli_train
+    from ddsp_svc_tpu_torch.cli.common import build_mel_extractor
+    from ddsp_svc_tpu_torch.data.dataset import BatchSampler, get_datasets
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.models.registry import build_model
+    from ddsp_svc_tpu_torch.train import solver
+    from ddsp_svc_tpu_torch.train.steps import to_device
+
+    dev = torch.device("cuda")
+    wrappers = all_counts()
+    paths, walls = {}, {}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    # (a) configs/diffusion-new-bf16.yaml as shipped: 20 steps, then 5 more
+    # after a resume
+    zero()
+    cfg, args = train_config(root, "diffusion-new-bf16", "diffusion-new-bf16.yaml")
+    state, meter, peak = _train_cli(torch, cli_train, solver, cfg,
+                                    "(a) DiffusionNew bf16, cli.train", args,
+                                    TRAIN_STEPS, card)
+    if state.step != TRAIN_STEPS or {p.dtype for p in state.model.parameters()} != {
+            torch.float32}:
+        fail(f"[bf16] (a) step {state.step}, parameter types "
+             f"{ {p.dtype for p in state.model.parameters()} }")
+    net = state.model.denoise_fn
+    if net.input_projection.compute_dtype is not torch.bfloat16:
+        fail("[bf16] (a) the WaveNet does not compute in bf16")
+    state, meter2, _ = _train_cli(torch, cli_train, solver, cfg,
+                                  "(a) DiffusionNew bf16, resumed", args,
+                                  RESUME_STEPS, card)
+    if state.step != TRAIN_STEPS + RESUME_STEPS:
+        fail(f"[bf16] (a) resume reached step {state.step}")
+    meter.report(float(args.data.duration), card)
+    walls["DiffusionNew bf16"] = (meter.walls, peak)
+    log(f"[bf16] (a) configs/diffusion-new-bf16.yaml (DiffusionNew 20 x 512, "
+        f"batch {args.train.batch_size}, amp_dtype bf16): {TRAIN_STEPS} steps, "
+        f"resumed to {state.step}; peak {peak:.2f} GiB; float32 parameters and "
+        f"checkpoints [{card}]")
+    paths["bf16 training (a) DiffusionNew"] = {n: w.launches for n, w in wrappers.items()}
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) DiffusionFast with amp_dtype bf16 through cli.train: B5 6, K1 1 a
+    # step, none in the backward, K3 and B3 none
+    zero()
+    cfg, args = _bf16_config(root, "diffusion-fast-bf16-amp", "diffusion-fast.yaml")
+    state, meter, peak = _train_cli(torch, cli_train, solver, cfg,
+                                    "(b) DiffusionFast bf16, cli.train", args,
+                                    BF16_BAND_STEPS, card)
+    meter.report(float(args.data.duration), card)
+    walls["DiffusionFast bf16"] = (meter.walls, peak)
+    bf16_losses = list(meter.losses)
+    n_layers = int(args.model.n_layers)
+    got = {n: w.launches for n, w in wrappers.items()}
+    if got["conformer_layer"] or got["conformer_layer_bf16"]:
+        fail(f"[bf16] (b) K3 or B3 launched in a bf16 run: {got}")
+    log(f"[bf16] (b) DiffusionFast with amp_dtype bf16: launches per step B5 "
+        f"{n_layers}, K1 1, K3 0, B3 0, none in the backward (each step held by "
+        f"its meter); over the run, validations included: B5 "
+        f"{got['conformer_layer_bf16_io']}, K1 {got['combtooth']}; peak "
+        f"{peak:.2f} GiB [{card}]")
+    paths["bf16 training (b) DiffusionFast"] = got
+    del state
+    torch.cuda.empty_cache()
+
+    # (c) the f32 run from the same weights, batches and draws: the loss band
+    # and the f32 step time beside the bf16 one
+    zero()
+    cfg32, args32 = train_config(root, "diffusion-fast-f32-band", "diffusion-fast.yaml")
+    state, meter32, peak32 = _train_cli(torch, cli_train, solver, cfg32,
+                                        "(c) DiffusionFast f32", args32,
+                                        BF16_BAND_STEPS, card)
+    walls["DiffusionFast f32"] = (meter32.walls, peak32)
+    rel = [abs(a - b) / abs(b) for a, b in zip(bf16_losses, meter32.losses)]
+    log(f"[bf16] (c) bf16 against f32 over {BF16_BAND_STEPS} steps from the same "
+        f"weights, batches and draws: loss relative gap per step max "
+        f"{max(rel):.4f}, mean {sum(rel) / len(rel):.4f} (limit {BF16_BAND} each); "
+        f"bf16 {bf16_losses[0]:.4f} -> {bf16_losses[-1]:.4f}, f32 "
+        f"{meter32.losses[0]:.4f} -> {meter32.losses[-1]:.4f} [{card}]")
+    if len(rel) != BF16_BAND_STEPS or max(rel) > BF16_BAND:
+        fail(f"[bf16] (c) bf16 losses outside the band: {rel}")
+    del state
+    torch.cuda.empty_cache()
+    cfgn, argsn = train_config(root, "diffusion-new-f32", "diffusion-new.yaml")
+    state, metern, peakn = _train_cli(torch, cli_train, solver, cfgn,
+                                      "(c) DiffusionNew f32", argsn,
+                                      FAMILY_STEPS + 2, card)
+    walls["DiffusionNew f32"] = (metern.walls, peakn)
+    del state
+    torch.cuda.empty_cache()
+    for what, (w, pk) in walls.items():
+        warm = sorted(w[2:] or w)
+        log(f"[bf16] (c) step time {what}: warm median {warm[len(warm) // 2] * 1e3:.1f} "
+            f"ms (min {warm[0] * 1e3:.1f}, max {warm[-1] * 1e3:.1f}, n={len(warm)}), "
+            f"peak {pk:.2f} GiB [{card}]")
+
+    # (d) three bf16 steps of RectifiedFlow (B5 6, K1 1), Sins (K4 1),
+    # CombSubFast and Unit2Mel through the solver's step
+    for mtype, config, model_keys in (
+            ("RectifiedFlow", "reflow.yaml", {}), ("Sins", "sins.yaml", {}),
+            ("CombSubFast", "sins.yaml", {"type": "CombSubFast"}),
+            ("Diffusion", "diffusion.yaml", {})):
+        _, fargs = _bf16_config(root, f"{mtype}-bf16", config, **model_keys)
+        _, paths[f"bf16 training (d) {mtype}"] = family_steps(
+            torch, card, fargs, f"(d) {mtype} bf16", torch.bfloat16)
+        torch.cuda.empty_cache()
+
+    # (e) card vs CPU, one bf16 DiffusionFast step at batch 4
+    zero()
+    model = random_init_(build_model(args, dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(SEED)).to(dev)
+    sampler = BatchSampler(get_datasets(args)[0], CARD_CPU_BATCH, seed=SEED)
+    rng = np.random.default_rng(SEED + 19)
+    batch_np = sampler.sample()
+    b, t = batch_np["units"].shape[:2]
+    draws = {"ddsp_noise": rng.standard_normal((b, t * BLOCK)).astype(np.float32),
+             "t": rng.integers(0, 100, b),
+             "noise": rng.standard_normal((b, t, 128)).astype(np.float32)}
+    out = {}
+    for key, m in (("card", model), ("cpu", copy.deepcopy(model).cpu())):
+        d = next(m.parameters()).device
+        out[key] = step_grads(torch, m, "diffusion", to_device(batch_np, d),
+                              {k: torch.from_numpy(np.asarray(v)).to(d)
+                               for k, v in draws.items()},
+                              build_mel_extractor(args, d).extract)
+    (loss_c, g_c), (loss_h, g_h) = out["card"], out["cpu"]
+    loss_err = abs(loss_c - loss_h) / abs(loss_h)
+    total, leaf = _grad_gap(g_c, g_h)
+    b5 = wrappers["conformer_layer_bf16_io"].launches
+    log(f"[bf16] (e) one bf16 DiffusionFast step at batch {b}, card vs CPU: loss "
+        f"{loss_c:.6f} vs {loss_h:.6f} ({loss_err:.2e} relative, limit "
+        f"{BF16_CARD_LOSS_TOL:g}); gradients of {len(g_h)} leaves {total:.2e} (L2 "
+        f"over all, limit {BF16_CARD_GRAD_TOL:g}), worst leaf {leaf[0]:.2e} at "
+        f"{leaf[1]} (not held); B5 launches {b5} (the card's step) [{card}]")
+    if not (loss_err <= BF16_CARD_LOSS_TOL and total <= BF16_CARD_GRAD_TOL):
+        fail("[bf16] (e) card vs CPU beyond the stated limits")
+    if b5 != n_layers:
+        fail(f"[bf16] (e) B5 launched {b5} times in one step")
+    paths["bf16 training (e) card vs CPU"] = {n: w.launches for n, w in wrappers.items()}
+    return paths
+
+
+def k2_training_stages(torch, card: str, cfg: dict, batch: int,
+                       crop: int) -> None:
+    """Phase 20 (d): K2 per stage at the vocoder's training shapes (B x the
+    stage's length x C), its bound, B1's backward (autograd through the plain
+    chain) and the repacking a weight-normed generator does every call."""
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
+                                                      ResblockGroupFunction,
+                                                      _launch, resblock_group)
+    from ddsp_svc_tpu_torch.tools.timing import cuda_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 20)
+    ks = tuple(cfg["resblock_kernel_sizes"])
+    ds = tuple(tuple(d) for d in cfg["resblock_dilation_sizes"])
+    frames = crop
+    total = dict(k=0.0, bound=0.0, bwd=0.0, pack=0.0)
+    c = int(cfg["upsample_initial_channel"])
+    for rate in cfg["upsample_rates"]:
+        frames, c = frames * rate, c // 2
+        x = torch.randn((batch, frames, c), generator=gen).to(dev)
+        weights = []
+        for k, dils in zip(ks, ds):
+            bound = 1.0 / math.sqrt(c * k)
+            weights.append([(_rand(torch, gen, (c, c, k), bound).to(dev),
+                             _rand(torch, gen, (c,), bound).to(dev))
+                            for _ in range(2 * len(dils))])
+        flat = [t for rbw in weights for wb in rbw for t in wb]
+
+        def pack():
+            return PackedResblocks(weights).packed
+        pack_ms = cuda_ms(pack, 5)
+        packed = PackedResblocks(weights)
+        k_ms = cuda_ms(lambda: resblock_group(x, packed, ks, ds), 5)
+        xg = x.clone().requires_grad_(True)
+        leaves = [t.clone().requires_grad_(True) for t in flat]
+
+        def fwd_bwd():
+            out = ResblockGroupFunction.apply(_launch, xg, packed, ks, ds, *leaves)
+            out.backward(torch.ones_like(out))
+        fb_ms = cuda_ms(fwd_bwd, 3)
+        taps = sum(k * 2 * len(d) for k, d in zip(ks, ds))
+        n_convs = sum(2 * len(d) for d in ds)
+        m = batch * frames
+        flops = 2.0 * m * c * c * taps + 48.0 * m * c
+        nbytes = 4.0 * (2 * m * c + c * c * taps + n_convs * c)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_TF32X3_FLOP_PER_S)
+        total["k"] += k_ms
+        total["bound"] += b_ms
+        total["bwd"] += fb_ms - k_ms
+        total["pack"] += pack_ms
+        log(f"[vocoder] (d) K2 at B={batch} L={frames} C={c}: {k_ms:.3f} ms "
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s), bound {b_ms:.3f} ms ({b_by}), "
+            f"{100 * b_ms / k_ms:.1f} % of it; B1 backward (plain chain) "
+            f"{fb_ms - k_ms:.3f} ms; repacking the 18 convs' weights "
+            f"{pack_ms:.3f} ms [{card}]")
+        del x, xg, weights, flat, leaves, packed
+    log(f"[vocoder] (d) K2 five stages of one training batch: {total['k']:.3f} ms "
+        f"(bound {total['bound']:.3f} ms), B1 backward {total['bwd']:.3f} ms, "
+        f"repacking {total['pack']:.3f} ms a call [{card}]")
+
+
+def _grads_of(module) -> dict:
+    return {n: p.grad.detach().double().cpu() for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def phase_vocoder_training(torch, card: str, root: Path) -> dict:
+    """Phase 20: NSF-HiFiGAN GAN training (configs/nsf-hifigan.yaml at full
+    width) through ``cli.train_vocoder.main`` on phase 18's corpus. Returns
+    {path: launch counts}."""
+    from ddsp_svc_tpu_torch.cli import train_vocoder as cli_voc
+    from ddsp_svc_tpu_torch.data.dataset import AudioDataset, BatchSampler
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.train import vocoder_solver as vs
+    from ddsp_svc_tpu_torch.train.steps import to_device
+
+    dev = torch.device("cuda")
+    wrappers = all_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    cfg_path, args = train_config(root, "nsf-hifigan", "nsf-hifigan.yaml")
+    args["train"].update(interval_log=5, interval_val=VOC_STEPS)
+    from ddsp_svc_tpu_torch.utils.config import save_config
+    save_config(cfg_path, args)
+    cfg = cli_voc.vocoder_config(args)
+    n_stages = len(cfg["upsample_rates"])
+    walls, per_iter = [], []
+    orig = (cli_voc.disc_step, cli_voc.gen_step)
+
+    def timed(fn, kind):
+        def step(*a, **k):
+            before = wrappers["resblock_group"].launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            walls.append((kind, time.perf_counter() - t0))
+            per_iter.append((kind, wrappers["resblock_group"].launches - before))
+            return out
+        return step
+
+    cli_voc.disc_step, cli_voc.gen_step = timed(orig[0], "d"), timed(orig[1], "g")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        state_g, state_d = cli_voc.main(["-c", cfg_path, "--max_steps", str(VOC_STEPS)])
+        first_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        saved = sorted(p.name for p in Path(args.env.expdir).glob("model_*.ckpt"))
+        if state_g.step != VOC_STEPS or saved != [f"model_{VOC_STEPS}.ckpt"]:
+            fail(f"[vocoder] (a) step {state_g.step}, checkpoints {saved}")
+        state_g, state_d = cli_voc.main(["-c", cfg_path, "--max_steps",
+                                         str(VOC_RESUME_STEPS)])
+    finally:
+        cli_voc.disc_step, cli_voc.gen_step = orig
+    if state_g.step != VOC_STEPS + VOC_RESUME_STEPS or state_d.step != state_g.step:
+        fail(f"[vocoder] (a) resume reached {state_g.step} / {state_d.step}")
+    counts_d = {n for kind, n in per_iter if kind == "d"}
+    counts_g = {n for kind, n in per_iter if kind == "g"}
+    if counts_d != {n_stages} or counts_g != {n_stages}:
+        fail(f"[vocoder] (a) K2 launches per step: disc {counts_d}, gen {counts_g}, "
+             f"expected {n_stages} each ({2 * n_stages} per iteration)")
+    iters = [walls[i][1] + walls[i + 1][1] for i in range(0, len(walls), 2)]
+    warm = sorted(iters[2:VOC_STEPS] + iters[VOC_STEPS + 2:])
+    med = warm[len(warm) // 2]
+    batch = int(args.train.batch_size)
+    log(f"[vocoder] (a) configs/nsf-hifigan.yaml at full width (512 initial "
+        f"channels, rates {tuple(cfg['upsample_rates'])}, MPD (2, 3, 5, 7, 11) + "
+        f"MSD 3, batch {batch} x {args.data.duration} s crops): {VOC_STEPS} "
+        f"iterations and a save in {first_run:.1f} s, resumed to {state_g.step}; "
+        f"K2 {2 * n_stages} per iteration ({n_stages} in each step); iteration "
+        f"warm median {med * 1e3:.1f} ms (min {warm[0] * 1e3:.1f}, max "
+        f"{warm[-1] * 1e3:.1f}, n={len(warm)}), {batch / med:.2f} samples/s, "
+        f"{batch * float(args.data.duration) / med:.2f} s of audio per s; peak "
+        f"{peak:.2f} GiB [{card}]")
+    paths = {"vocoder training (a)": {n: w.launches for n, w in wrappers.items()}}
+
+    # (b) the busy share of one profiled iteration
+    ds = AudioDataset(args.data.train_path, waveform_sec=args.data.duration,
+                      hop_size=args.data.block_size,
+                      sample_rate=args.data.sampling_rate, with_mel=True)
+    sampler = BatchSampler(ds, batch, seed=SEED)
+    vb = to_device(cli_voc._vocoder_batch(sampler.sample()), dev)
+    mel_fn = cli_voc.build_mel(cfg).to(dev).extract
+    rng = torch.Generator(device=dev).manual_seed(SEED)
+
+    def iteration():
+        vs.disc_step(state_d, state_g.model, vb, rng=rng)
+        vs.gen_step(state_g, state_d.model, vb, mel_fn, rng=rng)
+    iteration()
+    _, wall_us, kernels_us, n_ops, kept = _profiled(torch, iteration, {})
+    busy = sum(kernels_us.values())
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
+    k2_us = sum(us for k, us in kernels_us.items() if "resblock_conv_tc_kernel" in k)
+    log(f"[vocoder] (b) one iteration under the profiler: wall {wall_us / 1e3:.2f} "
+        f"ms, device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f} % of "
+        f"wall, {n_ops} device ops; K2's kernels {k2_us / 1e3:.2f} ms = "
+        f"{100 * k2_us / busy:.1f} % of busy; top: "
+        + "; ".join(f"{us / 1e3:.2f} ms {k[:50]}" for k, us in top) + f" [{card}]")
+    del state_g, state_d
+    torch.cuda.empty_cache()
+
+    # (c) card vs CPU: one discriminator step and one generator step at batch 2
+    gen = random_init_(cli_voc.build_generator(cfg), torch.Generator().manual_seed(SEED))
+    discs = random_init_(vs.Discriminators(), torch.Generator().manual_seed(SEED + 1))
+    small = BatchSampler(ds, VOC_CPU_BATCH, seed=SEED).sample()
+    small = cli_voc._vocoder_batch(small)
+    t = small["mel"].shape[1]
+    r = np.random.default_rng(SEED + 20)
+    sine = {"rand_ini": r.random((1, 1, 9)).astype(np.float32),
+            "noise": r.standard_normal((VOC_CPU_BATCH, t * gen.upp, 9)).astype(np.float32)}
+    sine["rand_ini"][..., 0] = 0.0
+    res = {}
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        g, d = copy.deepcopy(gen).to(device), copy.deepcopy(discs).to(device)
+        sg, sd = vs.create_states(g, d, float(args.train.lr))
+        b = to_device(small, device)
+        sk = {k: torch.from_numpy(v).to(device) for k, v in sine.items()}
+        m = cli_voc.build_mel(cfg).to(device).extract
+        md = vs.disc_step(sd, g, b, sine_kwargs=sk)
+        gd = _grads_of(d)
+        mg = vs.gen_step(sg, d, b, m, sine_kwargs=sk)
+        res[key] = (float(md["disc_loss"]), float(mg["gen_loss"]), gd, _grads_of(g))
+        del g, d, sg, sd
+    (dl_c, gl_c, gd_c, gg_c), (dl_h, gl_h, gd_h, gg_h) = res["card"], res["cpu"]
+    errs = (abs(dl_c - dl_h) / abs(dl_h), abs(gl_c - gl_h) / abs(gl_h))
+    (d_tot, d_leaf), (g_tot, g_leaf) = _grad_gap(gd_c, gd_h), _grad_gap(gg_c, gg_h)
+    log(f"[vocoder] (c) one disc step and one gen step at batch {VOC_CPU_BATCH}, "
+        f"card vs CPU: disc loss {dl_c:.6f} vs {dl_h:.6f} ({errs[0]:.2e}), gen loss "
+        f"{gl_c:.6f} vs {gl_h:.6f} ({errs[1]:.2e}; limit {VOC_LOSS_TOL:g}); "
+        f"discriminator gradients {d_tot:.2e}, generator gradients {g_tot:.2e} "
+        f"(L2 over all leaves, limit {VOC_GRAD_TOL:g}); worst leaves (not held) "
+        f"{d_leaf[0]:.2e} at {d_leaf[1]}, {g_leaf[0]:.2e} at {g_leaf[1]} [{card}]")
+    if not (max(errs) <= VOC_LOSS_TOL and max(d_tot, g_tot) <= VOC_GRAD_TOL):
+        fail("[vocoder] (c) card vs CPU beyond the stated limits")
+    paths["vocoder training (c) card vs CPU"] = {n: w.launches for n, w in wrappers.items()}
+    del gen, discs
+    torch.cuda.empty_cache()
+
+    # (d) K2 at the training shapes, B1's backward, the repacking
+    crop = int(float(args.data.duration) / (args.data.block_size / args.data.sampling_rate))
+    k2_training_stages(torch, card, cfg, batch, crop)
     return paths
 
 
@@ -2756,11 +3318,20 @@ def main() -> None:
                                        pipes["diffusion-fast from a wav"]))
     del pipes, reflow, encoder
     torch.cuda.empty_cache()
-    paths.update(phase_training(torch, card))
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp)
+        paths.update(phase_training(torch, card, root))
+        torch.cuda.empty_cache()
+        paths.update(phase_bf16_training(torch, card, root))
+        torch.cuda.empty_cache()
+        paths.update(phase_vocoder_training(torch, card, root))
 
     table = []
     for kname in ("combtooth", "resblock_group", "resblock_group_bf16",
-                  "conformer_layer", "conformer_layer_bf16", "harmonic_bank"):
+                  "conformer_layer", "conformer_layer_bf16",
+                  "conformer_layer_bf16_io", "harmonic_bank"):
         r = results[kname]
         launches = sum(c.get(kname, 0) for c in paths.values())
         if launches <= 0:

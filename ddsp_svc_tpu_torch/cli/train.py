@@ -10,9 +10,11 @@ optimizer state where the checkpoint has it, and trains on ``--device``
 ``--max_steps`` ends the run after that many steps (the config's epochs
 otherwise, as in JAX).
 
-Refused, with the ROADMAP item that would add them: ``train.amp_dtype``
-bf16 / fp16 (mixed precision) and a multi-process launch
-(``JAX_COORDINATOR_ADDRESS``, multi-card training).
+``train.amp_dtype`` bf16 / bfloat16 trains in bf16 mixed precision (the
+parameters, the optimizer and the checkpoints stay float32, the
+activations run in bf16); fp16 / float16 takes bf16 too, with the JAX
+trainer's notice. Refused, with the ROADMAP item that would add it: a
+multi-process launch (``JAX_COORDINATOR_ADDRESS``, multi-card training).
 """
 from __future__ import annotations
 
@@ -30,10 +32,19 @@ from ..utils.config import load_config
 from ..utils.device import resolve_device
 from .common import build_mel_extractor, needs_mel
 
-AMP_REFUSED = ("train.amp_dtype {amp!r}: bf16 mixed-precision training is not "
-               "ported (ROADMAP A, item 13); use fp32")
 MULTI_REFUSED = ("JAX_COORDINATOR_ADDRESS is set: multi-process training is "
                  "not ported (ROADMAP A, item 8)")
+
+
+def amp_dtype(args) -> torch.dtype | None:
+    """``train.amp_dtype`` -> the activations' type, as the JAX trainer maps
+    it (cli/train.py:71-76): bf16 / bfloat16 and fp16 / float16 (with its
+    notice) to bfloat16, anything else to None (float32)."""
+    amp = str(args.train.amp_dtype or "fp32").lower()
+    if amp in ("fp16", "float16"):
+        print(" [!] fp16 requested; using bf16 (the TPU-native low precision)")
+        return torch.bfloat16
+    return torch.bfloat16 if amp in ("bf16", "bfloat16") else None
 
 
 def main(argv=None):
@@ -47,12 +58,11 @@ def main(argv=None):
     args = load_config(cmd.config)
     if os.environ.get("JAX_COORDINATOR_ADDRESS"):
         raise SystemExit(MULTI_REFUSED)
-    amp = str(args.train.amp_dtype or "fp32").lower()
-    if amp not in ("fp32", "float32"):
-        raise SystemExit(AMP_REFUSED.format(amp=amp))
+    dtype = amp_dtype(args)
     device = resolve_device(cmd.device)
 
-    model = build_model(args, vocoder_dimension=args.model.out_dims or 128)
+    model = build_model(args, vocoder_dimension=args.model.out_dims or 128,
+                        dtype=dtype)
     random_init_(model, torch.Generator().manual_seed(int(args.train.seed or 0)),
                  training=True)
     print(f" [*] model: {args.model.type} ({model_family(args.model.type)})")

@@ -353,6 +353,17 @@ DDSP_API int ddsp_conformer_layer(const float* x, const float* cond,
 // latency (TMA round trips, one wave); at B 48 x T 172 the GLU launch
 // takes ~70 % of the layer, its h and W1 slices re-read from L2 by every
 // block of its row or column.
+//
+// B5, the same layer on bf16 activations (fused_conformer_layer with a
+// bf16 x, pallas_conformer.py:63 and :102, as a bf16 DiffusionFast or
+// RectifiedFlow trunk in training runs it): x is read as bf16 and widened
+// to f32, step arrives rounded to bf16 by the wrapper, and out is rounded
+// once to bf16. cond is f32 (the DDSP mel, which the kernel rounds, as
+// B3) or bf16 (already the GEMM operand). The same template with IN16 set:
+// launches 1 and 3 read x as bf16 pairs and launch 3 stores bf16; with
+// C16 launch 1 loads cond's A tiles by TMA like the other launches, with
+// no rounding pass. Launch 2 is B3's own. The bound is B3's (operations);
+// the bytes drop by x's and out's halves.
 
 #include <mutex>
 
@@ -367,44 +378,47 @@ constexpr int kB3Halo = 15;      // the depthwise conv's largest pad (k <= 31)
 constexpr int kB3MaxCondK = 256;  // Hc
 
 struct B3Args {
-  const float* x;         // (M, C) f32
-  const float* cond;      // (M, Hc) f32        [1]
+  const void* x;          // (M, C) f32, or bf16 with IN16
+  const float* cond;      // (M, Hc) f32        [1] (bf16 with IN16: by TMA)
   const float* step;      // (B, C) f32         [1]
   const float* bias;      // bc, b1 (2I) or b2
   const float* wd;        // (I, k) f32         [2]
   const float* bd;        // (I,) f32           [2]
   __nv_bfloat16* out_bf16;  // h (M, C) [1], s (M, I) [2]
-  float* out_f32;           // out (M, C)         [3]
+  void* out;                // out (M, C) f32, or bf16 with IN16 [3]
   int m_rows, n_out, k_dim, t_len, k_dw;
 };
 
-template <int MODE, int BN, int MT, int STAGES>
+template <int MODE, int BN, int MT, int STAGES, bool IN16, bool C16>
 struct B3Cfg {
   static constexpr int BM = 128 * MT;
   static constexpr int OWN = MODE == kB3GluDw ? BM - 2 * kB3Halo : BM;  // rows a block writes
   static constexpr int NB = MODE == kB3GluDw ? 2 : 1;  // B tiles per slice
-  static constexpr int A_BYTES = MODE == kB3Cond ? 0 : BM * 128;
+  // cond's f32 rows are rounded by the consumers into their own tiles; a
+  // bf16 cond comes through the ring like the other launches' A
+  static constexpr bool A_RING = MODE != kB3Cond || C16;
+  static constexpr int A_BYTES = A_RING ? BM * 128 : 0;
   static constexpr int B_BYTES = BN * 128;
   static constexpr int STAGE = A_BYTES + NB * B_BYTES;
   static constexpr int S = STAGES;
   static constexpr int US = BN + 8;  // u's row stride in floats
 };
 
-template <int MODE, int BN, int MT, int STAGES>
+template <int MODE, int BN, int MT, int STAGES, bool IN16, bool C16>
 size_t b3_smem_bytes(int k_dim) {
-  using G = B3Cfg<MODE, BN, MT, STAGES>;
+  using G = B3Cfg<MODE, BN, MT, STAGES, IN16, C16>;
   size_t n = (size_t)G::S * G::STAGE;
-  if (MODE == kB3Cond) n += (size_t)((k_dim + 63) / 64) * G::BM * 128;
+  if (!G::A_RING) n += (size_t)((k_dim + 63) / 64) * G::BM * 128;
   if (MODE == kB3GluDw) n += (size_t)G::BM * G::US * 4;
   return n + 2 * G::S * 8 + 1024;  // the barriers, and room to align the base
 }
 
-template <int MODE, int BN, int MT, int STAGES>
+template <int MODE, int BN, int MT, int STAGES, bool IN16, bool C16>
 __global__ void __launch_bounds__(kB3Threads, MT == 1 ? 2 : 1)
 conformer_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                       const __grid_constant__ CUtensorMap map_b,
                       const B3Args p) {
-  using G = B3Cfg<MODE, BN, MT, STAGES>;
+  using G = B3Cfg<MODE, BN, MT, STAGES, IN16, C16>;
   constexpr int S = G::S;
   extern __shared__ uint8_t b3_smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -412,7 +426,7 @@ conformer_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   const int n_k = (p.k_dim + 63) / 64;
   uint8_t* extra = smem + S * G::STAGE;  // cond's A tiles [1] or u [2]
   size_t extra_bytes = 0;
-  if (MODE == kB3Cond) extra_bytes = (size_t)n_k * G::BM * 128;
+  if (!G::A_RING) extra_bytes = (size_t)n_k * G::BM * 128;
   if (MODE == kB3GluDw) extra_bytes = (size_t)G::BM * G::US * 4;
   uint64_t* full = reinterpret_cast<uint64_t*>(extra + extra_bytes);
   uint64_t* empty = full + S;
@@ -437,7 +451,7 @@ conformer_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
         if (kt >= S) mbar_wait(&empty[s], ((kt / S) - 1) & 1);
         uint8_t* st = smem + s * G::STAGE;
         mbar_expect_tx(&full[s], G::STAGE);
-        if (MODE != kB3Cond) tma_load_2d(st, &map_a, kt * 64, m0, &full[s]);
+        if (G::A_RING) tma_load_2d(st, &map_a, kt * 64, m0, &full[s]);
         tma_load_2d(st + G::A_BYTES, &map_b, kt * 64, n0, &full[s]);
         if (MODE == kB3GluDw)  // the gate half: W1's rows I + n
           tma_load_2d(st + G::A_BYTES + G::B_BYTES, &map_b, kt * 64,
@@ -453,7 +467,7 @@ conformer_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   const int g = lane >> 2;
   const int q = lane & 3;
 
-  if (MODE == kB3Cond) {
+  if (!G::A_RING) {
     // cond's rows rounded to bf16 into swizzled A tiles, zeros past M and
     // Hc; four items' reads are issued before any is used
     const int chunks = n_k * 8;  // 16-byte chunks per row
@@ -514,7 +528,7 @@ conformer_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
     mbar_wait(&full[s], (kt / S) & 1);
     wgmma_fence();
     const uint8_t* st = smem + s * G::STAGE;
-    const uint8_t* a_t = MODE == kB3Cond ? extra + (size_t)kt * G::BM * 128 : st;
+    const uint8_t* a_t = G::A_RING ? st : extra + (size_t)kt * G::BM * 128;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t bdesc = desc_sw128(st + G::A_BYTES + 32 * kk);
@@ -562,13 +576,22 @@ conformer_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
         } else {
           if (n >= p.n_out) continue;
           const size_t o = (size_t)m * p.n_out + n;
-          const float2 xv = *reinterpret_cast<const float2*>(p.x + o);
+          float2 xv;
+          if constexpr (IN16)
+            xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    static_cast<const __nv_bfloat16*>(p.x) + o));
+          else
+            xv = *reinterpret_cast<const float2*>(static_cast<const float*>(p.x) + o);
           if constexpr (MODE == kB3Cond) {
             const float* sv = p.step + (size_t)(m / p.t_len) * p.n_out + n;
             *reinterpret_cast<__nv_bfloat162*>(p.out_bf16 + o) = __floats2bfloat162_rn(
                 xv.x + sv[0] + c0 + p.bias[n], xv.y + sv[1] + c1 + p.bias[n + 1]);
+          } else if constexpr (IN16) {
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + o) =
+                __floats2bfloat162_rn(xv.x + c0 + p.bias[n], xv.y + c1 + p.bias[n + 1]);
           } else {
-            *reinterpret_cast<float2*>(p.out_f32 + o) =
+            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
                 make_float2(xv.x + c0 + p.bias[n], xv.y + c1 + p.bias[n + 1]);
           }
         }
@@ -703,30 +726,67 @@ int cached_map(CUtensorMap* map, const void* base, int rows, int cols, int box_r
   return err;
 }
 
-template <int MODE, int BN, int MT, int STAGES>
+template <int MODE, int BN, int MT, int STAGES, bool IN16 = false, bool C16 = false>
 int launch_b3(const void* a, int a_cols, const void* b, int b_rows, const B3Args& p,
               cudaStream_t stream) {
-  using G = B3Cfg<MODE, BN, MT, STAGES>;
+  using G = B3Cfg<MODE, BN, MT, STAGES, IN16, C16>;
   CUtensorMap map_a, map_b;
   int err = cached_map(&map_b, b, b_rows, p.k_dim, BN);
   if (err) return err;
-  if (MODE == kB3Cond) {
+  if (!G::A_RING) {
     map_a = map_b;  // unused: the consumers make cond's tiles
   } else {
     err = cached_map(&map_a, a, p.m_rows, a_cols, G::BM);
     if (err) return err;
   }
-  const size_t smem = b3_smem_bytes<MODE, BN, MT, STAGES>(p.k_dim);
+  const size_t smem = b3_smem_bytes<MODE, BN, MT, STAGES, IN16, C16>(p.k_dim);
   // raised once per instantiation (to the most any Hc <= 256 needs)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      conformer_bf16_kernel<MODE, BN, MT, STAGES>,
+      conformer_bf16_kernel<MODE, BN, MT, STAGES, IN16, C16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)b3_smem_bytes<MODE, BN, MT, STAGES>(kB3MaxCondK));
+      (int)b3_smem_bytes<MODE, BN, MT, STAGES, IN16, C16>(kB3MaxCondK));
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((p.n_out + BN - 1) / BN, (p.m_rows + G::OWN - 1) / G::OWN);
-  conformer_bf16_kernel<MODE, BN, MT, STAGES><<<grid, kB3Threads, smem, stream>>>(map_a, map_b, p);
+  conformer_bf16_kernel<MODE, BN, MT, STAGES, IN16, C16>
+      <<<grid, kB3Threads, smem, stream>>>(map_a, map_b, p);
   DDSP_CHECK_LAUNCH();
   return 0;
+}
+
+template <int MODE, int BN, int MT, int STAGES, bool IN16>
+int launch_cond(bool c16, const void* cond, int hc, const void* b, int b_rows,
+                const B3Args& p, cudaStream_t stream) {
+  // a bf16 cond is launch 1's A itself, by TMA; an f32 one the consumers round
+  return c16 ? launch_b3<MODE, BN, MT, STAGES, IN16, true>(cond, hc, b, b_rows, p, stream)
+             : launch_b3<MODE, BN, MT, STAGES, IN16, false>(nullptr, 0, b, b_rows, p, stream);
+}
+
+template <bool IN16>
+int conformer_layer_bf16(const void* x, const void* cond, bool c16, const float* step,
+                         const __nv_bfloat16* wc, const float* bc,
+                         const __nv_bfloat16* w1, const float* b1, const float* wd,
+                         const float* bd, const __nv_bfloat16* w2, const float* b2,
+                         void* out, __nv_bfloat16* h, __nv_bfloat16* s, int batch,
+                         int t_len, int c, int hc, int inner, int k, void* stream) {
+  const int m = batch * t_len;
+  if (m == 0) return 0;
+  if (c % 8 != 0 || hc % 8 != 0 || inner % 8 != 0 || hc > kB3MaxCondK ||
+      k > 2 * kB3Halo + 1 || k % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool large = m >= 4096;
+  const float* cond_f32 = c16 ? nullptr : static_cast<const float*>(cond);
+  B3Args p1{x, cond_f32, step, bc, nullptr, nullptr, h, nullptr, m, c, hc, t_len, k};
+  B3Args p2{x, nullptr, nullptr, b1, wd, bd, s, nullptr, m, inner, c, t_len, k};
+  B3Args p3{x, nullptr, nullptr, b2, nullptr, nullptr, nullptr, out, m, c, inner, t_len, k};
+  int err = large ? launch_cond<kB3Cond, 64, 2, 4, IN16>(c16, cond, hc, wc, c, p1, st)
+                  : launch_cond<kB3Cond, 32, 1, 4, IN16>(c16, cond, hc, wc, c, p1, st);
+  if (err) return err;
+  err = large ? launch_b3<kB3GluDw, 64, 2, 3>(h, c, w1, 2 * inner, p2, st)
+              : launch_b3<kB3GluDw, 32, 2, 3>(h, c, w1, 2 * inner, p2, st);
+  if (err) return err;
+  return large ? launch_b3<kB3Out, 128, 2, 4, IN16>(s, inner, w2, c, p3, st)
+               : launch_b3<kB3Out, 32, 1, 4, IN16>(s, inner, w2, c, p3, st);
 }
 
 }  // namespace
@@ -743,22 +803,21 @@ DDSP_API int ddsp_conformer_layer_bf16(
     const __nv_bfloat16* w2, const float* b2, float* out, __nv_bfloat16* h,
     __nv_bfloat16* s, int batch, int t_len, int c, int hc, int inner, int k,
     void* stream) {
-  const int m = batch * t_len;
-  if (m == 0) return 0;
-  if (c % 8 != 0 || hc % 8 != 0 || inner % 8 != 0 || hc > kB3MaxCondK ||
-      k > 2 * kB3Halo + 1 || k % 2 == 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool large = m >= 4096;
-  B3Args p1{x, cond, step, bc, nullptr, nullptr, h, nullptr, m, c, hc, t_len, k};
-  B3Args p2{x, nullptr, nullptr, b1, wd, bd, s, nullptr, m, inner, c, t_len, k};
-  B3Args p3{x, nullptr, nullptr, b2, nullptr, nullptr, nullptr, out, m, c, inner, t_len, k};
-  int err = large ? launch_b3<kB3Cond, 64, 2, 4>(nullptr, 0, wc, c, p1, st)
-                  : launch_b3<kB3Cond, 32, 1, 4>(nullptr, 0, wc, c, p1, st);
-  if (err) return err;
-  err = large ? launch_b3<kB3GluDw, 64, 2, 3>(h, c, w1, 2 * inner, p2, st)
-              : launch_b3<kB3GluDw, 32, 2, 3>(h, c, w1, 2 * inner, p2, st);
-  if (err) return err;
-  return large ? launch_b3<kB3Out, 128, 2, 4>(s, inner, w2, c, p3, st)
-               : launch_b3<kB3Out, 32, 1, 4>(s, inner, w2, c, p3, st);
+  return conformer_layer_bf16<false>(x, cond, false, step, wc, bc, w1, b1, wd, bd, w2,
+                                     b2, out, h, s, batch, t_len, c, hc, inner, k, stream);
+}
+
+// B5: as B3 with x and out bf16 (batch, t_len, c); cond (batch, t_len, hc)
+// bf16 when cond_bf16 is 1, f32 otherwise; step f32, already rounded to
+// bf16 by the caller, as JAX casts it to x's type.
+DDSP_API int ddsp_conformer_layer_bf16_io(
+    const __nv_bfloat16* x, const void* cond, int cond_bf16, const float* step,
+    const __nv_bfloat16* wc, const float* bc, const __nv_bfloat16* w1,
+    const float* b1, const float* wd, const float* bd,
+    const __nv_bfloat16* w2, const float* b2, __nv_bfloat16* out,
+    __nv_bfloat16* h, __nv_bfloat16* s, int batch, int t_len, int c, int hc,
+    int inner, int k, void* stream) {
+  return conformer_layer_bf16<true>(x, cond, cond_bf16 != 0, step, wc, bc, w1, b1, wd,
+                                    bd, w2, b2, out, h, s, batch, t_len, c, hc, inner,
+                                    k, stream);
 }

@@ -423,6 +423,101 @@ def generator_state_dict(params: dict, n_upsamples: int = 5,
     return sd
 
 
+# A conv of a training tree, either way: weight-normed (v, g), plain, or
+# spectral-normed (its plain ``kernel``). ``perm`` takes the JAX kernel to
+# the torch layout; ``inv`` back.
+_CONV1D = ((2, 1, 0), (2, 1, 0))
+_CONV_T = ((1, 2, 0), (2, 0, 1))
+_CONV2D = ((3, 2, 0, 1), (2, 3, 1, 0))
+
+
+def _put_train_conv(sd: dict, tree, scope: str, name: str, perms) -> None:
+    perm, inv = perms
+    if isinstance(tree, _ToJax):
+        if f"{name}.weight_v" in sd:
+            tree.put(f"{scope}/kernel_v", tree.get(f"{name}.weight_v").transpose(inv))
+            tree.put(f"{scope}/kernel_g", tree.get(f"{name}.weight_g"))
+        else:
+            tree.put(f"{scope}/kernel", tree.get(f"{name}.weight").transpose(inv))
+    elif tree.has(f"{scope}/kernel_v"):
+        sd[f"{name}.weight_v"] = np.ascontiguousarray(
+            tree.take(f"{scope}/kernel_v").transpose(perm))
+        sd[f"{name}.weight_g"] = tree.take(f"{scope}/kernel_g")
+    else:
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            tree.take(f"{scope}/kernel").transpose(perm))
+    _put_bias(sd, tree, scope, name)
+
+
+def _fill_generator(sd: dict, tree, cfg: dict) -> None:
+    """The training generator (weight norm as (v, g)) <-> JAX ``Generator``
+    params, in ``cfg``'s (the vocoder config's) shape."""
+    _put_dense(sd, tree, "m_source/l_linear", "m_source.l_linear")
+    _put_train_conv(sd, tree, "conv_pre", "conv_pre", _CONV1D)
+    n_k = len(cfg["resblock_kernel_sizes"])
+    n_d = len(cfg["resblock_dilation_sizes"][0])
+    convs = ("convs1", "convs2") if str(cfg["resblock"]) == "1" else ("convs",)
+    for i in range(len(cfg["upsample_rates"])):
+        _put_train_conv(sd, tree, f"ups_{i}", f"ups.{i}", _CONV_T)
+        _put_train_conv(sd, tree, f"noise_convs_{i}", f"noise_convs.{i}", _CONV1D)
+        for j in range(n_k):
+            r = i * n_k + j
+            for n in range(n_d):
+                for c in convs:
+                    _put_train_conv(sd, tree, f"resblocks_{r}/{c}_{n}",
+                                    f"resblocks.{r}.{c}.{n}", _CONV1D)
+    _put_train_conv(sd, tree, "conv_post", "conv_post", _CONV1D)
+
+
+def _fill_discriminators(sd: dict, tree, periods, msd_scales: int) -> None:
+    """``train/vocoder_solver.Discriminators`` <-> JAX ``Discriminators``
+    params (``mpd/disc_i``, ``msd/disc_i``)."""
+    for i in range(len(periods)):
+        for j in range(5):
+            _put_train_conv(sd, tree, f"mpd/disc_{i}/convs_{j}",
+                            f"mpd.discriminators.{i}.convs.{j}", _CONV2D)
+        _put_train_conv(sd, tree, f"mpd/disc_{i}/conv_post",
+                        f"mpd.discriminators.{i}.conv_post", _CONV2D)
+    for i in range(msd_scales):
+        for j in range(7):
+            _put_train_conv(sd, tree, f"msd/disc_{i}/convs_{j}",
+                            f"msd.discriminators.{i}.convs.{j}", _CONV1D)
+        _put_train_conv(sd, tree, f"msd/disc_{i}/conv_post",
+                        f"msd.discriminators.{i}.conv_post", _CONV1D)
+
+
+def vocoder_train_state_dicts(params: dict, cfg: dict, periods,
+                              msd_scales: int) -> tuple[dict, dict]:
+    """A vocoder training tree (JAX ``train_vocoder``'s ``params`` or one of
+    its optimizer moments: ``{"generator", "discriminator"}``) -> the state
+    dicts of the port's training generator and ``Discriminators``."""
+    gen, disc = {}, {}
+    tree = _Leaves(params["generator"])
+    _fill_generator(gen, tree, cfg)
+    tree.finish()
+    tree = _Leaves(params["discriminator"])
+    _fill_discriminators(disc, tree, periods, msd_scales)
+    tree.finish()
+    return gen, disc
+
+
+def vocoder_train_params(gen_sd: dict, disc_sd: dict, cfg: dict, periods,
+                         msd_scales: int) -> dict:
+    """The inverse: the two state dicts (tensors or numpy; parameters or a
+    moment by parameter name) -> ``{"generator", "discriminator"}`` in the
+    JAX layout and names."""
+    out = {}
+    for key, sd, fill in (
+            ("generator", gen_sd, lambda sd, t: _fill_generator(sd, t, cfg)),
+            ("discriminator", disc_sd,
+             lambda sd, t: _fill_discriminators(sd, t, periods, msd_scales))):
+        tree = _ToJax(sd, with_buffers=False)
+        fill(sd, tree)
+        tree.finish()
+        out[key] = tree.params
+    return out
+
+
 def _put_attention(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
     """flax MultiHeadDotProductAttention: query/key/value kernels (dim,
     heads, head_dim) with (heads, head_dim) biases, the out kernel (heads,

@@ -28,6 +28,7 @@ import torch.nn as nn
 from .ddsp import CombSubFast, CombSubSuperFast
 from .diffusion import GaussianDiffusion
 from .naive_v2_diff import NaiveV2Diff
+from .nn import Dense
 from .reflow import RectifiedFlow
 from .unit2control import add_speaker
 from .wavenet import WaveNet
@@ -39,12 +40,12 @@ class Unit2Mel(nn.Module):
                  n_layers: int = 20, n_chans: int = 384, n_hidden: int = 256,
                  k_step_max: int = 1000):
         super().__init__()
-        self.unit_embed = nn.Linear(input_channel, n_hidden)
-        self.f0_embed = nn.Linear(1, n_hidden)
-        self.volume_embed = nn.Linear(1, n_hidden)
+        self.unit_embed = Dense(input_channel, n_hidden)
+        self.f0_embed = Dense(1, n_hidden)
+        self.volume_embed = Dense(1, n_hidden)
         self.spk_embed = nn.Embedding(n_spk, n_hidden) if n_spk and n_spk > 1 else None
         # dropped by the loader when the checkpoint has none (io/jax_params.py)
-        self.aug_shift_embed = (nn.Linear(1, n_hidden, bias=False)
+        self.aug_shift_embed = (Dense(1, n_hidden, bias=False)
                                 if use_pitch_aug else None)
         self.denoise_fn = WaveNet(out_dims, n_layers, n_chans, n_hidden)
         self.decoder = GaussianDiffusion(out_dims, k_step_max)

@@ -6,9 +6,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from .nn import Conv1d
+from .nn import Conv1d, LayerNorm, glu, silu
 
 
 def calc_same_padding(kernel_size: int) -> int:
@@ -27,7 +26,7 @@ class ConformerConvModule(nn.Module):
                  kernel_size: int = 31, use_norm: bool = False):
         super().__init__()
         inner = dim * expansion_factor
-        self.norm = nn.LayerNorm(dim) if use_norm else None  # eps 1e-5
+        self.norm = LayerNorm(dim) if use_norm else None  # eps 1e-5
         self.conv1 = Conv1d(dim, inner * 2, 1)
         self.depthwise = Conv1d(inner, inner, kernel_size,
                                 padding=calc_same_padding(kernel_size),
@@ -37,7 +36,7 @@ class ConformerConvModule(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm is not None:
             x = self.norm(x)
-        return self.conv2(F.silu(self.depthwise(F.glu(self.conv1(x), dim=-1))))
+        return self.conv2(silu(self.depthwise(glu(self.conv1(x)))))
 
 
 class CFNEncoderLayer(nn.Module):

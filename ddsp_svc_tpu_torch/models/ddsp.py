@@ -16,9 +16,10 @@ from ..ops.cuda_oscillator import harmonic_bank
 from ..ops.cuda_source import combtooth
 from ..ops.fir import frequency_filter
 from ..ops.interp import remove_above_fmax, upsample
-from ..ops.source import cumsum_phase_source
+from ..ops.source import blocked_cumsum, cumsum_phase_source
 from ..ops.spectral import frame_signal, istft, overlap_add, stft
 from ..ops.window import hann_window, sqrt_hann_window
+from .nn import weak
 from .unit2control import Unit2Control
 
 
@@ -29,8 +30,26 @@ def _uniform_noise(like: torch.Tensor, generator) -> torch.Tensor:
 
 
 def _unit_phasor(angle: torch.Tensor) -> torch.Tensor:
-    """exp(1j * angle)."""
+    """exp(1j * angle), complex64 (a bf16 angle is widened exactly, as JAX
+    promotes it against the complex unit)."""
+    angle = angle.float()
     return torch.polar(torch.ones_like(angle), angle)
+
+
+def _group_phase(group_delay: torch.Tensor) -> torch.Tensor:
+    """cumsum of the group delay over bins: torch's on float32; on bf16 the
+    order XLA's CPU backend sums ``jnp.cumsum`` in, each sum rounded to
+    bf16 (``blocked_cumsum``), as the JAX model's bf16 cumsum."""
+    if group_delay.dtype == torch.float32:
+        return torch.cumsum(group_delay, dim=-1)
+    return blocked_cumsum(group_delay)
+
+
+def _complex_filter(magnitude: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    """exp(magnitude + 1j * pi * phase), complex64. JAX promotes bf16
+    controls to complex64 before the exponential, so a bf16 model's
+    controls are widened (exactly) first."""
+    return torch.polar(torch.exp(magnitude.float()), math.pi * phase.float())
 
 
 def _phase_source(f0_frames, sampling_rate, block_size, initial_phase):
@@ -80,7 +99,7 @@ class Sins(nn.Module):
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
                                        spk_id=spk_id, spk_mix_dict=spk_mix_dict)
         amplitudes = torch.exp(ctrls["amplitudes"]) / 128.0
-        group_delay = math.pi * torch.tanh(ctrls["group_delay"])
+        group_delay = weak(math.pi, ctrls["group_delay"]) * torch.tanh(ctrls["group_delay"])
         noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
         amplitudes = remove_above_fmax(amplitudes, f0_frames,
                                        self.sampling_rate / 2, level_start=1)
@@ -97,10 +116,12 @@ class Sins(nn.Module):
         amplitudes, group_delay, noise_param, hidden = self.controls(
             units, f0_frames, phase_frames, volume, spk_id=spk_id,
             spk_mix_dict=spk_mix_dict)
-        sinusoids = harmonic_bank(x.contiguous(), amplitudes.contiguous(),
+        # JAX's bank multiplies f32 sines by the (bf16) amplitudes in f32;
+        # K4 takes the amplitudes widened to f32 (ddsp.py:31-45)
+        sinusoids = harmonic_bank(x.contiguous(), amplitudes.float().contiguous(),
                                   self.block_size)
         harmonic = frequency_filter(
-            sinusoids, _unit_phasor(torch.cumsum(group_delay, dim=-1)),
+            sinusoids, _unit_phasor(_group_phase(group_delay)),
             hann_window_flag=False)
         if noise is None:
             noise = _uniform_noise(harmonic, generator)
@@ -144,10 +165,10 @@ class CombSubSuperFast(nn.Module):
         ctrls, hidden = self.unit2ctrl(units, f0, phase, volume,
                                        spk_id=spk_id, aug_shift=aug_shift,
                                        spk_mix_dict=spk_mix_dict)
-        src_filter = torch.polar(torch.exp(ctrls["harmonic_magnitude"]),
-                                 math.pi * ctrls["harmonic_phase"])
-        noise_filter = torch.polar(torch.exp(ctrls["noise_magnitude"]),
-                                   math.pi * ctrls["noise_phase"]) / 128.0
+        src_filter = _complex_filter(ctrls["harmonic_magnitude"],
+                                     ctrls["harmonic_phase"])
+        noise_filter = _complex_filter(ctrls["noise_magnitude"],
+                                       ctrls["noise_phase"]) / 128.0
         return src_filter, noise_filter, hidden
 
     def forward(self, units, f0, volume, spk_id=None, aug_shift=None,
@@ -216,8 +237,8 @@ class CombSubFast(nn.Module):
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
                                        spk_id=spk_id, aug_shift=aug_shift,
                                        spk_mix_dict=spk_mix_dict)
-        src_filter = torch.polar(torch.exp(ctrls["harmonic_magnitude"]),
-                                 math.pi * ctrls["harmonic_phase"])
+        src_filter = _complex_filter(ctrls["harmonic_magnitude"],
+                                     ctrls["harmonic_phase"])
         noise_filter = torch.exp(ctrls["noise_magnitude"]) / 128.0
         return src_filter, noise_filter, hidden
 
@@ -259,7 +280,7 @@ class CombSub(nn.Module):
         """-> (group_delay, src_param, noise_param, hidden)."""
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
                                        spk_id=spk_id, spk_mix_dict=spk_mix_dict)
-        group_delay = math.pi * torch.tanh(ctrls["group_delay"])
+        group_delay = weak(math.pi, ctrls["group_delay"]) * torch.tanh(ctrls["group_delay"])
         src_param = torch.exp(ctrls["harmonic_magnitude"])
         noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
         return group_delay, src_param, noise_param, hidden
@@ -275,7 +296,7 @@ class CombSub(nn.Module):
             spk_mix_dict=spk_mix_dict)
         comb = _comb_exciter(x, f0, self.sampling_rate)
         harmonic = frequency_filter(
-            comb, _unit_phasor(torch.cumsum(group_delay, dim=-1)),
+            comb, _unit_phasor(_group_phase(group_delay)),
             hann_window_flag=False)
         harmonic = frequency_filter(
             harmonic, src_param.to(torch.complex64), hann_window_flag=True,

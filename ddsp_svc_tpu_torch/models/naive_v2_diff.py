@@ -3,17 +3,21 @@ ddsp_svc_tpu/models/naive_v2_diff.py with use_mlp=False, conv_only=True,
 no norm, no wavenet_like). Each layer runs through kernel K3
 (ops/cuda_conformer.conformer_layer), or with ``trunk_bf16`` through B3,
 K3's bf16 class (``conformer_layer_bf16``; JAX ``use_pallas=True,
-pallas_mxu_bf16=True``). No dropout fires in this trunk: JAX builds it
-conv-only with conv_dropout 0.0."""
+pallas_mxu_bf16=True``). A bf16 model (``set_compute_dtype``, JAX
+``dtype=bfloat16``) carries bf16 activations through the trunk, and each
+layer runs through B5 (``conformer_layer_bf16_io``), as JAX's fused layer
+runs on a bf16 x. No dropout fires in this trunk: JAX builds it conv-only
+with conv_dropout 0.0."""
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.cuda_conformer import (bf16_gemm_weights, conformer_layer,
-                                   conformer_layer_bf16)
+                                   conformer_layer_bf16,
+                                   conformer_layer_bf16_io)
 from .conformer import ConformerConvModule
-from .nn import Conv1d
+from .nn import Conv1d, Dense, gelu
 from .wavenet import sinusoidal_pos_emb
 
 
@@ -54,9 +58,15 @@ class NaiveV2DiffLayer(nn.Module):
     def forward(self, x, condition, diffusion_step):
         """x (B, T, C), condition (B, T, Hc), diffusion_step (B, 1, C)."""
         # the step projection of the (B, 1, C) embedding stays outside the
-        # kernel, as in JAX
-        step_vec = self.diffusion_step_projection(diffusion_step)[:, 0, :]
+        # kernel, as in JAX, in f32 (a bf16 embedding times the f32 folded
+        # weights, naive_v2_diff.py:78-81)
+        step_vec = self.diffusion_step_projection(diffusion_step,
+                                                  torch.float32)[:, 0, :]
         weights = self.kernel_weights()
+        if x.dtype == torch.bfloat16:
+            packed = self.bf16_weights(weights) if x.is_cuda else None
+            return conformer_layer_bf16_io(x, condition, step_vec.contiguous(),
+                                           weights, packed)
         if self.trunk_bf16:
             packed = self.bf16_weights(weights) if x.is_cuda else None
             return conformer_layer_bf16(x, condition, step_vec.contiguous(),
@@ -74,8 +84,8 @@ class NaiveV2Diff(nn.Module):
         super().__init__()
         self.dim = dim
         self.input_projection = Conv1d(mel_channels, dim, 1)
-        self.diff_emb_0 = nn.Linear(dim, dim * mlp_factor)
-        self.diff_emb_1 = nn.Linear(dim * mlp_factor, dim)
+        self.diff_emb_0 = Dense(dim, dim * mlp_factor)
+        self.diff_emb_1 = Dense(dim * mlp_factor, dim)
         self.layers = nn.ModuleList(
             NaiveV2DiffLayer(dim, condition_dim, expansion_factor, kernel_size,
                              trunk_bf16)
@@ -85,9 +95,9 @@ class NaiveV2Diff(nn.Module):
     def forward(self, spec, diffusion_step, cond):
         """spec (B, T, M), diffusion_step (B,) float, cond (B, T, Hc) ->
         (B, T, M)."""
-        x = F.gelu(self.input_projection(spec)).contiguous()
+        x = gelu(self.input_projection(spec)).contiguous()
         step = sinusoidal_pos_emb(diffusion_step.to(x.dtype), self.dim)
-        step = self.diff_emb_1(F.gelu(self.diff_emb_0(step)))[:, None, :]
+        step = self.diff_emb_1(gelu(self.diff_emb_0(step)))[:, None, :]
         for layer in self.layers:
             x = layer(x, cond, step)
         return self.output_projection(x)

@@ -1,6 +1,10 @@
-"""NSF-HiFiGAN generator at inference (mirrors
-ddsp_svc_tpu/models/nsf_hifigan.py: ``ResBlock1``, ``ResBlock2``,
-``SourceModuleHnNSF``, ``Generator``). With ResBlock1 (``resblock: "1"``)
+"""NSF-HiFiGAN (mirrors ddsp_svc_tpu/models/nsf_hifigan.py: ``ResBlock1``,
+``ResBlock2``, ``SourceModuleHnNSF``, ``Generator``, and for GAN training
+``DiscriminatorP``, ``MultiPeriodDiscriminator``, ``DiscriminatorS``,
+``MultiScaleDiscriminator`` and the three losses). A serving generator
+holds its weights folded (the loader folds JAX's weight norm once); a
+training generator (``weight_norm=True``) holds them as JAX trains them,
+(v, g) per conv, folded at every call. With ResBlock1 (``resblock: "1"``)
 each upsample stage's resblock mean runs through kernel K2
 (ops/cuda_resblock.resblock_group) -- on all five stages, where the TPU
 path fused only the stages with C <= 128 -- and each stage's weights are
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda_resblock import LRELU_SLOPE, PackedResblocks, resblock_group
 from ..ops.source import sine_gen
-from .nn import Conv1d, ConvTranspose1d
+from .nn import Conv1d, Conv2d, ConvTranspose1d
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -44,14 +48,16 @@ class ResBlock1(nn.Module):
     generator runs at the stages K2's bf16 class does not serve."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3, 5)):
+                 dilation: Sequence[int] = (1, 3, 5), weight_norm: bool = False):
         super().__init__()
         self.convs1 = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=d,
-                   padding=(kernel_size - 1) * d // 2) for d in dilation)
+                   padding=(kernel_size - 1) * d // 2, weight_norm=weight_norm)
+            for d in dilation)
         self.convs2 = nn.ModuleList(
             Conv1d(channels, channels, kernel_size,
-                   padding=(kernel_size - 1) // 2) for _ in dilation)
+                   padding=(kernel_size - 1) // 2, weight_norm=weight_norm)
+            for _ in dilation)
 
     def forward(self, x, dtype: torch.dtype | None = None):
         for c1, c2 in zip(self.convs1, self.convs2):
@@ -60,10 +66,11 @@ class ResBlock1(nn.Module):
         return x
 
     def chain_weights(self) -> list:
-        """(weight, bias) pairs in chain order convs1_0, convs2_0, ..."""
+        """(weight, bias) pairs in chain order convs1_0, convs2_0, ...; a
+        weight-normed conv's weight folded from (v, g) at this call."""
         out = []
         for c1, c2 in zip(self.convs1, self.convs2):
-            out += [(c1.weight, c1.bias), (c2.weight, c2.bias)]
+            out += [(c1.folded_weight(), c1.bias), (c2.folded_weight(), c2.bias)]
         return out
 
 
@@ -72,11 +79,12 @@ class ResBlock2(nn.Module):
     conv_d(leaky_relu(x))."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3)):
+                 dilation: Sequence[int] = (1, 3), weight_norm: bool = False):
         super().__init__()
         self.convs = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=d,
-                   padding=(kernel_size - 1) * d // 2) for d in dilation)
+                   padding=(kernel_size - 1) * d // 2, weight_norm=weight_norm)
+            for d in dilation)
 
     def forward(self, x, dtype: torch.dtype | None = None):
         for conv in self.convs:
@@ -106,7 +114,9 @@ class SourceModuleHnNSF(nn.Module):
 
 
 class Generator(nn.Module):
-    """mel (B, T, M), f0 (B, T) -> audio (B, T * upp)."""
+    """mel (B, T, M), f0 (B, T) -> audio (B, T * upp). ``weight_norm``: the
+    convs that JAX weight-norms (all but the noise convs and the source's
+    linear) hold (v, g) and fold at every call, as in training."""
 
     def __init__(self, sampling_rate: int, num_mels: int = 128,
                  upsample_rates: Sequence[int] = (8, 8, 2, 2, 2),
@@ -114,8 +124,10 @@ class Generator(nn.Module):
                  upsample_initial_channel: int = 512, resblock: str = "1",
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
                  resblock_dilation_sizes: Sequence[Sequence[int]] = (
-                     (1, 3, 5), (1, 3, 5), (1, 3, 5))):
+                     (1, 3, 5), (1, 3, 5), (1, 3, 5)),
+                 weight_norm: bool = False):
         super().__init__()
+        self.weight_norm = weight_norm
         if str(resblock) not in ("1", "2"):
             raise ValueError(f"resblock {resblock!r}: '1' or '2'")
         self.resblock = str(resblock)
@@ -129,14 +141,16 @@ class Generator(nn.Module):
         self.upp = int(math.prod(upsample_rates))
         self.m_source = SourceModuleHnNSF(sampling_rate, harmonic_num=8)
         c0 = upsample_initial_channel
-        self.conv_pre = Conv1d(num_mels, c0, 7, padding=3)
+        self.conv_pre = Conv1d(num_mels, c0, 7, padding=3,
+                               weight_norm=weight_norm)
         self.ups = nn.ModuleList()
         self.noise_convs = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             c_in, c_cur = c0 // 2 ** i, c0 // 2 ** (i + 1)
             self.ups.append(ConvTranspose1d(c_in, c_cur, k, stride=u,
-                                            padding=(k - u) // 2))
+                                            padding=(k - u) // 2,
+                                            weight_norm=weight_norm))
             if i + 1 < n_up:
                 s = int(math.prod(upsample_rates[i + 1:]))
                 self.noise_convs.append(
@@ -145,16 +159,21 @@ class Generator(nn.Module):
                 self.noise_convs.append(Conv1d(1, c_cur, 1))
             block = ResBlock1 if self.resblock == "1" else ResBlock2
             for rk, rd in zip(self.kernel_sizes, self.dilations):
-                self.resblocks.append(block(c_cur, rk, rd))
-        self.conv_post = Conv1d(c0 // 2 ** n_up, 1, 7, padding=3)
+                self.resblocks.append(block(c_cur, rk, rd, weight_norm))
+        self.conv_post = Conv1d(c0 // 2 ** n_up, 1, 7, padding=3,
+                                weight_norm=weight_norm)
         self._packed = {}  # stage -> (weights' identity, PackedResblocks)
 
     def stage_weights(self, i: int) -> PackedResblocks:
         """Stage ``i``'s resblock weights packed for K2, made once per model
         and made again only when a weight or bias is replaced or changed in
-        place (another tensor, device or version)."""
+        place (another tensor, device or version). A weight-normed
+        generator folds its weights anew at every call, so it packs them
+        at every call, and keeps no pack (nor its autograd graph)."""
         n_k = len(self.kernel_sizes)
         rbw = [blk.chain_weights() for blk in self.resblocks[i * n_k:(i + 1) * n_k]]
+        if self.weight_norm:
+            return PackedResblocks(rbw)
         key = tuple((t.data_ptr(), t.device, t._version)
                     for pairs in rbw for pair in pairs for t in pair)
         cached = self._packed.get(i)
@@ -188,3 +207,150 @@ class Generator(nn.Module):
                 x = sum(blk(x, dtype) for blk in blocks) / n_k
         x = self.conv_post(leaky_relu(x, 0.01), dtype)
         return torch.tanh(x)[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# GAN training: the discriminators and losses (nsf_hifigan.py:237-376)
+# ---------------------------------------------------------------------------
+
+
+def get_padding(kernel_size: int, dilation: int = 1) -> int:
+    return (kernel_size * dilation - dilation) // 2
+
+
+class DiscriminatorP(nn.Module):
+    """x (B, L) -> (score (B, n), feature maps): reflect-padded to a
+    multiple of the period, viewed (B, L / p, p, 1) (NHWC) and run through
+    weight-normed (or spectral-normed) 2-D convs with k x 1 kernels."""
+
+    CHANNELS = (32, 128, 512, 1024)
+
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
+                 use_spectral_norm: bool = False):
+        super().__init__()
+        self.period = period
+        wn, sn = not use_spectral_norm, use_spectral_norm
+        pad = ((get_padding(5, 1),) * 2, (0, 0))
+        c_in, convs = 1, []
+        for c in self.CHANNELS:
+            convs.append(Conv2d(c_in, c, (kernel_size, 1), (stride, 1), pad,
+                                weight_norm=wn, spectral_norm=sn))
+            c_in = c
+        convs.append(Conv2d(c_in, 1024, (kernel_size, 1), (1, 1),
+                            ((2, 2), (0, 0)), weight_norm=wn, spectral_norm=sn))
+        self.convs = nn.ModuleList(convs)
+        self.conv_post = Conv2d(1024, 1, (3, 1), (1, 1), ((1, 1), (0, 0)),
+                                weight_norm=wn, spectral_norm=sn)
+
+    def forward(self, x: torch.Tensor):
+        fmap = []
+        b, t = x.shape
+        if t % self.period:
+            x = F.pad(x[:, None], (0, self.period - t % self.period),
+                      mode="reflect")[:, 0]
+            t = x.shape[-1]
+        x = x.reshape(b, t // self.period, self.period, 1)
+        for conv in self.convs:
+            x = leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return x.reshape(b, -1), fmap
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11)):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorP(p) for p in periods)
+
+    def forward(self, y, y_hat):
+        return _both(self.discriminators, [y] * len(self.discriminators),
+                     [y_hat] * len(self.discriminators))
+
+
+def _both(discs, ys, y_hats):
+    rs, gs, fr, fg = [], [], [], []
+    for d, y, y_hat in zip(discs, ys, y_hats):
+        r, fmap_r = d(y)
+        g, fmap_g = d(y_hat)
+        rs.append(r)
+        gs.append(g)
+        fr.append(fmap_r)
+        fg.append(fmap_g)
+    return rs, gs, fr, fg
+
+
+class DiscriminatorS(nn.Module):
+    """x (B, L) -> (score, feature maps): grouped, strided 1-D convs,
+    weight-normed (spectral-normed on the MSD's first scale)."""
+
+    SPECS = ((128, 15, 1, 1, 7), (128, 41, 2, 4, 20), (256, 41, 2, 16, 20),
+             (512, 41, 4, 16, 20), (1024, 41, 4, 16, 20), (1024, 41, 1, 16, 20),
+             (1024, 5, 1, 1, 2))
+
+    def __init__(self, use_spectral_norm: bool = False):
+        super().__init__()
+        wn, sn = not use_spectral_norm, use_spectral_norm
+        c_in, convs = 1, []
+        for c, k, st, g, p in self.SPECS:
+            convs.append(Conv1d(c_in, c, k, stride=st, padding=p, groups=g,
+                                weight_norm=wn, spectral_norm=sn))
+            c_in = c
+        self.convs = nn.ModuleList(convs)
+        self.conv_post = Conv1d(c_in, 1, 3, padding=1, weight_norm=wn,
+                                spectral_norm=sn)
+
+    def forward(self, x: torch.Tensor):
+        fmap = []
+        x = x[..., None]
+        for conv in self.convs:
+            x = leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return x.reshape(x.shape[0], -1), fmap
+
+
+def avg_pool_4_2(v: torch.Tensor) -> torch.Tensor:
+    """AvgPool1d(4, 2, padding=2) as JAX writes it: zero-padded by 2 on each
+    side, window sums of 4 at stride 2, divided by 4."""
+    vp = F.pad(v, (2, 2))
+    return F.avg_pool1d(vp[:, None], 4, 2)[:, 0]
+
+
+class MultiScaleDiscriminator(nn.Module):
+    def __init__(self, scales: int = 3):
+        super().__init__()
+        self.discriminators = nn.ModuleList(
+            DiscriminatorS(use_spectral_norm=(i == 0)) for i in range(scales))
+
+    def forward(self, y, y_hat):
+        ys, y_hats = [], []
+        for i in range(len(self.discriminators)):
+            if i:
+                y, y_hat = avg_pool_4_2(y), avg_pool_4_2(y_hat)
+            ys.append(y)
+            y_hats.append(y_hat)
+        return _both(self.discriminators, ys, y_hats)
+
+
+def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(rl - gl))
+    return loss * 2.0
+
+
+def discriminator_loss(disc_real_outputs, disc_generated_outputs) -> torch.Tensor:
+    loss = 0.0
+    for dr, dg in zip(disc_real_outputs, disc_generated_outputs):
+        loss = loss + torch.mean((1.0 - dr) ** 2) + torch.mean(dg ** 2)
+    return loss
+
+
+def generator_loss(disc_outputs) -> torch.Tensor:
+    loss = 0.0
+    for dg in disc_outputs:
+        loss = loss + torch.mean((1.0 - dg) ** 2)
+    return loss

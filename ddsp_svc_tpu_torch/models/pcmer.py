@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from .conformer import ConformerConvModule
+from .nn import Dense, LayerNorm, weak
 
 
 def gaussian_orthogonal_random_matrix(nb_rows: int, nb_cols: int,
@@ -42,8 +43,12 @@ def softmax_kernel(data: torch.Tensor, projection_matrix: torch.Tensor,
     (B, H, N, M)."""
     normalizer = data.shape[-1] ** -0.25
     ratio = projection_matrix.shape[0] ** -0.5
-    data_dash = torch.einsum("bhnd,md->bhnm", normalizer * data, projection_matrix)
-    diag = torch.sum(data ** 2, dim=-1, keepdim=True) / 2.0 * (normalizer ** 2)
+    # a bf16 data meets the f32 projection in f32, as JAX promotes it
+    data_dash = torch.einsum("bhnd,md->bhnm",
+                             (weak(normalizer, data) * data).to(projection_matrix.dtype),
+                             projection_matrix)
+    diag = (torch.sum(data ** 2, dim=-1, keepdim=True) / 2.0
+            * weak(normalizer ** 2, data))
     if is_query:
         return ratio * (torch.exp(
             data_dash - diag - torch.amax(data_dash, dim=-1, keepdim=True)) + eps)
@@ -55,9 +60,18 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Non-causal linear attention over features q, k (B, H, N, M) and
     values v (B, H, N, E) -> (B, H, N, E)."""
     k_sum = torch.sum(k, dim=-2)
-    context = torch.einsum("bhnm,bhne->bhme", k, v)
+    context = torch.einsum("bhnm,bhne->bhme", k, v.to(k.dtype))
     d_inv = 1.0 / (torch.einsum("bhnm,bhm->bhn", q, k_sum) + 1e-8)
     return torch.einsum("bhme,bhnm,bhn->bhne", context, q, d_inv)
+
+
+def _l2norm(t: torch.Tensor) -> torch.Tensor:
+    """||t|| over the last axis, kept; on bf16 as JAX computes
+    ``jnp.linalg.norm``: squares and their sum's result rounded to bf16
+    (the sum itself in f32), then the square root."""
+    if t.dtype == torch.float32:
+        return torch.linalg.norm(t, dim=-1, keepdim=True)
+    return torch.sqrt(torch.sum(t * t, dim=-1, keepdim=True))
 
 
 class FAVORSelfAttention(nn.Module):
@@ -70,10 +84,10 @@ class FAVORSelfAttention(nn.Module):
         self.heads, self.dim_head, self.pcmer_norm = heads, dim_head, pcmer_norm
         inner = heads * dim_head
         self.nb_features = int(dim_head * math.log(dim_head))
-        self.to_q = nn.Linear(dim, inner)
-        self.to_k = nn.Linear(dim, inner)
-        self.to_v = nn.Linear(dim, inner)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_q = Dense(dim, inner)
+        self.to_k = Dense(dim, inner)
+        self.to_v = Dense(dim, inner)
+        self.to_out = Dense(inner, dim)
         self.register_buffer("projection_matrix",
                              torch.zeros(self.nb_features, dim_head))
 
@@ -88,8 +102,8 @@ class FAVORSelfAttention(nn.Module):
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in (self.to_q(x), self.to_k(x), self.to_v(x)))
         if self.pcmer_norm:
-            q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-8)
-            k = k / (torch.linalg.norm(k, dim=-1, keepdim=True) + 1e-8)
+            q = q / (_l2norm(q) + weak(1e-8, q))
+            k = k / (_l2norm(k) + weak(1e-8, k))
         q = softmax_kernel(q, self.projection_matrix, is_query=True)
         k = softmax_kernel(k, self.projection_matrix, is_query=False)
         out = linear_attention(q, k, v)
@@ -99,7 +113,7 @@ class FAVORSelfAttention(nn.Module):
 class PCmerLayer(nn.Module):
     def __init__(self, dim_model: int, num_heads: int, pcmer_norm: bool = False):
         super().__init__()
-        self.norm = nn.LayerNorm(dim_model)  # eps 1e-5, as JAX
+        self.norm = LayerNorm(dim_model)  # eps 1e-5, as JAX
         self.attn = FAVORSelfAttention(dim_model, num_heads, pcmer_norm=pcmer_norm)
         self.conformer = ConformerConvModule(dim_model, use_norm=True)
 

@@ -12,6 +12,7 @@ import torch
 from ..utils.device import resolve_device
 from .cascade import ReflowUnit2Wav, Unit2Mel, Unit2Wav, Unit2WavFast
 from .ddsp import CombSub, CombSubFast, CombSubSuperFast, Sins
+from .nn import set_compute_dtype
 from .vocoder import DEFAULT_NSF_CONFIG, Vocoder
 
 FAMILIES = {"Sins": "ddsp", "CombSub": "ddsp", "CombSubFast": "ddsp",
@@ -29,11 +30,20 @@ def model_family(model_type: str) -> str:
                          + ", ".join(FAMILIES)) from None
 
 
-def build_model(args, vocoder_dimension: int = 128) -> torch.nn.Module:
+def build_model(args, vocoder_dimension: int = 128,
+                dtype: torch.dtype | None = None) -> torch.nn.Module:
     """args: DotDict config (configs/*.yaml schema). Returns a module with
-    uninitialised parameters. As in JAX, the config has no switch for the
-    bf16 trunk: build ``Unit2WavFast`` / ``ReflowUnit2Wav`` with
-    ``trunk_bf16=True`` for B3."""
+    uninitialised parameters. ``dtype``: the activations' type (bf16 mixed
+    precision with ``torch.bfloat16``; the parameters stay float32), set on
+    every layer as the JAX ``build_model(args, dtype=)`` passes it down. As
+    in JAX, the config has no switch for the bf16 trunk on f32 activations:
+    build ``Unit2WavFast`` / ``ReflowUnit2Wav`` with ``trunk_bf16=True``
+    for B3."""
+    model = _build(args, vocoder_dimension)
+    return set_compute_dtype(model, dtype) if dtype is not None else model
+
+
+def _build(args, vocoder_dimension: int) -> torch.nn.Module:
     m, d = args.model, args.data
     model_family(m.type)
     if m.type == "Sins":

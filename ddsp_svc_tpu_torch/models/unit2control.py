@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .conformer import ConformerNaiveEncoder
-from .nn import Conv1d, GroupNorm, WNLinear
+from .nn import Conv1d, Dense, GroupNorm, LayerNorm, WNLinear
 from .pcmer import PCmer
 
 
@@ -56,17 +56,17 @@ class Unit2Control(nn.Module):
         self.stack_norm = GroupNorm(4, 256) if use_conv_stack else None
         self.stack_conv1 = (Conv1d(256, 256, 3, padding=1) if use_conv_stack
                             else None)
-        self.f0_embed = nn.Linear(1, 256)
-        self.phase_embed = nn.Linear(1, 256)
-        self.volume_embed = nn.Linear(1, 256)
+        self.f0_embed = Dense(1, 256)
+        self.phase_embed = Dense(1, 256)
+        self.volume_embed = Dense(1, 256)
         self.spk_embed = nn.Embedding(n_spk, 256) if n_spk and n_spk > 1 else None
         # present only in checkpoints trained with pitch augmentation; the
         # loader drops it when the checkpoint has none (io/jax_params.py)
-        self.aug_shift_embed = (nn.Linear(1, 256, bias=False) if use_pitch_aug
+        self.aug_shift_embed = (Dense(1, 256, bias=False) if use_pitch_aug
                                 else None)
         self.decoder = (ConformerNaiveEncoder(3, 256) if use_naive_v2
                         else PCmer(3, 8, 256, pcmer_norm=pcmer_norm))
-        self.norm = nn.LayerNorm(256)  # eps 1e-5, as JAX
+        self.norm = LayerNorm(256)  # eps 1e-5, as JAX
         # weight-normed as in JAX (unit2control.py:119): v and g are trained
         self.dense_out = WNLinear(256, sum(self.output_splits.values()))
 

@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .nn import Conv1d
+from .nn import Conv1d, Dense, sigmoid, softplus, weak
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -21,7 +21,8 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
     w_k = exp(-k log(10000) / (dim/2 - 1))."""
     half = dim // 2
     scale = math.log(10000.0) / (half - 1)
-    freqs = torch.exp(torch.arange(half, dtype=t.dtype, device=t.device) * -scale)
+    levels = torch.arange(half, dtype=t.dtype, device=t.device)
+    freqs = torch.exp(levels * weak(-scale, levels))
     emb = t[:, None] * freqs[None, :]
     return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
@@ -33,7 +34,7 @@ class WaveNetResidualBlock(nn.Module):
     def __init__(self, residual_channels: int, n_hidden: int, dilation: int = 1):
         super().__init__()
         c = residual_channels
-        self.diffusion_projection = nn.Linear(c, c)
+        self.diffusion_projection = Dense(c, c)
         self.dilated_conv = Conv1d(c, 2 * c, 3, padding=dilation, dilation=dilation)
         self.conditioner_projection = Conv1d(n_hidden, 2 * c, 1)
         self.output_projection = Conv1d(c, 2 * c, 1)
@@ -42,9 +43,9 @@ class WaveNetResidualBlock(nn.Module):
         y = x + self.diffusion_projection(diffusion_step)[:, None, :]
         y = self.dilated_conv(y) + self.conditioner_projection(cond)
         gate, filt = y.chunk(2, dim=-1)
-        y = self.output_projection(torch.sigmoid(gate) * torch.tanh(filt))
+        y = self.output_projection(sigmoid(gate) * torch.tanh(filt))
         residual, skip = y.chunk(2, dim=-1)
-        return (x + residual) / math.sqrt(2.0), skip
+        return (x + residual) / weak(math.sqrt(2.0), x), skip
 
 
 class WaveNet(nn.Module):
@@ -57,8 +58,8 @@ class WaveNet(nn.Module):
         super().__init__()
         self.n_chans = n_chans
         self.input_projection = Conv1d(in_dims, n_chans, 1)
-        self.mlp_0 = nn.Linear(n_chans, 4 * n_chans)
-        self.mlp_1 = nn.Linear(4 * n_chans, n_chans)
+        self.mlp_0 = Dense(n_chans, 4 * n_chans)
+        self.mlp_1 = Dense(4 * n_chans, n_chans)
         self.layers = nn.ModuleList(WaveNetResidualBlock(n_chans, n_hidden)
                                     for _ in range(n_layers))
         self.skip_projection = Conv1d(n_chans, n_chans, 1)
@@ -68,10 +69,11 @@ class WaveNet(nn.Module):
         x = F.relu(self.input_projection(spec))
         step = sinusoidal_pos_emb(diffusion_step.to(x.dtype), self.n_chans)
         step = self.mlp_0(step)
-        step = self.mlp_1(step * torch.tanh(F.softplus(step)))  # Mish
+        step = self.mlp_1(step * torch.tanh(softplus(step)))  # Mish
         skips = 0.0
         for layer in self.layers:
             x, skip = layer(x, cond, step)
             skips = skips + skip
-        x = F.relu(self.skip_projection(skips / math.sqrt(len(self.layers))))
+        x = F.relu(self.skip_projection(
+            skips / weak(math.sqrt(len(self.layers)), skips)))
         return self.output_projection(x)

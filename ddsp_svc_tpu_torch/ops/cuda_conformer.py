@@ -21,6 +21,18 @@ in f32; every other value stays f32. Its weights are rounded once per model
 counters). Its backward is the f32 chain, as JAX's ``_fused_layer_bwd``
 differentiates ``_stock_layer`` at x's dtype (f32) whatever ``mxu_bf16``
 is (pallas_conformer.py:166-173).
+
+B5 (``conformer_layer_bf16_io``) is B3 on bf16 activations, as JAX runs
+``fused_conformer_layer`` on a bf16 x (a bf16 model's trunk): x is read as
+bf16 and widened to f32 (pallas_conformer.py:63), step_vec is cast to x's
+type (:226), cond is rounded to bf16 as in B3 (it may already be bf16),
+and the output is rounded once to bf16 (:102). Its backward is autograd
+through the f32 chain at the widened x and cond with the incoming gradient
+rounded to bf16, which is what JAX's ``_fused_layer_bwd`` differentiates
+(``_stock_layer`` promotes a bf16 x to f32 against the f32 weights; its
+``vjp(g.astype(x.dtype))`` then refuses the bf16 cotangent of that f32
+output, so the JAX package cannot take this gradient itself); the
+gradients of x (and of a bf16 cond) come back in bf16.
 """
 from __future__ import annotations
 
@@ -30,8 +42,9 @@ import torch.nn.functional as F
 from . import kernels
 
 
-def _layer(x, cond, step_vec, weights, operand):
-    """The layer with each GEMM operand passed through ``operand``."""
+def _layer(x, cond, step_vec, weights, operand, x_out=None):
+    """The layer with each GEMM operand passed through ``operand``; the
+    residual adds ``x_out`` (x by default)."""
     wc, bc, w1, b1, wd, bd, w2, b2 = weights
     h = x + step_vec[:, None, :] + torch.matmul(operand(cond), operand(wc).t()) + bc
     g = torch.matmul(operand(h), operand(w1).t()) + b1
@@ -41,7 +54,7 @@ def _layer(x, cond, step_vec, weights, operand):
     v = F.conv1d(u.transpose(1, 2), wd[:, None, :], padding=(k - 1) // 2,
                  groups=u.shape[-1]).transpose(1, 2) + bd
     s = v * torch.sigmoid(v)
-    return x + torch.matmul(operand(s), operand(w2).t()) + b2
+    return (x if x_out is None else x_out) + torch.matmul(operand(s), operand(w2).t()) + b2
 
 
 def conformer_layer_plain(x, cond, step_vec, weights):
@@ -106,7 +119,52 @@ def bf16_layer_agreement(got: torch.Tensor, want: torch.Tensor,
                                    - want.double()).abs().max()))
 
 
-def _check(x, cond, step_vec, weights):
+# B5's tolerance against its plain version or float64 sums: its output is
+# x + branch rounded once to bf16, so B3's branch bound carries over with
+# one bf16 ulp of the output added per element (a branch that differs in
+# its last f32 bits moves the final rounding by one ulp), and the share of
+# elements that differ at all, or by more than one ulp, is bounded. Against
+# exact sums, torch's f32 sums on the CPU differ in 0.7-1.7 % of the
+# elements (0.1-0.25 % beyond one ulp; B 1 x T 862 and B 4 x T 172 at
+# C 512, a branch as large as x) and the kernel on an H100 in 0.36 % (0.04 %;
+# B 48 x T 172, a branch a tenth of x). A planted extra bf16 rounding of h
+# before its bias differs in 38-39 % (11 %) on the CPU and 9.9 % (1.6 %) on
+# the card's inputs; the branch rounded to bf16 before x is added (the
+# output rounded twice) in 24 % (4.6 %) and 8.7 % (0.97 %).
+BF16_IO_MAX_DIFFER = 0.04
+BF16_IO_MAX_BEYOND_ULP = 0.005
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element's magnitude (float64; normal numbers)."""
+    t = t.double().abs()
+    return torch.exp2(torch.floor(torch.log2(t.clamp_min(2.0 ** -126))) - 7)
+
+
+def bf16_io_agreement(got: torch.Tensor, want: torch.Tensor,
+                      x: torch.Tensor) -> dict:
+    """How B5's bf16 output ``got`` agrees with a reference ``want`` for the
+    layer input ``x``: ``ok`` (every element within BF16_LAYER_ATOL x
+    max|branch| + one bf16 ulp of ``want``, at most BF16_IO_MAX_DIFFER of
+    the elements differing and BF16_IO_MAX_BEYOND_ULP by more than one
+    ulp), ``differ``, ``beyond_ulp``, ``rel`` (the largest difference over
+    max|branch|) and ``max_abs_err``."""
+    want = want.double()
+    got = got.double().to(want.device)
+    scale = float((want - x.double().to(want.device)).abs().max())
+    ulp = bf16_ulp(want)
+    diff = (got - want).abs()
+    differ = float((diff > 0).double().mean())
+    beyond = float((diff > ulp).double().mean())
+    within = bool((diff <= BF16_LAYER_ATOL * scale + ulp).all())
+    return dict(ok=within and differ <= BF16_IO_MAX_DIFFER
+                and beyond <= BF16_IO_MAX_BEYOND_ULP,
+                differ=differ, beyond_ulp=beyond,
+                rel=float(diff.max()) / max(scale, 1e-30),
+                max_abs_err=float(diff.max()))
+
+
+def _check(x, cond, step_vec, weights, cond_dtype=torch.float32):
     b, t, c = x.shape
     wc, bc, w1, b1, wd, bd, w2, b2 = weights
     hc, inner, k = cond.shape[-1], wd.shape[0], wd.shape[-1]
@@ -116,7 +174,8 @@ def _check(x, cond, step_vec, weights):
             "wd": (wd, (inner, k)), "bd": (bd, (inner,)),
             "w2": (w2, (c, inner)), "b2": (b2, (c,))}
     for name, (tensor, shape) in want.items():
-        kernels.check_cuda_input(tensor, f"conformer_layer {name}", len(shape))
+        kernels.check_cuda_input(tensor, f"conformer_layer {name}", len(shape),
+                                 cond_dtype if name == "cond" else torch.float32)
         if tuple(tensor.shape) != shape:
             raise ValueError(f"conformer_layer: {name} is {tuple(tensor.shape)}, "
                              f"expected {shape}")
@@ -218,21 +277,27 @@ def conformer_layer_bf16(x, cond, step_vec, weights, packed=None):
     return launch(x, cond, step_vec, weights)
 
 
+def _check_bf16(x, cond, step_vec, weights, packed, name):
+    """What B3 and B5 take beyond K3's checks: C, Hc and I multiples of 8,
+    Hc at most 256, and bf16 copies of Wc, W1 and W2 on x's device."""
+    _check(x, cond, step_vec, weights, cond.dtype)
+    c, hc, inner = x.shape[-1], cond.shape[-1], weights[4].shape[0]
+    if c % 8 or hc % 8 or inner % 8 or hc > 256:
+        raise ValueError(f"{name}: C, Hc and I multiples of 8, Hc at most "
+                         f"256, got {c}, {hc}, {inner}")
+    for wname, p, w in zip(("wc", "w1", "w2"), packed,
+                           (weights[0], weights[2], weights[6])):
+        kernels.check_cuda_input(p, f"{name} {wname} (bf16)", 2, torch.bfloat16)
+        if p.shape != w.shape or p.device != x.device:
+            raise ValueError(f"{name}: packed {wname} does not match its weight")
+
+
 def _launch_bf16(x, cond, step_vec, weights, packed):
     kernels.check_cuda_input(x, "conformer_layer_bf16 x", 3)
-    _check(x, cond, step_vec, weights)
+    _check_bf16(x, cond, step_vec, weights, packed, "conformer_layer_bf16")
     b, t, c = x.shape
     wc, bc, w1, b1, wd, bd, w2, b2 = weights
     inner, k = wd.shape
-    if c % 8 or cond.shape[-1] % 8 or inner % 8 or cond.shape[-1] > 256:
-        raise ValueError(f"conformer_layer_bf16: C, Hc and I multiples of 8, "
-                         f"Hc at most 256, got {c}, {cond.shape[-1]}, {inner}")
-    for name, p, w in zip(("wc", "w1", "w2"), packed, (wc, w1, w2)):
-        kernels.check_cuda_input(p, f"conformer_layer_bf16 {name} (bf16)", 2,
-                                 torch.bfloat16)
-        if p.shape != w.shape or p.device != x.device:
-            raise ValueError(f"conformer_layer_bf16: packed {name} does not "
-                             f"match its weight")
     out = torch.empty_like(x)
     # h and s in bf16, as the next GEMM reads them (u stays on the SM)
     h = torch.empty((b, t, c), device=x.device, dtype=torch.bfloat16)
@@ -250,3 +315,89 @@ def _launch_bf16(x, cond, step_vec, weights, packed):
 
 
 conformer_layer_bf16.launches = 0
+
+
+def conformer_layer_bf16_io_plain(x, cond, step_vec, weights):
+    """B5 in plain PyTorch: B3's chain on x and cond widened to f32 and
+    step_vec rounded to bf16, the output rounded once to bf16."""
+    return _layer(x.float(), cond.float(), bf16_round(step_vec), weights,
+                  bf16_round).to(torch.bfloat16)
+
+
+def _bf16_io_chain(x, cond, step_vec, *weights):
+    """What B5's backward differentiates: the f32 layer at the widened x
+    and cond (JAX ``_stock_layer`` with a bf16 x and f32 weights). x is
+    widened at each of its two uses, as JAX promotes it at each: its two
+    gradients are rounded to bf16 apart and summed in bf16."""
+    return _layer(x.float(), cond.float(), step_vec, weights, lambda t: t,
+                  x_out=x.float())
+
+
+class ConformerLayerBf16IoFunction(torch.autograd.Function):
+    """``impl(x, cond, step_vec, weights)`` forward (B5; its plain version
+    on the CPU), backward through ``_bf16_io_chain`` with the bf16
+    gradient of the output widened exactly to f32."""
+
+    @staticmethod
+    def forward(ctx, impl, x, cond, step_vec, *weights):
+        ctx.save_for_backward(x, cond, step_vec, *weights)
+        return impl(x, cond, step_vec, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = kernels.plain_backward(_bf16_io_chain, ctx.saved_tensors,
+                                       ctx.needs_input_grad[1:],
+                                       grad_out.to(torch.bfloat16).float())
+        return (None,) + grads
+
+
+def conformer_layer_bf16_io(x, cond, step_vec, weights, packed=None):
+    """B5: x (B, T, C) bf16, cond (B, T, Hc) f32 or bf16, step_vec (B, C)
+    f32 -> (B, T, C) bf16. ``packed``: ``bf16_gemm_weights(weights)``,
+    made here when None.
+
+    A CPU tensor takes the plain version (through
+    ``ConformerLayerBf16IoFunction`` when grad is wanted); a CUDA tensor
+    launches B5 (three launches, as B3) and counts one launch in
+    ``conformer_layer_bf16_io.launches``, or raises."""
+    if x.dtype != torch.bfloat16 or cond.dtype not in (torch.float32,
+                                                       torch.bfloat16):
+        raise ValueError(f"conformer_layer_bf16_io: bf16 x and f32 or bf16 "
+                         f"cond, got {x.dtype}, {cond.dtype}")
+    if x.device.type == "cpu":
+        impl = lambda x, c, s, w: conformer_layer_bf16_io_plain(x, c, s, w)
+    else:
+        if packed is None:
+            packed = bf16_gemm_weights(weights)
+        impl = lambda x, c, s, w: _launch_bf16_io(x, c, s, w, packed)
+    if kernels.grad_wanted(x, cond, step_vec, *weights):
+        return ConformerLayerBf16IoFunction.apply(impl, x, cond, step_vec,
+                                                  *weights)
+    return impl(x, cond, step_vec, weights)
+
+
+def _launch_bf16_io(x, cond, step_vec, weights, packed):
+    kernels.check_cuda_input(x, "conformer_layer_bf16_io x", 3, torch.bfloat16)
+    _check_bf16(x, cond, step_vec, weights, packed, "conformer_layer_bf16_io")
+    c16 = cond.dtype == torch.bfloat16
+    b, t, c = x.shape
+    wc, bc, w1, b1, wd, bd, w2, b2 = weights
+    inner, k = wd.shape
+    out = torch.empty_like(x)
+    h = torch.empty((b, t, c), device=x.device, dtype=torch.bfloat16)
+    s = torch.empty((b, t, inner), device=x.device, dtype=torch.bfloat16)
+    # JAX casts step_vec to x's type before the kernel reads it
+    step = step_vec.detach().to(torch.bfloat16).float().contiguous()
+    pc, p1, p2 = packed
+    err = kernels.library().ddsp_conformer_layer_bf16_io(
+        x.data_ptr(), cond.data_ptr(), int(c16), step.data_ptr(),
+        pc.data_ptr(), bc.data_ptr(), p1.data_ptr(), b1.data_ptr(),
+        wd.data_ptr(), bd.data_ptr(), p2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), h.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1],
+        inner, k, kernels.stream_handle(x.device))
+    kernels.check(err, "conformer_layer_bf16_io")
+    kernels.count_launch(conformer_layer_bf16_io)
+    return out
+
+
+conformer_layer_bf16_io.launches = 0

@@ -312,8 +312,9 @@ class PackedResblocks:
     def packed(self):
         """Split-TF32 tiles for the f32 kernel (made on first use)."""
         if self._packed is None:
-            self._packed = [[(pack_conv_weight(w), b.detach().contiguous())
-                             for w, b in rbw] for rbw in self.torch_weights]
+            with torch.no_grad():
+                self._packed = [[(pack_conv_weight(w), b.detach().contiguous())
+                                 for w, b in rbw] for rbw in self.torch_weights]
         return self._packed
 
     @property
@@ -321,9 +322,10 @@ class PackedResblocks:
         """bf16 tiles for the bf16 kernel (made on first use); the bias
         stays f32."""
         if self._packed_bf16 is None:
-            self._packed_bf16 = [
-                [(pack_conv_weight_bf16(w), b.detach().float().contiguous())
-                 for w, b in rbw] for rbw in self.torch_weights]
+            with torch.no_grad():
+                self._packed_bf16 = [
+                    [(pack_conv_weight_bf16(w), b.detach().float().contiguous())
+                     for w, b in rbw] for rbw in self.torch_weights]
         return self._packed_bf16
 
 

@@ -54,6 +54,9 @@ _SIGNATURES = {
     # K3's bf16 class: (x, cond, step_vec, wc, bc, w1, b1, wd, bd, w2, b2,
     #  out, h, s, batch, t, c, hc, inner, k, stream); wc, w1, w2, h, s bf16
     "ddsp_conformer_layer_bf16": (_P,) * 14 + (_I,) * 6 + (_P,),
+    # B5: (x, cond, cond_bf16, step_vec, wc, bc, w1, b1, wd, bd, w2, b2, out,
+    #  h, s, batch, t, c, hc, inner, k, stream); x, out bf16, cond bf16 or f32
+    "ddsp_conformer_layer_bf16_io": (_P, _P, _I) + (_P,) * 12 + (_I,) * 6 + (_P,),
     # (x, amps, out, batch, n_frames, block, n_harm, stream)
     "ddsp_harmonic_bank": (_P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -24,7 +24,9 @@ its error against the plain version:
   K3's bf16 class (B3) at B 1 x T 862 and B 48 x T 172, with its
   ``bf16_layer_agreement``, by CUDA events over back-to-back calls and by
   CUDA graph replay (device time: at 10 s the host's work per call is the
-  longer). A copy that predates either class skips it.
+  longer); and B5 (B3 on bf16 x and out) at the same shapes, with the
+  share of its elements that differ from the plain version. A copy that
+  predates a class skips it.
 
     python3 -m ddsp_svc_tpu_torch.tools.kernel_ab <dir_a> <dir_b> [...]
 """
@@ -114,6 +116,21 @@ if hasattr(cuda_conformer, "conformer_layer_bf16"):
         out[f"B3 B={b} T={tt}"] = dict(ms=ms(call, 200 if b == 1 else 50),
                                        graph_ms=timing.graph_ms(call, 50 if b == 1 else 10),
                                        err=agree["rel"])
+if hasattr(cuda_conformer, "conformer_layer_bf16_io"):
+    for b, tt in ((1, 862), (48, 172)):
+        xb = torch.randn((b, tt, c), generator=gen).cuda().to(torch.bfloat16)
+        cb = torch.randn((b, tt, hc), generator=gen).cuda()
+        sb = torch.randn((b, c), generator=gen).cuda()
+        packed = cuda_conformer.bf16_gemm_weights(w)
+        got = cuda_conformer.conformer_layer_bf16_io(xb, cb, sb, w, packed)
+        agree = cuda_conformer.bf16_io_agreement(
+            got, cuda_conformer.conformer_layer_bf16_io_plain(xb, cb, sb, w), xb)
+        if not agree["ok"]:
+            sys.exit(f"B5 B={b} T={tt} disagrees with its plain version: {agree}")
+        call = lambda: cuda_conformer.conformer_layer_bf16_io(xb, cb, sb, w, packed)
+        out[f"B5 B={b} T={tt}"] = dict(ms=ms(call, 200 if b == 1 else 50),
+                                       graph_ms=timing.graph_ms(call, 50 if b == 1 else 10),
+                                       err=agree["differ"])
 if hasattr(cuda_resblock, "resblock_group_bf16"):
     plans = getattr(cuda_resblock, "FUSED_PLAN", None)
     others = {128: (), 64: ("chain",), 32: ("chain",), 16: ("chain",)}

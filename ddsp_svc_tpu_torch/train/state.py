@@ -2,8 +2,8 @@
 (mirrors ddsp_svc_tpu/train/state.py ``make_lr_schedule``,
 ``create_train_state``, ``param_count``).
 
-The optimizer is torch's AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled
-weight decay on every parameter, as optax ``adamw``). optax evaluates the
+The optimizer is torch's AdamW (b1 0.9, b2 0.999 unless given, eps 1e-8,
+decoupled weight decay on every parameter, as optax ``adamw``). optax evaluates the
 schedule at its step count *before* incrementing it, so update k (0-based)
 runs at ``lr * gamma ** (k // decay_step)``; ``TrainState.apply_gradients``
 sets that rate before each step. On resume every count starts at the
@@ -58,11 +58,13 @@ class TrainState:
 
 def create_train_state(model: torch.nn.Module, lr: float = 5e-4,
                        weight_decay: float = 0.0, decay_step: int | None = None,
-                       gamma: float | None = None,
-                       start_step: int = 0) -> TrainState:
+                       gamma: float | None = None, start_step: int = 0,
+                       betas: tuple[float, float] = (0.9, 0.999)) -> TrainState:
+    """AdamW over ``model``'s parameters (``betas`` optax's b1 and b2: the
+    model trainer's defaults, or the vocoder recipe's (0.8, 0.99))."""
     schedule = make_lr_schedule(lr, decay_step, gamma)
     optimizer = torch.optim.AdamW(model.parameters(), lr=schedule(start_step),
-                                  betas=(0.9, 0.999), eps=1e-8,
+                                  betas=tuple(betas), eps=1e-8,
                                   weight_decay=weight_decay)
     if start_step:
         for p in model.parameters():
@@ -114,3 +116,30 @@ def restore_opt_state(state: TrainState, model_args, loaded) -> bool:
     state.optimizer.state.clear()
     state.optimizer.state.update(new)
     return True
+
+
+def adam_moments(state: TrainState) -> tuple[int, dict, dict]:
+    """(count, mu, nu) of AdamW's state by parameter name (zeros where a
+    parameter has no state yet)."""
+    mu, nu = {}, {}
+    for name, p in state.model.named_parameters():
+        st = state.optimizer.state.get(p, {})
+        mu[name] = st.get("exp_avg", torch.zeros_like(p))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+    return state.step, mu, nu
+
+
+def load_adam_moments(state: TrainState, count: int, mu: dict, nu: dict) -> None:
+    """Set AdamW's state from (count, mu, nu) by parameter name (numpy);
+    raises on a missing or mis-shaped moment."""
+    new = {}
+    for name, p in state.model.named_parameters():
+        m, v = (torch.as_tensor(np.asarray(t[name], np.float32)) for t in (mu, nu))
+        if m.shape != p.shape or v.shape != p.shape:
+            raise ValueError(f"{name}: {tuple(m.shape)} vs {tuple(p.shape)}")
+        new[p] = {"step": torch.tensor(float(count)),
+                  "exp_avg": m.to(p.device).clone(),
+                  "exp_avg_sq": v.to(p.device).clone()}
+    state.optimizer.state.clear()
+    state.optimizer.state.update(new)
+    state.step = int(count)

@@ -337,6 +337,120 @@ def test_conformer_layer_bf16_backward(cuda):
         assert _rel(g, w_) <= 1e-4
 
 
+@pytest.mark.parametrize("b,t,c,hc,k,cond16", [
+    (48, 172, 512, 128, 31, False), (48, 172, 512, 128, 31, True),
+    (1, 862, 512, 128, 31, False), (2, 101, 128, 16, 31, True),
+    (1, 1, 512, 128, 31, False), (3, 15, 512, 128, 31, True)])
+def test_conformer_layer_bf16_io_kernel(cuda, b, t, c, hc, k, cond16):
+    """B5 against its plain version within ``bf16_io_agreement``, at the
+    training and the 10 s shapes, cond f32 (the DDSP mel) and bf16, ragged
+    T and T = 1 and 15; one launch per call, a bf16 output."""
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import (bf16_io_agreement,
+                                                       conformer_layer_bf16_io,
+                                                       conformer_layer_bf16_io_plain)
+
+    gen = torch.Generator().manual_seed(t + 1)
+    inner = 2 * c
+
+    def r(*shape, scale):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).to(cuda)
+
+    x = r(b, t, c, scale=1.0).to(torch.bfloat16)
+    cond = r(b, t, hc, scale=1.0)
+    cond = cond.to(torch.bfloat16) if cond16 else cond
+    step = r(b, c, scale=1.0)
+    w = (r(c, hc, scale=hc ** -0.5), r(c, scale=0.1), r(2 * inner, c, scale=c ** -0.5),
+         r(2 * inner, scale=0.1), r(inner, k, scale=k ** -0.5), r(inner, scale=0.1),
+         r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
+    n0 = conformer_layer_bf16_io.launches
+    got = conformer_layer_bf16_io(x, cond, step, w)
+    torch.cuda.synchronize()
+    assert conformer_layer_bf16_io.launches == n0 + 1 and got.dtype == torch.bfloat16
+    agree = bf16_io_agreement(got, conformer_layer_bf16_io_plain(x, cond, step, w), x)
+    assert agree["ok"], agree
+
+
+def test_conformer_layer_bf16_io_backward(cuda):
+    """B5 with grad on: one launch in the forward, none in the backward;
+    every .grad that of the same Function with the plain forward (the f32
+    chain at the widened x and cond) within 1e-4 x max|grad|."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer as cc
+
+    gen = torch.Generator().manual_seed(9)
+    b, t, c, hc, inner, k = 2, 300, 512, 128, 1024, 31
+    leaves = _leaves(gen, cuda, ((b, t, c), 1.0), ((b, t, hc), 1.0), ((b, c), 1.0),
+                     ((c, hc), hc ** -0.5), ((c,), 0.1), ((2 * inner, c), c ** -0.5),
+                     ((2 * inner,), 0.1), ((inner, k), k ** -0.5), ((inner,), 0.1),
+                     ((c, inner), inner ** -0.5), ((c,), 0.1))
+    with torch.no_grad():
+        x = leaves[0].to(torch.bfloat16).requires_grad_(True)
+    leaves = [x] + leaves[1:]
+    _, cond, step, *w = leaves
+    grad_out = torch.randn((b, t, c), generator=gen).to(cuda, torch.bfloat16)
+    n0 = cc.conformer_layer_bf16_io.launches
+    _, got_grads = _backward(lambda: cc.conformer_layer_bf16_io(x, cond, step, w),
+                             leaves, grad_out)
+    torch.cuda.synchronize()
+    assert cc.conformer_layer_bf16_io.launches == n0 + 1
+    _, want_grads = _backward(lambda: cc.ConformerLayerBf16IoFunction.apply(
+        cc.conformer_layer_bf16_io_plain, x, cond, step, *w), leaves, grad_out)
+    assert cc.conformer_layer_bf16_io.launches == n0 + 1
+    for g, w_ in zip(got_grads, want_grads):
+        assert _rel(g.float(), w_.float()) <= 1e-4
+
+
+def test_vocoder_steps_on_the_card(cuda):
+    """One discriminator step and one generator step of a small weight-
+    normed generator (C 64, rates (4, 4)): K2 launches once per stage in
+    each step, B1 (its backward) launches nothing, and the losses and
+    gradients agree with the same steps on the CPU (plain versions) within
+    1e-4 relative (L2 over each network's gradients)."""
+    import copy
+
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.models.nsf_hifigan import Generator
+    from ddsp_svc_tpu_torch.ops.cuda_resblock import resblock_group
+    from ddsp_svc_tpu_torch.ops.mel import LogMelSpectrogram
+    from ddsp_svc_tpu_torch.train import vocoder_solver as vs
+
+    gen = random_init_(Generator(16000, num_mels=32, upsample_rates=(4, 4),
+                                 upsample_kernel_sizes=(8, 8),
+                                 upsample_initial_channel=64, weight_norm=True),
+                       torch.Generator().manual_seed(0))
+    discs = random_init_(vs.Discriminators((2, 3), 2), torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(2)
+    t = 64
+    batch = {"mel": rng.standard_normal((2, t, 32)).astype(np.float32) - 3,
+             "f0": (150 + 50 * rng.random((2, t, 1))).astype(np.float32),
+             "audio": (0.3 * rng.standard_normal((2, t * 16))).astype(np.float32)}
+    sine = {"rand_ini": rng.random((1, 1, 9)).astype(np.float32),
+            "noise": rng.standard_normal((2, t * 16, 9)).astype(np.float32)}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        g, d = copy.deepcopy(gen).to(dev), copy.deepcopy(discs).to(dev)
+        sg, sd = vs.create_states(g, d, 2e-4)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        sk = {k: torch.from_numpy(v).to(dev) for k, v in sine.items()}
+        mel = LogMelSpectrogram(sr=16000, n_mels=32, n_fft=256, win_size=256,
+                                hop_length=16, fmin=0, fmax=8000).to(dev).extract
+        n0 = resblock_group.launches
+        md = vs.disc_step(sd, g, b, sine_kwargs=sk)
+        n1 = resblock_group.launches
+        mg = vs.gen_step(sg, d, b, mel, sine_kwargs=sk)
+        n2 = resblock_group.launches
+        if dev.type == "cuda":
+            assert (n1 - n0, n2 - n1) == (2, 2)
+        out[dev.type] = (float(md["disc_loss"]), float(mg["gen_loss"]),
+                         {n: p.grad.cpu() for n, p in d.named_parameters()},
+                         {n: p.grad.cpu() for n, p in g.named_parameters()})
+    (dc, gc, gdc, ggc), (dh, gh, gdh, ggh) = out["cuda"], out["cpu"]
+    assert abs(dc - dh) <= 1e-4 * abs(dh) and abs(gc - gh) <= 1e-4 * abs(gh)
+    for a, b_ in ((gdc, gdh), (ggc, ggh)):
+        num = sum(float(((a[n] - b_[n]) ** 2).sum()) for n in b_)
+        den = sum(float((b_[n] ** 2).sum()) for n in b_)
+        assert math.sqrt(num / den) <= 1e-4
+
+
 def test_bf16_trunk_never_serves_stale_weights(cuda):
     """A bf16 trunk layer after an optimizer step launches B3 with its new
     weights (its output is the plain version's on them), where the bf16

@@ -146,10 +146,12 @@ def test_realtime_cli_defaults_to_cuda(monkeypatch):
 
 
 def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
-    """cli.train and cli.preprocess: --device defaults to the card, and
-    without one both raise "no CUDA device" before any model is built."""
+    """cli.train, cli.preprocess and cli.train_vocoder: --device defaults to
+    the card, and without one each raises "no CUDA device" before any model
+    is built."""
     from ddsp_svc_tpu_torch.cli import preprocess as cli_preprocess
     from ddsp_svc_tpu_torch.cli import train as cli_train
+    from ddsp_svc_tpu_torch.cli import train_vocoder as cli_train_vocoder
     from ddsp_svc_tpu_torch.utils.config import save_config
 
     cfg = str(tmp_path / "config.yaml")
@@ -157,6 +159,29 @@ def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
                       "model": {"type": "CombSubSuperFast"},
                       "train": {"amp_dtype": "fp32"}, "env": {"expdir": "exp"}})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for main in (cli_train.main, cli_preprocess.main):
+    for main in (cli_train.main, cli_preprocess.main, cli_train_vocoder.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["-c", cfg])
+
+
+def test_b5_never_falls_back_to_its_plain_version(monkeypatch):
+    """B5's wrapper takes its plain version for a CPU tensor only: any other
+    tensor goes to the launch, whose checks refuse what is not a CUDA
+    tensor, and never to the plain version (here a tensor on the meta
+    device, grad on and off)."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer
+
+    def plain(*_):
+        raise AssertionError("B5's plain version was called")
+    monkeypatch.setattr(cuda_conformer, "conformer_layer_bf16_io_plain", plain)
+    x = torch.empty(1, 8, 16, dtype=torch.bfloat16, device="meta")
+    w = [torch.empty(s, device="meta") for s in
+         ((16, 8), (16,), (64, 16), (64,), (32, 31), (32,), (16, 32), (16,))]
+    for grad in (False, True):
+        ws = [t.requires_grad_(grad) for t in w]
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            cuda_conformer.conformer_layer_bf16_io(
+                x, torch.empty(1, 8, 8, device="meta"),
+                torch.empty(1, 16, device="meta"), ws,
+                packed=tuple(torch.empty(s, dtype=torch.bfloat16, device="meta")
+                             for s in ((16, 8), (64, 16), (16, 32))))

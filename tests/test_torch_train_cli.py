@@ -3,7 +3,9 @@ small corpus, then ``cli.train`` (``--device cpu``) warm-started from a
 ``model_0`` the JAX package wrote, three steps whose losses match the JAX
 loop's on the same batches, parameters and draws, a save, a resume at the
 right step with the learning rate the schedule gives there, retention, and
-the refusal of ``amp_dtype: bf16`` and of a multi-process launch.
+the refusal of a multi-process launch; and a bf16 mixed-precision run
+(``amp_dtype: bf16``, fp16 mapped to it as JAX maps it) that trains,
+saves float32 parameters the JAX package reads, and resumes.
 
 Tolerance of the losses: step 1 starts from the same parameters, 1e-5
 relative. AdamW's first updates are about lr x sign(g) per element, so an
@@ -150,13 +152,83 @@ def test_preprocess_train_resume(tmp_path, monkeypatch):
     assert len(got) == 2 * STEPS
 
 
-def test_refusals(tmp_path, monkeypatch):
-    """bf16 mixed precision and a multi-process launch are refused, naming
-    their ROADMAP items, before any model is built."""
-    _, cfg = _config(tmp_path, amp_dtype="bf16")
-    with pytest.raises(SystemExit, match=r"ROADMAP A, item 13"):
-        ptrain.main(["-c", cfg, "--device", "cpu"])
+def test_refusals(tmp_path, monkeypatch, capsys):
+    """A multi-process launch is refused, naming its ROADMAP item, before
+    any model is built. bf16 mixed precision is not refused any more:
+    ``amp_dtype`` bf16 / bfloat16 map to bfloat16, fp16 / float16 too with
+    the JAX trainer's notice, fp32 to float32."""
+    for amp, want in (("bf16", torch.bfloat16), ("bfloat16", torch.bfloat16),
+                      ("fp16", torch.bfloat16), ("fp32", None)):
+        args, _ = _config(tmp_path, amp_dtype=amp)
+        assert ptrain.amp_dtype(args) is want, amp
+    assert "fp16 requested; using bf16" in capsys.readouterr().out
     _, cfg = _config(tmp_path)
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
     with pytest.raises(SystemExit, match=r"ROADMAP A, item 8"):
         ptrain.main(["-c", cfg, "--device", "cpu"])
+
+
+def test_bf16_config_trains(tmp_path):
+    """``cli.train`` with ``amp_dtype: bf16``: the model's layers compute in
+    bf16 (the trunk's activations are bf16, through B5's plain version on
+    the CPU), the parameters, the optimizer state and the checkpoint stay
+    float32 and the JAX package restores it strictly; the run resumes from
+    its save. The first loss is within 2 % of the f32 run's from the same
+    warm start and batch (bf16's rounding of the synth and the trunk)."""
+    from ddsp_svc_tpu.train.checkpoint import load_checkpoint, restore_into
+
+    _corpus(str(tmp_path / "data" / "train"), (1.1, 0.9), seed=1)
+    _corpus(str(tmp_path / "data" / "val"), (0.8,), seed=2)
+    args, cfg = _config(tmp_path, amp_dtype="bf16", interval_val=2)
+    pprep.main(["-c", cfg, "--device", "cpu", "--seed", "3"])
+    jmodel = jax_build_model(args)
+    params = jax_variables(args, jmodel, seed=9)["params"]
+    jax_save(str(tmp_path / "exp"), 0, params)
+    losses = {}
+    original = solver.build_train_step
+
+    def recording(tag):
+        def build(args_, mel_fn):
+            family, step = original(args_, mel_fn)
+
+            def wrapped(state, batch, generator=None, draws=None):
+                _, d = _draws(state.step, *batch["units"].shape[:2])
+                out = step(state, batch, generator,
+                           {k: torch.from_numpy(v) for k, v in d.items()})
+                losses.setdefault(tag, []).append(float(out["loss"]))
+                dtypes = {p.dtype for p in state.model.parameters()}
+                assert dtypes == {torch.float32}, dtypes
+                return out
+            return family, wrapped
+        return build
+
+    solver.build_train_step = recording("bf16")
+    try:
+        state = ptrain.main(["-c", cfg, "--device", "cpu", "--max_steps", "2"])
+        net = state.model.denoise_fn
+        assert net.input_projection.compute_dtype is torch.bfloat16
+        spec = torch.zeros(1, 4, 128)
+        assert net(spec, torch.tensor([5.0]), spec).dtype == torch.bfloat16
+        path = latest_checkpoint(str(tmp_path / "exp"))
+        assert path.endswith("model_2.ckpt")
+        payload, step = load_checkpoint(path)
+        assert step == 2
+        restore_into(jax.device_get(params), payload["params"], strict=True)
+        leaves = jax.tree_util.tree_leaves(payload["params"])
+        assert all(np.asarray(v).dtype == np.float32 for v in leaves)
+        state = ptrain.main(["-c", cfg, "--device", "cpu", "--max_steps", "1"])
+        assert state.step == 3
+    finally:
+        solver.build_train_step = original
+    assert all(np.isfinite(losses["bf16"]))
+    (tmp_path / "exp2").mkdir()
+    args32, cfg32 = _config(tmp_path, amp_dtype="fp32")
+    args32["env"]["expdir"] = str(tmp_path / "exp2")
+    save_config(cfg32, args32)
+    jax_save(str(tmp_path / "exp2"), 0, params)
+    solver.build_train_step = recording("f32")
+    try:
+        ptrain.main(["-c", cfg32, "--device", "cpu", "--max_steps", "1"])
+    finally:
+        solver.build_train_step = original
+    assert abs(losses["bf16"][0] - losses["f32"][0]) <= 0.02 * abs(losses["f32"][0])

@@ -17,6 +17,8 @@ from torch_helpers import randomize_tree
 SR, BLOCK, N_UNIT, T = 44100, 512, 32, 16
 MODEL = {
     "Sins": dict(n_harmonics=16, n_mag_allpass=16, n_mag_noise=16),
+    "CombSub": dict(n_mag_allpass=16, n_mag_harmonic=16, n_mag_noise=16),
+    "CombSubFast": {},
     "CombSubSuperFast": dict(win_length=1024),
     "DiffusionFast": dict(win_length=1024, n_layers=2, n_chans=32,
                           k_step_max=100, use_pitch_aug=True),
@@ -61,7 +63,7 @@ def batch(mtype: str, b: int = 2, t: int = T, seed: int = 0,
                   * np.linspace(0.8, 1.2, t)[None, :, None]).astype(np.float32),
            "volume": rng.uniform(0.05, 0.4, (b, t, 1)).astype(np.float32),
            "audio": (0.3 * rng.standard_normal((b, t * BLOCK))).astype(np.float32)}
-    if mtype not in ("Sins", "CombSubSuperFast"):
+    if mtype not in ("Sins", "CombSub", "CombSubFast", "CombSubSuperFast"):
         out["mel"] = (rng.standard_normal((b, t, 128)) - 5.0).astype(np.float32)
         out["aug_shift"] = rng.uniform(-3, 3, (b, 1, 1)).astype(np.float32)
     return out
