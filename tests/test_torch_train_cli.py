@@ -182,7 +182,7 @@ def test_bf16_config_trains(tmp_path):
     args, cfg = _config(tmp_path, amp_dtype="bf16", interval_val=2)
     pprep.main(["-c", cfg, "--device", "cpu", "--seed", "3"])
     jmodel = jax_build_model(args)
-    params = jax_variables(args, jmodel, seed=9)["params"]
+    params = jax_variables(args, jmodel, seed=9, shapes_only=True)["params"]
     jax_save(str(tmp_path / "exp"), 0, params)
     losses = {}
     original = solver.build_train_step

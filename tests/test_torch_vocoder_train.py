@@ -140,7 +140,8 @@ def test_discriminators_and_losses():
     jgen, jdisc, _, dparams, _, discs, batch, _ = _setup()
     y = batch["audio"]
     y_hat = np.roll(y, 7, axis=1) * 0.7
-    want = jdisc.apply({"params": dparams}, y, y_hat)
+    # jitted: one compile of the whole bundle (eager compiles op by op)
+    want = jax.jit(lambda p: jdisc.apply({"params": p}, y, y_hat))(dparams)
     with torch.no_grad():
         got = discs(torch.from_numpy(y), torch.from_numpy(y_hat))
     flat_w = jax.tree_util.tree_leaves(want)

@@ -26,7 +26,7 @@ The gate, per family, on the step:
       relative to JAX's, per family: bf16's rounding flips, which differ
       between the two packages' sum orders and backward formulas, and
       PCmer's attention spreads over every frame. Each bound is about three
-      times the largest distance the seeds below gave on the CPU.
+      times the largest distance three parameter seeds gave on the CPU.
 """
 import re
 from functools import partial
@@ -53,18 +53,18 @@ from torch_train_helpers import (batch, jax_variables, jnp_tree, leaves,
 DDSP = ("Sins", "CombSub", "CombSubFast", "CombSubSuperFast")
 
 FIRST_LAYER_SAME = 0.99
-# (loss terms, gradients): the largest distance three parameter seeds gave
-# on the CPU is DiffusionFast 1.2e-5 / 2.6e-3, RectifiedFlow 6.3e-6 /
-# 2.6e-3, Unit2Mel 3.5e-7 / 6.1e-3, Unit2Wav 8.3e-5 / 1.1e-2,
-# CombSubSuperFast 2.5e-5 / 6.3e-3 and Sins 7.3e-5 / 4.7e-2 (the RSS loss
-# term; PCmer's attention); one seed gave CombSub 3.0e-5 / 7.0e-2 and
-# CombSubFast 2.3e-5 / 1.1e-2.
+# (loss terms, gradients): the largest distance three parameter seeds (1-3,
+# FAVOR+ projections drawn by JAX's own function) gave on the CPU is
+# DiffusionFast 1.2e-5 / 2.6e-3, RectifiedFlow 6.3e-6 / 2.6e-3, Unit2Mel
+# 3.5e-7 / 6.1e-3, Unit2Wav 8.3e-5 / 1.1e-2, CombSubSuperFast 2.5e-5 /
+# 6.3e-3, CombSubFast 1.2e-4 / 1.8e-2, CombSub 1.3e-4 / 5.1e-2 and Sins
+# 7.3e-5 / 5.3e-2 (the RSS loss term; PCmer's attention).
 LOSS_TOL = {"DiffusionFast": 5e-5, "RectifiedFlow": 5e-5, "Diffusion": 2e-6,
-            "DiffusionNew": 3e-4, "CombSubSuperFast": 1e-4, "CombSubFast": 1e-4,
-            "CombSub": 1e-4, "Sins": 3e-4}
+            "DiffusionNew": 3e-4, "CombSubSuperFast": 1e-4, "CombSubFast": 4e-4,
+            "CombSub": 4e-4, "Sins": 3e-4}
 GRAD_TOL = {"DiffusionFast": 0.01, "RectifiedFlow": 0.01, "Diffusion": 0.02,
-            "DiffusionNew": 0.03, "CombSubSuperFast": 0.02, "CombSubFast": 0.04,
-            "CombSub": 0.2, "Sins": 0.15}
+            "DiffusionNew": 0.035, "CombSubSuperFast": 0.02, "CombSubFast": 0.06,
+            "CombSub": 0.15, "Sins": 0.16}
 # the first bf16 layer of each stage: JAX intermediate -> port module
 FIRST_LAYERS = {
     "ddsp": {"unit2ctrl/stack_conv0": "unit2ctrl.stack_conv0"},
@@ -303,7 +303,7 @@ def gate(mtype, jres, pres) -> dict:
 def setup(mtype, seed: int = 1, trunk_pallas: bool = True):
     """(args, JAX bf16 model, variables, port bf16 model, inputs, key)."""
     args = tiny_config(mtype)
-    variables = jax_variables(args, jax_build_model(args), seed)
+    variables = jax_variables(args, jax_build_model(args), seed, shapes_only=True)
     pallas = trunk_pallas and mtype in ("DiffusionFast", "RectifiedFlow")
     jmodel = jax_model(args, pallas)
     port = port_model(args, variables)

@@ -69,9 +69,12 @@ def batch(mtype: str, b: int = 2, t: int = T, seed: int = 0,
     return out
 
 
-def jax_variables(args, jmodel, seed: int = 1) -> dict:
+def jax_variables(args, jmodel, seed: int = 1, shapes_only: bool = False) -> dict:
     """Variables of the JAX model for ``args``: params re-drawn from numpy,
-    buffers (PCmer's FAVOR+ projections) as flax draws them."""
+    buffers (PCmer's FAVOR+ projections) as flax draws them -- or, with
+    ``shapes_only``, from the init's shapes alone (no forward runs), each
+    projection drawn by the JAX package's own
+    ``gaussian_orthogonal_random_matrix`` from a key of its own."""
     mtype = args.model.type
     x = batch(mtype, b=1, n_unit=args.data.encoder_out_channels)
     kwargs = {}
@@ -83,12 +86,21 @@ def jax_variables(args, jmodel, seed: int = 1) -> dict:
             kwargs["k_step"] = 100
         if args.model.use_pitch_aug:
             kwargs["aug_shift"] = x["aug_shift"]
-    variables = jmodel.init({"params": jax.random.PRNGKey(0),
-                             "noise": jax.random.PRNGKey(1)},
-                            x["units"], x["f0"], x["volume"], **kwargs)
+
+    def init():
+        return jmodel.init({"params": jax.random.PRNGKey(0),
+                            "noise": jax.random.PRNGKey(1)},
+                           x["units"], x["f0"], x["volume"], **kwargs)
+    variables = jax.eval_shape(init) if shapes_only else init()
     out = {"params": randomize_tree(variables["params"], seed)}
     if "buffers" in variables:
-        out["buffers"] = jax.tree_util.tree_map(np.asarray, variables["buffers"])
+        from ddsp_svc_tpu.models.pcmer import gaussian_orthogonal_random_matrix
+
+        keys = iter(jax.random.split(jax.random.PRNGKey(seed + 1000), 64))
+        out["buffers"] = jax.tree_util.tree_map(
+            (lambda a: np.asarray(gaussian_orthogonal_random_matrix(
+                next(keys), *a.shape))) if shapes_only else np.asarray,
+            variables["buffers"])
     return out
 
 
