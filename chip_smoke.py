@@ -4,7 +4,8 @@ every model family (DiffusionFast, RectifiedFlow, Diffusion, DiffusionNew
 and the DDSP family with Sins and its NSF-HiFiGAN enhancer), from features,
 from a recording, through the offline CLI and through the realtime engine,
 the kernels' gradients, the bf16 vocoder, batched serving through the HTTP
-server, and training from preprocess to checkpoint and resume.
+server, training from preprocess to checkpoint and resume, and the f0
+front end (RMVPE, CREPE, FCPE, the host trackers).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -153,7 +154,21 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      step and one generator step at batch 2, card against CPU, within the
      stated limits; (d) K2 per stage at the training shapes with its bound,
      B1's backward (the plain chain) and the repacking of a weight-normed
-     generator's weights.
+     generator's weights;
+ 21. the f0 front end, every net at full width from a weights file the
+     port writes in the JAX package's format (random weights from a seed):
+     (a) E2E0(4, 1), CREPE full and CFNaiveMelPE(512, 6) on 10 s of 44.1
+     kHz audio, card against CPU (salience within F0_SALIENCE_TOL; decoded
+     f0 within F0_CENTS_TOL on the frames whose top salience clears its
+     runner-up by F0_DECISIVE; CREPE on its first CREPE_CPU_SECONDS), with
+     the card's walls; (b) SvcPipeline.infer with pitch_extractor='rmvpe'
+     on diffusion-fast from a 10 s wav, the drawn RMVPE's output bias
+     raised at 220 Hz so the decoded f0 is decisive: exactly K1 1, K3 60,
+     K2 5 a request, the RMVPE share of the warm wall, card against CPU
+     >= 40 dB on 2 s; (c) cli.infer.main -pe rmvpe and -pe fcpe on a 10 s
+     wav; (d) the walls of the host DIO, Harvest and praat on 10 s.
+Phase 3 also holds K4's bf16-amplitude mode (the bf16 Sins: amplitudes
+upsampled in bf16) to its plain version within 3e-5, timed as K4.
 Phase 3 also holds B5 (K3's bf16 class on bf16 activations) to its plain
 version by ``bf16_io_agreement`` at B 48 x T 172 (cond f32 and bf16) and
 B 1 x T 862, the kernel and both plain versions against float64 sums with
@@ -642,12 +657,51 @@ def phase_kernels(torch, card: str) -> dict:
         f"profiler), {100 * b_ms / k_ms:.1f} % of the bound {b_ms:.5f} ms "
         f"({b_by}: {pairs:.0f} pairs x 6 flops), plain {p_ms:.4f} ms; no "
         f"single PyTorch call computes it [{card}]")
+    results["harmonic_bank"]["bf16_amp"] = k4_bf16_amp(
+        torch, {b: v[:2] for b, v in k4.items()}, card, problems)
     if problems:
         fail("kernel vs plain: " + "; ".join(problems))
     log("[kernels] K1 combtooth ok, K2 resblock_group ok, B4 ok, K3 "
         "conformer_layer ok, B3 conformer_layer_bf16 ok, K4 harmonic_bank ok "
         "(each within tolerance of its plain version)")
     return results
+
+
+def k4_bf16_amp(torch, inputs: dict, card: str, problems: list) -> dict:
+    """K4's bf16-amplitude mode (bf16 Sins: JAX's bf16 upsample of the bf16
+    amplitudes) against its plain version on the card, on phase 3's K4
+    inputs ({B: (x, f32 amplitudes)}) with the amplitudes rounded to bf16:
+    3e-5 absolute, as the f32 mode. Its bound keeps K4's count, 6 flops a
+    (sample, harmonic) pair, with the bf16 amplitudes' bytes."""
+    from ddsp_svc_tpu_torch.ops.cuda_oscillator import (harmonic_bank,
+                                                        harmonic_bank_plain)
+    from ddsp_svc_tpu_torch.tools.timing import cuda_ms, graph_ms, profiled_call
+
+    errs = {}
+    for b, (x, amps) in inputs.items():
+        a16 = amps.to(torch.bfloat16).contiguous()
+        got = harmonic_bank(x, a16, BLOCK)
+        want = harmonic_bank_plain(x, a16, BLOCK)
+        errs[b] = float((got - want).abs().max())
+        if not errs[b] <= 3e-5:
+            problems.append(f"K4 bf16-amplitude mode B={b}: max abs err "
+                            f"{errs[b]:.3e} > 3e-5")
+    x, amps = inputs[1]
+    a16 = amps.to(torch.bfloat16).contiguous()
+    call = lambda: harmonic_bank(x, a16, BLOCK)  # noqa: E731
+    k_ms = graph_ms(call)
+    prof_ms, _, _ = profiled_call(call, "harmonic_bank_kernel")
+    p_ms = cuda_ms(lambda: harmonic_bank_plain(x, a16, BLOCK), 20)
+    pairs = float(x.numel()) * a16.shape[-1]
+    b_ms, b_by = bound_ms(4.0 * 2 * x.numel() + 2.0 * a16.numel(), pairs * 6.0)
+    log(f"[kernels] K4 bf16-amplitude mode T={a16.shape[1]} L={x.numel()} "
+        f"K={a16.shape[-1]}: max_abs_err {errs[1]:.3e} (B=2 T=37: {errs[2]:.3e}; "
+        f"tol 3e-5 abs); kernel {k_ms:.5f} ms (CUDA graph replay; {prof_ms:.5f} "
+        f"ms by the profiler), {100 * b_ms / k_ms:.1f} % of the bound "
+        f"{b_ms:.5f} ms ({b_by}: {pairs:.0f} pairs x 6 flops), plain "
+        f"{p_ms:.4f} ms [{card}]")
+    return dict(max_abs_err=max(errs.values()), ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def conformer_bf16_chain(torch, x, cond, step, w, fault=None):
@@ -1468,7 +1522,7 @@ EXPECT_SINS = {"combtooth": 0, "resblock_group": 5, "conformer_layer": 0,
 
 
 def wav_pipeline(parts, enhance: bool, device=None, device_f0: bool = False,
-                 encoder=None):
+                 encoder=None, pitch_extractor: str = "yin"):
     """An SvcPipeline with the units encoder (random weights from SEED,
     the same on every device) for (args, model, vocoder)."""
     from ddsp_svc_tpu_torch.features.hubert import UnitsEncoder
@@ -1478,7 +1532,8 @@ def wav_pipeline(parts, enhance: bool, device=None, device_f0: bool = False,
     encoder = encoder or UnitsEncoder(ENCODER, device=device, seed=SEED)
     return SvcPipeline.from_parts(model, None, args, vocoder, device=device,
                                   seed=SEED, enhance=enhance,
-                                  units_encoder=encoder, device_f0=device_f0)
+                                  units_encoder=encoder, device_f0=device_f0,
+                                  pitch_extractor=pitch_extractor)
 
 
 def stage_walls(torch, pipe, wave: np.ndarray, what: str, expect: dict,
@@ -3260,6 +3315,308 @@ def phase_vocoder_training(torch, card: str, root: Path) -> dict:
     return paths
 
 
+
+# ---------------------------------------------------------------- phase 21
+
+F0_NETS = ("rmvpe", "crepe", "fcpe")
+F0_FILES = {"rmvpe": "model.msgpack", "crepe": "full.msgpack", "fcpe": "fcpe.msgpack"}
+# card against CPU: saliences in (0, 1), absolute (f32 on both, TF32 off)
+F0_SALIENCE_TOL = 1e-4
+# decoded f0 compared on the frames whose top salience clears its
+# runner-up by this much, within F0_CENTS_TOL
+F0_DECISIVE = 20 * F0_SALIENCE_TOL
+F0_CENTS_TOL = 0.05
+# a few units above the other bins at 220 Hz, in the nets of (b) and (c)
+F0_PEAK = 4.0
+F0_PEAK_HZ = 220.0
+CREPE_CPU_SECONDS = 1.0  # CREPE full is ~0.56 TFLOP a second of audio
+
+
+def f0_peak_bin(kind: str) -> int:
+    cents = 1200.0 * math.log2(F0_PEAK_HZ / 10.0)
+    if kind == "fcpe":
+        from ddsp_svc_tpu_torch.features.fcpe import cent_table
+
+        return int(np.argmin(np.abs(cent_table() - cents)))
+    return int(round((cents - 1997.3794084376191) / 20.0))
+
+
+def draw_f0_net(torch, kind: str, seed: int, peak: bool):
+    """The full-width f0 net ``kind`` on the CPU with random weights from
+    ``seed``: conv, dense and GRU weights U(-1/sqrt(fan_in), +), biases
+    U(-0.1, 0.1) (a GRU's r and z hidden biases 0, which flax's GRUCell
+    has not), BatchNorm scales U(0.8, 1.2), means U(-0.1, 0.1), variances
+    U(0.5, 1.5), a weight-normed Dense's gain the norm of its direction.
+    With ``peak`` the output layer's bias is raised by F0_PEAK at the bin of
+    220 Hz: at random init the 360 saliences sit near-tied around one
+    value, so an argmax flips on a 1e-7 difference; with the peak the
+    decoded f0 is decisive on the card and on the CPU alike."""
+    from ddsp_svc_tpu_torch.features import crepe, fcpe, rmvpe
+    from ddsp_svc_tpu_torch.models.nn import BatchNorm, WNLinear
+
+    gen = torch.Generator().manual_seed(seed)
+    net = {"rmvpe": rmvpe.E2E0, "crepe": crepe.Crepe, "fcpe": fcpe.CFNaiveMelPE}[kind]()
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, BatchNorm):
+                mod.weight.uniform_(0.8, 1.2, generator=gen)
+                mod.bias.uniform_(-0.1, 0.1, generator=gen)
+                mod.mean.uniform_(-0.1, 0.1, generator=gen)
+                mod.var.uniform_(0.5, 1.5, generator=gen)
+                continue
+            for name, p in mod.named_parameters(recurse=False):
+                if name == "weight_g":
+                    continue
+                if p.dim() > 1:
+                    bound = 1.0 / math.sqrt(math.prod(p.shape[1:]))
+                    p.uniform_(-bound, bound, generator=gen)
+                else:
+                    p.uniform_(-0.1, 0.1, generator=gen)
+                if name.startswith("bias_hh"):
+                    p[:2 * p.shape[0] // 3] = 0.0
+            if isinstance(mod, WNLinear):
+                mod.weight_g.copy_(torch.linalg.norm(mod.weight_v, dim=1))
+        if peak:
+            out = getattr(net, {"rmvpe": "fc", "crepe": "classifier",
+                                "fcpe": "output_proj"}[kind])
+            out.bias[f0_peak_bin(kind)] += F0_PEAK
+    return net
+
+
+def _f0_decode(kind: str, salience: np.ndarray) -> np.ndarray:
+    if kind == "rmvpe":
+        from ddsp_svc_tpu_torch.features.rmvpe import to_local_average_f0
+
+        return to_local_average_f0(salience, thred=0.03)
+    if kind == "crepe":
+        from ddsp_svc_tpu_torch.features.crepe import weighted_argmax_f0
+
+        return weighted_argmax_f0(salience, 50.0, 1100.0)[0]
+    from ddsp_svc_tpu_torch.features.fcpe import local_argmax_f0
+
+    return local_argmax_f0(salience, threshold=0.006)
+
+
+def _timed_runs(torch, fn, n: int):
+    """One cold and ``n`` warm runs of fn() to synchronize() -> (the last
+    result, sorted warm walls in s, the cold wall)."""
+    walls = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, sorted(walls[1:]), walls[0]
+
+
+def _walls_text(runs, cold) -> str:
+    return (f"warm median {runs[len(runs) // 2] * 1e3:.2f} ms (min "
+            f"{runs[0] * 1e3:.2f}, max {runs[-1] * 1e3:.2f}, n={len(runs)}; cold "
+            f"{cold * 1e3:.1f} ms)")
+
+
+def phase_f0_front_end(torch, card: str, diffusion_cpu) -> dict:
+    """The f0 front end: (a) each net, card against CPU; (b) the slice's
+    path, SvcPipeline.infer with pitch_extractor='rmvpe' on diffusion-fast
+    from a 10 s wav; (c) cli.infer.main -pe rmvpe and -pe fcpe; (d) the host
+    trackers' walls. Every net reads a weights file in the JAX package's
+    format, written by the port from random weights. Returns {path: launch
+    counts}."""
+    import os
+    import tempfile
+
+    from ddsp_svc_tpu_torch.cli import infer as cli_infer
+    from ddsp_svc_tpu_torch.features.audio import load_wav, save_wav
+    from ddsp_svc_tpu_torch.features.f0 import F0Extractor
+    from ddsp_svc_tpu_torch.features.hubert import UnitsEncoder
+    from ddsp_svc_tpu_torch.io.jax_params import f0_net_variables, write_msgpack
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.models.registry import build_model
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    from ddsp_svc_tpu_torch.utils.config import DotDict, save_config
+
+    rng = np.random.default_rng(SEED + 21)
+    wave = voice_wave(10, rng)
+    wrappers = counts()
+    launches = {}
+    env_keys = [f"DDSP_SVC_TPU_{k.upper()}_CKPT" for k in F0_NETS]
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_f0_")
+    root = Path(tmp.name)
+    try:
+        files = {}
+        for i, kind in enumerate(F0_NETS):
+            for peak in (False, True):
+                net = draw_f0_net(torch, kind, SEED + 21 + i, peak)
+                path = root / ("peak" if peak else "drawn") / "pretrain" / kind
+                path = path / F0_FILES[kind]
+                write_msgpack(str(path), f0_net_variables(kind, net.state_dict()))
+                files[kind, peak] = path
+        log(f"[f0] weights files written in the JAX package's format from "
+            f"random full-width nets (seeds {SEED + 21}-{SEED + 23}; the (b) / "
+            f"(c) copies with the output bias +{F0_PEAK:g} at 220 Hz) [{card}]")
+
+        # (a) each net at full width, card against CPU
+        for kind in F0_NETS:
+            os.environ[f"DDSP_SVC_TPU_{kind.upper()}_CKPT"] = str(files[kind, False])
+            exts = {dev: F0Extractor(kind, SR, BLOCK, 50.0, 1100.0, device=dev)
+                    for dev in ("cuda", "cpu")}
+            for dev, ext in exts.items():
+                if ext.net is None or ext.net.device.type != dev:
+                    fail(f"[f0] (a) {kind}: the extractor's net is not on {dev}")
+            card_net = exts["cuda"].net
+            sal, runs, cold = _timed_runs(
+                torch, lambda: card_net.salience(wave, SR), 5)
+            _, ext_runs, ext_cold = _timed_runs(
+                torch, lambda: exts["cuda"].extract(wave, uv_interp=True), 3)
+            seconds = CREPE_CPU_SECONDS if kind == "crepe" else 10.0
+            clip = wave[:int(seconds * SR)]
+            s_card = card_net.salience(clip, SR).float().cpu().numpy()
+            s_cpu = exts["cpu"].net.salience(clip, SR).numpy()
+            if s_card.shape != s_cpu.shape or not np.isfinite(s_card).all():
+                fail(f"[f0] (a) {kind}: salience {s_card.shape} on the card, "
+                     f"{s_cpu.shape} on the CPU, or non-finite")
+            err = float(np.abs(s_card - s_cpu).max())
+            if not err <= F0_SALIENCE_TOL:
+                fail(f"[f0] (a) {kind}: salience card vs CPU {err:.3e} > "
+                     f"{F0_SALIENCE_TOL:g}")
+            top2 = np.sort(s_cpu, axis=1)[:, -2:]
+            decisive = (top2[:, 1] - top2[:, 0]) > F0_DECISIVE
+            f_card, f_cpu = _f0_decode(kind, s_card), _f0_decode(kind, s_cpu)
+            both = decisive & (f_card > 0) & (f_cpu > 0)
+            cents = (float(np.abs(1200 * np.log2(f_card[both] / f_cpu[both])).max())
+                     if both.any() else 0.0)
+            if not cents < F0_CENTS_TOL:
+                fail(f"[f0] (a) {kind}: decoded f0 card vs CPU {cents:.4f} cents "
+                     f"on the decisive frames (limit {F0_CENTS_TOL})")
+            log(f"[f0] (a) {kind} full width on a 10 s 44.1 kHz recording "
+                f"({sal.shape[0]} frames): net + front end on the card "
+                f"{_walls_text(runs, cold)}; F0Extractor.extract (net, decode, "
+                f"regrid to the hop grid) "
+                f"{_walls_text(ext_runs, ext_cold)}; card vs CPU on {seconds:g} s "
+                f"({s_cpu.shape[0]} frames): salience max abs diff {err:.3e} (limit "
+                f"{F0_SALIENCE_TOL:g}), salience {float(s_cpu.min()):.4f}.."
+                f"{float(s_cpu.max()):.4f}, decoded f0 {cents:.5f} cents on the "
+                f"{int(both.sum())} frames whose top salience clears the runner-up "
+                f"by > {F0_DECISIVE:g} (limit {F0_CENTS_TOL}) [{card}]")
+            del exts, card_net
+            torch.cuda.empty_cache()
+
+        # (b) the slice's path from a wav, the RMVPE front end
+        for kind in F0_NETS:
+            os.environ[f"DDSP_SVC_TPU_{kind.upper()}_CKPT"] = str(files[kind, True])
+        what = "diffusion-fast from a wav, RMVPE"
+        args, model, vocoder = diffusion_cpu
+        pipe = wav_pipeline((args, copy.deepcopy(model), copy.deepcopy(vocoder)),
+                            False, pitch_extractor="rmvpe")
+        check_on_card(pipe, what)
+        ext = pipe.f0_extractor(SR)
+        if ext.f0_extractor != "rmvpe" or ext.net.device.type != "cuda":
+            fail(f"[f0] (b) the pipeline's f0 extractor is {ext.f0_extractor} "
+                 "on the wrong device")
+        kw = dict(k_step=100, speedup=10, method="dpm-solver")
+        t = len(wave) // BLOCK + 1
+        launches[what], walls = serve_requests(
+            torch, what, EXPECT_DIFFUSION, card,
+            [(10, t, lambda: pipe.infer(wave, SR, **kw))], ENCODER_RANGE)
+        f0, f0_runs, f0_cold = _timed_runs(torch, lambda: pipe.extract_f0(wave, SR), 5)
+        f0 = np.asarray(f0)[0, :, 0]
+        rmvpe_ms, total_ms = f0_runs[len(f0_runs) // 2] * 1e3, walls[10] * 1e3
+        if not (np.isfinite(f0).all() and np.all(np.abs(f0 - F0_PEAK_HZ) < 15.0)):
+            fail(f"[f0] (b) RMVPE f0 {f0.min():.1f}..{f0.max():.1f} Hz, expected "
+                 f"near {F0_PEAK_HZ:g} (the drawn peak)")
+        log(f"[f0] (b) {what}: 10 s request warm median {total_ms:.2f} ms, of "
+            f"which RMVPE f0 {_walls_text(f0_runs, f0_cold)} "
+            f"({100 * rmvpe_ms / total_ms:.1f} %), the rest {total_ms - rmvpe_ms:.2f} "
+            f"ms; f0 {f0.min():.2f}..{f0.max():.2f} Hz [{card}]")
+        # card against CPU on 2 s, the same weights, weights file and noise
+        wave2 = voice_wave(2, rng)
+        t2 = len(wave2) // BLOCK + 1
+        cpu = wav_pipeline(diffusion_cpu, False, device="cpu",
+                           encoder=UnitsEncoder(ENCODER, device="cpu", seed=SEED),
+                           pitch_extractor="rmvpe")
+        noise = request_noise(rng, t2)
+        audios, f0s = {}, {}
+        for name, p in (("card", pipe), ("cpu", cpu)):
+            f0s[name] = np.asarray(p.extract_f0(wave2, SR))[0, :, 0]
+            audio, _ = p.infer(wave2, SR, noise=noise, **kw)
+            audios[name] = check_audio(audio, t2, f"{what} 2 s on {name}")
+        cents = float(np.abs(1200 * np.log2(f0s["card"] / f0s["cpu"])).max())
+        snr = snr_db(audios["cpu"], audios["card"])
+        log(f"[f0] (b) {what}: 2 s recording card (kernels, RMVPE on the card) "
+            f"vs CPU (plain, RMVPE on the CPU), same weights and noise: f0 max "
+            f"{cents:.5f} cents, audio SNR {snr:.2f} dB (limit >= "
+            f"{SNR_LIMIT_DB:.0f} dB) [{card}]")
+        if not (snr >= SNR_LIMIT_DB and cents < F0_CENTS_TOL):
+            fail(f"[f0] (b) card vs CPU: SNR {snr:.2f} dB, f0 {cents:.4f} cents")
+        del pipe, cpu
+        torch.cuda.empty_cache()
+
+        # (c) the offline CLI from files, -pe rmvpe and -pe fcpe
+        cargs = DotDict({
+            "data": {"sampling_rate": SR, "block_size": BLOCK, "duration": 2,
+                     "encoder": ENCODER, "encoder_ckpt": None,
+                     "encoder_sample_rate": 16000, "encoder_hop_size": 320,
+                     "encoder_out_channels": N_UNIT, "f0_extractor": "rmvpe",
+                     "f0_min": 65, "f0_max": 800},
+            "model": {"type": "CombSubSuperFast", "win_length": WIN, "n_spk": 1},
+            "infer": {}})
+        expdir = root / "exp"
+        smodel = random_init_(build_model(cargs), torch.Generator().manual_seed(SEED))
+        ckpt = save_checkpoint(str(expdir), 1, smodel, cargs.model)
+        save_config(str(expdir / "config.yaml"), dict(cargs))
+        in_wav = root / "in.wav"
+        save_wav(str(in_wav), wave, SR)
+        for pe in ("rmvpe", "fcpe"):
+            out_wav = root / pe / "out.wav"
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli_infer.main(["-m", ckpt, "-i", str(in_wav), "-o", str(out_wav),
+                            "-pe", pe, "-e", "false"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[f"cli.infer -pe {pe}"] = {n: w.launches for n, w in wrappers.items()}
+            audio, sr = load_wav(str(out_wav))
+            cache = list((root / pe / "cache").glob(f"{pe}_*.npy"))
+            f0 = np.load(cache[0]) if len(cache) == 1 else np.zeros(1)
+            if (sr != SR or len(audio) < len(wave) - BLOCK
+                    or not np.isfinite(audio).all() or np.abs(audio).max() <= 1e-4):
+                fail(f"[f0] (c) cli.infer -pe {pe}: {len(audio)} samples at {sr} Hz")
+            if not np.all(np.abs(f0 - F0_PEAK_HZ) < 15.0):
+                fail(f"[f0] (c) cli.infer -pe {pe}: cached f0 {f0.min():.1f}.."
+                     f"{f0.max():.1f} Hz")
+            if launches[f"cli.infer -pe {pe}"]["combtooth"] < 1:
+                fail(f"[f0] (c) cli.infer -pe {pe}: K1 was not launched")
+            log(f"[f0] (c) cli.infer.main -pe {pe} -e false on a 10 s wav "
+                f"(CombSubSuperFast, the {ENCODER} encoder, {pe} on the card): "
+                f"wall {wall:.2f} s including model load, {len(audio)} samples "
+                f"at {sr} Hz, cached f0 {f0.min():.2f}..{f0.max():.2f} Hz, "
+                f"launches {launches[f'cli.infer -pe {pe}']} [{card}]")
+
+        # (d) the host trackers on the same 10 s
+        for kind in ("dio", "harvest", "praat"):
+            ext = F0Extractor(kind, SR, BLOCK, 50.0, 1100.0)
+            f0, runs, cold = _timed_runs(torch, lambda: ext.extract(wave), 2)
+            voiced = f0[f0 > 0]
+            if not len(voiced) or abs(float(np.median(voiced)) - 220.0) > 20.0:
+                fail(f"[f0] (d) {kind}: median voiced f0 "
+                     f"{float(np.median(voiced)) if len(voiced) else 0:.1f} Hz")
+            log(f"[f0] (d) {kind} on a 10 s recording on the host: "
+                f"{_walls_text(runs, cold)}; {100 * len(voiced) / len(f0):.1f} % "
+                f"voiced, median {float(np.median(voiced)):.2f} Hz [{card}]")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3327,6 +3684,8 @@ def main() -> None:
         paths.update(phase_bf16_training(torch, card, root))
         torch.cuda.empty_cache()
         paths.update(phase_vocoder_training(torch, card, root))
+    torch.cuda.empty_cache()
+    paths.update(phase_f0_front_end(torch, card, diffusion_cpu))
 
     table = []
     for kname in ("combtooth", "resblock_group", "resblock_group_bf16",
@@ -3345,6 +3704,8 @@ def main() -> None:
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                       "redesigned": REDESIGNED[kname]})
+        if "bf16_amp" in r:  # K4's bf16-amplitude mode, on the same counter
+            table[-1]["bf16_amp"] = r["bf16_amp"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"[{card}]")
     print(json.dumps({"kernels": table}), flush=True)

@@ -25,9 +25,11 @@ def load_encoder_params(path: str | None):
     return params
 
 
-def build_f0_extractor(args: DotDict) -> F0Extractor:
-    """The config's f0 extractor on the model's hop grid; an f0 net without
-    converted weights falls back to YIN with a warning."""
+def build_f0_extractor(args: DotDict, device: str | torch.device | None = None
+                       ) -> F0Extractor:
+    """The config's f0 extractor on the model's hop grid, its net on
+    ``device`` (the CUDA card by default); an f0 net without converted
+    weights falls back to YIN with a warning."""
     kind = args.data.f0_extractor
     model_params = None
     pretrained = {"rmvpe": "pretrain/rmvpe/model.msgpack",
@@ -42,7 +44,8 @@ def build_f0_extractor(args: DotDict) -> F0Extractor:
             kind = "yin"
     return F0Extractor(kind, sample_rate=args.data.sampling_rate,
                        hop_size=args.data.block_size, f0_min=args.data.f0_min,
-                       f0_max=args.data.f0_max, model_params=model_params)
+                       f0_max=args.data.f0_max, model_params=model_params,
+                       device=device)
 
 
 def build_units_encoder(args: DotDict, device: str | torch.device | None = None,

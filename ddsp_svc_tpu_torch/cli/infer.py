@@ -89,9 +89,11 @@ def check_ported(options: argparse.Namespace) -> None:
 
 
 def cached_f0(options: argparse.Namespace, audio: np.ndarray, sample_rate: int,
-              hop_size: int) -> np.ndarray:
+              hop_size: int, device: str | torch.device | None = None
+              ) -> np.ndarray:
     """The input's f0 (uv-interpolated, no key shift), read from or written
-    to the MD5-keyed cache beside the output."""
+    to the MD5-keyed cache beside the output; an f0 net runs on
+    ``device``."""
     with open(options.input, "rb") as f:
         md5_hash = hashlib.md5(f.read()).hexdigest()
     cache_dir = os.path.join(os.path.dirname(options.output) or ".", "cache")
@@ -101,7 +103,8 @@ def cached_f0(options: argparse.Namespace, audio: np.ndarray, sample_rate: int,
     if os.path.exists(cache_file):
         return np.load(cache_file)
     f0 = F0Extractor(options.pitch_extractor, sample_rate, hop_size,
-                     options.f0_min, options.f0_max).extract(audio, uv_interp=True)
+                     options.f0_min, options.f0_max,
+                     device=device).extract(audio, uv_interp=True)
     os.makedirs(cache_dir, exist_ok=True)
     np.save(cache_file, f0)
     return f0
@@ -222,7 +225,8 @@ def main(argv=None) -> None:
     ddsp_model = (load_ddsp_model(options.ddsp_model_path, pipeline)
                   if options.ddsp_model_path else None)
     audio, sample_rate = load_wav(options.input)
-    f0 = cached_f0(options, audio, sample_rate, pipeline.hop_size(sample_rate))
+    f0 = cached_f0(options, audio, sample_rate, pipeline.hop_size(sample_rate),
+                   pipeline.device)
     result, out_sr = convert(pipeline, audio, sample_rate, options, f0,
                              ddsp_model)
     save_wav(options.output, result.astype(np.float32), out_sr)

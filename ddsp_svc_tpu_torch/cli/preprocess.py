@@ -3,8 +3,9 @@
     python -m ddsp_svc_tpu_torch.cli.preprocess -c configs/diffusion-fast.yaml
 
 extracts the features of ``data.train_path`` then ``data.valid_path``: units
-and the log-mel on the card (``--device``, the CUDA card by default), f0
-and volume on the host. An f0 net without converted weights falls back to
+and the log-mel on the card (``--device``, the CUDA card by default), and
+so is the config's f0 net (``data.f0_extractor`` rmvpe, crepe or fcpe);
+a host tracker's f0 and the volume on the host. An f0 net without converted weights falls back to
 YIN, and an encoder without converted weights gets random ones, with a
 warning each. ``--seed`` seeds the augmentation draws (unseeded by
 default, as in JAX) and those weights.
@@ -39,7 +40,7 @@ def main(argv=None):
     device = resolve_device(cmd.device)
     args = load_config(cmd.config)
 
-    f0_extractor = build_f0_extractor(args)
+    f0_extractor = build_f0_extractor(args, device)
     volume_extractor = VolumeExtractor(args.data.block_size)
     mel_extractor = build_mel_extractor(args, device) if needs_mel(args) else None
     units_encoder = build_units_encoder(args, device=device, seed=cmd.seed or 0)

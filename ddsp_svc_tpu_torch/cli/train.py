@@ -14,7 +14,9 @@ otherwise, as in JAX).
 parameters, the optimizer and the checkpoints stay float32, the
 activations run in bf16); fp16 / float16 takes bf16 too, with the JAX
 trainer's notice. Refused, with the ROADMAP item that would add it: a
-multi-process launch (``JAX_COORDINATOR_ADDRESS``, multi-card training).
+multi-process launch (``JAX_COORDINATOR_ADDRESS``, multi-card training)
+and ``model.use_remat: true`` (recomputing the denoiser's activations in
+the backward).
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ from .common import build_mel_extractor, needs_mel
 
 MULTI_REFUSED = ("JAX_COORDINATOR_ADDRESS is set: multi-process training is "
                  "not ported (ROADMAP A, item 8)")
+REMAT_REFUSED = ("model.use_remat is true: recomputing the denoiser's "
+                 "activations in the backward is not ported (ROADMAP A, "
+                 "item 14)")
 
 
 def amp_dtype(args) -> torch.dtype | None:
@@ -58,6 +63,8 @@ def main(argv=None):
     args = load_config(cmd.config)
     if os.environ.get("JAX_COORDINATOR_ADDRESS"):
         raise SystemExit(MULTI_REFUSED)
+    if args.model.use_remat:
+        raise SystemExit(REMAT_REFUSED)
     dtype = amp_dtype(args)
     device = resolve_device(cmd.device)
 

@@ -47,6 +47,20 @@
 // rad per harmonic), which the recurrence does not follow between restarts.
 // Every 32 harmonics reach 1.8e-5 in the all-0.02 case, every 128 1.8e-4.
 // On the card (chip_smoke.py) it sits at 2.8e-6 at max|out| 0.77.
+//
+// bf16-amplitude mode (ddsp_harmonic_bank_bf16amp): the JAX Sins model in
+// bf16 upsamples its bf16 amplitudes in bf16 (ddsp_svc_tpu/ops/interp.py
+// upsample on a bf16 array) before the f32 sines multiply them, so the
+// lerp does not factor out of the sum: per (sample, harmonic) the
+// amplitude is bf16(bf16(a[t][k] (1 - w)) + bf16(a[t+1][k] w)) with
+// w = bf16(bf16(n) / bf16(block)) (JAX rounds the weakly typed block to
+// bf16 as well) and 1 - w rounded to bf16 too, each op
+// computed in f32 and rounded as XLA's bf16 ops are; it is widened and
+// accumulated against the sine in f32. The amplitudes are read as bf16.
+// Per pair that adds two multiplies, an add and three roundings to the
+// 3 FMAs; the bound keeps the 6-flop count.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
@@ -55,11 +69,37 @@ constexpr int kThreads = 128;
 constexpr int kSamples = 4;    // per thread
 constexpr int kRestart = 16;   // harmonics per exact sincosf
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One (sample, harmonic) pair's accumulation of the sine s. f32 mode: into
+// both frames' sums (lerped once per sample at the end). bf16 mode: the
+// bf16 upsampled amplitude (w and 1 - w of this sample) into acc0 alone.
+template <bool kBf16>
+__device__ __forceinline__ void accumulate(float s, float2 a, float w, float omw,
+                                           float& acc0, float& acc1) {
+  if (kBf16) {
+    const float amp = bf16_round(bf16_round(a.x * omw) + bf16_round(a.y * w));
+    acc0 = fmaf(s, amp, acc0);
+  } else {
+    acc0 = fmaf(s, a.x, acc0);
+    acc1 = fmaf(s, a.y, acc1);
+  }
+}
+
 // Harmonics 2 .. count-1 of a segment (i counts from the restart): the
-// three-term recurrence and both accumulations.
-template <int kFixed>
+// three-term recurrence and the accumulations.
+template <int kFixed, bool kBf16>
 __device__ __forceinline__ void recur(const float2* __restrict__ coef, int count,
                                       const float (&two_c)[kSamples],
+                                      const float (&w)[kSamples],
+                                      const float (&omw)[kSamples],
                                       float (&s)[kSamples], float (&sp)[kSamples],
                                       float (&acc0)[kSamples],
                                       float (&acc1)[kSamples]) {
@@ -71,24 +111,25 @@ __device__ __forceinline__ void recur(const float2* __restrict__ coef, int count
       const float next = fmaf(two_c[j], s[j], -sp[j]);
       sp[j] = s[j];
       s[j] = next;
-      acc0[j] = fmaf(next, a.x, acc0[j]);
-      acc1[j] = fmaf(next, a.y, acc1[j]);
+      accumulate<kBf16>(next, a, w[j], omw[j], acc0[j], acc1[j]);
     }
   }
 }
 
+template <typename Amp>
 __global__ void __launch_bounds__(kThreads)
-harmonic_bank_kernel(const float* __restrict__ x, const float* __restrict__ amps,
+harmonic_bank_kernel(const float* __restrict__ x, const Amp* __restrict__ amps,
                      float* __restrict__ out, int n_frames, int block,
                      int n_harm) {
+  constexpr bool kBf16 = sizeof(Amp) == 2;
   extern __shared__ float2 coef[];  // [n_harm]: (a_t[k], a_t+1[k])
   const int t = blockIdx.x;
   const int b = blockIdx.y;
   const int t_next = min(t + 1, n_frames - 1);  // edge repeat within row b
-  const float* a0 = amps + ((long long)b * n_frames + t) * n_harm;
-  const float* a1 = amps + ((long long)b * n_frames + t_next) * n_harm;
+  const Amp* a0 = amps + ((long long)b * n_frames + t) * n_harm;
+  const Amp* a1 = amps + ((long long)b * n_frames + t_next) * n_harm;
   for (int k = threadIdx.x; k < n_harm; k += kThreads)
-    coef[k] = make_float2(a0[k], a1[k]);
+    coef[k] = make_float2(widen(a0[k]), widen(a1[k]));
   __syncthreads();
 
   const long long row = ((long long)b * n_frames + t) * block;
@@ -98,10 +139,17 @@ harmonic_bank_kernel(const float* __restrict__ x, const float* __restrict__ amps
   for (int base = 0; base < block; base += kSamples * kThreads) {
     float xv[kSamples], s1[kSamples], c1[kSamples], two_c[kSamples];
     float s[kSamples], sp[kSamples], co[kSamples];
-    float acc0[kSamples], acc1[kSamples];
+    float acc0[kSamples], acc1[kSamples], w[kSamples], omw[kSamples];
 #pragma unroll
     for (int j = 0; j < kSamples; ++j) {
       const int n = min(base + (int)threadIdx.x + j * kThreads, block - 1);
+      if (kBf16) {  // the bf16 upsample's weights of sample n
+        w[j] = bf16_round(__fdiv_rn(bf16_round((float)n), bf16_round(fblock)));
+        omw[j] = bf16_round(1.0f - w[j]);
+      } else {
+        w[j] = 0.0f;
+        omw[j] = 0.0f;
+      }
       xv[j] = x[row + n];
       sincosf(__fmul_rn(m0, xv[j]), &s1[j], &c1[j]);
       two_c[j] = 2.0f * c1[j];
@@ -120,8 +168,7 @@ harmonic_bank_kernel(const float* __restrict__ x, const float* __restrict__ amps
         } else {
           sincosf(__fmul_rn(m, xv[j]), &s[j], &co[j]);
         }
-        acc0[j] = fmaf(s[j], a.x, acc0[j]);
-        acc1[j] = fmaf(s[j], a.y, acc1[j]);
+        accumulate<kBf16>(s[j], a, w[j], omw[j], acc0[j], acc1[j]);
       }
       if (count > 1) {
         const float2 a_1 = coef[k0 + 1];
@@ -129,35 +176,53 @@ harmonic_bank_kernel(const float* __restrict__ x, const float* __restrict__ amps
         for (int j = 0; j < kSamples; ++j) {
           sp[j] = s[j];
           s[j] = fmaf(s[j], c1[j], __fmul_rn(co[j], s1[j]));
-          acc0[j] = fmaf(s[j], a_1.x, acc0[j]);
-          acc1[j] = fmaf(s[j], a_1.y, acc1[j]);
+          accumulate<kBf16>(s[j], a_1, w[j], omw[j], acc0[j], acc1[j]);
         }
       }
       if (count == kRestart)
-        recur<kRestart>(coef + k0, count, two_c, s, sp, acc0, acc1);
+        recur<kRestart, kBf16>(coef + k0, count, two_c, w, omw, s, sp, acc0, acc1);
       else
-        recur<0>(coef + k0, count, two_c, s, sp, acc0, acc1);
+        recur<0, kBf16>(coef + k0, count, two_c, w, omw, s, sp, acc0, acc1);
     }
 #pragma unroll
     for (int j = 0; j < kSamples; ++j) {
       const int n = base + (int)threadIdx.x + j * kThreads;
-      const float w = (float)n / fblock;
-      if (n < block) out[row + n] = fmaf(acc0[j], 1.0f - w, __fmul_rn(acc1[j], w));
+      if (n >= block) continue;
+      if (kBf16) {
+        out[row + n] = acc0[j];
+      } else {
+        const float wl = (float)n / fblock;
+        out[row + n] = fmaf(acc0[j], 1.0f - wl, __fmul_rn(acc1[j], wl));
+      }
     }
   }
 }
 
 }  // namespace
 
-DDSP_API int ddsp_harmonic_bank(const float* x, const float* amps, float* out,
-                                int batch, int n_frames, int block, int n_harm,
-                                void* stream) {
+template <typename Amp>
+static int launch_bank(const float* x, const Amp* amps, float* out, int batch,
+                       int n_frames, int block, int n_harm, void* stream) {
   if (batch == 0 || n_frames == 0 || block == 0) return 0;
   const size_t smem = (size_t)n_harm * sizeof(float2);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // n_harm <= 6144
   dim3 grid((unsigned int)n_frames, (unsigned int)batch);
-  harmonic_bank_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  harmonic_bank_kernel<Amp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, amps, out, n_frames, block, n_harm);
   DDSP_CHECK_LAUNCH();
   return 0;
+}
+
+DDSP_API int ddsp_harmonic_bank(const float* x, const float* amps, float* out,
+                                int batch, int n_frames, int block, int n_harm,
+                                void* stream) {
+  return launch_bank(x, amps, out, batch, n_frames, block, n_harm, stream);
+}
+
+// amps: bf16 (B, T, n_harm), upsampled as JAX's bf16 upsample (see above)
+DDSP_API int ddsp_harmonic_bank_bf16amp(const float* x, const void* amps,
+                                        float* out, int batch, int n_frames,
+                                        int block, int n_harm, void* stream) {
+  return launch_bank(x, static_cast<const __nv_bfloat16*>(amps), out, batch,
+                     n_frames, block, n_harm, stream);
 }

@@ -3,8 +3,8 @@
 ``*.npy`` and ``pitch_aug_dict.npy``, files whose f0 is never voiced moved to
 ``skip/``; the same layout, draws and order as the JAX job.
 
-f0 and volume run on the host (the port's YIN and volume extractor); the
-units encoder and the log-mel run on the extractors' own device (the card
+the volume and a host tracker's f0 run on the host; an f0 net, the units
+encoder and the log-mel run on the extractors' own device (the card
 unless the caller built them for the CPU). Progress is printed per file.
 """
 from __future__ import annotations

@@ -223,11 +223,12 @@ class SvcPipeline:
         return f0[None, :, None] * np.float32(2 ** (key_shift / 12.0))
 
     def f0_extractor(self, sample_rate: int) -> F0Extractor:
-        """The host f0 tracker for inputs at ``sample_rate``."""
+        """The f0 extractor for inputs at ``sample_rate`` (an f0 net on the
+        pipeline's device, a tracker on the host)."""
         if sample_rate not in self._f0_extractors:
             self._f0_extractors[sample_rate] = F0Extractor(
                 self.pitch_extractor, sample_rate, self.hop_size(sample_rate),
-                self.f0_min, self.f0_max)
+                self.f0_min, self.f0_max, device=self.device)
         return self._f0_extractors[sample_rate]
 
     @torch.no_grad()

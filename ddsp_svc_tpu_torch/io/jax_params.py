@@ -606,3 +606,176 @@ def load_state(module: nn.Module, state: dict) -> nn.Module:
         raise KeyError(f"state dict mismatch: missing {missing}, "
                        f"unexpected {unexpected}")
     return module
+
+
+# The f0 nets (features/rmvpe.py, crepe.py, fcpe.py). Their trees are the
+# flax variables, ``params`` beside ``batch_stats`` (none for FCPE), so the
+# paths below start with the collection. A 2-D conv kernel (kh, kw, in, out)
+# maps to (out, in, kh, kw) (``_CONV2D``), a transposed one to (in, out,
+# kh, kw), unflipped (ROADMAP C(e)).
+_CONV_T2D = ((2, 3, 0, 1), (2, 3, 0, 1))
+
+
+def _put_batch_norm(sd: dict, tree, scope: str, name: str) -> None:
+    """flax BatchNorm (``params`` scale and bias, ``batch_stats`` mean and
+    var) <-> ``models/nn.BatchNorm``."""
+    _put_norm(sd, tree, f"params/{scope}", name)
+    for stat in ("mean", "var"):
+        if isinstance(tree, _ToJax):
+            tree.put(f"batch_stats/{scope}/{stat}", tree.get(f"{name}.{stat}"))
+        else:
+            sd[f"{name}.{stat}"] = tree.take(f"batch_stats/{scope}/{stat}")
+
+
+# flax GRUCell's gates in torch's [r; z; n] order: (input part, hidden part)
+_GRU_GATES = (("ir", "hr"), ("iz", "hz"), ("in", "hn"))
+
+
+def _put_gru_direction(sd: dict, tree, scope: str, suffix: str) -> None:
+    """A flax ``GRUCell`` (``ir``/``iz``/``in`` kernel and bias,
+    ``hr``/``hz`` kernel only, ``hn`` kernel and bias) <-> one direction of
+    ``torch.nn.GRU``: the kernels transposed and stacked [r; z; n], the
+    input biases stacked, the hidden bias [0; 0; b_hn]."""
+    keys = [f"gru.{w}_l0{suffix}" for w in
+            ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+    if isinstance(tree, _ToJax):
+        w_ih, w_hh, b_ih, b_hh = (tree.get(k) for k in keys)
+        h = w_hh.shape[1]
+        if np.any(b_hh[:2 * h]):
+            raise ValueError("a flax GRUCell has no r and z hidden biases: "
+                             f"{keys[3]}[:{2 * h}] must be 0")
+        for g, (gi, gh) in enumerate(_GRU_GATES):
+            rows = slice(g * h, (g + 1) * h)
+            tree.put(f"{scope}/{gi}/kernel", w_ih[rows].T)
+            tree.put(f"{scope}/{gi}/bias", b_ih[rows])
+            tree.put(f"{scope}/{gh}/kernel", w_hh[rows].T)
+        tree.put(f"{scope}/hn/bias", b_hh[2 * h:])
+        return
+    w_ih, w_hh, b_ih = [], [], []
+    for gi, gh in _GRU_GATES:
+        w_ih.append(tree.take(f"{scope}/{gi}/kernel").T)
+        b_ih.append(tree.take(f"{scope}/{gi}/bias"))
+        w_hh.append(tree.take(f"{scope}/{gh}/kernel").T)
+    b_hn = tree.take(f"{scope}/hn/bias")
+    b_hh = np.concatenate([np.zeros(2 * len(b_hn), np.float32), b_hn])
+    for key, value in zip(keys, (np.concatenate(w_ih), np.concatenate(w_hh),
+                                 np.concatenate(b_ih), b_hh)):
+        sd[key] = np.ascontiguousarray(value)
+
+
+def _put_conv_block_res(sd, tree, scope: str, name: str) -> None:
+    for i in (1, 2):
+        _put_train_conv(sd, tree, f"params/{scope}/conv{i}", f"{name}.conv{i}",
+                        _CONV2D)
+        _put_batch_norm(sd, tree, f"{scope}/bn{i}", f"{name}.bn{i}")
+    if tree.present(sd, f"params/{scope}/shortcut/kernel",
+                    f"{name}.shortcut.weight"):
+        _put_train_conv(sd, tree, f"params/{scope}/shortcut",
+                        f"{name}.shortcut", _CONV2D)
+
+
+def _fill_rmvpe(sd: dict, tree, n_blocks: int, n_gru: int) -> None:
+    """E2E0(n_blocks, n_gru) <-> ``features/rmvpe.E2E0``."""
+    _put_batch_norm(sd, tree, "unet/in_bn", "unet.in_bn")
+    for part, n_parts in (("enc", 5), ("inter", 4), ("dec", 5)):
+        for i in range(n_parts):
+            s, n = f"unet/{part}{i}", f"unet.{part}.{i}"
+            if part == "dec":
+                _put_train_conv(sd, tree, f"params/{s}/deconv", f"{n}.deconv",
+                                _CONV_T2D)
+                _put_batch_norm(sd, tree, f"{s}/bn1", f"{n}.bn1")
+            for j in range(n_blocks):
+                _put_conv_block_res(sd, tree, f"{s}/block{j}", f"{n}.blocks.{j}")
+    _put_train_conv(sd, tree, "params/cnn", "cnn", _CONV2D)
+    if n_gru:
+        _put_gru_direction(sd, tree, "params/gru/fw", "")
+        _put_gru_direction(sd, tree, "params/gru/bw", "_reverse")
+    _put_dense(sd, tree, "params/fc", "fc")
+
+
+def _fill_crepe(sd: dict, tree) -> None:
+    """CREPE full <-> ``features/crepe.Crepe``: the (k, 1, in, out) kernels
+    as (out, in, k, 1)."""
+    for i in range(6):
+        _put_train_conv(sd, tree, f"params/conv{i + 1}", f"convs.{i}", _CONV2D)
+        _put_batch_norm(sd, tree, f"bn{i + 1}", f"bns.{i}")
+    _put_dense(sd, tree, "params/classifier", "classifier")
+
+
+def _fill_fcpe(sd: dict, tree, n_layers: int) -> None:
+    """CFNaiveMelPE <-> ``features/fcpe.CFNaiveMelPE``."""
+    _put_conv(sd, tree, "params/input_conv0", "input_conv0")
+    _put_norm(sd, tree, "params/input_norm", "input_norm")
+    _put_conv(sd, tree, "params/input_conv1", "input_conv1")
+    for i in range(n_layers):
+        _put_conformer(sd, tree,
+                       f"params/net/CFNEncoderLayer_{i}/ConformerConvModule_0",
+                       f"net.layers.{i}.conformer")
+    _put_norm(sd, tree, "params/norm", "norm")
+    _put_wn_dense(sd, tree, "params/output_proj", "output_proj")
+
+
+def _f0_fill(kind: str, **cfg):
+    if kind == "rmvpe":
+        return lambda sd, tree: _fill_rmvpe(sd, tree, cfg.get("n_blocks", 4),
+                                            cfg.get("n_gru", 1))
+    if kind == "crepe":
+        return _fill_crepe
+    if kind == "fcpe":
+        return lambda sd, tree: _fill_fcpe(sd, tree, cfg.get("n_layers", 6))
+    raise ValueError(f"unknown f0 net {kind!r}")
+
+
+def f0_net_state_dict(kind: str, variables: dict, **cfg) -> dict:
+    """A converted f0 net's flax variables (``{"params": ..., "batch_stats":
+    ...}``; FCPE's bare params too, as the JAX ``FCPEInfer`` takes them) ->
+    the port's state dict (numpy). ``cfg``: RMVPE's ``n_blocks`` (4) and
+    ``n_gru`` (1), FCPE's ``n_layers`` (6)."""
+    if kind == "fcpe" and "params" not in variables:
+        variables = {"params": variables}
+    tree = _Leaves(variables)
+    sd: dict = {}
+    _f0_fill(kind, **cfg)(sd, tree)
+    tree.finish()
+    return sd
+
+
+def f0_net_variables(kind: str, state: dict, **cfg) -> dict:
+    """The inverse: the port net's state dict (tensors or numpy) -> the
+    flax variables in the JAX layout and names, as the JAX package's
+    ``F0Extractor`` reads them from ``pretrain/<kind>/...msgpack``."""
+    tree = _ToJax(state)
+    _f0_fill(kind, **cfg)(state, tree)
+    tree.finish()
+    return tree.params
+
+
+def rmvpe_state_dict(variables: dict, n_blocks: int = 4, n_gru: int = 1) -> dict:
+    return f0_net_state_dict("rmvpe", variables, n_blocks=n_blocks, n_gru=n_gru)
+
+
+def crepe_state_dict(variables: dict) -> dict:
+    return f0_net_state_dict("crepe", variables)
+
+
+def fcpe_state_dict(variables: dict, n_layers: int = 6) -> dict:
+    return f0_net_state_dict("fcpe", variables, n_layers=n_layers)
+
+
+def rmvpe_variables(state: dict, n_blocks: int = 4, n_gru: int = 1) -> dict:
+    return f0_net_variables("rmvpe", state, n_blocks=n_blocks, n_gru=n_gru)
+
+
+def crepe_variables(state: dict) -> dict:
+    return f0_net_variables("crepe", state)
+
+
+def fcpe_variables(state: dict, n_layers: int = 6) -> dict:
+    return f0_net_variables("fcpe", state, n_layers=n_layers)
+
+
+def write_msgpack(path: str, tree: dict) -> None:
+    """A tree -> a flax msgpack file (the inverse of ``read_msgpack``)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack_codec.packb(tree))

@@ -116,9 +116,10 @@ class Sins(nn.Module):
         amplitudes, group_delay, noise_param, hidden = self.controls(
             units, f0_frames, phase_frames, volume, spk_id=spk_id,
             spk_mix_dict=spk_mix_dict)
-        # JAX's bank multiplies f32 sines by the (bf16) amplitudes in f32;
-        # K4 takes the amplitudes widened to f32 (ddsp.py:31-45)
-        sinusoids = harmonic_bank(x.contiguous(), amplitudes.float().contiguous(),
+        # JAX's bank upsamples bf16 amplitudes in bf16 and multiplies the
+        # f32 sines by them widened (ddsp.py:31-45, interp.py:37-38): K4's
+        # bf16-amplitude mode on bf16 amplitudes, its f32 mode otherwise
+        sinusoids = harmonic_bank(x.contiguous(), amplitudes.contiguous(),
                                   self.block_size)
         harmonic = frequency_filter(
             sinusoids, _unit_phasor(_group_phase(group_delay)),

@@ -1,7 +1,9 @@
 """Building blocks on feature-last (B, T, C) tensors (mirrors
 ddsp_svc_tpu/models/nn.py: Conv1d, Conv2d, ConvTranspose1d, Dense,
-LayerNorm, GroupNorm and ``_spectral_normalize``). glu and leaky_relu are
-torch's ``F.glu`` and ``F.leaky_relu``, which act on the last axis.
+LayerNorm, GroupNorm and ``_spectral_normalize``; ConvTranspose2d and the
+f0 nets' eval-mode BatchNorm, which act on channels-first tensors as the
+f0 nets run). glu and leaky_relu are torch's ``F.glu`` and
+``F.leaky_relu``, which act on the last axis.
 
 Parameters are in the torch layout (Conv1d (out, in / groups, k), Conv2d
 (out, in, kh, kw), ConvTranspose1d (in, out, k), Linear (out, in)); the
@@ -180,6 +182,35 @@ class ConvTranspose1d(_Weighted):
         y = F.conv_transpose1d(x.transpose(1, 2).to(dtype), weight.to(dtype),
                                None, self.stride, self.padding)
         return y.transpose(1, 2) + self.bias.to(dtype)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """torch.nn.ConvTranspose2d on channels-first (B, C, H, W) (the JAX
+    ``ConvTranspose2d``, nn.py:259-300, on (B, H, W, C)): out = (in - 1) *
+    stride - 2 * pad + k + output_padding per spatial axis. The weight (in,
+    out, kh, kw) is the JAX kernel (kh, kw, in, out) permuted (2, 3, 0, 1),
+    unflipped, as ``ConvTranspose1d``'s."""
+
+
+class BatchNorm(nn.Module):
+    """An eval-mode BatchNorm over axis 1 of a channels-first tensor (flax
+    ``BatchNorm(use_running_average=True)``): (x - mean) * rsqrt(var + eps)
+    * weight + bias, with the running ``mean`` and ``var`` the JAX
+    ``batch_stats`` and ``weight`` / ``bias`` its ``scale`` / ``bias``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(self.var + self.eps) * self.weight
+        return (x - self.mean.reshape(shape)) * scale.reshape(shape) \
+            + self.bias.reshape(shape)
 
 
 def _rsqrt(v: torch.Tensor) -> torch.Tensor:

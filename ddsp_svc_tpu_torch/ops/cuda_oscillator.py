@@ -9,6 +9,12 @@ kernel follows each sample's harmonics by a three-term recurrence,
 restarted every 16 harmonics from an exact sincos of this plain version's
 rounded argument (tests/test_torch_osc_precision.py emulates its order).
 
+bf16 amplitudes take the kernel's bf16-amplitude mode, JAX's bf16 Sins:
+the amplitudes upsampled in bf16 (``w = bf16(bf16(j) / bf16(block))``, the
+block rounded too as JAX types the Python int weakly, ``1 - w``, both
+products and their sum each rounded to bf16), then widened and multiplied
+by the f32 sines; the plain version rounds the same way.
+
 With grad on, ``HarmonicBankFunction`` gives the kernel a backward of its
 own: autograd through ``harmonic_bank_plain`` recomputed from the saved
 phase and amplitudes. It is the port's: the JAX Sins model differentiates
@@ -26,14 +32,29 @@ from .source import exact_div
 CHUNK = 32  # harmonics per step of the plain version (bounds its temporaries)
 
 
+def bf16_upsample_weights(block_size: int, device=None):
+    """(w, 1 - w) of JAX's bf16 upsample, (1, 1, block, 1) bf16: w =
+    bf16(bf16(j) / bf16(block)), each op in f32 rounded to bf16."""
+    j = torch.arange(block_size, dtype=torch.float32, device=device)
+    factor = torch.tensor(float(block_size)).to(torch.bfloat16).item()
+    w = (j.to(torch.bfloat16).float() / factor).to(torch.bfloat16)
+    return w.reshape(1, 1, block_size, 1), (1.0 - w).reshape(1, 1, block_size, 1)
+
+
 def harmonic_bank_plain(x: torch.Tensor, amplitudes_frames: torch.Tensor,
                         block_size: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch: x (B, L, 1) cycles,
-    amplitudes (B, T, n_harm) with L = T * block -> (B, L)."""
+    amplitudes (B, T, n_harm) with L = T * block -> (B, L). bf16
+    amplitudes are upsampled in bf16 (the bf16-amplitude mode)."""
     b, t, n_harm = amplitudes_frames.shape
     xr = x.reshape(b, t, block_size, 1)
-    w = exact_div(torch.arange(block_size, dtype=x.dtype, device=x.device),
-                  block_size).reshape(1, 1, block_size, 1)
+    bf16 = amplitudes_frames.dtype == torch.bfloat16
+    if bf16:
+        w, omw = bf16_upsample_weights(block_size, x.device)
+    else:
+        w = exact_div(torch.arange(block_size, dtype=x.dtype, device=x.device),
+                      block_size).reshape(1, 1, block_size, 1)
+        omw = 1.0 - w
     nxt = torch.cat([amplitudes_frames[:, 1:], amplitudes_frames[:, -1:]], dim=1)
     # 2 pi (k + 1), each rounded once from float64, as the kernel's
     mult = (2.0 * math.pi * torch.arange(1, n_harm + 1, dtype=torch.float64)
@@ -41,9 +62,9 @@ def harmonic_bank_plain(x: torch.Tensor, amplitudes_frames: torch.Tensor,
     out = x.new_zeros(b, t, block_size)
     for start in range(0, n_harm, CHUNK):
         end = min(start + CHUNK, n_harm)
-        amp = (amplitudes_frames[:, :, None, start:end] * (1.0 - w)
+        amp = (amplitudes_frames[:, :, None, start:end] * omw
                + nxt[:, :, None, start:end] * w)
-        out = out + torch.sum(torch.sin(mult[start:end] * xr) * amp, dim=-1)
+        out = out + torch.sum(torch.sin(mult[start:end] * xr) * amp.float(), dim=-1)
     return out.reshape(b, t * block_size)
 
 
@@ -67,8 +88,8 @@ class HarmonicBankFunction(torch.autograd.Function):
 
 def harmonic_bank(x: torch.Tensor, amplitudes_frames: torch.Tensor,
                   block_size: int) -> torch.Tensor:
-    """x (B, L, 1) wrapped phase in cycles, amplitudes (B, T, n_harm) ->
-    (B, L), L = T * block.
+    """x (B, L, 1) wrapped phase in cycles, amplitudes (B, T, n_harm) f32
+    or bf16 (the bf16-amplitude mode) -> (B, L) f32, L = T * block.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts the launch in ``harmonic_bank.launches``), through
@@ -82,7 +103,9 @@ def harmonic_bank(x: torch.Tensor, amplitudes_frames: torch.Tensor,
 
 def _launch(x, amplitudes_frames, block_size):
     kernels.check_cuda_input(x, "harmonic_bank x", 3)
-    kernels.check_cuda_input(amplitudes_frames, "harmonic_bank amplitudes", 3)
+    bf16 = amplitudes_frames.dtype == torch.bfloat16
+    kernels.check_cuda_input(amplitudes_frames, "harmonic_bank amplitudes", 3,
+                             torch.bfloat16 if bf16 else torch.float32)
     b, t, n_harm = amplitudes_frames.shape
     if x.shape != (b, t * block_size, 1):
         raise ValueError(f"harmonic_bank: x must be ({b}, {t * block_size}, 1), "
@@ -90,9 +113,10 @@ def _launch(x, amplitudes_frames, block_size):
     if x.device != amplitudes_frames.device:
         raise ValueError("harmonic_bank: x and amplitudes on different devices")
     out = torch.empty(b, t * block_size, device=x.device, dtype=torch.float32)
-    err = kernels.library().ddsp_harmonic_bank(
-        x.data_ptr(), amplitudes_frames.data_ptr(), out.data_ptr(), b, t,
-        block_size, n_harm, kernels.stream_handle(x.device))
+    lib = kernels.library()
+    entry = lib.ddsp_harmonic_bank_bf16amp if bf16 else lib.ddsp_harmonic_bank
+    err = entry(x.data_ptr(), amplitudes_frames.data_ptr(), out.data_ptr(), b, t,
+                block_size, n_harm, kernels.stream_handle(x.device))
     kernels.check(err, "harmonic_bank")
     kernels.count_launch(harmonic_bank)
     return out

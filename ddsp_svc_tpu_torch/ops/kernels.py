@@ -59,6 +59,7 @@ _SIGNATURES = {
     "ddsp_conformer_layer_bf16_io": (_P, _P, _I) + (_P,) * 12 + (_I,) * 6 + (_P,),
     # (x, amps, out, batch, n_frames, block, n_harm, stream)
     "ddsp_harmonic_bank": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ddsp_harmonic_bank_bf16amp": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,6 +1,6 @@
 """Log-mel front-end of the NSF-HiFiGAN vocoder (mirrors
-ddsp_svc_tpu/ops/mel.py: ``mel_filterbank``, ``LogMelSpectrogram`` with its
-keyshift and speed)."""
+ddsp_svc_tpu/ops/mel.py: ``mel_filterbank`` on the Slaney or the HTK scale,
+``LogMelSpectrogram`` with its keyshift and speed)."""
 from __future__ import annotations
 
 import numpy as np
@@ -33,13 +33,23 @@ def _mel_to_hz_slaney(m):
                     min_log_hz * np.exp(logstep * (m - min_log_mel)), f_sp * m)
 
 
+def _hz_to_mel_htk(f):
+    return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def _mel_to_hz_htk(m):
+    return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+
 def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float,
-                   dtype=np.float32) -> np.ndarray:
-    """Slaney-normalised triangular mel filterbank (librosa htk=False,
-    norm='slaney'): (n_mels, n_fft // 2 + 1)."""
+                   htk: bool = False, dtype=np.float32) -> np.ndarray:
+    """Slaney-normalised triangular mel filterbank (librosa norm='slaney')
+    on the Slaney mel scale, or with ``htk`` on the HTK scale (librosa
+    htk=True, RMVPE's front end): (n_mels, n_fft // 2 + 1)."""
+    to_mel = _hz_to_mel_htk if htk else _hz_to_mel_slaney
+    to_hz = _mel_to_hz_htk if htk else _mel_to_hz_slaney
     fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
-    mel_f = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(fmin),
-                                          _hz_to_mel_slaney(fmax), n_mels + 2))
+    mel_f = to_hz(np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2))
     fdiff = np.diff(mel_f)
     ramps = mel_f[:, None] - fftfreqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1, None]

@@ -13,6 +13,8 @@ multiple of it; a planted halo fault (rows outside [0, L) not zeroed after
 a conv) must fail that check wherever a run fuses convs. The packing test
 pins the layout the kernel's weight ring copies: one tap's C x C tile as
 2 C^2 contiguous bytes."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -63,10 +65,17 @@ CASES = [(16, 40), (16, 1096), (32, 8), (32, 600), (64, 100), (64, 302),
          (128, 61), (128, 301)]
 
 
+@functools.lru_cache(maxsize=None)
+def _tiled_case(c, length):
+    """(the case, the tiled output) of (C, L), computed once for the tests
+    against the plain version and against the Pallas kernel."""
+    case = _case(c, length, 700 + c + length)
+    return case, resblock_group_bf16_tiled(case[1], case[3], KS, DS)
+
+
 @pytest.mark.parametrize("c,length", CASES)
 def test_tiled_matches_plain(c, length):
-    _, xt, _, torch_w = _case(c, length, 700 + c + length)
-    got = resblock_group_bf16_tiled(xt, torch_w, KS, DS)
+    (_, xt, _, torch_w), got = _tiled_case(c, length)
     assert got.dtype == BF16 and got.shape == xt.shape
     agree = bf16_agreement(got, resblock_group_bf16_plain(xt, torch_w, KS, DS))
     assert agree["ok"], agree
@@ -76,8 +85,7 @@ def test_tiled_matches_plain(c, length):
 # compile takes ~10 s on the CPU)
 @pytest.mark.parametrize("c,length", [(16, 40), (32, 600), (64, 100), (128, 301)])
 def test_tiled_matches_jax_kernel(c, length):
-    xb, xt, jax_w, torch_w = _case(c, length, 700 + c + length)
-    got = resblock_group_bf16_tiled(xt, torch_w, KS, DS)
+    (xb, _, jax_w, _), got = _tiled_case(c, length)
     want = jax.jit(lambda x_, w_: fused_resblock_group(
         x_, w_, KS, DS, interpret=True))(xb, jax_w)
     agree = bf16_agreement(got, torch.from_numpy(np.array(want.astype(jnp.float32))))

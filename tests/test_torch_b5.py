@@ -94,8 +94,11 @@ def _exact(x, cond, sv, w, fault=None):
     h = x.double() + r(sv)[:, None, :] + hp + bc
     a, gate = (r(h) @ r(w1).t() + b1).chunk(2, dim=-1)
     u = a * torch.sigmoid(gate)
-    v = F.conv1d(u.transpose(1, 2), wd[:, None, :], padding=wd.shape[-1] // 2,
-                 groups=u.shape[-1]).transpose(1, 2) + bd
+    # the depthwise conv as a float64 sum over each padded window (torch's
+    # float64 grouped conv1d is the slow reference path on the CPU)
+    k = wd.shape[-1]
+    windows = F.pad(u, (0, 0, k // 2, k // 2)).unfold(1, k, 1)  # (B, T, I, k)
+    v = (windows * wd).sum(-1) + bd
     y = r(v * torch.sigmoid(v)) @ r(w2).t() + b2
     if fault == "twice":
         y = r(y)

@@ -35,6 +35,7 @@ from ddsp_svc_tpu_torch.models.registry import build_model
 from ddsp_svc_tpu_torch.models.vocoder import Vocoder
 from ddsp_svc_tpu_torch.ops import codec as pcodec
 from ddsp_svc_tpu_torch.utils.config import DotDict
+import torch_helpers  # noqa: F401,E402  (torch's threads under xdist)
 
 SR, HOP, N_UNIT = 16000, 64, 16
 

@@ -32,6 +32,8 @@ Every whole-chain test also holds the port's bf16 output below
 setting the code dropped (an f32 run reads its own f32 output, an infinite
 SNR) fails.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -147,17 +149,16 @@ def _bf16_chain(x, rb_weights, sums="exact", fault=None):
                 ci += 1
                 t = r(torch.nn.functional.leaky_relu(t, 0.1))
                 pad = (k - 1) * dd // 2
-                if sums == "exact":
-                    t = torch.nn.functional.conv1d(
-                        t.double(), r(w).double(), b.double(), padding=pad,
-                        dilation=dd).float()
-                else:
-                    tp = torch.nn.functional.pad(t, (pad, pad))
-                    n = t.shape[-1]
-                    t = b[None, :, None] + sum(
-                        torch.einsum("oc,bcl->bol", r(w)[:, :, tau],
-                                     tp[:, :, tau * dd:tau * dd + n])
-                        for tau in range(k))
+                # one tap at a time: in float64 for the exact sums (as
+                # products of bf16 values, each exact in float64), in f32
+                # for the "taps" order
+                dt = torch.float64 if sums == "exact" else torch.float32
+                tp = torch.nn.functional.pad(t, (pad, pad)).to(dt)
+                n = t.shape[-1]
+                t = (b.to(dt)[None, :, None] + sum(
+                    torch.einsum("oc,bcl->bol", r(w)[:, :, tau].to(dt),
+                                 tp[:, :, tau * dd:tau * dd + n])
+                    for tau in range(k))).float()
                 if fault == "t":
                     t = r(t)
             z = t + z
@@ -169,6 +170,17 @@ def _bf16_chain(x, rb_weights, sums="exact", fault=None):
     return (total / len(rb_weights)).transpose(1, 2).to(BF16)
 
 
+@functools.lru_cache(maxsize=None)
+def _exact_case(c):
+    """(x, weights, the exact-sum output) of width ``c``, computed once for
+    the five variants."""
+    rng = np.random.default_rng(300 + c)
+    x = torch.from_numpy(rng.standard_normal((2, 8 * 70, c)).astype(
+        np.float32)).to(BF16)
+    _, torch_w = _rb_weights(rng, c)
+    return x, torch_w, _bf16_chain(x, torch_w)
+
+
 @pytest.mark.parametrize("variant", ["plain", "taps", "fault_z",
                                      "fault_total", "fault_t"])
 @pytest.mark.parametrize("c", [16, 32, 64, 128])
@@ -178,11 +190,7 @@ def test_bf16_agreement_sum_orders_and_faults(c, variant):
     order pass it (measured: 0.14-2.5 % of the elements differ); an extra
     bf16 rounding of the chains' residual sums, of the running sum over
     chains or of every conv output fails it (17-34 % differ)."""
-    rng = np.random.default_rng(300 + c)
-    x = torch.from_numpy(rng.standard_normal((2, 8 * 70, c)).astype(
-        np.float32)).to(BF16)
-    _, torch_w = _rb_weights(rng, c)
-    exact = _bf16_chain(x, torch_w)
+    x, torch_w, exact = _exact_case(c)
     if variant == "plain":
         got = resblock_group_bf16_plain(x, torch_w, KS, DS)
     elif variant == "taps":

@@ -518,6 +518,38 @@ def test_harmonic_bank_kernel(cuda, b, t, n_harm):
         harmonic_bank(x[:, :-1].contiguous(), amps, 512)
 
 
+@pytest.mark.parametrize("b,t,n_harm,block", [(1, 862, 128, 512), (2, 1, 17, 512),
+                                             (2, 5, 24, 441), (3, 2, 1, 160)])
+def test_harmonic_bank_bf16_amplitude_mode(cuda, b, t, n_harm, block):
+    """K4's bf16-amplitude mode (bf16 amplitudes upsampled in bf16, as JAX's
+    bf16 Sins) against its plain version, on the card and on the CPU, at
+    edge lengths (one frame, one harmonic, a segment of 17 = 16 + 1, a
+    block that bf16 rounds, 441 -> 440): 3e-5 absolute at the f32 mode's
+    amplitudes (U(0, 0.02), max|out| up to ~2), one launch; with 16 or more
+    harmonics the f32 mode on the same widened amplitudes differs by more
+    (the bf16 lerp is real)."""
+    from ddsp_svc_tpu_torch.ops.cuda_oscillator import (harmonic_bank,
+                                                        harmonic_bank_plain)
+    from ddsp_svc_tpu_torch.ops.source import cumsum_phase_source
+
+    gen = torch.Generator().manual_seed(t + n_harm)
+    f0 = 220.0 * torch.exp(0.2 * torch.randn((b, t, 1), generator=gen))
+    x = cumsum_phase_source(torch.repeat_interleave(f0, block, dim=1), 44100,
+                            block)
+    amps = (torch.rand((b, t, n_harm), generator=gen) * 0.02).to(torch.bfloat16)
+    n0 = harmonic_bank.launches
+    got = harmonic_bank(x.to(cuda), amps.to(cuda), block)
+    want = harmonic_bank_plain(x.to(cuda), amps.to(cuda), block)
+    torch.cuda.synchronize()
+    assert harmonic_bank.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (b, t * block)
+    assert float((got - want).abs().max()) <= 3e-5
+    assert float((got.cpu() - harmonic_bank_plain(x, amps, block)).abs().max()) <= 3e-5
+    if t > 1 and n_harm >= 16:
+        f32 = harmonic_bank(x.to(cuda), amps.float().to(cuda), block)
+        assert float((f32 - got).abs().max()) > 3e-5
+
+
 def _leaves(gen, device, *shapes_scales):
     return [((torch.rand(s, generator=gen) * 2 - 1) * sc).to(device).requires_grad_()
             for s, sc in shapes_scales]

@@ -65,6 +65,28 @@ def test_harmonic_bank_plain_matches_pallas_and_model(b, t, block, n_harm):
     np.testing.assert_allclose(port_ref, ref, atol=3e-5, rtol=0)
 
 
+@pytest.mark.parametrize("b,t,block,n_harm", [(2, 13, 64, 40), (1, 5, 441, 24)])
+def test_harmonic_bank_bf16_amplitude_mode_matches_jax(b, t, block, n_harm):
+    """bf16 amplitudes: K4's plain version takes the bf16-amplitude mode and
+    equals the JAX Sins bank on the same bf16 amplitudes (their upsample in
+    bf16) to the 3e-5 of the f32 mode; the f32 mode on the widened
+    amplitudes does not (block 441 also checks that the block is rounded to
+    bf16 as JAX's weak typing rounds it)."""
+    x, amps = _bank_inputs(b, t, block, n_harm, 16000, seed=t)
+    amps = amps * 4.0
+    ref = np.asarray(j_sins_bank(2.0 * np.pi * jnp.asarray(x),
+                                 jnp.asarray(amps).astype(jnp.bfloat16), block))
+    bf = tt(amps).to(torch.bfloat16)
+    got = harmonic_bank_plain(tt(x), bf, block)
+    assert got.dtype == torch.float32 and got.shape == (b, t * block)
+    np.testing.assert_allclose(got.numpy(), ref, atol=3e-5, rtol=0)
+    widened = harmonic_bank_plain(tt(x), bf.float(), block).numpy()
+    assert np.abs(widened - ref).max() > 3e-5
+    harmonic_bank.launches = 0
+    assert torch.equal(harmonic_bank(tt(x), bf, block), got)
+    assert harmonic_bank.launches == 0
+
+
 def test_harmonic_bank_rows_do_not_bleed():
     """Row 1's last frame interpolates towards itself, not towards row 2's
     first frame: computing each row alone gives the same samples."""

@@ -15,6 +15,7 @@ from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
 from ddsp_svc_tpu_torch.models.registry import load_model, load_vocoder
 from ddsp_svc_tpu_torch.models.vocoder import Enhancer, Vocoder
 from ddsp_svc_tpu_torch.utils.device import resolve_device
+import torch_helpers  # noqa: F401,E402  (torch's threads under xdist)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddsp_svc_tpu", "yaml", "msgpack",
@@ -185,3 +186,43 @@ def test_b5_never_falls_back_to_its_plain_version(monkeypatch):
                 torch.empty(1, 16, device="meta"), ws,
                 packed=tuple(torch.empty(s, dtype=torch.bfloat16, device="meta")
                              for s in ((16, 8), (64, 16), (16, 32))))
+
+
+def test_f0_nets_default_to_cuda(monkeypatch):
+    """The f0 nets, their extractor and the config's builder default to the
+    card and raise without one, before the net is built; the host trackers
+    need no card."""
+    import numpy as np
+
+    from ddsp_svc_tpu_torch.cli.common import build_f0_extractor
+    from ddsp_svc_tpu_torch.features import crepe, fcpe, rmvpe
+    from ddsp_svc_tpu_torch.features.f0 import F0Extractor
+
+    for entry in (F0Extractor, build_f0_extractor, rmvpe.RMVPE,
+                  crepe.CrepeInfer, fcpe.FCPEInfer):
+        assert inspect.signature(entry).parameters["device"].default is None, entry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kind in ("rmvpe", "crepe", "fcpe"):  # refused before the tree is read
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            F0Extractor(kind, 16000, 160, model_params={"params": {}})
+    for kind in ("dio", "harvest", "praat", "yin"):
+        f0 = F0Extractor(kind, 16000, 160).extract(np.zeros(1600, np.float32))
+        assert f0.shape == (11,)
+
+
+def test_k4_bf16_mode_never_falls_back_to_its_plain_version(monkeypatch):
+    """K4's wrapper takes its plain version for a CPU tensor only, in both
+    modes: bf16 or f32 amplitudes on any other device go to the launch,
+    whose checks refuse what is not a CUDA tensor (a meta tensor here,
+    grad on and off)."""
+    from ddsp_svc_tpu_torch.ops import cuda_oscillator
+
+    def plain(*_):
+        raise AssertionError("K4's plain version was called")
+    monkeypatch.setattr(cuda_oscillator, "harmonic_bank_plain", plain)
+    for dtype in (torch.bfloat16, torch.float32):
+        for grad in (False, True):
+            amps = torch.empty(1, 4, 8, dtype=dtype, device="meta").requires_grad_(grad)
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                cuda_oscillator.harmonic_bank(
+                    torch.empty(1, 4 * 16, 1, device="meta"), amps, 16)

@@ -27,6 +27,7 @@ from ddsp_svc_tpu_torch.ops.source import (PHASE_Q_BITS,
                                            carry_from_increments_q,
                                            cumsum_phase_source,
                                            frame_phase_increments_q)
+import torch_helpers  # noqa: F401,E402  (torch's threads under xdist)
 
 CSRC = Path(__file__).resolve().parent.parent / "ddsp_svc_tpu_torch" / "csrc"
 SR, BLOCK = 44100, 512

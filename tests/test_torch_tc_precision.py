@@ -16,6 +16,7 @@ from ddsp_svc_tpu_torch.ops.cuda_resblock import (PackedResblocks,
                                                   resblock_group_plain,
                                                   tf32_split,
                                                   unpack_conv_weight)
+import torch_helpers  # noqa: F401,E402  (torch's threads under xdist)
 
 KS = (3, 7, 11)
 DS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))

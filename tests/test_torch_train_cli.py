@@ -83,20 +83,23 @@ def _jax_losses(args, params, n):
     state = jax_train_state(model, params, lr=LR, weight_decay=0.01,
                             decay_step=4, gamma=0.5)
     mel = jax_mel_fn()
+
+    def loss_fn(p, batch, key, ddsp_noise):
+        ddsp_loss, diff_loss = model.apply(
+            {"params": p}, batch["units"], batch["f0"], batch["volume"],
+            aug_shift=batch["aug_shift"], mel_extract_fn=mel,
+            gt_spec=batch["mel"], infer=False, key=key, k_step=100,
+            deterministic=True, ddsp_noise=ddsp_noise)
+        return ddsp_loss + diff_loss
+
+    # one compile for every step (the step's batch, key and draws as
+    # arguments; each batch has the same shapes)
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn))
     out = []
     for step in range(n):
         batch = {k: jnp.asarray(v) for k, v in sampler.sample().items()}
         key, d = _draws(step, 2, batch["units"].shape[1])
-
-        def loss_fn(p):
-            ddsp_loss, diff_loss = model.apply(
-                {"params": p}, batch["units"], batch["f0"], batch["volume"],
-                aug_shift=batch["aug_shift"], mel_extract_fn=mel,
-                gt_spec=batch["mel"], infer=False, key=key, k_step=100,
-                deterministic=True, ddsp_noise=jnp.asarray(d["ddsp_noise"]))
-            return ddsp_loss + diff_loss
-
-        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(state.params)
+        loss, grads = grad_fn(state.params, batch, key, jnp.asarray(d["ddsp_noise"]))
         state = state.apply_gradients(grads)
         out.append(float(loss))
     return out
@@ -112,7 +115,7 @@ def test_preprocess_train_resume(tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "data" / "train" / "pitch_aug_dict.npy")
 
     jmodel = jax_build_model(args)
-    params = jax_variables(args, jmodel, seed=9)["params"]
+    params = jax_variables(args, jmodel, seed=9, shapes_only=True)["params"]
     jax_save(str(tmp_path / "exp"), 0, params)  # model_0: the warm start
     want = _jax_losses(args, params, STEPS)
 
@@ -165,6 +168,16 @@ def test_refusals(tmp_path, monkeypatch, capsys):
     _, cfg = _config(tmp_path)
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
     with pytest.raises(SystemExit, match=r"ROADMAP A, item 8"):
+        ptrain.main(["-c", cfg, "--device", "cpu"])
+
+
+def test_use_remat_refused(tmp_path):
+    """``model.use_remat: true`` is refused, naming ROADMAP A item 14,
+    before any model is built."""
+    args, cfg = _config(tmp_path)
+    args["model"]["use_remat"] = True
+    save_config(cfg, args)
+    with pytest.raises(SystemExit, match=r"ROADMAP A, item 14"):
         ptrain.main(["-c", cfg, "--device", "cpu"])
 
 

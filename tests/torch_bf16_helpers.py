@@ -8,10 +8,10 @@ do). DiffusionFast and RectifiedFlow build their JAX cascade with
 runs here in interpret mode, and its backward is the chain JAX's custom VJP
 differentiates with the cotangent rounded to bf16 (the package's own VJP
 refuses that bf16 cotangent of an f32 output; ``ops/cuda_conformer``).
-Sins' JAX bank multiplies by amplitudes upsampled in bf16; the port's K4
-upsamples the same bf16 frame amplitudes in f32, so Sins is held against
-the JAX model with its bank patched to widen the amplitudes first, and its
-distance to the unpatched bank is reported.
+Sins' JAX bank multiplies by amplitudes upsampled in bf16, as K4's
+bf16-amplitude mode does, so Sins is held against the JAX model as it is;
+the distance to a JAX bank patched to widen the amplitudes first (the
+port's earlier f32 upsample, ``k4_class_bank``) is reported beside it.
 
 The gate, per family, on the step:
   (i) every JAX module output that has a port counterpart has the same
@@ -106,8 +106,8 @@ def fused_conformer_layer(x, cond, step_vec, weights, **_):
 
 
 def k4_class_bank(phase, amplitudes, *args, **kwargs):
-    """JAX's Sins bank on amplitudes widened to f32 before the upsample,
-    as K4 takes them."""
+    """JAX's Sins bank on amplitudes widened to f32 before the upsample
+    (K4's f32 mode on widened bf16 amplitudes)."""
     return _JAX_BANK(phase, amplitudes.astype(jnp.float32), *args, **kwargs)
 
 

@@ -4,11 +4,38 @@ imported as ``torch_helpers``, like ``helpers``).
 Inputs, noise and parameters are made with numpy from a seed and handed
 to both sides; the JAX side runs jitted on the CPU (eager and jitted JAX
 differ by ~1e-4 in places).
+
+Under pytest-xdist each worker gets its share of the machine's cores for
+torch's intra-op threads (by default one per core, which spin between
+ops): six workers with eight threads each on eight cores spend most of
+their time waiting on one another. Every ``test_torch_*.py`` file imports
+this module, so the cap holds in every worker that runs one.
 """
+import contextlib
+import os
+
 import numpy as np
 import torch
 
 import jax
+
+_DEFAULT_THREADS = torch.get_num_threads()
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
+
+
+@contextlib.contextmanager
+def default_threads():
+    """torch's own intra-op thread count for the block: a parallel
+    reduction's order follows the thread count, and a tolerance derived
+    with the default holds its sums in that order."""
+    capped = torch.get_num_threads()
+    torch.set_num_threads(_DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(capped)
 
 
 def randomize_tree(tree, seed: int):
