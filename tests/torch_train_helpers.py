@@ -91,7 +91,12 @@ def jax_variables(args, jmodel, seed: int = 1, shapes_only: bool = False) -> dic
         return jmodel.init({"params": jax.random.PRNGKey(0),
                             "noise": jax.random.PRNGKey(1)},
                            x["units"], x["f0"], x["volume"], **kwargs)
-    variables = jax.eval_shape(init) if shapes_only else init()
+    variables = jax.eval_shape(init)
+    if not shapes_only and "buffers" in variables:
+        # flax's own projection draws: the model's init runs (eagerly);
+        # without buffers every leaf is re-drawn from numpy below, so the
+        # shapes alone give the same variables
+        variables = init()
     out = {"params": randomize_tree(variables["params"], seed)}
     if "buffers" in variables:
         from ddsp_svc_tpu.models.pcmer import gaussian_orthogonal_random_matrix
