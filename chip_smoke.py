@@ -4,8 +4,9 @@ every model family (DiffusionFast, RectifiedFlow, Diffusion, DiffusionNew
 and the DDSP family with Sins and its NSF-HiFiGAN enhancer), from features,
 from a recording, through the offline CLI and through the realtime engine,
 the kernels' gradients, the bf16 vocoder, batched serving through the HTTP
-server, training from preprocess to checkpoint and resume, and the f0
-front end (RMVPE, CREPE, FCPE, the host trackers).
+server, training from preprocess to checkpoint and resume, the f0
+front end (RMVPE, CREPE, FCPE, the host trackers), and time-sharded
+streaming over ranks that share the card.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -166,7 +167,17 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      raised at 220 Hz so the decoded f0 is decisive: exactly K1 1, K3 60,
      K2 5 a request, the RMVPE share of the warm wall, card against CPU
      >= 40 dB on 2 s; (c) cli.infer.main -pe rmvpe and -pe fcpe on a 10 s
-     wav; (d) the walls of the host DIO, Harvest and praat on 10 s.
+     wav; (d) the walls of the host DIO, Harvest and praat on 10 s;
+ 22. time-sharded streaming (parallel/ over torch.distributed, gloo, the
+     ranks sharing cuda:0): (a) configs/combsub.yaml CombSubSuperFast at
+     worlds 2 and 4, configs/sins.yaml Sins, the diffusion-fast cascade mel
+     (DPM-Solver++ at speedup 10) and the default NSF-HiFiGAN on 10 s,
+     each streamed against the port's whole reference on the card within
+     STREAM_LIMITS, exact launches on every rank gathered to rank 0 (K1 1,
+     K4 1, K1 1 with K3 0, K2 5), and card against CPU ranks at 3 s (>= 40
+     dB); (b) cli.infer.main --stream 2 on a 12 s wav for combsub and sins
+     against the same CLI without --stream outside the last FRAME_HALO
+     frames of each segment; (c) streamed and whole walls, five warm runs.
 Phase 3 also holds K4's bf16-amplitude mode (the bf16 Sins: amplitudes
 upsampled in bf16) to its plain version within 3e-5, timed as K4.
 Phase 3 also holds B5 (K3's bf16 class on bf16 activations) to its plain
@@ -3617,6 +3628,288 @@ def phase_f0_front_end(torch, card: str, diffusion_cpu) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 22
+
+# phase 22: time-sharded streaming (parallel/). The limits, stated before
+# the first chip run: the streamed output against the port's whole
+# reference on the card, relative to the peak (the CPU contract is 2e-5;
+# the cascade's whole reference runs K3, its streamed denoiser JAX's stock
+# chain); card against CPU; the CLI with --stream against itself without,
+# outside the last FRAME_HALO frames of each segment. The CLI pads a
+# segment to a multiple of the ranks, as the JAX CLI does, and the padded
+# frame enters the segment-wide statistics (GroupNorm, FAVOR+'s sums), so
+# the two differ a little everywhere: the card-vs-CPU bar, not equality.
+STREAM_LIMITS = {"combsub": 1e-4, "sins": 1e-4, "cascade mel": 1e-3,
+                 "vocoder": 1e-4}
+STREAM_CLI_SNR_DB = 40.0
+STREAM_EXPECT = {  # launches on every rank of one streamed call
+    "combsub": {"combtooth": 1}, "sins": {"harmonic_bank": 1},
+    "cascade mel": {"combtooth": 1}, "vocoder": {"resblock_group": 5}}
+STREAM_CPU_FRAMES = 260  # 3 s: card against CPU
+
+
+def _silence_noise_filter(model) -> None:
+    """The noise filter's magnitude bias at -30 (exp(-30): off), so runs
+    with different noise draws agree (tests/test_torch_cli.py's device)."""
+    import torch
+
+    u = model.unit2ctrl
+    start = 0
+    for name, size in u.output_splits.items():
+        if name == "noise_magnitude":
+            with torch.no_grad():
+                u.dense_out.bias[start:start + size] = -30.0
+        start += size
+
+
+class _X(str):
+    """A keyword argument taken from the inputs by this name."""
+
+
+def _stream_parts(torch):
+    """The four streamed paths at 10 s (T = 862): (the inputs and draws by
+    name, {path: (model on the CPU with random weights from the seed, the
+    names of its positional inputs, its keyword arguments; ``_X`` names an
+    input)})."""
+    from ddsp_svc_tpu_torch.parallel import stream
+
+    rng = np.random.default_rng(SEED + 22)
+    t = frames_for(10)
+    x = dict(units=rng.standard_normal((1, t, N_UNIT)),
+             f0=f0_contour(t), volume=rng.uniform(0.1, 0.5, (1, t, 1)),
+             normal=rng.standard_normal((1, t * BLOCK)),
+             uniform=rng.uniform(-1, 1, (1, t * BLOCK)),
+             init=rng.standard_normal((1, t, 128)),
+             mel=rng.normal(-5.0, 2.0, (1, t, 128)), f0_voc=f0_contour(t)[..., 0],
+             voc_noise=rng.standard_normal(
+                 (1, (t + 2 * stream.VOCODER_HALO) * BLOCK, 9)),
+             rand_ini=np.concatenate([[0.0], rng.random(8)])[None, None])
+    x = {k: v.astype(np.float32) for k, v in x.items()}
+    _, combsub, _ = random_parts(torch, {"type": "CombSubSuperFast",
+                                         "win_length": WIN})
+    _, sins, _ = random_parts(torch, dict(SINS, type="Sins"))
+    _, cascade, vocoder = build_parts(torch)
+    controls = ("units", "f0", "volume")
+    return x, {
+        "combsub": (combsub.eval(), controls, dict(noise=_X("normal"))),
+        "sins": (sins.eval(), controls, dict(noise=_X("uniform"))),
+        "cascade mel": (cascade.eval(), controls, dict(
+            ddsp_noise=_X("normal"), init_noise=_X("init"), mel=vocoder.mel,
+            infer_speedup=10, sampler="dpm-solver", k_step=100)),
+        "vocoder": (vocoder.model.eval(), ("mel", "f0_voc"), dict(
+            noise=_X("voc_noise"), rand_ini=_X("rand_ini")))}
+
+
+def _stream_call(torch, path, model, names, kw, x, frames, device):
+    """(entry point, positional tensors, keyword args) of one path at its
+    first ``frames`` frames on ``device``."""
+    from ddsp_svc_tpu_torch.parallel import stream
+
+    def cut(key):
+        a = x[key]
+        if key == "voc_noise":
+            a = a[:, :(frames + 2 * stream.VOCODER_HALO) * BLOCK]
+        elif key in ("normal", "uniform"):
+            a = a[:, :frames * BLOCK]
+        elif key != "rand_ini":
+            a = a[:, :frames]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    args = [cut(n) for n in names]
+    kwargs = {k: (cut(v) if isinstance(v, _X) else
+                  (v.to(device) if hasattr(v, "to") else v))
+              for k, v in kw.items()}
+    if path == "vocoder":
+        return stream.streamed_nsf_hifigan, [model] + args, kwargs
+    return stream.streamed_forward, [model] + args, kwargs
+
+
+def _stream_whole(torch, path, model, args, kwargs):
+    from ddsp_svc_tpu_torch.parallel import stream
+
+    with torch.no_grad():
+        if path == "vocoder":
+            return stream.nsf_hifigan_padded_forward(*args, **kwargs)
+        if path == "cascade mel":
+            kw = dict(kwargs)
+            mel = kw.pop("mel")
+            return stream.whole_cascade_reference(*args, mel, **kw)
+        return args[0](*args[1:], **kwargs)[0]
+
+
+def _rank_launches(world, what: str, expect: dict, card: str) -> dict:
+    counts = world.launches()
+    want = {n: expect.get(n, 0) for n in counts[0]}
+    for r, c in enumerate(counts):
+        if c != want:
+            fail(f"[stream] {what}: rank {r} launched {c}, expected {want}")
+    log(f"[stream] {what}: launches per rank {want} on all {len(counts)} "
+        f"ranks (gathered to rank 0) [{card}]")
+    return {n: sum(c[n] for c in counts) for n in want}
+
+
+def _world_paths(torch, world, parts, x, card, paths_run, frames, timed,
+                 launches):
+    """Each path of ``paths_run`` through ``world`` at ``frames``: the
+    streamed output against the whole reference on rank 0's device, exact
+    launches per rank, and with ``timed`` five warm walls of each.
+    Returns {path: streamed output (CPU numpy)}."""
+    outs = {}
+    dev = world.device
+    for path in paths_run:
+        model, names, kw = parts[path]
+        model = model.to(dev)
+        fn, args, kwargs = _stream_call(torch, path, model, names, kw, x,
+                                        frames, dev)
+        whole = _stream_whole(torch, path, model, args, kwargs)
+        world.reset_launches()
+        got = world.call(fn, *args, **kwargs)
+        if dev.type == "cuda":
+            launches[f"streamed {path} ({world.size} ranks)"] = _rank_launches(
+                world, f"{path} at {frames} frames over {world.size} ranks",
+                STREAM_EXPECT[path], card)
+        got, whole = (a.detach().float().cpu().numpy() for a in (got, whole))
+        if got.shape != whole.shape or not np.isfinite(got).all():
+            fail(f"[stream] {path}: streamed {got.shape} against whole "
+                 f"{whole.shape}, or non-finite")
+        err = float(np.abs(got - whole).max() / np.abs(whole).max())
+        log(f"[stream] {path} ({frames} frames, {world.size} ranks on {dev}): "
+            f"streamed against the whole reference {err:.3e} relative to the "
+            f"peak (limit {STREAM_LIMITS[path]:.0e}) [{card}]")
+        if err > STREAM_LIMITS[path]:
+            fail(f"[stream] {path}: streamed against whole {err:.3e}")
+        if timed:
+            _, st_runs, st_cold = _timed_runs(
+                torch, lambda: world.call(fn, *args, **kwargs), WARM_RUNS)
+            _, wh_runs, wh_cold = _timed_runs(
+                torch, lambda: _stream_whole(torch, path, model, args, kwargs),
+                WARM_RUNS)
+            log(f"[stream] (c) {path} 10 s, {world.size} ranks sharing one "
+                f"card: streamed {_walls_text(st_runs, st_cold)}; whole "
+                f"{_walls_text(wh_runs, wh_cold)}; streamed / whole "
+                f"{st_runs[len(st_runs) // 2] / wh_runs[len(wh_runs) // 2]:.2f}x "
+                f"[{card}]")
+        outs[path] = got
+        model.to("cpu")
+    return outs
+
+
+def _stream_cli(torch, card: str, root: Path) -> None:
+    """(b) cli.infer.main --stream 2 on a 12 s wav (three segments) for
+    combsub and sins, against the same CLI without --stream, outside the
+    last FRAME_HALO frames of each segment; the enhancer off and the noise
+    filter off (the two runs draw their noise differently)."""
+    from ddsp_svc_tpu_torch.cli import infer as cli_infer
+    from ddsp_svc_tpu_torch.features.audio import load_wav, save_wav
+    from ddsp_svc_tpu_torch.features.slicer import split_audio
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.models.registry import build_model
+    from ddsp_svc_tpu_torch.parallel.stream import FRAME_HALO
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    from ddsp_svc_tpu_torch.utils.config import DotDict, save_config
+
+    wave = voice_wave(12, np.random.default_rng(SEED + 23),
+                      silences=CLI_SILENCES)
+    segments = split_audio(wave, SR)
+    in_wav = root / "in.wav"
+    save_wav(str(in_wav), wave, SR)
+    keep = np.ones(len(wave) // BLOCK * BLOCK + 4 * BLOCK, bool)
+    for start, seg in segments:
+        end = (start // BLOCK + len(seg) // BLOCK + 1) * BLOCK
+        keep[end - FRAME_HALO * BLOCK:end] = False
+    for what, model_cfg in (("combsub", {"type": "CombSubSuperFast",
+                                         "win_length": WIN, "n_spk": 1}),
+                            ("sins", dict(SINS, type="Sins", n_spk=1))):
+        cargs = DotDict({
+            "data": {"sampling_rate": SR, "block_size": BLOCK, "duration": 2,
+                     "encoder": ENCODER, "encoder_ckpt": None,
+                     "encoder_sample_rate": 16000, "encoder_hop_size": 320,
+                     "encoder_out_channels": N_UNIT, "f0_extractor": "yin",
+                     "f0_min": 65, "f0_max": 800},
+            "model": model_cfg, "infer": {}})
+        expdir = root / what
+        model = random_init_(build_model(cargs), torch.Generator().manual_seed(SEED))
+        _silence_noise_filter(model)
+        ckpt = save_checkpoint(str(expdir), 1, model, cargs.model)
+        save_config(str(expdir / "config.yaml"), dict(cargs))
+        audio = {}
+        for mode, extra in (("whole", []), ("stream", ["--stream", "2"])):
+            out = expdir / mode / "out.wav"
+            t0 = time.perf_counter()
+            cli_infer.main(["-m", ckpt, "-i", str(in_wav), "-o", str(out),
+                            "-e", "false"] + extra)
+            wall = time.perf_counter() - t0
+            audio[mode], sr = load_wav(str(out))
+            log(f"[stream] (b) cli.infer.main {' '.join(extra) or '(no --stream)'} "
+                f"{what}: {len(audio[mode])} samples at {sr} Hz, wall {wall:.2f} s "
+                f"(model and encoder load and the helper rank's start included) "
+                f"[{card}]")
+        a, b = audio["whole"], audio["stream"]
+        if a.shape != b.shape or not np.isfinite(b).all():
+            fail(f"[stream] (b) {what}: {b.shape} samples with --stream, "
+                 f"{a.shape} without, or non-finite")
+        mask = keep[:len(a)]
+        snr = snr_db(a[mask], b[mask])
+        tail = snr_db(a[~mask], b[~mask]) if (~mask).any() else float("inf")
+        log(f"[stream] (b) {what}: --stream 2 against no --stream on a 12 s "
+            f"wav ({len(segments)} segments): {snr:.2f} dB outside the last "
+            f"{FRAME_HALO} frames of each segment (limit >= "
+            f"{STREAM_CLI_SNR_DB:.0f} dB), {tail:.2f} dB inside them (may "
+            f"differ by design) [{card}]")
+        if snr < STREAM_CLI_SNR_DB:
+            fail(f"[stream] (b) {what}: {snr:.2f} dB")
+
+
+def phase_streaming(torch, card: str, root: Path) -> dict:
+    """Time-sharded streaming on the card: (a) combsub (worlds 2 and 4),
+    sins, the diffusion-fast cascade mel and the NSF-HiFiGAN at full width
+    on 10 s, each against the port's whole reference, exact launches per
+    rank; card against CPU at 3 s; (b) the CLI's --stream; (c) walls.
+    Returns {path: launch counts summed over the ranks}."""
+    from ddsp_svc_tpu_torch.parallel.mesh import World
+
+    t0 = time.perf_counter()
+    x, parts = _stream_parts(torch)
+    launches = {}
+    order = ("combsub", "sins", "cascade mel", "vocoder")
+    with World(2) as world:  # both ranks on cuda:0
+        _world_paths(torch, world, parts, x, card, order, frames_for(10),
+                     True, launches)
+        card_3s = _world_paths(torch, world, parts, x, card, order,
+                               STREAM_CPU_FRAMES, False, {})
+    # the CPU ranks split the host's cores: oversubscribed, the CPU
+    # library's f32 results vary run to run (a whole combsub forward beside
+    # a busy process differed by 9.7e-5 of its peak on its first call)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        with World(2, device="cpu") as world:
+            cpu_3s = _world_paths(torch, world, parts, x, card, order,
+                                  STREAM_CPU_FRAMES, False, {})
+    finally:
+        torch.set_num_threads(threads)
+    for path in order:
+        snr = snr_db(cpu_3s[path], card_3s[path])
+        log(f"[stream] {path} 3 s streamed over 2 ranks, card (kernels) "
+            f"against CPU (plain): {snr:.2f} dB (limit >= {SNR_LIMIT_DB:.0f} "
+            f"dB) [{card}]")
+        if snr < SNR_LIMIT_DB:
+            fail(f"[stream] {path}: card against CPU {snr:.2f} dB")
+    # world 4: T padded to a multiple of 4 (as the CLI pads a segment)
+    t4 = -(-frames_for(10) // 4) * 4
+    x4 = dict(x, normal=np.pad(x["normal"], ((0, 0), (0, t4 * BLOCK
+                                                     - x["normal"].shape[1]))))
+    for k in ("units", "f0", "volume"):
+        x4[k] = np.pad(x[k], ((0, 0), (0, t4 - x[k].shape[1]), (0, 0)),
+                       mode="edge")
+    with World(4) as world:
+        _world_paths(torch, world, parts, x4, card, ("combsub",), t4, True,
+                     launches)
+    _stream_cli(torch, card, root)
+    log(f"[stream] phase 22 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3686,6 +3979,9 @@ def main() -> None:
         paths.update(phase_vocoder_training(torch, card, root))
     torch.cuda.empty_cache()
     paths.update(phase_f0_front_end(torch, card, diffusion_cpu))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        paths.update(phase_streaming(torch, card, Path(tmp)))
 
     table = []
     for kname in ("combtooth", "resblock_group", "resblock_group_bf16",

@@ -14,8 +14,18 @@ and the zero-fill / linear cross-fade splice. ``main`` reads the checkpoint
 (which needs PyYAML and msgpack) and the wav; ``convert`` is the conversion
 on a pipeline in memory. ``--voc_bf16`` runs the mel cascades' NSF-HiFiGAN
 in bf16, as the JAX CLI does (cli/infer.py:62,134; the DDSP family's
-enhancer stays f32 there). ``--stream`` is refused, naming the ROADMAP item
-that brings it.
+enhancer stays f32 there).
+
+``--stream N`` (the DDSP families; the others ignore it, as the JAX CLI
+does, cli/infer.py:79-80,172-216) synthesises each segment time-sharded
+over N ranks (``parallel/``): this process is rank 0 (the front end, the
+splice and the enhancer) and starts N - 1 helper ranks once per run, on
+the card (rank r on ``cuda:{r % cards}``) or, with ``--device cpu``, on the
+CPU. A segment is padded as the JAX CLI pads it (to a multiple of N and at
+least N (FRAME_HALO + 8) frames, the real f0 and volume that follow it
+first, then its last frame repeated) and its tail trimmed after; its last
+FRAME_HALO frames may differ from the unstreamed output, which has its own
+edge there. ``-mix`` with ``--stream`` is refused with the JAX CLI's words.
 """
 from __future__ import annotations
 
@@ -32,9 +42,9 @@ from ..features.f0 import F0Extractor
 from ..features.slicer import split_audio
 from ..ops.interp import upsample
 
-# the JAX CLI's option this port refuses, with the ROADMAP item that brings it
-STREAM_REFUSED = ("--stream (time-sharded synthesis) is not ported yet "
-                  "(ROADMAP A item 8)")
+# the JAX CLI's refusal (cli/infer.py:197-201), word for word
+STREAM_MIX_REFUSED = ("-mix is not supported with --stream: the streamed "
+                      "engines take a single spk_id (drop --stream or use -id)")
 
 
 def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
@@ -82,10 +92,50 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def check_ported(options: argparse.Namespace) -> None:
-    """Refuse the JAX CLI's option this port does not have yet."""
-    if options.stream > 1:
-        raise NotImplementedError(STREAM_REFUSED)
+def streams(options: argparse.Namespace, family: str) -> bool:
+    """Whether ``--stream`` applies: N > 1 on a DDSP family."""
+    return options.stream > 1 and family == "ddsp"
+
+
+def check_ported(options: argparse.Namespace, family: str = "ddsp") -> None:
+    """Refuse what the JAX CLI refuses: ``-mix`` with ``--stream`` on a
+    DDSP family (the streamed engines take one speaker)."""
+    if streams(options, family) and literal_eval(options.spk_mix_dict) is not None:
+        raise NotImplementedError(STREAM_MIX_REFUSED)
+
+
+def stream_segment(world, pipeline, seg_units, f0, volume, start_frame: int,
+                   spk_id: int) -> torch.Tensor:
+    """One segment's DDSP synthesis time-sharded over ``world``'s ranks,
+    padded as the JAX CLI pads it: units (1, t, C) on the pipeline's
+    device, the whole input's f0 and volume (1, T, 1) -> (1, t * block)."""
+    from ..parallel.stream import FRAME_HALO, streamed_forward
+
+    n = world.size
+    t_seg = seg_units.shape[1]
+    pad_t = (-t_seg) % n
+    min_t = n * (FRAME_HALO + 8)
+    if t_seg + pad_t < min_t:  # a short segment: pad up to the halo minimum
+        pad_t = min_t - t_seg
+        pad_t += (-(t_seg + pad_t)) % n
+    # f0 and volume exist past the segment: take the real frames first,
+    # then repeat the last; units repeat their last frame
+    ext = min(pad_t, f0.shape[1] - (start_frame + t_seg))
+    syn = pad_t - ext
+    end = start_frame + t_seg + ext
+    dev = pipeline.device
+
+    def edge_pad(x, n_pad):
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return torch.cat([x, x[:, -1:].expand(-1, n_pad, -1)], dim=1)
+
+    out = world.call(
+        streamed_forward, pipeline.model, edge_pad(seg_units, pad_t),
+        edge_pad(f0[:, start_frame:end], syn),
+        edge_pad(volume[:, start_frame:end], syn),
+        spk_id=torch.full((1, 1), int(spk_id), dtype=torch.long, device=dev),
+        generator=pipeline.generator)
+    return out[:, :t_seg * int(pipeline.args.data.block_size)]
 
 
 def cached_f0(options: argparse.Namespace, audio: np.ndarray, sample_rate: int,
@@ -115,13 +165,29 @@ def convert(pipeline, audio: np.ndarray, sample_rate: int,
             options: argparse.Namespace, f0: np.ndarray | None = None,
             ddsp_model=None) -> tuple[np.ndarray, int]:
     """The CLI's conversion of a 1-D recording at ``sample_rate`` on a
+    ``SvcPipeline`` (``_convert``); with ``--stream N`` on a DDSP family,
+    inside a world of N ranks started for the call."""
+    check_ported(options, pipeline.family)
+    if not streams(options, pipeline.family):
+        return _convert(pipeline, audio, sample_rate, options, f0, ddsp_model)
+    from ..parallel.mesh import World
+
+    with World(options.stream, device=pipeline.device) as world:
+        return _convert(pipeline, audio, sample_rate, options, f0, ddsp_model,
+                        world)
+
+
+def _convert(pipeline, audio: np.ndarray, sample_rate: int,
+             options: argparse.Namespace, f0: np.ndarray | None = None,
+             ddsp_model=None, world=None) -> tuple[np.ndarray, int]:
+    """The CLI's conversion of a 1-D recording at ``sample_rate`` on a
     ``SvcPipeline`` -> (audio (L',) float64 on the host, its sample rate).
     ``options`` are ``parse_args``'s; ``f0`` (T,) the input's f0 before the
     key shift (the pipeline's host tracker when not given); ``ddsp_model``
     the external DDSP model of ``-ddsp`` on the pipeline's device, whose
     mel (f0 lowered and the mel's keyshift raised by ``-fs``) starts a
-    Diffusion (Unit2Mel) model shallow at k_step."""
-    check_ported(options)
+    Diffusion (Unit2Mel) model shallow at k_step; ``world`` the ranks of
+    ``--stream``."""
     args = pipeline.args
     block = int(args.data.block_size)
     model_sr = int(args.data.sampling_rate)
@@ -164,7 +230,11 @@ def convert(pipeline, audio: np.ndarray, sample_rate: int,
         t_seg = seg_units.shape[1]
         seg_f0 = f0[:, start_frame: start_frame + t_seg]
         seg_volume = volume[:, start_frame: start_frame + t_seg]
-        if pipeline.family == "ddsp":
+        if pipeline.family == "ddsp" and world is not None:
+            seg_out = stream_segment(world, pipeline, seg_units, f0, volume,
+                                     start_frame, options.spk_id)
+            out_sr = model_sr
+        elif pipeline.family == "ddsp":
             seg_out = pipeline.synth_ddsp(seg_units, seg_f0, seg_volume,
                                           options.spk_id,
                                           spk_mix_dict=spk_mix_dict)
@@ -217,7 +287,6 @@ def main(argv=None) -> None:
     from ..infer.pipeline import SvcPipeline
 
     options = parse_args(argv)
-    check_ported(options)
     pipeline = SvcPipeline(options.model_path, device=options.device,
                            enhance=options.enhance == "true",
                            pitch_extractor=options.pitch_extractor,

@@ -1,7 +1,12 @@
 """Conv-only conformer encoder (mirrors ddsp_svc_tpu/models/conformer.py:
 ConformerConvModule, with or without its leading LayerNorm, and
 CFNEncoderLayer, ConformerNaiveEncoder with conv_only=True, use_norm=False,
-no dropout at inference)."""
+no dropout at inference).
+
+Time-sharded (``parallel/``): ``edge_mask`` (B, T, 1), 0 on the frames of
+a haloed block that lie outside the utterance, zeroes the GLU's output
+before each depthwise conv, so the conv sees the whole utterance's zero
+padding at the global edges (JAX conformer.py:39-63, 115-150)."""
 from __future__ import annotations
 
 import torch
@@ -33,10 +38,14 @@ class ConformerConvModule(nn.Module):
                                 groups=inner)
         self.conv2 = Conv1d(inner, dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                edge_mask: torch.Tensor | None = None) -> torch.Tensor:
         if self.norm is not None:
             x = self.norm(x)
-        return self.conv2(silu(self.depthwise(glu(self.conv1(x)))))
+        x = glu(self.conv1(x))
+        if edge_mask is not None:
+            x = x * edge_mask.to(x.dtype)
+        return self.conv2(silu(self.depthwise(x)))
 
 
 class CFNEncoderLayer(nn.Module):
@@ -44,8 +53,9 @@ class CFNEncoderLayer(nn.Module):
         super().__init__()
         self.conformer = ConformerConvModule(dim_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.conformer(x)
+    def forward(self, x: torch.Tensor,
+                edge_mask: torch.Tensor | None = None) -> torch.Tensor:
+        return x + self.conformer(x, edge_mask)
 
 
 class ConformerNaiveEncoder(nn.Module):
@@ -54,7 +64,8 @@ class ConformerNaiveEncoder(nn.Module):
         self.layers = nn.ModuleList(
             CFNEncoderLayer(dim_model) for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                edge_mask: torch.Tensor | None = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, edge_mask)
         return x

@@ -4,7 +4,9 @@
 ``CombSub``). Sins' harmonic bank runs through kernel K4
 (ops/cuda_oscillator.harmonic_bank), CombSubSuperFast's exciter through
 kernel K1 (ops/cuda_source.combtooth). Every random draw can be injected
-(``noise=``); what is not injected comes from ``generator``."""
+(``noise=``); what is not injected comes from ``generator``. Each synth's
+``controls`` takes a time-sharded block's ``frame_mask``, ``group`` and
+``edge_mask`` (models/unit2control.py; the drivers are in ``parallel/``)."""
 from __future__ import annotations
 
 import math
@@ -93,11 +95,14 @@ class Sins(nn.Module):
                             "noise_magnitude": n_mag_noise})
 
     def controls(self, units, f0_frames, phase_frames, volume, spk_id=None,
-                 spk_mix_dict=None):
+                 spk_mix_dict=None, frame_mask=None, group=None,
+                 edge_mask=None):
         """-> (amplitudes (exp-scaled, fmax-masked), group_delay,
         noise_param, hidden)."""
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
-                                       spk_id=spk_id, spk_mix_dict=spk_mix_dict)
+                                       spk_id=spk_id, spk_mix_dict=spk_mix_dict,
+                                       frame_mask=frame_mask, group=group,
+                                       edge_mask=edge_mask)
         amplitudes = torch.exp(ctrls["amplitudes"]) / 128.0
         group_delay = weak(math.pi, ctrls["group_delay"]) * torch.tanh(ctrls["group_delay"])
         noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0
@@ -160,12 +165,15 @@ class CombSubSuperFast(nn.Module):
             use_pitch_aug=use_pitch_aug, use_naive_v2=True)
 
     def controls(self, units, f0, phase, volume, spk_id=None, aug_shift=None,
-                 spk_mix_dict=None):
+                 spk_mix_dict=None, frame_mask=None, group=None,
+                 edge_mask=None):
         """-> (src_filter, noise_filter, hidden); complex filters
         (B, T, win // 2 + 1)."""
         ctrls, hidden = self.unit2ctrl(units, f0, phase, volume,
                                        spk_id=spk_id, aug_shift=aug_shift,
-                                       spk_mix_dict=spk_mix_dict)
+                                       spk_mix_dict=spk_mix_dict,
+                                       frame_mask=frame_mask, group=group,
+                                       edge_mask=edge_mask)
         src_filter = _complex_filter(ctrls["harmonic_magnitude"],
                                      ctrls["harmonic_phase"])
         noise_filter = _complex_filter(ctrls["noise_magnitude"],
@@ -232,12 +240,15 @@ class CombSubFast(nn.Module):
             use_pitch_aug=use_pitch_aug, pcmer_norm=pcmer_norm)
 
     def controls(self, units, f0_frames, phase_frames, volume, spk_id=None,
-                 aug_shift=None, spk_mix_dict=None):
+                 aug_shift=None, spk_mix_dict=None, frame_mask=None,
+                 group=None, edge_mask=None):
         """-> (src_filter complex, noise_filter real, hidden), (B, T,
         block + 1)."""
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
                                        spk_id=spk_id, aug_shift=aug_shift,
-                                       spk_mix_dict=spk_mix_dict)
+                                       spk_mix_dict=spk_mix_dict,
+                                       frame_mask=frame_mask, group=group,
+                                       edge_mask=edge_mask)
         src_filter = _complex_filter(ctrls["harmonic_magnitude"],
                                      ctrls["harmonic_phase"])
         noise_filter = torch.exp(ctrls["noise_magnitude"]) / 128.0
@@ -277,10 +288,13 @@ class CombSub(nn.Module):
                             "noise_magnitude": n_mag_noise})
 
     def controls(self, units, f0_frames, phase_frames, volume, spk_id=None,
-                 spk_mix_dict=None):
+                 spk_mix_dict=None, frame_mask=None, group=None,
+                 edge_mask=None):
         """-> (group_delay, src_param, noise_param, hidden)."""
         ctrls, hidden = self.unit2ctrl(units, f0_frames, phase_frames, volume,
-                                       spk_id=spk_id, spk_mix_dict=spk_mix_dict)
+                                       spk_id=spk_id, spk_mix_dict=spk_mix_dict,
+                                       frame_mask=frame_mask, group=group,
+                                       edge_mask=edge_mask)
         group_delay = weak(math.pi, ctrls["group_delay"]) * torch.tanh(ctrls["group_delay"])
         src_param = torch.exp(ctrls["harmonic_magnitude"])
         noise_param = torch.exp(ctrls["noise_magnitude"]) / 128.0

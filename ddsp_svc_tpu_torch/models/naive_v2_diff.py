@@ -7,7 +7,15 @@ pallas_mxu_bf16=True``). A bf16 model (``set_compute_dtype``, JAX
 ``dtype=bfloat16``) carries bf16 activations through the trunk, and each
 layer runs through B5 (``conformer_layer_bf16_io``), as JAX's fused layer
 runs on a bf16 x. No dropout fires in this trunk: JAX builds it conv-only
-with conv_dropout 0.0."""
+with conv_dropout 0.0.
+
+Time-sharded (``parallel/stream_cascade.py``): with an ``edge_mask`` (B, T,
+1), 0 on the frames of a haloed block outside the utterance, a layer takes
+JAX's stock chain instead of a kernel, as JAX's dispatch sends a masked
+layer away from its fused kernel (naive_v2_diff.py:62-69, 88-90): the step
+and condition projections added to x, then ``ConformerConvModule`` with the
+mask before its depthwise conv, all from the layer's own modules. JAX has
+no masked kernel, so neither has the port."""
 from __future__ import annotations
 
 import torch
@@ -55,8 +63,13 @@ class NaiveV2DiffLayer(nn.Module):
             self._bf16 = (key, bf16_gemm_weights(weights))
         return self._bf16[1]
 
-    def forward(self, x, condition, diffusion_step):
-        """x (B, T, C), condition (B, T, Hc), diffusion_step (B, 1, C)."""
+    def forward(self, x, condition, diffusion_step, edge_mask=None):
+        """x (B, T, C), condition (B, T, Hc), diffusion_step (B, 1, C);
+        ``edge_mask`` (B, T, 1) takes the masked stock chain."""
+        if edge_mask is not None:
+            h = (x + self.diffusion_step_projection(diffusion_step)
+                 + self.condition_projection(condition))
+            return self.conformer(h, edge_mask) + x
         # the step projection of the (B, 1, C) embedding stays outside the
         # kernel, as in JAX, in f32 (a bf16 embedding times the f32 folded
         # weights, naive_v2_diff.py:78-81)
@@ -92,12 +105,12 @@ class NaiveV2Diff(nn.Module):
             for _ in range(num_layers))
         self.output_projection = Conv1d(dim, mel_channels, 1)
 
-    def forward(self, spec, diffusion_step, cond):
+    def forward(self, spec, diffusion_step, cond, edge_mask=None):
         """spec (B, T, M), diffusion_step (B,) float, cond (B, T, Hc) ->
-        (B, T, M)."""
+        (B, T, M); ``edge_mask`` (B, T, 1): a time-sharded block's."""
         x = gelu(self.input_projection(spec)).contiguous()
         step = sinusoidal_pos_emb(diffusion_step.to(x.dtype), self.dim)
         step = self.diff_emb_1(gelu(self.diff_emb_0(step)))[:, None, :]
         for layer in self.layers:
-            x = layer(x, cond, step)
+            x = layer(x, cond, step, edge_mask)
         return self.output_projection(x)

@@ -324,7 +324,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 class GroupNorm(nn.Module):
     """torch GroupNorm (eps 1e-5) on (B, T, C): statistics over time and the
-    channels of each group."""
+    channels of each group.
+
+    Time-sharded (``parallel/``): ``frame_mask`` (B, T, 1), 1 on the block's
+    own frames and 0 on its halo, and ``group`` (a ``parallel.mesh.
+    TimeGroup``) take the statistics over the own frames of every rank, in
+    two passes (the masked mean, then the masked centred second moment),
+    each summed over the group (JAX ``GroupNorm(frame_mask, axis_name)``,
+    nn.py:345-390)."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -332,7 +339,27 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _masked(self, x, frame_mask, group) -> torch.Tensor:
+        b, t, c = x.shape
+        xg = x.reshape(b, t, self.num_groups, c // self.num_groups)
+        m = (torch.ones((b, t, 1, 1), dtype=x.dtype, device=x.device)
+             if frame_mask is None else frame_mask.reshape(b, t, 1, 1).to(x.dtype))
+        cnt = torch.sum(m, dim=1, keepdim=True) * (c // self.num_groups)
+        s1 = torch.sum(xg * m, dim=(1, 3), keepdim=True)
+        if group is not None:
+            cnt, s1 = group.psum(cnt), group.psum(s1)
+        mean = s1 / cnt
+        d2 = torch.sum((xg - mean) * (xg - mean) * m, dim=(1, 3), keepdim=True)
+        if group is not None:
+            d2 = group.psum(d2)
+        var = d2 / cnt
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(b, t, c)
+        return y * self.weight + self.bias
+
+    def forward(self, x: torch.Tensor, frame_mask: torch.Tensor | None = None,
+                group=None) -> torch.Tensor:
+        if frame_mask is not None or group is not None:
+            return self._masked(x, frame_mask, group)
         if x.dtype == torch.float32:
             y = F.group_norm(x.transpose(1, 2), self.num_groups, self.weight,
                              self.bias, self.eps)

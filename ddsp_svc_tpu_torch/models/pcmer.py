@@ -3,6 +3,13 @@ decoder of the legacy DDSP models (mirrors ddsp_svc_tpu/models/pcmer.py:
 ``softmax_kernel``, ``linear_attention``, ``FAVORSelfAttention``,
 ``PCmerLayer``, ``PCmer``, with ``pcmer_norm``).
 
+Time-sharded (``parallel/``): ``frame_mask`` (B, T, 1) zeroes the halo
+frames' keys and values, so each global frame counts once, and ``group``
+(a ``parallel.mesh.TimeGroup``) sums the attention's only cross-frame
+quantities, ``k_sum`` and the M x E ``context``, over the ranks; then the
+attention needs no halo (JAX pcmer.py:64-75, 136-173). ``edge_mask`` goes
+to each layer's conformer conv (models/conformer.py).
+
 The FAVOR+ projection matrix is a buffer (``attn.projection_matrix``) that
 comes with the checkpoint (the JAX ``buffers`` collection); the port never
 redraws it. ``gaussian_orthogonal_random_matrix`` only fills it for a
@@ -55,12 +62,15 @@ def softmax_kernel(data: torch.Tensor, projection_matrix: torch.Tensor,
     return ratio * torch.exp(data_dash - diag + eps)
 
 
-def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                     ) -> torch.Tensor:
+def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     group=None) -> torch.Tensor:
     """Non-causal linear attention over features q, k (B, H, N, M) and
-    values v (B, H, N, E) -> (B, H, N, E)."""
+    values v (B, H, N, E) -> (B, H, N, E); ``group`` sums k_sum and the
+    context over the time group's ranks."""
     k_sum = torch.sum(k, dim=-2)
     context = torch.einsum("bhnm,bhne->bhme", k, v.to(k.dtype))
+    if group is not None:
+        k_sum, context = group.psum(k_sum), group.psum(context)
     d_inv = 1.0 / (torch.einsum("bhnm,bhm->bhn", q, k_sum) + 1e-8)
     return torch.einsum("bhme,bhnm,bhn->bhne", context, q, d_inv)
 
@@ -97,7 +107,8 @@ class FAVORSelfAttention(nn.Module):
             self.projection_matrix.copy_(gaussian_orthogonal_random_matrix(
                 self.nb_features, self.dim_head, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_mask: torch.Tensor | None = None,
+                group=None) -> torch.Tensor:
         b, n, _ = x.shape
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in (self.to_q(x), self.to_k(x), self.to_v(x)))
@@ -106,7 +117,10 @@ class FAVORSelfAttention(nn.Module):
             k = k / (_l2norm(k) + weak(1e-8, k))
         q = softmax_kernel(q, self.projection_matrix, is_query=True)
         k = softmax_kernel(k, self.projection_matrix, is_query=False)
-        out = linear_attention(q, k, v)
+        if frame_mask is not None:
+            m = frame_mask.reshape(b, 1, n, 1)
+            k, v = k * m.to(k.dtype), v * m.to(v.dtype)
+        out = linear_attention(q, k, v, group)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
 
@@ -117,9 +131,10 @@ class PCmerLayer(nn.Module):
         self.attn = FAVORSelfAttention(dim_model, num_heads, pcmer_norm=pcmer_norm)
         self.conformer = ConformerConvModule(dim_model, use_norm=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm(x))
-        return x + self.conformer(x)
+    def forward(self, x: torch.Tensor, frame_mask=None, group=None,
+                edge_mask=None) -> torch.Tensor:
+        x = x + self.attn(self.norm(x), frame_mask, group)
+        return x + self.conformer(x, edge_mask)
 
 
 class PCmer(nn.Module):
@@ -129,7 +144,8 @@ class PCmer(nn.Module):
         self.layers = nn.ModuleList(
             PCmerLayer(dim_model, num_heads, pcmer_norm) for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_mask=None, group=None,
+                edge_mask=None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, frame_mask, group, edge_mask)
         return x

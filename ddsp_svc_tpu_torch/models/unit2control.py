@@ -9,7 +9,12 @@ JAX declares dropout in both decoders (PCmer's residual and attention
 dropout of 0.1, the naive encoder's attention dropout of 0.1) but applies
 none: PCmer's layers never call a Dropout, and the naive encoder is
 conv-only with conv_dropout 0.0. A training forward here is therefore the
-inference forward, in ``train()`` as in ``eval()``."""
+inference forward, in ``train()`` as in ``eval()``.
+
+Time-sharded (``parallel/``), JAX unit2control.py:43-64: ``frame_mask``
+and ``group`` go to the stack's GroupNorm and PCmer's attention,
+``edge_mask`` zeroes the stack's activations outside the utterance before
+its second conv and goes to the decoder's conformer convs."""
 from __future__ import annotations
 
 import math
@@ -71,18 +76,27 @@ class Unit2Control(nn.Module):
         self.dense_out = WNLinear(256, sum(self.output_splits.values()))
 
     def forward(self, units, f0, phase, volume, spk_id=None, aug_shift=None,
-                spk_mix_dict: Mapping | None = None):
+                spk_mix_dict: Mapping | None = None, frame_mask=None,
+                group=None, edge_mask=None):
         """units (B, T, n_unit), f0/phase/volume (B, T, 1), spk_id (B, 1)
         1-based or the ``spk_mix_dict`` {id: weight}, aug_shift (B, 1, 1) ->
-        (controls dict, hidden (B, T, 256))."""
+        (controls dict, hidden (B, T, 256)). ``frame_mask``, ``group`` and
+        ``edge_mask``: a time-sharded block's (module docstring)."""
         x = self.stack_conv0(units)
         if self.stack_norm is not None:
-            x = self.stack_conv1(F.leaky_relu(self.stack_norm(x), 0.01))
+            x = F.leaky_relu(self.stack_norm(x, frame_mask, group), 0.01)
+            if edge_mask is not None:
+                x = x * edge_mask.to(x.dtype)
+            x = self.stack_conv1(x)
         x = (x + self.f0_embed(torch.log1p(f0 / 700.0))
              + self.phase_embed(phase / math.pi) + self.volume_embed(volume))
         if self.spk_embed is not None:
             x = add_speaker(x, self.spk_embed, spk_id, spk_mix_dict)
         if self.aug_shift_embed is not None and aug_shift is not None:
             x = x + self.aug_shift_embed(aug_shift / 5.0)
-        x = self.norm(self.decoder(x))
+        if isinstance(self.decoder, PCmer):
+            x = self.decoder(x, frame_mask, group, edge_mask)
+        else:
+            x = self.decoder(x, edge_mask)
+        x = self.norm(x)
         return split_to_dict(self.dense_out(x), self.output_splits), x

@@ -3,7 +3,10 @@ and the diffusion-step embedding (mirrors ddsp_svc_tpu/models/wavenet.py:
 ``sinusoidal_pos_emb``, ``WaveNetResidualBlock``, ``WaveNet``).
 
 Feature-last (B, T, C) throughout. Its convs are plain ``F.conv1d``: the
-JAX package has no Pallas kernel for them.
+JAX package has no Pallas kernel for them. Time-sharded
+(``parallel/stream_cascade.py``): ``edge_mask`` (B, T, 1) zeroes each
+block's input outside the utterance before its dilated conv, the whole
+utterance's zero padding (JAX wavenet.py:36-43, 68-84).
 """
 from __future__ import annotations
 
@@ -39,8 +42,10 @@ class WaveNetResidualBlock(nn.Module):
         self.conditioner_projection = Conv1d(n_hidden, 2 * c, 1)
         self.output_projection = Conv1d(c, 2 * c, 1)
 
-    def forward(self, x, cond, diffusion_step):
+    def forward(self, x, cond, diffusion_step, edge_mask=None):
         y = x + self.diffusion_projection(diffusion_step)[:, None, :]
+        if edge_mask is not None:
+            y = y * edge_mask.to(y.dtype)
         y = self.dilated_conv(y) + self.conditioner_projection(cond)
         gate, filt = y.chunk(2, dim=-1)
         y = self.output_projection(sigmoid(gate) * torch.tanh(filt))
@@ -65,14 +70,14 @@ class WaveNet(nn.Module):
         self.skip_projection = Conv1d(n_chans, n_chans, 1)
         self.output_projection = Conv1d(n_chans, in_dims, 1)
 
-    def forward(self, spec, diffusion_step, cond):
+    def forward(self, spec, diffusion_step, cond, edge_mask=None):
         x = F.relu(self.input_projection(spec))
         step = sinusoidal_pos_emb(diffusion_step.to(x.dtype), self.n_chans)
         step = self.mlp_0(step)
         step = self.mlp_1(step * torch.tanh(softplus(step)))  # Mish
         skips = 0.0
         for layer in self.layers:
-            x, skip = layer(x, cond, step)
+            x, skip = layer(x, cond, step, edge_mask)
             skips = skips + skip
         x = F.relu(self.skip_projection(
             skips / weak(math.sqrt(len(self.layers)), skips)))

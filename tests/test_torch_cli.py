@@ -129,15 +129,23 @@ def test_ddsp_cli_matches_jax(tmp_path, ddsp_ckpt, monkeypatch):
                                   ["-step", "20"], ["--voc_bf16"],
                                   ["--stream", "2"], ["-ddsp", "other.ckpt"]])
 def test_cli_refuses_unported_options(flag):
-    """Only --stream is refused, naming the ROADMAP item that brings it;
-    -mix, -fs, -step and -ddsp are ported (tests/test_torch_cli_families.py)
-    and --voc_bf16 too (tests/test_torch_bf16.py)."""
+    """No option of the JAX CLI is refused any more: -mix, -fs, -step and
+    -ddsp are ported (tests/test_torch_cli_families.py), --voc_bf16 too
+    (tests/test_torch_bf16.py) and --stream (tests/test_torch_stream_cli.py).
+    What the port refuses is what the JAX CLI refuses: -mix together with
+    --stream on a DDSP model, in the JAX CLI's words; the other families
+    ignore --stream, as the JAX CLI does."""
     options = pcli.parse_args(["-m", "m", "-i", "i", "-o", "o"] + flag)
+    pcli.check_ported(options)
     if flag[0] == "--stream":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP .*item 8"):
-            pcli.check_ported(options)
-    else:
-        pcli.check_ported(options)
+        mixed = pcli.parse_args(["-m", "m", "-i", "i", "-o", "o", "-mix",
+                                 "{1: 0.5, 2: 0.5}"] + flag)
+        with pytest.raises(NotImplementedError, match="streamed engines take "
+                           "a single spk_id") as err:
+            pcli.check_ported(mixed, "ddsp")
+        assert str(err.value) == pcli.STREAM_MIX_REFUSED
+        for family in ("diffusion", "reflow", "unit2mel"):
+            pcli.check_ported(mixed, family)
 
 
 def test_cli_help_runs():

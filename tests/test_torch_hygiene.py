@@ -226,3 +226,137 @@ def test_k4_bf16_mode_never_falls_back_to_its_plain_version(monkeypatch):
             with pytest.raises(ValueError, match="CUDA tensor"):
                 cuda_oscillator.harmonic_bank(
                     torch.empty(1, 4 * 16, 1, device="meta"), amps, 16)
+
+
+def test_no_jax_imports_scans_the_parallel_package():
+    """The scan above covers every module of ``parallel/`` (which the
+    helper ranks run and which must import nothing of JAX)."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for module in ("mesh", "stream", "stream_core", "stream_combsub",
+                   "stream_legacy", "stream_vocoder", "stream_cascade"):
+        assert f"ddsp_svc_tpu_torch/parallel/{module}.py" in names, module
+
+
+class _FakeProc:
+    def __init__(self, argv, **_):
+        self.argv = argv
+        _FakeProc.started.append(self)
+
+    def poll(self):
+        return 0
+
+    def wait(self, timeout=None):
+        return 0
+
+    def kill(self):
+        pass
+
+
+def test_streamed_ranks_default_to_the_card(monkeypatch, capsys):
+    """``World`` (which ``streamed_forward``'s ranks and ``cli.infer
+    --stream`` run in) puts rank r on cuda:{r % cards} unless told the CPU,
+    says so on stderr when ranks share a card, and without a card refuses
+    before it starts a helper; ``convert`` starts its world on the
+    pipeline's device, and ``cli.infer --stream`` without --device needs
+    the card."""
+    from ddsp_svc_tpu_torch.cli import infer as cli_infer
+    from ddsp_svc_tpu_torch.ops import kernels
+    from ddsp_svc_tpu_torch.parallel import mesh
+
+    assert inspect.signature(mesh.World).parameters["device"].default is None
+    assert inspect.signature(mesh.rank_device).parameters["device"].default is None
+    _FakeProc.started = []
+    monkeypatch.setattr(mesh.subprocess, "Popen", _FakeProc)
+    monkeypatch.setattr(mesh, "init_rank", lambda rank, size, init, device, *_: (
+        mesh.TimeGroup(rank, size, mesh.rank_device(rank, device))))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: mesh.rank_device(1), lambda: mesh.World(2),
+                 lambda: cli_infer.main(["-m", "absent/model_1.ckpt", "-i",
+                                         "absent.wav", "-o", "out.wav",
+                                         "--stream", "2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert _FakeProc.started == []
+    assert mesh.rank_device(3, "cpu") == torch.device("cpu")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(kernels, "library", lambda: None)
+    assert mesh.rank_device(3) == torch.device("cuda", 0)
+    assert mesh.rank_device(1, "cuda") == torch.device("cuda", 0)
+    world = mesh.World(2)
+    assert world.device == torch.device("cuda", 0)
+    argv = _FakeProc.started[-1].argv
+    assert argv[argv.index("--device") + 1] == "cuda"
+    assert "share 1 CUDA card" in capsys.readouterr().err
+    world.close()
+    world = mesh.World(2, device="cpu")
+    argv = _FakeProc.started[-1].argv
+    assert world.device == torch.device("cpu")
+    assert argv[argv.index("--device") + 1] == "cpu"
+    world.close()
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_world(size, device=None, **_):
+        seen.append((size, device))
+        raise Stop
+
+    monkeypatch.setattr(mesh, "World", fake_world)
+    pipe = type("P", (), {"family": "ddsp", "device": torch.device("cuda")})()
+    options = cli_infer.parse_args(["-m", "m", "-i", "i", "-o", "o",
+                                    "--stream", "2"])
+    with pytest.raises(Stop):
+        cli_infer.convert(pipe, None, 16000, options)
+    assert seen == [(2, torch.device("cuda"))]
+
+
+def test_masked_denoiser_chain_never_reaches_a_plain_version(monkeypatch):
+    """With an ``edge_mask`` (a streamed block) a NaiveV2Diff layer takes
+    JAX's stock chain from its own modules: never K3's wrapper nor its
+    plain version (here on meta tensors, which no wrapper takes for the
+    CPU). Without the mask a meta tensor goes to K3's launch, which refuses
+    what is not a CUDA tensor."""
+    from ddsp_svc_tpu_torch.models import naive_v2_diff
+    from ddsp_svc_tpu_torch.ops import cuda_conformer
+
+    def refuse(*_, **__):
+        raise AssertionError("a conformer kernel wrapper or plain version ran")
+    for name in ("conformer_layer_plain", "conformer_layer_bf16_plain",
+                 "conformer_layer_bf16_io_plain"):
+        monkeypatch.setattr(cuda_conformer, name, refuse)
+    net = naive_v2_diff.NaiveV2Diff(mel_channels=8, dim=16, condition_dim=8,
+                                    num_layers=2).to("meta")
+    spec = torch.empty(1, 12, 8, device="meta")
+    step = torch.empty(1, device="meta")
+    edge = torch.empty(1, 12, 1, device="meta")
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            net(spec, step, spec)
+        for name in ("conformer_layer", "conformer_layer_bf16",
+                     "conformer_layer_bf16_io"):
+            monkeypatch.setattr(naive_v2_diff, name, refuse)
+        out = net(spec, step, spec, edge_mask=edge)
+    assert out.shape == (1, 12, 8) and out.device.type == "meta"
+
+
+def test_a_failed_collective_raises():
+    """A helper rank that dies: rank 0's next collective raises (within
+    the world's timeout), and closing the world reports the helper's
+    failure; nothing falls back to a local answer."""
+    from ddsp_svc_tpu_torch.parallel.mesh import World
+
+    world = World(2, device="cpu", timeout_s=60)
+    try:
+        world._procs[0].kill()
+        world._procs[0].wait()
+        with pytest.raises(RuntimeError, match="rank 0/2: all_gather failed"):
+            world.group.psum(torch.ones(3))
+        with pytest.raises(RuntimeError, match="failed"):
+            world.group.exchange(torch.ones(1, 2), None)
+    finally:
+        world.__exit__(RuntimeError, None, None)
+    assert world.group is None
