@@ -174,8 +174,8 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      (DPM-Solver++ at speedup 10) and the default NSF-HiFiGAN on 10 s,
      each streamed against the port's whole reference on the card within
      STREAM_LIMITS, exact launches on every rank gathered to rank 0 (K1 1,
-     K4 1, K1 1 with K3 0, K2 5), and card against CPU ranks at 3 s (>= 40
-     dB); (b) cli.infer.main --stream 2 on a 12 s wav for combsub and sins
+     K4 1, K1 1 with K3 0, K2 5), and card against CPU ranks on the same
+     10 s (>= 40 dB); (b) cli.infer.main --stream 2 on a 12 s wav for combsub and sins
      against the same CLI without --stream outside the last FRAME_HALO
      frames of each segment; (c) streamed and whole walls, five warm runs.
 Phase 3 also holds K4's bf16-amplitude mode (the bf16 Sins: amplitudes
@@ -3645,7 +3645,6 @@ STREAM_CLI_SNR_DB = 40.0
 STREAM_EXPECT = {  # launches on every rank of one streamed call
     "combsub": {"combtooth": 1}, "sins": {"harmonic_bank": 1},
     "cascade mel": {"combtooth": 1}, "vocoder": {"resblock_group": 5}}
-STREAM_CPU_FRAMES = 260  # 3 s: card against CPU
 
 
 def _silence_noise_filter(model) -> None:
@@ -3864,8 +3863,9 @@ def phase_streaming(torch, card: str, root: Path) -> dict:
     """Time-sharded streaming on the card: (a) combsub (worlds 2 and 4),
     sins, the diffusion-fast cascade mel and the NSF-HiFiGAN at full width
     on 10 s, each against the port's whole reference, exact launches per
-    rank; card against CPU at 3 s; (b) the CLI's --stream; (c) walls.
-    Returns {path: launch counts summed over the ranks}."""
+    rank, and the card's streamed output against the CPU ranks'; (b) the
+    CLI's --stream; (c) walls. Returns {path: launch counts summed over
+    the ranks}."""
     from ddsp_svc_tpu_torch.parallel.mesh import World
 
     t0 = time.perf_counter()
@@ -3873,24 +3873,17 @@ def phase_streaming(torch, card: str, root: Path) -> dict:
     launches = {}
     order = ("combsub", "sins", "cascade mel", "vocoder")
     with World(2) as world:  # both ranks on cuda:0
-        _world_paths(torch, world, parts, x, card, order, frames_for(10),
-                     True, launches)
-        card_3s = _world_paths(torch, world, parts, x, card, order,
-                               STREAM_CPU_FRAMES, False, {})
-    # the CPU ranks split the host's cores: oversubscribed, the CPU
-    # library's f32 results vary run to run (a whole combsub forward beside
-    # a busy process differed by 9.7e-5 of its peak on its first call)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads // 2))
-    try:
-        with World(2, device="cpu") as world:
-            cpu_3s = _world_paths(torch, world, parts, x, card, order,
-                                  STREAM_CPU_FRAMES, False, {})
-    finally:
-        torch.set_num_threads(threads)
+        on_card = _world_paths(torch, world, parts, x, card, order,
+                               frames_for(10), True, launches)
+    t_cpu = time.perf_counter()
+    with World(2, device="cpu") as world:
+        on_cpu = _world_paths(torch, world, parts, x, card, order,
+                              frames_for(10), False, {})
+    log(f"[stream] the CPU ranks' four paths at 10 s, whole references "
+        f"included: {time.perf_counter() - t_cpu:.1f} s [{card}]")
     for path in order:
-        snr = snr_db(cpu_3s[path], card_3s[path])
-        log(f"[stream] {path} 3 s streamed over 2 ranks, card (kernels) "
+        snr = snr_db(on_cpu[path], on_card[path])
+        log(f"[stream] {path} 10 s streamed over 2 ranks, card (kernels) "
             f"against CPU (plain): {snr:.2f} dB (limit >= {SNR_LIMIT_DB:.0f} "
             f"dB) [{card}]")
         if snr < SNR_LIMIT_DB:

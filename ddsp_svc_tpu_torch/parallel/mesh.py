@@ -26,9 +26,8 @@ helper imports nothing but the port: it receives each model once, pickled
 runs (``World.call``) with ``None`` in place of the whole arrays, which
 the entry point scatters from rank 0. A helper ends at ``World.close`` or
 when a collective fails. Helpers take rank 0's TF32 settings (matmul
-precision, cuDNN's TF32), so every rank computes as rank 0 does.
-``shard_map`` runs any function of the port on
-each rank's block, as ``jax.shard_map`` does.
+precision, cuDNN's TF32), so every rank computes as rank 0 does, and the
+ranks split rank 0's intra-op threads between them while the world lives.
 
 The data-parallel helpers of JAX's mesh.py (``shard_batch``,
 ``batch_sharding``, ``replicate``) belong to multi-process training and
@@ -53,7 +52,7 @@ import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent.parent.parent
 PACKAGE = Path(__file__).resolve().parent.parent.name  # also when run as __main__
-DEFAULT_TIMEOUT_S = 300.0
+TIMEOUT_S = 300.0  # a collective's limit
 _TAG_RIGHT, _TAG_LEFT = 1, 2  # messages moving up / down the ranks
 
 
@@ -228,12 +227,11 @@ class TimeGroup:
         return out
 
 
-def init_rank(rank: int, size: int, init_file: str, device,
-              timeout_s: float = DEFAULT_TIMEOUT_S) -> TimeGroup:
+def init_rank(rank: int, size: int, init_file: str, device) -> TimeGroup:
     """Join the gloo world at ``init_file`` as ``rank`` -> its TimeGroup."""
     dist.init_process_group(
         "gloo", init_method=f"file://{init_file}", rank=rank, world_size=size,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
     return TimeGroup(rank, size, rank_device(rank, device))
 
 
@@ -260,22 +258,26 @@ def reset_launch_counts() -> None:
 
 
 def _resolve(target: str):
-    """'package.module:qualified.name' inside the port -> the object. A
-    helper imports nothing outside the port (never a test module, which
-    imports JAX)."""
+    """'module:qualified.name' -> the object, in a helper. A helper runs
+    only code that imports no JAX: a target whose import brings JAX in (a
+    test module's function, say) raises."""
     module, _, name = target.partition(":")
-    if module.split(".")[0] != PACKAGE:
-        raise ValueError(f"{target!r}: helpers run only the port's functions")
     obj = importlib.import_module(module)
+    if "jax" in sys.modules:
+        raise ValueError(f"{target!r}: importing {module} brought in JAX; "
+                         "a helper rank runs the port's code only")
     for part in name.split("."):
         obj = getattr(obj, part)
     return obj
 
 
 def _target(fn) -> str:
-    target = f"{fn.__module__}:{fn.__qualname__}"
-    _resolve(target)
-    return target
+    """``fn``'s importable name (a helper cannot import the caller's main
+    script)."""
+    if fn.__module__ == "__main__":
+        raise ValueError(f"{fn.__qualname__}: a helper rank cannot import "
+                         "a function of the main script")
+    return f"{fn.__module__}:{fn.__qualname__}"
 
 
 _REF = "\0ref"  # marks an argument that a helper rebuilds
@@ -314,27 +316,16 @@ def follow(group: TimeGroup) -> None:
             raise ValueError(f"unknown message {op!r}")
 
 
-@torch.no_grad()
-def shard_map(fn, *arrays, group: TimeGroup, in_dim: int = 1,
-              out_dim: int = 1, module=None, **kwargs):
-    """``jax.shard_map`` over the time group: rank 0's ``arrays`` cut into
-    equal blocks along ``in_dim`` (``P(..., axis)``), ``fn(*blocks,
-    group=group, **kwargs)`` on every rank (``fn(module, *blocks, ...)``
-    with a ``module``), its blocks joined along ``out_dim`` on rank 0."""
-    blocks = [group.scatter_blocks(x, in_dim) for x in arrays]
-    out = fn(*([] if module is None else [module]), *blocks, group=group,
-             **kwargs)
-    return group.gather_blocks(out, out_dim)
-
-
 class World:
     """Rank 0 of a world of ``size`` ranks in this process, ranks 1 .. size
     - 1 as helper processes on ``rank_device(r, device)``. Use as a context
-    manager (``close`` stops the helpers)."""
+    manager (``close`` stops the helpers).
 
-    def __init__(self, size: int, device: str | torch.device | None = None,
-                 timeout_s: float = DEFAULT_TIMEOUT_S,
-                 threads: int | None = None):
+    The ranks split this process's intra-op threads (by default one per
+    core): each takes max(1, threads // size), rank 0 until ``close``, so N
+    ranks on the CPU do not each spin a thread on every core."""
+
+    def __init__(self, size: int, device: str | torch.device | None = None):
         if size < 1:
             raise ValueError(f"world size {size} < 1")
         self.size = size
@@ -347,12 +338,16 @@ class World:
             from ..ops import kernels
 
             kernels.library()  # build once here, not in every rank
+        self._threads = torch.get_num_threads()
+        threads = max(1, self._threads // size)
+        torch.set_num_threads(threads)
         self._tmp = tempfile.mkdtemp(prefix="ddsp_world_")
         init_file = os.path.join(self._tmp, "rendezvous")
         env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-        threads = threads or torch.get_num_threads()
+        # the helpers import what this process can (multiprocessing's spawn
+        # passes sys.path the same way)
+        env["PYTHONPATH"] = os.pathsep.join(dict.fromkeys(
+            [str(ROOT)] + [os.path.abspath(p) for p in sys.path]))
         # the helpers compute as this process does: TF32 as it is set here
         precision = [
             "--matmul_precision", torch.get_float32_matmul_precision(),
@@ -360,14 +355,12 @@ class World:
         self._procs = [subprocess.Popen(
             [sys.executable, "-m", f"{PACKAGE}.parallel.mesh", "--rank",
              str(r), "--size", str(size), "--init", init_file, "--device",
-             self.device_arg, "--threads", str(threads), "--timeout",
-             str(timeout_s)] + precision,
+             self.device_arg, "--threads", str(threads)] + precision,
             env=env, cwd=str(ROOT)) for r in range(1, size)]
         self._shared = {}
         self.group = None
         try:
-            self.group = init_rank(0, size, init_file, self.device_arg,
-                                   timeout_s)
+            self.group = init_rank(0, size, init_file, self.device_arg)
         except BaseException:
             self._kill()
             raise
@@ -421,6 +414,7 @@ class World:
                 p.kill()
             p.wait()
         shutil.rmtree(self._tmp, ignore_errors=True)
+        torch.set_num_threads(self._threads)
 
     def close(self) -> None:
         """Stop the helpers and leave the world; a helper that failed
@@ -465,14 +459,13 @@ def _main(argv=None) -> None:
     p.add_argument("--init", required=True)
     p.add_argument("--device", default=None)
     p.add_argument("--threads", type=int, default=1)
-    p.add_argument("--timeout", type=float, default=DEFAULT_TIMEOUT_S)
     p.add_argument("--matmul_precision", default="highest")
     p.add_argument("--cudnn_tf32", type=int, default=0)
     a = p.parse_args(argv)
     torch.set_num_threads(max(1, a.threads))
     torch.set_float32_matmul_precision(a.matmul_precision)
     torch.backends.cudnn.allow_tf32 = bool(a.cudnn_tf32)
-    group = init_rank(a.rank, a.size, a.init, a.device, a.timeout)
+    group = init_rank(a.rank, a.size, a.init, a.device)
     try:
         follow(group)
     finally:

@@ -27,8 +27,7 @@ from .stream_cascade import (streamed_cascade_mel, streamed_unit2mel,  # noqa: F
                              streamed_unit2wav_new_mel,
                              whole_cascade_reference)
 from .stream_combsub import (streamed_combsub_fast_forward,  # noqa: F401
-                             streamed_combsub_forward,
-                             whole_utterance_reference)
+                             streamed_combsub_forward)
 from .stream_core import (DENOISER_HALO, FRAME_HALO, VOCODER_HALO,  # noqa: F401
                           WAVENET_HALO)
 from .stream_legacy import (streamed_combsub_old_forward,  # noqa: F401

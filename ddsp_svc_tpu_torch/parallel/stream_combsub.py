@@ -80,7 +80,8 @@ def streamed_combsub_forward(model, units, f0, volume, group, noise=None,
     calls it, rank 0 with the whole units (B, T, n_unit), f0 and volume
     (B, T, 1) and optionally the N(0, 1) ``noise`` (B, T * hop), the others
     with None. -> (B, T * hop) audio on rank 0 (None elsewhere), the
-    whole-utterance forward's with that noise (``whole_utterance_reference``)."""
+    whole-utterance forward's with that noise (``model(units, f0, volume,
+    noise=noise)[0]``)."""
     hop, win = model.block_size, model.win_length
     need = max(FRAME_HALO, 4, -(-(3 * hop + win // 2) // hop))
     b, t, tb, units_b, f0_b, vol_b, spk_id, draws = scatter_inputs(
@@ -89,22 +90,6 @@ def streamed_combsub_forward(model, units, f0, volume, group, noise=None,
     audio_b = _combsub_block(model, units_b, f0_b, vol_b, draws["noise"],
                              spk_id, group, t, tb)
     return group.gather_blocks(audio_b)
-
-
-@torch.no_grad()
-def whole_utterance_reference(model, units, f0, volume, noise=None,
-                              spk_id=None, generator=None):
-    """The whole-utterance CombSubSuperFast with the same draw: ``noise``
-    (B, T * hop), or drawn from ``generator`` as the streamed default."""
-    from .stream_core import default_draw
-
-    b, t, _ = units.shape
-    if noise is None:
-        noise = default_draw((b, t * model.block_size), "normal", generator,
-                             units.device)
-    if spk_id is None:
-        spk_id = torch.ones((b, 1), dtype=torch.long, device=units.device)
-    return model(units, f0, volume, spk_id=spk_id, noise=noise)[0]
 
 
 def _combsubfast_block(model, units_b, f0_b, vol_b, noise_b, spk_id, group,

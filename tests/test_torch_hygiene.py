@@ -1,10 +1,14 @@
-"""Static checks of the port: no module of it (nor chip_smoke.py) imports
+"""Static checks of the port: no module of it (nor chip_smoke.py, nor the
+stream tests' ``torch_shard_map.py``, which helper ranks import) imports
 JAX, Flax, Optax, the JAX package, PyYAML, msgpack, tqdm or matplotlib --
 by an AST scan, since the test interpreter may have imported them already;
 the card machine has none of them -- and its entry points default to the
 CUDA card."""
 import ast
 import inspect
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -25,7 +29,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddsp_svc_tpu", "yaml", "msgpack"
 def _sources():
     files = sorted(Path(ddsp_svc_tpu_torch.__file__).parent.rglob("*.py"))
     assert len(files) > 20
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_shard_map.py"]
 
 
 def _imports(tree):
@@ -349,7 +353,7 @@ def test_a_failed_collective_raises():
     failure; nothing falls back to a local answer."""
     from ddsp_svc_tpu_torch.parallel.mesh import World
 
-    world = World(2, device="cpu", timeout_s=60)
+    world = World(2, device="cpu")
     try:
         world._procs[0].kill()
         world._procs[0].wait()
@@ -360,3 +364,49 @@ def test_a_failed_collective_raises():
     finally:
         world.__exit__(RuntimeError, None, None)
     assert world.group is None
+
+
+def test_world_splits_the_threads(monkeypatch):
+    """A world's ranks split the caller's intra-op threads: each helper
+    starts with max(1, threads // size) and rank 0 runs with as many until
+    the world closes, then gets its own count back."""
+    from ddsp_svc_tpu_torch.parallel import mesh
+
+    _FakeProc.started = []
+    monkeypatch.setattr(mesh.subprocess, "Popen", _FakeProc)
+    monkeypatch.setattr(mesh, "init_rank", lambda rank, size, init, device: (
+        mesh.TimeGroup(rank, size, mesh.rank_device(rank, device))))
+    before = torch.get_num_threads()
+    try:
+        for threads, size, each in ((4, 2, 2), (4, 4, 1), (5, 2, 2), (1, 4, 1)):
+            torch.set_num_threads(threads)
+            _FakeProc.started = []
+            with mesh.World(size, device="cpu"):
+                assert torch.get_num_threads() == each
+                for proc in _FakeProc.started:
+                    argv = proc.argv
+                    assert argv[argv.index("--threads") + 1] == str(each)
+            assert len(_FakeProc.started) == size - 1
+            assert torch.get_num_threads() == threads
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_helpers_refuse_code_that_imports_jax():
+    """A helper rank resolves a function by its module's name and refuses
+    one whose import brings in JAX (a test module's, say); the stream
+    tests' ``torch_shard_map`` imports only torch and resolves."""
+    probe = ("import sys; from ddsp_svc_tpu_torch.parallel.mesh import _resolve\n"
+             "_resolve(sys.argv[1])")
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(ROOT), str(ROOT / "tests")])}
+
+    def run(target):
+        return subprocess.run([sys.executable, "-c", probe, target], env=env,
+                              cwd=ROOT, capture_output=True, text=True)
+
+    ok = run("torch_shard_map:shard_map")
+    assert ok.returncode == 0, ok.stderr
+    refused = run("torch_helpers:tt")
+    assert refused.returncode != 0
+    assert "brought in JAX" in refused.stderr

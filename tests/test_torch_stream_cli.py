@@ -5,8 +5,10 @@ tests/test_torch_cli.py compares the unstreamed CLIs: the noise filter's
 bias at -30 so the two CLIs' different draws do not show, the same length,
 rate and PCM16 type, >= 40 dB SNR. An 11 s recording with a silence (two
 segments, spliced), and a 0.4 s one whose single segment is shorter than
-N (FRAME_HALO + 8) frames, so both CLIs pad it. ``-mix`` with ``--stream``
-is refused with the JAX CLI's words.
+N (FRAME_HALO + 8) frames, so both CLIs pad it. The port's ``--stream 2``
+run twice on one recording (each run in a world of its own) writes the
+same samples. ``-mix`` with ``--stream`` is refused with the JAX CLI's
+words.
 """
 from pathlib import Path
 
@@ -119,6 +121,20 @@ def test_stream_cli_matches_jax(tmp_path, ckpt, wavs, wav):
     snr = snr_db(want.astype(np.float64), got.astype(np.float64))
     print(f"{mtype} {wav} --stream 2: SNR vs the JAX CLI {snr:.1f} dB")
     assert snr >= 40.0
+
+
+def test_stream_cli_repeats_itself(tmp_path, ckpt, wavs):
+    """Two runs of the port's ``--stream 2`` on the same segment, each with
+    fresh helper ranks, give the same PCM samples."""
+    mtype, path = ckpt
+    outs = []
+    for run in ("first", "second"):
+        out = tmp_path / run / "out.wav"
+        pcli.main(["-m", str(path), "-i", str(wavs["0.4s"]), "-o", str(out),
+                   "-k", "2", "-id", "2", "--stream", "2", "--device", "cpu"])
+        outs.append(wavfile.read(out)[1])
+    assert outs[0].shape == outs[1].shape and outs[0].size > 0
+    np.testing.assert_array_equal(outs[1], outs[0], err_msg=mtype)
 
 
 def test_stream_with_mix_refused(tmp_path, wavs, encoder):

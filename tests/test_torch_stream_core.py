@@ -8,7 +8,8 @@ masked statistics summed over the group, and FAVOR+ attention's k_sum and
 context summed over the group (1e-6 relative to the peak: only the order
 of a float sum differs).
 
-Rank 0 is this process; ``mesh.shard_map`` cuts rank 0's arrays into the
+Rank 0 is this process; ``torch_shard_map.shard_map`` (which the helper
+ranks import, so it imports no JAX) cuts rank 0's arrays into the
 blocks ``jax.shard_map``'s in_specs give and joins the blocks its
 out_specs join.
 """
@@ -29,8 +30,9 @@ from ddsp_svc_tpu_torch.models.nn import GroupNorm
 from ddsp_svc_tpu_torch.models.pcmer import linear_attention
 from ddsp_svc_tpu_torch.ops.source import carry_from_increments_q
 from ddsp_svc_tpu_torch.parallel import stream_core
-from ddsp_svc_tpu_torch.parallel.mesh import World, shard_map
+from ddsp_svc_tpu_torch.parallel.mesh import World
 from torch_helpers import rel_err, tt
+from torch_shard_map import shard_map
 
 WORLD_SIZES = (2, 4)
 T = 96  # frames: blocks of 48 or 24
