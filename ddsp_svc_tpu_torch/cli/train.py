@@ -13,10 +13,20 @@ otherwise, as in JAX).
 ``train.amp_dtype`` bf16 / bfloat16 trains in bf16 mixed precision (the
 parameters, the optimizer and the checkpoints stay float32, the
 activations run in bf16); fp16 / float16 takes bf16 too, with the JAX
-trainer's notice. Refused, with the ROADMAP item that would add it: a
-multi-process launch (``JAX_COORDINATOR_ADDRESS``, multi-card training)
-and ``model.use_remat: true`` (recomputing the denoiser's activations in
-the backward).
+trainer's notice. ``model.use_remat: true`` recomputes each denoiser
+layer's activations in its backward (``torch.utils.checkpoint``).
+
+Data parallel, the counterpart of JAX's mesh over every device:
+
+    torchrun --nproc_per_node N -m ddsp_svc_tpu_torch.cli.train -c CONFIG
+
+Each of the N ranks (gloo; rank r on ``cuda:{LOCAL_RANK % cards}``, or
+the CPU with ``--device cpu``) keeps B / N rows of every global batch, the
+gradients are summed over the ranks, and every rank applies the same
+update: the one-process update up to the order of the sums. A batch size
+that N does not divide is refused (JAX drops devices instead; a launched
+rank cannot be dropped). Rank 0 alone logs, validates and saves.
+``JAX_COORDINATOR_ADDRESS`` without torchrun's environment is refused.
 """
 from __future__ import annotations
 
@@ -24,9 +34,11 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
 from ..models.nn import random_init_
 from ..models.registry import build_model, model_family
+from ..parallel import mesh as mesh_lib
 from ..train import checkpoint as ckpt
 from ..train.solver import train
 from ..train.state import create_train_state, param_count, restore_opt_state
@@ -34,11 +46,14 @@ from ..utils.config import load_config
 from ..utils.device import resolve_device
 from .common import build_mel_extractor, needs_mel
 
-MULTI_REFUSED = ("JAX_COORDINATOR_ADDRESS is set: multi-process training is "
-                 "not ported (ROADMAP A, item 8)")
-REMAT_REFUSED = ("model.use_remat is true: recomputing the denoiser's "
-                 "activations in the backward is not ported (ROADMAP A, "
-                 "item 14)")
+MULTI_REFUSED = ("JAX_COORDINATOR_ADDRESS is set without torch.distributed's "
+                 "environment: launch the ranks with torchrun (torchrun "
+                 "--nproc_per_node N -m ddsp_svc_tpu_torch.cli.train -c CONFIG)")
+
+
+def batch_refused(batch: int, world: int) -> str:
+    return (f"batch_size {batch} is not divisible by the {world} ranks: "
+            "every rank keeps batch_size / ranks rows of each batch")
 
 
 def amp_dtype(args) -> torch.dtype | None:
@@ -61,12 +76,22 @@ def main(argv=None):
                         help="stop after this many steps of this run")
     cmd = parser.parse_args(argv)
     args = load_config(cmd.config)
-    if os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        raise SystemExit(MULTI_REFUSED)
-    if args.model.use_remat:
-        raise SystemExit(REMAT_REFUSED)
+    if not mesh_lib.launched():
+        if os.environ.get("JAX_COORDINATOR_ADDRESS"):
+            raise SystemExit(MULTI_REFUSED)
+        return _train(cmd, args, resolve_device(cmd.device), None)
+    world = int(os.environ["WORLD_SIZE"])
+    if int(args.train.batch_size) % world:
+        raise SystemExit(batch_refused(int(args.train.batch_size), world))
+    device = mesh_lib.join_launched_world(cmd.device)
+    try:
+        return _train(cmd, args, device, mesh_lib.make_mesh(device=device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(cmd, args, device, mesh):
     dtype = amp_dtype(args)
-    device = resolve_device(cmd.device)
 
     model = build_model(args, vocoder_dimension=args.model.out_dims or 128,
                         dtype=dtype)
@@ -83,6 +108,8 @@ def main(argv=None):
         print(f" [*] resumed from {latest} (step {initial_step})")
     print(f" [*] parameters: {param_count(model):,}")
     model.to(device)
+    if mesh is not None:
+        mesh_lib.replicate(mesh, model)
 
     state = create_train_state(
         model, lr=float(args.train.lr),
@@ -93,7 +120,7 @@ def main(argv=None):
         restore_opt_state(state, args.model, opt_payload)
     mel_fn = build_mel_extractor(args, device).extract if needs_mel(args) else None
     return train(args, state, mel_fn, initial_step=initial_step, device=device,
-                 max_steps=cmd.max_steps)
+                 max_steps=cmd.max_steps, mesh=mesh)
 
 
 if __name__ == "__main__":

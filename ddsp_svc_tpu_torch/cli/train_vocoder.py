@@ -12,6 +12,11 @@ resumed with both optimizer states. Logs every ``train.interval_log``
 steps, saves every ``train.interval_val``; ``--max_steps`` ends the run
 after that many steps. A resumed run folds the data seed and the source's
 noise stream with its step, as ``cli.train`` does.
+
+Data parallel as ``cli.train`` (JAX's mesh over every device,
+cli/train_vocoder.py:144-156): ``torchrun --nproc_per_node N -m
+ddsp_svc_tpu_torch.cli.train_vocoder -c CONFIG``; each rank keeps B / N
+rows of each batch in both GAN steps, rank 0 alone logs and saves.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from ..models.nn import random_init_
 from ..models.nsf_hifigan import Generator
 from ..models.vocoder import DEFAULT_NSF_CONFIG
 from ..ops.mel import LogMelSpectrogram
+from ..parallel import mesh as mesh_lib
 from ..train import checkpoint as ckpt
 from ..train.saver import Saver
 from ..train.solver import stream_generator
@@ -35,6 +41,7 @@ from ..train.vocoder_solver import (Discriminators, create_states, disc_step,
                                     gen_step, restore_payload, vocoder_payload)
 from ..utils.config import load_config
 from ..utils.device import resolve_device
+from .train import batch_refused
 
 NO_DISCRIMINATOR = (
     "config error: discriminator_periods=[] with msd_scales=0 disables every "
@@ -109,7 +116,19 @@ def main(argv=None):
                         help="stop after this many steps of this run")
     cmd = parser.parse_args(argv)
     args = load_config(cmd.config)
-    device = resolve_device(cmd.device)
+    if not mesh_lib.launched():
+        return _train(cmd, args, resolve_device(cmd.device), None)
+    world = int(os.environ["WORLD_SIZE"])
+    if int(args.train.batch_size) % world:
+        raise SystemExit(batch_refused(int(args.train.batch_size), world))
+    device = mesh_lib.join_launched_world(cmd.device)
+    try:
+        return _train(cmd, args, device, mesh_lib.make_mesh(device=device))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(cmd, args, device, mesh):
     cfg = vocoder_config(args)
     periods, msd = discriminator_config(args)
 
@@ -124,16 +143,21 @@ def main(argv=None):
                       load_all_data=bool(args.train.cache_all_data),
                       with_mel=True, use_aug=False)
     batch_size = int(args.train.batch_size)
-    state_g, state_d = create_states(gen.to(device), discs.to(device),
-                                     float(args.train.lr))
-    saver = Saver(args, initial_global_step=0)
+    gen, discs = gen.to(device), discs.to(device)
+    if mesh is not None:
+        mesh_lib.replicate(mesh, gen)
+        mesh_lib.replicate(mesh, discs)
+    state_g, state_d = create_states(gen, discs, float(args.train.lr))
+    lead = mesh is None or mesh.rank == 0
+    saver = Saver(args, initial_global_step=0) if lead else None
+    start = 0
     latest = ckpt.latest_checkpoint(args.env.expdir)
     if latest:
-        payload, step = ckpt.load_checkpoint(latest)
+        payload, start = ckpt.load_checkpoint(latest)
         restore_payload(state_g, state_d, cfg, payload)
-        saver.global_step = step
-        print(f" [*] resumed from {latest} (step {step})")
-    start = saver.global_step
+        print(f" [*] resumed from {latest} (step {start})")
+    if lead:
+        saver.global_step = start
     sampler = BatchSampler(ds, batch_size, seed=start)
     rng = stream_generator(seed, start, device)
     interval_log = int(args.train.interval_log or 10)
@@ -141,25 +165,31 @@ def main(argv=None):
     total = int(args.train.epochs or 1) * max(len(sampler.files) // batch_size, 1)
     if cmd.max_steps is not None:
         total = min(total, start + cmd.max_steps)
-    while saver.global_step < total:
+    step = start
+    while step < total:
         batch = to_device(_vocoder_batch(sampler.sample()), device)
-        md = disc_step(state_d, state_g.model, batch, rng=rng)
-        mg = gen_step(state_g, state_d.model, batch, mel_fn, rng=rng)
-        saver.global_step_increment()
-        if saver.global_step % interval_log == 0:
+        md = disc_step(state_d, state_g.model, batch, rng=rng, mesh=mesh)
+        mg = gen_step(state_g, state_d.model, batch, mel_fn, rng=rng, mesh=mesh)
+        step += 1
+        if lead:
+            saver.global_step_increment()
+        if step % interval_log == 0:
             dl, gl = float(md["disc_loss"]), float(mg["gen_loss"])
             mel_l1 = float(mg["mel_l1"])
             if not (np.isfinite(dl) and np.isfinite(gl)):
                 raise ValueError(" [x] nan loss ")
-            saver.log_info(
-                f"step: {saver.global_step} | d: {dl:.4f} | g: {gl:.4f} | "
-                f"mel_l1: {mel_l1:.4f} | time: {saver.get_total_time()}")
-            saver.log_value({"vocoder/disc_loss": dl, "vocoder/gen_loss": gl,
-                             "vocoder/mel_l1": mel_l1})
-        if saver.global_step % interval_val == 0:
-            save(args.env.expdir, vocoder_payload(state_g, state_d, cfg,
-                                                  saver.global_step))
-            saver.log_info(f" [*] vocoder ckpt saved at {saver.global_step}")
+            if lead:
+                saver.log_info(
+                    f"step: {step} | d: {dl:.4f} | g: {gl:.4f} | "
+                    f"mel_l1: {mel_l1:.4f} | time: {saver.get_total_time()}")
+                saver.log_value({"vocoder/disc_loss": dl, "vocoder/gen_loss": gl,
+                                 "vocoder/mel_l1": mel_l1})
+        if step % interval_val == 0:
+            if lead:
+                save(args.env.expdir, vocoder_payload(state_g, state_d, cfg, step))
+                saver.log_info(f" [*] vocoder ckpt saved at {step}")
+            if mesh is not None:
+                mesh.world.barrier()  # the others wait while rank 0 saves
     return state_g, state_d
 
 

@@ -16,7 +16,9 @@ can be injected (``ddsp_noise``, ``init_noise``, ``chain_noise``; in
 training the diffusion ``t`` and ``noise``, the reflow ``t`` and ``x_0``);
 what is not comes from ``generator``. ``spk_mix_dict`` {id: weight}
 replaces ``spk_id``. ``trunk_bf16`` runs the NaiveV2Diff trunks through B3
-(JAX ``trunk_pallas=True, trunk_pallas_exact=False``).
+(JAX ``trunk_pallas=True, trunk_pallas_exact=False``); ``remat`` (JAX
+``remat``, ``model.use_remat``) recomputes each denoiser layer in the
+backward.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ class Unit2Mel(nn.Module):
     def __init__(self, input_channel: int, n_spk: int,
                  use_pitch_aug: bool = False, out_dims: int = 128,
                  n_layers: int = 20, n_chans: int = 384, n_hidden: int = 256,
-                 k_step_max: int = 1000):
+                 k_step_max: int = 1000, remat: bool = False):
         super().__init__()
         self.unit_embed = Dense(input_channel, n_hidden)
         self.f0_embed = Dense(1, n_hidden)
@@ -47,7 +49,7 @@ class Unit2Mel(nn.Module):
         # dropped by the loader when the checkpoint has none (io/jax_params.py)
         self.aug_shift_embed = (Dense(1, n_hidden, bias=False)
                                 if use_pitch_aug else None)
-        self.denoise_fn = WaveNet(out_dims, n_layers, n_chans, n_hidden)
+        self.denoise_fn = WaveNet(out_dims, n_layers, n_chans, n_hidden, remat)
         self.decoder = GaussianDiffusion(out_dims, k_step_max)
 
     def hidden(self, units, f0, volume, spk_id=None, spk_mix_dict=None,
@@ -87,11 +89,12 @@ class Unit2Wav(nn.Module):
     def __init__(self, sampling_rate: int, block_size: int, n_unit: int,
                  n_spk: int, use_pitch_aug: bool = False, out_dims: int = 128,
                  n_layers: int = 20, n_chans: int = 512,
-                 pcmer_norm: bool = False, k_step_max: int = 1000):
+                 pcmer_norm: bool = False, k_step_max: int = 1000,
+                 remat: bool = False):
         super().__init__()
         self.ddsp_model = CombSubFast(sampling_rate, block_size, n_unit, n_spk,
                                       use_pitch_aug, pcmer_norm=pcmer_norm)
-        self.denoise_fn = WaveNet(out_dims, n_layers, n_chans, 256)
+        self.denoise_fn = WaveNet(out_dims, n_layers, n_chans, 256, remat)
         self.diff_model = GaussianDiffusion(out_dims, k_step_max)
 
     def loss(self, units, f0, volume, gt_spec, *, mel_extract_fn: Callable,
@@ -132,7 +135,8 @@ class Unit2WavFast(nn.Module):
     def __init__(self, sampling_rate: int, block_size: int, win_length: int,
                  n_unit: int, n_spk: int, use_pitch_aug: bool = False,
                  out_dims: int = 128, n_layers: int = 6, n_chans: int = 512,
-                 k_step_max: int = 1000, trunk_bf16: bool = False):
+                 k_step_max: int = 1000, trunk_bf16: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.ddsp_model = CombSubSuperFast(sampling_rate, block_size,
                                            win_length, n_unit, n_spk,
@@ -140,7 +144,7 @@ class Unit2WavFast(nn.Module):
         self.denoise_fn = NaiveV2Diff(mel_channels=out_dims, dim=n_chans,
                                       condition_dim=out_dims,
                                       num_layers=n_layers,
-                                      trunk_bf16=trunk_bf16)
+                                      trunk_bf16=trunk_bf16, remat=remat)
         self.diff_model = GaussianDiffusion(out_dims, k_step_max)
 
     def loss(self, units, f0, volume, gt_spec, *, mel_extract_fn: Callable,
@@ -188,7 +192,7 @@ class ReflowUnit2Wav(nn.Module):
     def __init__(self, sampling_rate: int, block_size: int, win_length: int,
                  n_unit: int, n_spk: int, use_pitch_aug: bool = False,
                  out_dims: int = 128, n_layers: int = 6, n_chans: int = 512,
-                 trunk_bf16: bool = False):
+                 trunk_bf16: bool = False, remat: bool = False):
         super().__init__()
         self.ddsp_model = CombSubSuperFast(sampling_rate, block_size,
                                            win_length, n_unit, n_spk,
@@ -196,7 +200,7 @@ class ReflowUnit2Wav(nn.Module):
         self.velocity_fn = NaiveV2Diff(mel_channels=out_dims, dim=n_chans,
                                        condition_dim=out_dims,
                                        num_layers=n_layers,
-                                       trunk_bf16=trunk_bf16)
+                                       trunk_bf16=trunk_bf16, remat=remat)
         self.reflow_model = RectifiedFlow(out_dims)
 
     def loss(self, units, f0, volume, gt_spec, *, mel_extract_fn: Callable,

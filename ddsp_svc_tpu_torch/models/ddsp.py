@@ -83,6 +83,7 @@ def sins_harmonic_bank(phase: torch.Tensor, amplitudes_frames: torch.Tensor,
 class Sins(nn.Module):
     """Additive harmonic synthesiser with an LTV all-pass and a filtered
     noise branch."""
+    NOISE = "uniform"  # the synth noise draw: U(-1, 1) or N(0, 1)
 
     def __init__(self, sampling_rate: int, block_size: int, n_harmonics: int,
                  n_mag_allpass: int, n_mag_noise: int, n_unit: int = 256,
@@ -152,6 +153,7 @@ def combsub_stft_synthesis(combtooth_wav, noise, src_filter, noise_filter,
 
 
 class CombSubSuperFast(nn.Module):
+    NOISE = "normal"  # the synth noise draw: U(-1, 1) or N(0, 1)
     def __init__(self, sampling_rate: int, block_size: int, win_length: int,
                  n_unit: int = 256, n_spk: int = 1, use_pitch_aug: bool = False):
         super().__init__()
@@ -227,6 +229,7 @@ def _comb_exciter(x, f0, sampling_rate):
 
 class CombSubFast(nn.Module):
     """Combtooth subtractive synthesiser, framed rFFT and overlap-add."""
+    NOISE = "uniform"  # the synth noise draw: U(-1, 1) or N(0, 1)
 
     def __init__(self, sampling_rate: int, block_size: int, n_unit: int = 256,
                  n_spk: int = 1, use_pitch_aug: bool = False,
@@ -276,6 +279,7 @@ class CombSub(nn.Module):
     """Combtooth subtractive synthesiser with LTV-FIR filters (the old
     version): all-pass, then a per-frame dynamically windowed harmonic
     filter, plus filtered noise."""
+    NOISE = "uniform"  # the synth noise draw: U(-1, 1) or N(0, 1)
 
     def __init__(self, sampling_rate: int, block_size: int, n_mag_allpass: int,
                  n_mag_harmonic: int, n_mag_noise: int, n_unit: int = 256,

@@ -3,7 +3,10 @@ ddsp_svc_tpu/models/naive_v2_diff.py with use_mlp=False, conv_only=True,
 no norm, no wavenet_like). Each layer runs through kernel K3
 (ops/cuda_conformer.conformer_layer), or with ``trunk_bf16`` through B3,
 K3's bf16 class (``conformer_layer_bf16``; JAX ``use_pallas=True,
-pallas_mxu_bf16=True``). A bf16 model (``set_compute_dtype``, JAX
+pallas_mxu_bf16=True``). ``remat`` (JAX ``remat=True``, ``nn.remat`` per
+layer) recomputes each layer's forward in the backward
+(``torch.utils.checkpoint``, non-reentrant), so the layer's kernel
+launches again there. A bf16 model (``set_compute_dtype``, JAX
 ``dtype=bfloat16``) carries bf16 activations through the trunk, and each
 layer runs through B5 (``conformer_layer_bf16_io``), as JAX's fused layer
 runs on a bf16 x. No dropout fires in this trunk: JAX builds it conv-only
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda_conformer import (bf16_gemm_weights, conformer_layer,
                                    conformer_layer_bf16,
@@ -93,9 +97,10 @@ class NaiveV2Diff(nn.Module):
     def __init__(self, mel_channels: int = 128, dim: int = 512,
                  condition_dim: int = 128, num_layers: int = 6,
                  mlp_factor: int = 4, expansion_factor: int = 2,
-                 kernel_size: int = 31, trunk_bf16: bool = False):
+                 kernel_size: int = 31, trunk_bf16: bool = False,
+                 remat: bool = False):
         super().__init__()
-        self.dim = dim
+        self.dim, self.remat = dim, remat
         self.input_projection = Conv1d(mel_channels, dim, 1)
         self.diff_emb_0 = Dense(dim, dim * mlp_factor)
         self.diff_emb_1 = Dense(dim * mlp_factor, dim)
@@ -112,5 +117,9 @@ class NaiveV2Diff(nn.Module):
         step = sinusoidal_pos_emb(diffusion_step.to(x.dtype), self.dim)
         step = self.diff_emb_1(gelu(self.diff_emb_0(step)))[:, None, :]
         for layer in self.layers:
-            x = layer(x, cond, step, edge_mask)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, cond, step, edge_mask,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x, cond, step, edge_mask)
         return self.output_projection(x)

@@ -38,7 +38,8 @@ def build_model(args, vocoder_dimension: int = 128,
     every layer as the JAX ``build_model(args, dtype=)`` passes it down. As
     in JAX, the config has no switch for the bf16 trunk on f32 activations:
     build ``Unit2WavFast`` / ``ReflowUnit2Wav`` with ``trunk_bf16=True``
-    for B3."""
+    for B3. ``model.use_remat`` recomputes the cascades' denoiser layers in
+    the backward (JAX registry.py:61)."""
     model = _build(args, vocoder_dimension)
     return set_compute_dtype(model, dtype) if dtype is not None else model
 
@@ -46,6 +47,7 @@ def build_model(args, vocoder_dimension: int = 128,
 def _build(args, vocoder_dimension: int) -> torch.nn.Module:
     m, d = args.model, args.data
     model_family(m.type)
+    remat = bool(m.use_remat)
     if m.type == "Sins":
         return Sins(d.sampling_rate, d.block_size, m.n_harmonics,
                     m.n_mag_allpass, m.n_mag_noise, d.encoder_out_channels,
@@ -63,18 +65,19 @@ def _build(args, vocoder_dimension: int) -> torch.nn.Module:
     if m.type == "Diffusion":
         return Unit2Mel(d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
                         vocoder_dimension, m.n_layers, m.n_chans, m.n_hidden,
-                        k_step_max=m.k_step_max or 1000)
+                        k_step_max=m.k_step_max or 1000, remat=remat)
     if m.type == "DiffusionNew":
         return Unit2Wav(d.sampling_rate, d.block_size, d.encoder_out_channels,
                         m.n_spk, bool(m.use_pitch_aug), vocoder_dimension,
                         m.n_layers, m.n_chans, pcmer_norm=bool(m.pcmer_norm),
-                        k_step_max=m.k_step_max or 1000)
+                        k_step_max=m.k_step_max or 1000, remat=remat)
     common = (d.sampling_rate, d.block_size, m.win_length,
               d.encoder_out_channels, m.n_spk, bool(m.use_pitch_aug),
               vocoder_dimension, m.n_layers, m.n_chans)
     if m.type == "DiffusionFast":
-        return Unit2WavFast(*common, k_step_max=m.k_step_max or 1000)
-    return ReflowUnit2Wav(*common)
+        return Unit2WavFast(*common, k_step_max=m.k_step_max or 1000,
+                            remat=remat)
+    return ReflowUnit2Wav(*common, remat=remat)
 
 
 def load_model(model_path: str, device: str | torch.device | None = None):

@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .nn import Conv1d, Dense, sigmoid, softplus, weak
 
@@ -59,9 +60,9 @@ class WaveNet(nn.Module):
     ZERO_INIT = ("output_projection",)  # zero weights at training init
 
     def __init__(self, in_dims: int = 128, n_layers: int = 20,
-                 n_chans: int = 384, n_hidden: int = 256):
+                 n_chans: int = 384, n_hidden: int = 256, remat: bool = False):
         super().__init__()
-        self.n_chans = n_chans
+        self.n_chans, self.remat = n_chans, remat
         self.input_projection = Conv1d(in_dims, n_chans, 1)
         self.mlp_0 = Dense(n_chans, 4 * n_chans)
         self.mlp_1 = Dense(4 * n_chans, n_chans)
@@ -77,7 +78,11 @@ class WaveNet(nn.Module):
         step = self.mlp_1(step * torch.tanh(softplus(step)))  # Mish
         skips = 0.0
         for layer in self.layers:
-            x, skip = layer(x, cond, step, edge_mask)
+            if self.remat and torch.is_grad_enabled():
+                x, skip = checkpoint(layer, x, cond, step, edge_mask,
+                                     use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, skip = layer(x, cond, step, edge_mask)
             skips = skips + skip
         x = F.relu(self.skip_projection(
             skips / weak(math.sqrt(len(self.layers)), skips)))

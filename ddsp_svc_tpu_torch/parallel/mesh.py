@@ -29,9 +29,23 @@ when a collective fails. Helpers take rank 0's TF32 settings (matmul
 precision, cuDNN's TF32), so every rank computes as rank 0 does, and the
 ranks split rank 0's intra-op threads between them while the world lives.
 
-The data-parallel helpers of JAX's mesh.py (``shard_batch``,
-``batch_sharding``, ``replicate``) belong to multi-process training and
-are not here yet.
+Training (``train/``, ``parallel/train_sp.py``) runs one process per rank
+too, launched by ``torchrun`` (or anything that sets its environment:
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``;
+``join_launched_world``). ``make_mesh(dp, sp)`` lays the world out as JAX's
+(data, time) mesh, rank = d sp + s, and gives each rank a ``TimeGroup`` on
+each axis (``dist.new_group``) and one on the whole world. ``shard_batch``
+and ``batch_sharding`` cut a rank's block out of a global batch, which
+every rank holds (JAX's ``batch_sharding`` / ``shard_batch``), and
+``replicate`` makes every rank hold rank 0's parameters and buffers
+(``replicate``'s ``P()``).
+
+Under autograd the collectives are differentiable (``torch.autograd.
+Function``s): the halo exchange's backward is the reverse exchange, the
+sum's is the sum, the gather's the rank's slice of the summed gradient.
+Each rank's backward then issues the same collectives in the same order,
+which holds as long as every rank builds the same graph: the drivers
+select with masks where the ranks differ, never with branches.
 """
 from __future__ import annotations
 
@@ -53,6 +67,9 @@ import torch.distributed as dist
 ROOT = Path(__file__).resolve().parent.parent.parent
 PACKAGE = Path(__file__).resolve().parent.parent.name  # also when run as __main__
 TIMEOUT_S = 300.0  # a collective's limit
+# a training world's: its ranks wait at a barrier while rank 0 saves and
+# validates, which takes minutes on a full validation set
+TRAIN_TIMEOUT_S = 3600.0
 _TAG_RIGHT, _TAG_LEFT = 1, 2  # messages moving up / down the ranks
 
 
@@ -84,11 +101,67 @@ def _back(t: torch.Tensor, like: torch.Tensor | None, complex_: bool,
     return t.to(device if like is None else like.device)
 
 
-class TimeGroup:
-    """One rank's handle on the time axis of a world of ``size`` ranks."""
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
 
-    def __init__(self, rank: int, size: int, device: torch.device):
+
+class _Exchange(torch.autograd.Function):
+    """``TimeGroup.exchange`` under autograd; a direction that sends
+    nothing gives an empty output."""
+
+    @staticmethod
+    def forward(ctx, group, to_right, to_left):
+        left, right = group._exchange(to_right, to_left)
+        ctx.group = group
+        ctx.sent = (to_right is not None, to_left is not None)
+        empty = next(x for x in (to_right, to_left) if x is not None).new_zeros(0)
+        return (empty if left is None else left,
+                empty if right is None else right)
+
+    @staticmethod
+    def backward(ctx, g_left, g_right):
+        sent_right, sent_left = ctx.sent
+        # each halo's gradient goes back to the rank it came from: the left
+        # halo's to rank - 1, the right halo's to rank + 1
+        from_left, from_right = ctx.group._exchange(
+            g_right if sent_left else None, g_left if sent_right else None)
+        return None, from_right, from_left
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group._psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group._psum(g)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group._all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group._psum(g)[ctx.group.rank]
+
+
+class TimeGroup:
+    """One rank's handle on one axis of ranks: the time axis of a stream,
+    or the data or time axis of a training mesh. ``rank`` and ``size`` are
+    the axis's; ``ranks`` the world ranks on it in axis order and ``pg``
+    its process group (None: the whole world, the default group)."""
+
+    def __init__(self, rank: int, size: int, device: torch.device, pg=None,
+                 ranks=None):
         self.rank, self.size, self.device = rank, size, torch.device(device)
+        self.pg = pg
+        self.ranks = list(range(size)) if ranks is None else list(ranks)
 
     @contextlib.contextmanager
     def _failing(self, what: str):
@@ -108,9 +181,17 @@ class TimeGroup:
     def exchange(self, to_right: torch.Tensor | None,
                  to_left: torch.Tensor | None):
         """Send ``to_right`` to rank + 1 and ``to_left`` to rank - 1 ->
-        (what rank - 1 sent right, what rank + 1 sent left), None past the
-        ends of the axis. Each rank sends and receives tensors of the same
-        shape (equal blocks), so a receive takes its send's shape."""
+        (what rank - 1 sent right, what rank + 1 sent left); past the ends
+        of the axis, zeros (None for a direction that sends nothing). Each
+        rank sends and receives tensors of the same shape (equal blocks),
+        so a receive takes its send's shape."""
+        if _wants_grad(to_right, to_left):
+            left, right = _Exchange.apply(self, to_right, to_left)
+            return (left if to_right is not None else None,
+                    right if to_left is not None else None)
+        return self._exchange(to_right, to_left)
+
+    def _exchange(self, to_right, to_left):
         r, n = self.rank, self.size
         got, sent = {}, []  # the buffers live until every wait returns
 
@@ -124,39 +205,72 @@ class TimeGroup:
                 h = _host(x)
                 if 0 <= peer_out < n:
                     sent.append(h)
-                    out.append(dist.isend(h, peer_out, tag=tag))
+                    out.append(dist.isend(h, self.ranks[peer_out],
+                                          group=self.pg, tag=tag))
                 if 0 <= peer_in < n:
                     got[key] = (torch.empty_like(h), x)
-                    out.append(dist.irecv(got[key][0], peer_in, tag=tag))
+                    out.append(dist.irecv(got[key][0], self.ranks[peer_in],
+                                          group=self.pg, tag=tag))
             return out
 
         self._wait(works, "halo exchange")
         out = {k: _back(buf, x, x.is_complex(), self.device)
                for k, (buf, x) in got.items()}
-        return out.get("left"), out.get("right")
+
+        def halo(key, sent):  # a halo has the shape of the block sent away
+            if sent is None:
+                return None
+            return out[key] if key in out else torch.zeros_like(sent)
+
+        return halo("left", to_right), halo("right", to_left)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(size, *x.shape): every rank's x, in rank order."""
+        if _wants_grad(x):
+            return _AllGather.apply(self, x)
+        return self._all_gather(x)
+
+    def _all_gather(self, x):
+        if self.size == 1:
+            return x[None]
         h = _host(x)
         parts = [torch.empty_like(h) for _ in range(self.size)]
         with self._failing("all_gather"):
-            dist.all_gather(parts, h)
+            dist.all_gather(parts, h, group=self.pg)
         return _back(torch.stack(parts), x, x.is_complex(), self.device)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's x, added in rank order (the same value
         on every rank)."""
-        parts = self.all_gather(x)
+        if _wants_grad(x):
+            return _PSum.apply(self, x)
+        return self._psum(x)
+
+    def _psum(self, x):
+        parts = self._all_gather(x)
         total = parts[0]
         for p in parts[1:]:
             total = total + p
         return total
 
+    def psum_flat(self, tensors: list) -> list:
+        """``psum`` of every tensor of ``tensors`` (one dtype) through one
+        flattened buffer: one collective however many tensors."""
+        flat = self._psum(torch.cat([t.reshape(-1) for t in tensors]))
+        return [p.view_as(t) for p, t in
+                zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
+
+    def barrier(self) -> None:
+        if self.size == 1:
+            return
+        with self._failing("barrier"):
+            dist.barrier(group=self.pg)
+
     def broadcast_object(self, obj=None):
         """Rank 0's picklable ``obj`` on every rank."""
         box = [obj]
         with self._failing("broadcast"):
-            dist.broadcast_object_list(box, src=0)
+            dist.broadcast_object_list(box, src=self.ranks[0], group=self.pg)
         return box[0]
 
     def broadcast(self, x: torch.Tensor | None) -> torch.Tensor | None:
@@ -169,7 +283,7 @@ class TimeGroup:
         shape, dtype, complex_ = meta
         buf = _host(x) if self.rank == 0 else torch.empty(shape, dtype=dtype)
         with self._failing("broadcast"):
-            dist.broadcast(buf, src=0)
+            dist.broadcast(buf, src=self.ranks[0], group=self.pg)
         if self.rank == 0:
             return x.to(self.device)
         return _back(buf, None, complex_, self.device)
@@ -186,12 +300,13 @@ class TimeGroup:
                     for h, p in zip(hosts, pieces)]
         meta = self.broadcast_object(meta if self.rank == 0 else None)
         if self.rank == 0:
-            self._wait(lambda: [dist.isend(h, r) for r, h in enumerate(hosts)
-                                if r], "scatter")
+            self._wait(lambda: [dist.isend(h, self.ranks[r], group=self.pg)
+                                for r, h in enumerate(hosts) if r], "scatter")
             return pieces[0].to(self.device)
         shape, dtype, complex_ = meta[self.rank]
         buf = torch.empty(shape, dtype=dtype)
-        self._wait(lambda: [dist.irecv(buf, 0)], "scatter")
+        self._wait(lambda: [dist.irecv(buf, self.ranks[0], group=self.pg)],
+                   "scatter")
         return _back(buf, None, complex_, self.device)
 
     def scatter_blocks(self, x: torch.Tensor | None, dim: int = 1
@@ -211,11 +326,12 @@ class TimeGroup:
         others)."""
         h = _host(x)
         if self.rank:
-            self._wait(lambda: [dist.isend(h, 0)], "gather")
+            self._wait(lambda: [dist.isend(h, self.ranks[0], group=self.pg)],
+                       "gather")
             return None
         bufs = [torch.empty_like(h) for _ in range(self.size - 1)]
-        self._wait(lambda: [dist.irecv(b, r + 1) for r, b in enumerate(bufs)],
-                   "gather")
+        self._wait(lambda: [dist.irecv(b, self.ranks[r + 1], group=self.pg)
+                            for r, b in enumerate(bufs)], "gather")
         parts = [x] + [_back(b, x, x.is_complex(), self.device) for b in bufs]
         return torch.cat(parts, dim=dim)
 
@@ -223,7 +339,7 @@ class TimeGroup:
         """Every rank's picklable ``obj`` in rank order on rank 0."""
         out = [None] * self.size if self.rank == 0 else None
         with self._failing("gather"):
-            dist.gather_object(obj, out, dst=0)
+            dist.gather_object(obj, out, dst=self.ranks[0], group=self.pg)
         return out
 
 
@@ -233,6 +349,103 @@ def init_rank(rank: int, size: int, init_file: str, device) -> TimeGroup:
         "gloo", init_method=f"file://{init_file}", rank=rank, world_size=size,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
     return TimeGroup(rank, size, rank_device(rank, device))
+
+
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT")  # what torchrun sets for each rank
+
+
+def launched() -> bool:
+    """Whether this process is a rank that ``torchrun`` (or anything that
+    sets its environment) started."""
+    return all(k in os.environ for k in LAUNCH_ENV)
+
+
+def join_launched_world(device: str | torch.device | None = None
+                        ) -> torch.device:
+    """Join the gloo world that torchrun's environment describes -> this
+    rank's device: ``cuda:{LOCAL_RANK % device_count}``, or the CPU when
+    ``device`` names it."""
+    dist.init_process_group("gloo", init_method="env://",
+                            timeout=datetime.timedelta(seconds=TRAIN_TIMEOUT_S))
+    return rank_device(int(os.environ["LOCAL_RANK"]), device)
+
+
+class Mesh:
+    """The world laid out as JAX's (data, time) mesh of ``dp`` x ``sp``
+    ranks (``make_mesh``): rank d sp + s holds data shard d and time block
+    s. ``data`` and ``time`` are this rank's groups along each axis,
+    ``world`` the whole world's. Every rank makes every group, in one
+    order, as ``dist.new_group`` requires. A 1 x 1 mesh is one process,
+    with or without a process group."""
+
+    def __init__(self, dp: int, sp: int, device: torch.device):
+        size, rank = ((dist.get_world_size(), dist.get_rank())
+                      if dist.is_initialized() else (1, 0))
+        if dp * sp != size:
+            raise ValueError(f"dp ({dp}) x sp ({sp}) != world size ({size})")
+        self.dp, self.sp, self.rank = dp, sp, rank
+        self.d, self.s = divmod(rank, sp)
+        self.device = torch.device(device)
+        rows = [[d * sp + s for s in range(sp)] for d in range(dp)]
+        cols = [[d * sp + s for d in range(dp)] for s in range(sp)]
+        # a group of one rank needs no process group (its collectives are
+        # local), nor does a mesh of one process
+        row_pgs = [dist.new_group(r) if len(r) > 1 else None for r in rows]
+        col_pgs = [dist.new_group(c) if len(c) > 1 else None for c in cols]
+        self.time = TimeGroup(self.s, sp, device, row_pgs[self.d], rows[self.d])
+        self.data = TimeGroup(self.d, dp, device, col_pgs[self.s], cols[self.s])
+        self.world = TimeGroup(rank, size, device)
+
+
+def make_mesh(dp: int | None = None, sp: int = 1,
+              device: str | torch.device | None = None) -> Mesh:
+    """A (data, time) mesh over the joined world (or this process alone):
+    ``dp`` defaults to the world size over ``sp``; ``device`` this rank's
+    device (by default ``rank_device`` of its LOCAL_RANK)."""
+    size = dist.get_world_size() if dist.is_initialized() else 1
+    if device is None or torch.device(device).type != "cpu":
+        device = rank_device(int(os.environ.get("LOCAL_RANK", 0)), device)
+    return Mesh(size // sp if dp is None else dp, sp, device)
+
+
+def batch_sharding(mesh: Mesh, shape, shard_time: bool = False) -> tuple:
+    """The index of this rank's block of an array of ``shape``: rows
+    [d B / dp, (d + 1) B / dp), and with ``shard_time`` axis 1's block s of
+    sp where the axis exists and sp divides it (a (B, 1) spk_id stays whole
+    along time, as JAX's ``shard_batch`` leaves it)."""
+    if not shape:
+        return ()
+    b = shape[0]
+    if b % mesh.dp:
+        raise ValueError(f"batch {b} not divisible by dp {mesh.dp}")
+    n = b // mesh.dp
+    index = [slice(mesh.d * n, (mesh.d + 1) * n)]
+    if shard_time and len(shape) >= 2 and shape[1] % mesh.sp == 0:
+        tb = shape[1] // mesh.sp
+        index.append(slice(mesh.s * tb, (mesh.s + 1) * tb))
+    return tuple(index)
+
+
+def shard_batch(mesh: Mesh, batch: dict, shard_time: bool = False) -> dict:
+    """This rank's block of every array of a global batch (every rank holds
+    the whole batch, drawn from one seed)."""
+    return {k: v[batch_sharding(mesh, tuple(v.shape), shard_time)]
+            for k, v in batch.items()}
+
+
+def replicate(mesh: Mesh, module: torch.nn.Module) -> None:
+    """Every rank takes rank 0's parameters and buffers, one flattened
+    buffer per dtype (JAX's replicated ``P()``)."""
+    tensors = list(module.parameters()) + list(module.buffers())
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = _host(torch.cat([t.reshape(-1) for t in group]))
+        with mesh.world._failing("replicate"):
+            dist.broadcast(flat, src=0)
+        with torch.no_grad():
+            for t, v in zip(group, torch.split(flat, [t.numel() for t in group])):
+                t.copy_(v.view_as(t))
 
 
 def _counters() -> dict:

@@ -22,6 +22,15 @@ WAVENET_HALO = 24  # 20 layers x k=3 d=1 -> 20 frames + margin
 VOCODER_HALO = 32  # mel frames; must exceed the Generator's receptive field
 
 
+def _edge(received: torch.Tensor, fill: torch.Tensor, sender: bool
+          ) -> torch.Tensor:
+    """The halo a neighbour sent, or ``fill`` where there is no neighbour:
+    a selection by mask, so every rank builds the same graph and issues
+    the same collectives in its backward."""
+    keep = torch.full((), sender, dtype=torch.bool, device=received.device)
+    return torch.where(keep, received, fill)
+
+
 def _frame_halo(x: torch.Tensor, h_left: int, h_right: int, group,
                 edge_value: float | None = 0.0) -> torch.Tensor:
     """(B, tb, ...) -> (B, h_left + tb + h_right, ...): the neighbours'
@@ -39,10 +48,11 @@ def _frame_halo(x: torch.Tensor, h_left: int, h_right: int, group,
 
     parts = []
     if h_left:
-        parts.append(fill(x[:, :1], h_left) if left is None else left)
+        parts.append(_edge(left, fill(x[:, :1], h_left), group.rank > 0))
     parts.append(x)
     if h_right:
-        parts.append(fill(x[:, -1:], h_right) if right is None else right)
+        parts.append(_edge(right, fill(x[:, -1:], h_right),
+                           group.rank < group.size - 1))
     return torch.cat(parts, dim=1)
 
 
@@ -50,10 +60,8 @@ def _sample_halo_reflect(x: torch.Tensor, hs: int, group) -> torch.Tensor:
     """(B, L) -> (B, hs + L + hs): the neighbours' samples, torch's reflect
     padding at the utterance's edges (``torch.stft(center=True)``)."""
     left, right = group.exchange(x[:, -hs:], x[:, :hs])
-    if left is None:
-        left = x[:, 1:hs + 1].flip(1)
-    if right is None:
-        right = x[:, -hs - 1:-1].flip(1)
+    left = _edge(left, x[:, 1:hs + 1].flip(1), group.rank > 0)
+    right = _edge(right, x[:, -hs - 1:-1].flip(1), group.rank < group.size - 1)
     return torch.cat([left, x, right], dim=1)
 
 

@@ -8,11 +8,18 @@ ddsp_svc_tpu/train/solver.py: ``FAMILIES``, ``build_train_step``,
   family 'reflow'    -- cascade with the log-normal flow loss, and mel
                         SNR / PSNR / SI-SNR in validation
 
-One step per batch on one card; batches from ``data/dataset.BatchSampler``
-(the JAX package's C++ prefetcher gives the same batches and is not ported).
-The data seed and the model-noise stream are folded with the resumed step,
-so a resumed run draws fresh batches and noise. A NaN loss raises.
+One step per batch; batches from ``data/dataset.BatchSampler`` (the JAX
+package's C++ prefetcher gives the same batches and is not ported). The
+data seed and the model-noise stream are folded with the resumed step, so
+a resumed run draws fresh batches and noise. A NaN loss raises.
 Validation runs under ``torch.no_grad``.
+
+Data parallel (a ``mesh`` of ``torchrun``'s ranks): every rank draws the
+same global batch from the same seed and the step keeps its rows
+(``train/steps.py``); rank 0 alone logs, validates and saves, while the
+other ranks wait at a barrier. JAX's multi-host loader gives each process
+``files[rank::world]`` (solver.py:166-168) instead; the port does not, so
+that the update is the one-process update whatever the world size.
 """
 from __future__ import annotations
 
@@ -30,21 +37,23 @@ from .steps import (make_cascade_train_step, make_ddsp_train_step,
                     make_unit2mel_train_step, to_device)
 
 
-def build_train_step(args, mel_extract_fn=None):
-    """-> (family, step function) for ``args.model.type``."""
+def build_train_step(args, mel_extract_fn=None, mesh=None):
+    """-> (family, step function) for ``args.model.type``; with a ``mesh``
+    the data-parallel step."""
     family = model_family(args.model.type)
     if family == "ddsp":
         loss_cfg = args.loss or {}
         return family, make_ddsp_train_step(loss_cfg.get("fft_min", 256),
                                             loss_cfg.get("fft_max", 2048),
-                                            loss_cfg.get("n_scale", 4))
+                                            loss_cfg.get("n_scale", 4), mesh=mesh)
     if family == "unit2mel":
-        return family, make_unit2mel_train_step(args.model.k_step_max or 1000)
+        return family, make_unit2mel_train_step(args.model.k_step_max or 1000,
+                                                mesh=mesh)
     t_start = float(args.model.t_start or 0.0) if family == "reflow" else 0.0
     return family, make_cascade_train_step(
         mel_extract_fn, lambda_ddsp=float(args.train.lambda_ddsp or 1.0),
         k_step_max=(args.model.k_step_max or 1000) if family == "diffusion" else None,
-        family=family, t_start=t_start)
+        family=family, t_start=t_start, mesh=mesh)
 
 
 def stream_generator(seed: int, step: int, device) -> torch.Generator:
@@ -118,17 +127,22 @@ def validate(args, family: str, model, valid: AudioDataset, saver: Saver,
 
 
 def train(args, state: TrainState, mel_extract_fn=None, initial_step: int = 0,
-          device="cuda", max_steps: int | None = None) -> TrainState:
+          device="cuda", max_steps: int | None = None, mesh=None) -> TrainState:
     """The main loop: sample, step, log every ``interval_log``, save,
     retain and validate every ``interval_val``. ``max_steps`` ends the run
-    after that many steps of this call (the JAX loop runs to its epochs)."""
+    after that many steps of this call (the JAX loop runs to its epochs).
+    With a ``mesh`` this is one rank of a data-parallel run."""
     device = torch.device(device)
-    family, step_fn = build_train_step(args, mel_extract_fn)
-    saver = Saver(args, initial_global_step=initial_step)
+    family, step_fn = build_train_step(args, mel_extract_fn, mesh)
+    lead = mesh is None or mesh.rank == 0
+    saver = Saver(args, initial_global_step=initial_step) if lead else None
     train_ds, valid_ds = get_datasets(args)
     sampler = BatchSampler(train_ds, int(args.train.batch_size),
                            seed=int(args.train.seed or 0) + initial_step)
-    saver.log_info(f" [*] {len(train_ds)} train files, {len(valid_ds)} valid files")
+    if lead:
+        saver.log_info(f" [*] {len(train_ds)} train files, {len(valid_ds)} "
+                       f"valid files" + (f", {mesh.dp} data-parallel ranks"
+                                         if mesh is not None else ""))
 
     interval_log = int(args.train.interval_log or 10)
     interval_val = int(args.train.interval_val or 2000)
@@ -142,33 +156,40 @@ def train(args, state: TrainState, mel_extract_fn=None, initial_step: int = 0,
     generator = stream_generator(int(args.train.seed or 0), initial_step, device)
     last_saved_step = -1
     state.model.train()
+    step = initial_step
 
-    while saver.global_step < total_steps:
+    while step < total_steps:
         batch = to_device(sampler.sample(), device)
         metrics = step_fn(state, batch, generator)
-        saver.global_step_increment()
+        step += 1
+        if lead:
+            saver.global_step_increment()
 
-        if saver.global_step % interval_log == 0:
-            loss = float(metrics["loss"])
+        if step % interval_log == 0:
+            loss = float(metrics["loss"])  # the same on every rank
             if np.isnan(loss):
                 raise ValueError(" [x] nan loss ")
-            saver.log_info(
-                f"step: {saver.global_step} | loss: {loss:.6f} | lr: "
-                f"{state.lr():.3e} | time: {saver.get_total_time()} | "
-                f"{interval_log / max(saver.get_interval_time(), 1e-9):.2f} it/s")
-            saver.log_value({f"train/{k}": float(v) for k, v in metrics.items()})
+            if lead:
+                saver.log_info(
+                    f"step: {step} | loss: {loss:.6f} | lr: "
+                    f"{state.lr():.3e} | time: {saver.get_total_time()} | "
+                    f"{interval_log / max(saver.get_interval_time(), 1e-9):.2f} it/s")
+                saver.log_value({f"train/{k}": float(v) for k, v in metrics.items()})
 
-        if saver.global_step % interval_val == 0:
-            saver.save_model(state.model,
-                             opt_state_to_optax(state, args.model) if save_opt else None)
-            if last_saved_step >= 0 and (interval_force_save <= 0
-                                         or last_saved_step % interval_force_save != 0):
-                saver.delete_model(last_saved_step)
-            last_saved_step = saver.global_step
-            state.model.eval()
-            results = validate(args, family, state.model, valid_ds, saver,
-                               device, mel_extract_fn)
-            state.model.train()
-            saver.log_info({"validation": results})
-            saver.log_value(results)
+        if step % interval_val == 0:
+            if lead:
+                saver.save_model(state.model, opt_state_to_optax(state, args.model)
+                                 if save_opt else None)
+                if last_saved_step >= 0 and (interval_force_save <= 0 or
+                                             last_saved_step % interval_force_save != 0):
+                    saver.delete_model(last_saved_step)
+                last_saved_step = step
+                state.model.eval()
+                results = validate(args, family, state.model, valid_ds, saver,
+                                   device, mel_extract_fn)
+                state.model.train()
+                saver.log_info({"validation": results})
+                saver.log_value(results)
+            if mesh is not None:
+                mesh.world.barrier()  # the others wait while rank 0 saves
     return state

@@ -26,6 +26,7 @@ from ..models.nsf_hifigan import (MultiPeriodDiscriminator,
                                   feature_loss, generator_loss)
 from .state import (TrainState, adam_moments, create_train_state,
                     load_adam_moments)
+from .steps import apply_update, data_group, global_draws, shard
 
 ADAM_BETAS = (0.8, 0.99)
 WEIGHT_DECAY = 1e-4  # optax.adamw's default
@@ -57,10 +58,22 @@ def create_states(generator: nn.Module, discriminators: Discriminators,
                  for m in (generator, discriminators))
 
 
-def _update(state: TrainState, loss: torch.Tensor) -> None:
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.apply_gradients()
+def _rand_ini(shape, rng, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=rng, device=device)
+    u[..., 0] = 0.0  # the fundamental starts at phase 0
+    return u
+
+
+def sine_draws(generator: nn.Module, batch: dict, sine_kwargs=None,
+               rng: torch.Generator | None = None) -> dict:
+    """The sine source's draws at the global batch's shape, in the order it
+    draws them: ``rand_ini`` (1, 1, dim) and ``noise`` (B, T * upp, dim);
+    those of ``sine_kwargs`` in their place."""
+    dim = generator.m_source.harmonic_num + 1
+    b, t = batch["f0"].shape[:2]
+    return global_draws({"rand_ini": ((1, 1, dim), _rand_ini),
+                         "noise": ((b, t * generator.upp, dim), "normal")},
+                        sine_kwargs, rng, batch["f0"].device)
 
 
 def synth(generator: nn.Module, batch: dict, sine_kwargs=None,
@@ -70,35 +83,40 @@ def synth(generator: nn.Module, batch: dict, sine_kwargs=None,
 
 
 def disc_step(state_d: TrainState, generator: nn.Module, batch: dict,
-              sine_kwargs=None, rng=None) -> dict:
+              sine_kwargs=None, rng=None, mesh=None) -> dict:
     """One discriminator update on the batch's audio against the
     generator's (held fixed)."""
+    draws = sine_draws(generator, batch, sine_kwargs, rng)
+    batch, draws, share = shard(mesh, batch, draws, ("noise",))
     with torch.no_grad():
-        y_hat = synth(generator, batch, sine_kwargs, rng)
+        y_hat = synth(generator, batch, draws)
     reals, fakes, _, _ = state_d.model(batch["audio"], y_hat)
-    loss = discriminator_loss(reals, fakes)
-    _update(state_d, loss)
-    return {"disc_loss": loss.detach()}
+    loss = discriminator_loss(reals, fakes) * share
+    (total,) = apply_update(state_d, loss, [loss], data_group(mesh))
+    return {"disc_loss": total}
 
 
 def gen_step(state_g: TrainState, discriminators: nn.Module, batch: dict,
              mel_fn: Callable, sine_kwargs=None, rng=None,
-             lambda_mel: float = 45.0, lambda_fm: float = 1.0) -> dict:
+             lambda_mel: float = 45.0, lambda_fm: float = 1.0,
+             mesh=None) -> dict:
     """One generator update: adversarial + lambda_fm x feature +
     lambda_mel x mel L1 (the discriminators held fixed)."""
-    y_hat = synth(state_g.model, batch, sine_kwargs, rng)
+    draws = sine_draws(state_g.model, batch, sine_kwargs, rng)
+    batch, draws, share = shard(mesh, batch, draws, ("noise",))
+    y_hat = synth(state_g.model, batch, draws)
     discriminators.requires_grad_(False)
     try:
         _, fakes, fmap_r, fmap_g = discriminators(batch["audio"], y_hat)
-        adv = generator_loss(fakes)
-        fm = feature_loss(fmap_r, fmap_g)
-        mel_l1 = torch.mean(torch.abs(mel_fn(y_hat) - mel_fn(batch["audio"])))
+        adv = generator_loss(fakes) * share
+        fm = feature_loss(fmap_r, fmap_g) * share
+        mel_l1 = torch.mean(torch.abs(mel_fn(y_hat) - mel_fn(batch["audio"]))) * share
         loss = adv + lambda_fm * fm + lambda_mel * mel_l1
-        _update(state_g, loss)
+        loss, adv, fm, mel_l1 = apply_update(state_g, loss, [loss, adv, fm, mel_l1],
+                                             data_group(mesh))
     finally:
         discriminators.requires_grad_(True)
-    return {"gen_loss": loss.detach(), "adv": adv.detach(), "fm": fm.detach(),
-            "mel_l1": mel_l1.detach()}
+    return {"gen_loss": loss, "adv": adv, "fm": fm, "mel_l1": mel_l1}
 
 
 def _host(sd: dict) -> dict:

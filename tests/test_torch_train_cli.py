@@ -3,7 +3,8 @@ small corpus, then ``cli.train`` (``--device cpu``) warm-started from a
 ``model_0`` the JAX package wrote, three steps whose losses match the JAX
 loop's on the same batches, parameters and draws, a save, a resume at the
 right step with the learning rate the schedule gives there, retention, and
-the refusal of a multi-process launch; and a bf16 mixed-precision run
+the refusal of ``JAX_COORDINATOR_ADDRESS`` without torchrun's environment;
+``model.use_remat: true`` training; and a bf16 mixed-precision run
 (``amp_dtype: bf16``, fp16 mapped to it as JAX maps it) that trains,
 saves float32 parameters the JAX package reads, and resumes.
 
@@ -121,8 +122,8 @@ def test_preprocess_train_resume(tmp_path, monkeypatch):
 
     got, original = [], solver.build_train_step
 
-    def injecting(args_, mel_fn):
-        family, step = original(args_, mel_fn)
+    def injecting(args_, mel_fn, mesh=None):
+        family, step = original(args_, mel_fn, mesh)
 
         def wrapped(state, batch, generator=None, draws=None):
             _, d = _draws(state.step, *batch["units"].shape[:2])
@@ -156,8 +157,10 @@ def test_preprocess_train_resume(tmp_path, monkeypatch):
 
 
 def test_refusals(tmp_path, monkeypatch, capsys):
-    """A multi-process launch is refused, naming its ROADMAP item, before
-    any model is built. bf16 mixed precision is not refused any more:
+    """``JAX_COORDINATOR_ADDRESS`` without torchrun's environment is
+    refused, naming torchrun, before any model is built (the port's
+    multi-process launch is torchrun's: tests/test_torch_train_dist.py).
+    bf16 mixed precision is not refused any more:
     ``amp_dtype`` bf16 / bfloat16 map to bfloat16, fp16 / float16 too with
     the JAX trainer's notice, fp32 to float32."""
     for amp, want in (("bf16", torch.bfloat16), ("bfloat16", torch.bfloat16),
@@ -167,18 +170,29 @@ def test_refusals(tmp_path, monkeypatch, capsys):
     assert "fp16 requested; using bf16" in capsys.readouterr().out
     _, cfg = _config(tmp_path)
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(SystemExit, match=r"ROADMAP A, item 8"):
+    with pytest.raises(SystemExit, match=r"launch the ranks with torchrun"):
         ptrain.main(["-c", cfg, "--device", "cpu"])
 
 
 def test_use_remat_refused(tmp_path):
-    """``model.use_remat: true`` is refused, naming ROADMAP A item 14,
-    before any model is built."""
-    args, cfg = _config(tmp_path)
+    """``model.use_remat: true`` is no longer refused (ROADMAP A item 14 is
+    ported): ``cli.train`` builds the denoiser with ``remat``, trains and
+    saves a checkpoint the JAX package restores strictly."""
+    from ddsp_svc_tpu.train.checkpoint import load_checkpoint, restore_into
+
+    _corpus(str(tmp_path / "data" / "train"), (1.1, 0.9), seed=1)
+    _corpus(str(tmp_path / "data" / "val"), (0.8,), seed=2)
+    args, cfg = _config(tmp_path, interval_val=2)
     args["model"]["use_remat"] = True
     save_config(cfg, args)
-    with pytest.raises(SystemExit, match=r"ROADMAP A, item 14"):
-        ptrain.main(["-c", cfg, "--device", "cpu"])
+    pprep.main(["-c", cfg, "--device", "cpu", "--seed", "3"])
+    state = ptrain.main(["-c", cfg, "--device", "cpu", "--max_steps", "2"])
+    assert state.step == 2 and state.model.denoise_fn.remat
+    payload, step = load_checkpoint(latest_checkpoint(str(tmp_path / "exp")))
+    jmodel = jax_build_model(args)
+    params = jax_variables(args, jmodel, seed=9, shapes_only=True)["params"]
+    restore_into(params, payload["params"], strict=True)
+    assert step == 2
 
 
 def test_bf16_config_trains(tmp_path):
@@ -201,8 +215,8 @@ def test_bf16_config_trains(tmp_path):
     original = solver.build_train_step
 
     def recording(tag):
-        def build(args_, mel_fn):
-            family, step = original(args_, mel_fn)
+        def build(args_, mel_fn, mesh=None):
+            family, step = original(args_, mel_fn, mesh)
 
             def wrapped(state, batch, generator=None, draws=None):
                 _, d = _draws(state.step, *batch["units"].shape[:2])

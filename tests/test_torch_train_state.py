@@ -165,9 +165,10 @@ def test_init_statistics_per_leaf(mtype):
         kwargs = dict(gt_spec=x["mel"], infer=False, key=jax.random.PRNGKey(2),
                       mel_extract_fn=jax_mel_fn(), k_step=100,
                       aug_shift=x["aug_shift"])
-    jvars = jmodel.init({"params": jax.random.PRNGKey(3),
-                         "noise": jax.random.PRNGKey(4)},
-                        x["units"], x["f0"], x["volume"], **kwargs)
+    # jitted: one compile of the init's forward (eagerly, every op apart)
+    jvars = jax.jit(lambda: jmodel.init({"params": jax.random.PRNGKey(3),
+                                         "noise": jax.random.PRNGKey(4)},
+                                        x["units"], x["f0"], x["volume"], **kwargs))()
     want = leaves(jax.tree_util.tree_map(np.asarray, jvars["params"]))
     port = random_init_(build_model(args), torch.Generator().manual_seed(5),
                         training=True)

@@ -202,25 +202,30 @@ def test_first_disc_and_gen_steps(monkeypatch, torch_default_threads):
 
     y_hat = jax.jit(synth)(gparams)  # as the JAX trainer's jitted step makes it
 
-    def d_loss(dp):
-        reals, fakes, _, _ = jdisc.apply({"params": dp}, jb["audio"],
-                                         jax.lax.stop_gradient(y_hat))
+    # the discriminator step's audio enters as arguments: closed over, XLA
+    # constant-folds the discriminators' pooling of it at length
+    def d_loss(dp, audio, y):
+        reals, fakes, _, _ = jdisc.apply({"params": dp}, audio,
+                                         jax.lax.stop_gradient(y))
         return jnsf.discriminator_loss(reals, fakes)
 
-    jdl, dgrads = jax.jit(jax.value_and_grad(d_loss))(dparams)
-    upd, _ = tx.update(dgrads, tx.init(dparams), dparams)
-    dparams1 = optax.apply_updates(dparams, upd)
+    @jax.jit  # one compile of the update (eager optax compiles op by op)
+    def adamw_step(grads, params):
+        upd, _ = tx.update(grads, tx.init(params), params)
+        return optax.apply_updates(params, upd)
 
-    def g_loss(gp):
+    jdl, dgrads = jax.jit(jax.value_and_grad(d_loss))(dparams, jb["audio"], y_hat)
+    dparams1 = adamw_step(dgrads, dparams)
+
+    def g_loss(gp, dp, audio):
         y = synth(gp)
-        _, fakes, fr, fg = jdisc.apply({"params": dparams1}, jb["audio"], y)
-        mel_l1 = jnp.mean(jnp.abs(mel_j(y) - mel_j(jb["audio"])))
+        _, fakes, fr, fg = jdisc.apply({"params": dp}, audio, y)
+        mel_l1 = jnp.mean(jnp.abs(mel_j(y) - mel_j(audio)))
         return (jnsf.generator_loss(fakes) + jnsf.feature_loss(fr, fg)
                 + 45.0 * mel_l1)
 
-    jgl, ggrads = jax.jit(jax.value_and_grad(g_loss))(gparams)
-    upd, _ = tx.update(ggrads, tx.init(gparams), gparams)
-    gparams1 = optax.apply_updates(gparams, upd)
+    jgl, ggrads = jax.jit(jax.value_and_grad(g_loss))(gparams, dparams1, jb["audio"])
+    gparams1 = adamw_step(ggrads, gparams)
 
     state_g, state_d = psolver.create_states(gen, discs, lr)
     tb, ts = _t(batch), _t(sine)

@@ -10,15 +10,22 @@ torch's intra-op threads (by default one per core, which spin between
 ops): six workers with eight threads each on eight cores spend most of
 their time waiting on one another. Every ``test_torch_*.py`` file imports
 this module, so the cap holds in every worker that runs one.
+
+The workers run without TensorFlow, as the card machine does: the
+trainers' savers write their event files through ``torch.utils.
+tensorboard``, which imports TensorFlow where it is installed (~16 s a
+process here) and otherwise falls back to TensorBoard's own stub.
 """
 import contextlib
 import os
+import sys
 
 import numpy as np
 import torch
 
 import jax
 
+sys.modules.setdefault("tensorflow", None)  # an import of it now fails
 _DEFAULT_THREADS = torch.get_num_threads()
 _WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
 if _WORKERS > 1:

@@ -110,10 +110,12 @@ def jax_variables(args, jmodel, seed: int = 1, shapes_only: bool = False) -> dic
 
 
 def pair(mtype: str, seed: int = 1):
-    """(args, JAX model, JAX variables, the port model loaded with them)."""
+    """(args, JAX model, JAX variables, the port model loaded with them);
+    the variables from the init's shapes (an eager init of a model with
+    buffers costs ~20 s of op-by-op compiles)."""
     args = tiny_config(mtype)
     jmodel = jax_build_model(args)
-    variables = jax_variables(args, jmodel, seed)
+    variables = jax_variables(args, jmodel, seed, shapes_only=True)
     port = build_model(args)
     load_state(port, model_state_dict(args.model, variables["params"],
                                       variables.get("buffers")))
