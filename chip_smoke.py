@@ -3924,8 +3924,8 @@ def phase_streaming(torch, card: str, root: Path) -> dict:
 
 # ---------------------------------------------------------------- phase 23
 
-# Multi-process training. Limits stated before its first run (PERF.md §6,
-# PR 13). 2 ranks against 1 (both launched with torchrun's environment,
+# Multi-process training. Limits stated before its first run (PERF.md §6).
+# 2 ranks against 1 (both launched with torchrun's environment,
 # cuDNN's defaults as a user's run has them): step 1's loss within
 # DP_FIRST_LOSS_TOL relative (the same arithmetic on half the rows, summed
 # in another order), every later step's within DP_LOSS_TOL (AdamW's first
@@ -3942,10 +3942,10 @@ def phase_streaming(torch, card: str, root: Path) -> dict:
 # activations; cuDNN's weight gradients may sum in another order).
 DP_STEPS, DP_RESUME_STEPS, VOC_DP_STEPS = 10, 1, 5
 DP_FIRST_LOSS_TOL, DP_LOSS_TOL = 1e-5, 1e-3
-# the GAN's later steps: revised after chip call 1 of PR 13, where the
-# first limit (DP_LOSS_TOL) missed at iteration 4's mel L1 by 1.03e-3 (each
-# network's update feeds the other's next loss, which amplifies the turned
-# elements of AdamW's first updates); PERF.md §6 keeps the miss
+# the GAN's later steps: set after the phase's first run on an H100 missed
+# DP_LOSS_TOL at iteration 4's mel L1 by 1.03e-3 (each network's update
+# feeds the other's next loss, which amplifies the turned elements of
+# AdamW's first updates); PERF.md §6 keeps the miss
 VOC_DP_LOSS_TOL = 1e-2
 SP_BATCH, SP_FRAMES = 8, 688
 SP_LOSS_TOL, SP_GRAD_TOL, SP_LEAF_TOL = 1e-4, 1e-3, 1e-2

@@ -38,7 +38,7 @@ each axis (``dist.new_group``) and one on the whole world. ``shard_batch``
 and ``batch_sharding`` cut a rank's block out of a global batch, which
 every rank holds (JAX's ``batch_sharding`` / ``shard_batch``), and
 ``replicate`` makes every rank hold rank 0's parameters and buffers
-(``replicate``'s ``P()``).
+(JAX's replicated ``P()``).
 
 Under autograd the collectives are differentiable (``torch.autograd.
 Function``s): the halo exchange's backward is the reverse exchange, the

@@ -13,8 +13,8 @@ this module, so the cap holds in every worker that runs one.
 
 The workers run without TensorFlow, as the card machine does: the
 trainers' savers write their event files through ``torch.utils.
-tensorboard``, which imports TensorFlow where it is installed (~16 s a
-process here) and otherwise falls back to TensorBoard's own stub.
+tensorboard``, which imports TensorFlow where it is installed (some 16 s
+a process) and otherwise falls back to TensorBoard's own stub.
 """
 import contextlib
 import os
