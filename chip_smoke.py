@@ -195,7 +195,28 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      1 x 2, batch 8 x 688 frames, against the dense step on the card with
      the same draws (K1 1, K3 0 a rank; peak memory per rank); (d)
      model.use_remat: a DiffusionFast step's gradients against the same
-     step without it, K3 12 a step, peak memory.
+     step without it, K3 12 a step, peak memory;
+ 24. upstream checkpoints, cli.batch_infer and cli.export: (a) synthetic
+     upstream files drawn from a seed at the published widths
+     (``tests/torch_convert_helpers.py``: configs/diffusion-fast.yaml's
+     DiffusionFast, configs/sins.yaml's Sins, configs/nsf-hifigan.yaml's
+     NSF-HiFiGAN with its config.json, a fairseq contentvec768l12, RMVPE),
+     each saved in upstream's wrapper and converted by
+     ``python -m ddsp_svc_tpu_torch.convert``'s ``main``; every file loads
+     strictly through the port's loaders; the converted pipeline's 10 s
+     diffusion-fast request on the card against the CPU (>= 40 dB); (b)
+     cli.batch_infer on the card over a nested tree of four wavs (2, 5, 10
+     and 12 s) with the converted model, vocoder, encoder and -pe rmvpe:
+     the output tree mirrors the input, each file within BATCH_INFER_SNR_DB
+     of SvcPipeline.infer alone with its seed (or bit for bit), exactly K1
+     1, K3 60, K2 5 a file, the wall per file and per second of audio;
+     (c) cli.export of the converted diffusion-fast checkpoint at
+     --seconds 10 -kstep 100 and of the converted Sins, traced on the card,
+     and the diffusion-fast traced from CPU inputs, each loaded with
+     load_exported(..., "cuda"): per call exactly K1 1 and K3 60 (Sins K4
+     1) and no plain version, the output against the eager model on the
+     card with the same draws within EXPORT_REL_TOL of its peak, the export
+     seconds, the artifact's MB, the artifact's and the eager call's walls.
 Phase 3 also holds K4's bf16-amplitude mode (the bf16 Sins: amplitudes
 upsampled in bf16) to its plain version within 3e-5, timed as K4.
 Phase 3 also holds B5 (K3's bf16 class on bf16 activations) to its plain
@@ -4403,6 +4424,290 @@ def phase_multi_training(torch, card: str, root: Path) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- phase 24
+
+BATCH_INFER_SNR_DB = 80.0
+BATCH_INFER_SECONDS = {"a.wav": 2, "set/b.wav": 5, "set/live/c.wav": 10,
+                       "set/live/d.wav": 12}
+EXPORT_REL_TOL = 1e-5  # the artifact against the eager model, x max|out|
+EXPECT_EXPORT = {"diffusion-fast": {"combtooth": 1, "conformer_layer": 60},
+                 "sins": {"harmonic_bank": 1}}
+PLAIN_VERSIONS = (("cuda_source", "combtooth_plain"),
+                  ("cuda_conformer", "conformer_layer_plain"),
+                  ("cuda_oscillator", "harmonic_bank_plain"))
+
+
+class _NoPlain:
+    """Within the block, calling a kernel's plain version fails the run."""
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for mod_name, fn in PLAIN_VERSIONS:
+            mod = importlib.import_module(f"ddsp_svc_tpu_torch.ops.{mod_name}")
+            self.saved.append((mod, fn, getattr(mod, fn)))
+            setattr(mod, fn, lambda *a, _fn=fn, **k: fail(
+                f"the plain version {_fn} ran inside an exported program"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, orig in self.saved:
+            setattr(mod, fn, orig)
+
+
+def write_upstream(root: Path) -> dict:
+    """Phase 24 (a): synthetic upstream files at the published widths, each
+    in upstream's wrapper, converted by the port's converter CLI. Returns
+    the paths of the converted model checkpoints (each with its config)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_convert_helpers as up
+    from ddsp_svc_tpu_torch.convert.__main__ import main as convert
+    from ddsp_svc_tpu_torch.features.hubert import ENCODER_CONFIGS
+    from ddsp_svc_tpu_torch.utils.config import load_config, save_config
+
+    t0 = time.perf_counter()
+    voc = load_config(str(CONFIGS / "nsf-hifigan.yaml"))
+    voc_cfg = dict(voc.vocoder, sampling_rate=SR, hop_size=BLOCK)
+    voc_cfg.pop("type", None)
+    (root / "nsf_hifigan").mkdir()
+    (root / "nsf_hifigan" / "config.json").write_text(json.dumps(voc_cfg))
+    up.save_upstream(root / "nsf_hifigan" / "model",
+                     up.nsf_hifigan_state_dict(voc_cfg, seed=SEED + 240), "generator")
+    enc = ENCODER_CONFIGS[ENCODER]
+    up.save_upstream(root / "contentvec.pt", up.hubert_state_dict(
+        "fairseq", enc.dim, enc.ffn_dim, enc.num_layers, seed=SEED + 241,
+        proj_dim=enc.proj_dim), "model")
+    up.save_upstream(root / "rmvpe.pt", up.rmvpe_state_dict(seed=SEED + 242), "model")
+    for argv in (["nsf-hifigan", str(root / "nsf_hifigan" / "model")],
+                 ["hubert", str(root / "contentvec.pt"), ENCODER,
+                  str(root / "contentvec.msgpack")],
+                 ["rmvpe", str(root / "rmvpe.pt")]):
+        if convert(argv) != 0:
+            fail(f"convert {argv[0]} failed")
+    models = {}
+    for name, config in (("diffusion-fast", "diffusion-fast.yaml"),
+                         ("sins", "sins.yaml")):
+        args = load_config(str(CONFIGS / config))
+        args["data"]["encoder_ckpt"] = str(root / "contentvec.msgpack")
+        section = "vocoder" if name == "diffusion-fast" else "enhancer"
+        args[section]["ckpt"] = str(root / "nsf_hifigan" / "model")
+        d = root / name
+        d.mkdir()
+        save_config(d / "config.yaml", dict(args))
+        written = load_config(str(d / "config.yaml"))
+        if (written.data.encoder_ckpt != str(root / "contentvec.msgpack")
+                or written[section]["ckpt"] != str(root / "nsf_hifigan" / "model")):
+            fail(f"{name}: the config does not name the converted files")
+        up.save_upstream(d / "model_4000.pt",
+                         up.model_state_dict(args, seed=SEED + 243), "model")
+        if convert(["model", str(d / "model_4000.pt"), str(d / "config.yaml"),
+                    str(d)]) != 0:
+            fail(f"convert model {name} failed")
+        models[name] = d / "model_4000.ckpt"
+    log(f"[convert] upstream files drawn at the published widths and converted "
+        f"(nsf-hifigan, hubert {ENCODER}, rmvpe, model diffusion-fast and sins) "
+        f"in {time.perf_counter() - t0:.1f} s; sizes "
+        + ", ".join(f"{p.name} {p.stat().st_size / 1e6:.1f} MB" for p in (
+            root / "nsf_hifigan" / "model.msgpack", root / "contentvec.msgpack",
+            root / "rmvpe.msgpack", models["diffusion-fast"], models["sins"])))
+    return models
+
+
+def check_converted(torch, card: str, root: Path, models: dict) -> None:
+    """Phase 24 (a): every converted file loads strictly through the port's
+    loaders; the converted pipeline's 10 s request, card against CPU."""
+    from ddsp_svc_tpu_torch.features.hubert import UnitsEncoder
+    from ddsp_svc_tpu_torch.features.rmvpe import E2E0
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+    from ddsp_svc_tpu_torch.io import jax_params as jp
+    from ddsp_svc_tpu_torch.models.registry import load_model, load_vocoder
+
+    # each loader raises on a missing or unexpected key
+    for name, path in models.items():
+        load_model(str(path), device="cpu")
+    load_vocoder(str(root / "nsf_hifigan" / "model"), device="cpu")
+    UnitsEncoder(ENCODER, params=jp.read_msgpack(str(root / "contentvec.msgpack")),
+                 device="cpu")
+    jp.load_state(E2E0(), jp.f0_net_state_dict(
+        "rmvpe", jp.read_msgpack(str(root / "rmvpe.msgpack"))))
+    rng = np.random.default_rng(SEED + 244)
+    wave = voice_wave(10, rng)
+    t = len(wave) // BLOCK + 1
+    noise = request_noise(rng, t)
+    audio = {}
+    for dev in (None, "cpu"):
+        pipe = SvcPipeline(str(models["diffusion-fast"]), device=dev, seed=SEED)
+        out, sr = pipe.infer(wave, SR, k_step=100, noise=noise)
+        audio[dev] = check_audio(out, t, f"converted diffusion-fast 10 s on {dev}")
+        del pipe
+    snr = snr_db(audio["cpu"], audio[None])
+    log(f"[convert] every file loads strictly (load_model, load_vocoder, "
+        f"UnitsEncoder, E2E0); the converted diffusion-fast pipeline's 10 s "
+        f"request from a wav, card (kernels) against CPU (plain), same "
+        f"weights and noise: {snr:.2f} dB (limit >= {SNR_LIMIT_DB:.0f} dB) [{card}]")
+    if not snr >= SNR_LIMIT_DB:
+        fail(f"converted pipeline card vs CPU {snr:.2f} dB < {SNR_LIMIT_DB} dB")
+
+
+def batch_infer_tree(torch, card: str, root: Path, model: Path) -> dict:
+    """Phase 24 (b): cli.batch_infer on the card over a nested tree."""
+    import os
+
+    from scipy.io import wavfile
+
+    from ddsp_svc_tpu_torch.cli import batch_infer
+    from ddsp_svc_tpu_torch.features.audio import load_wav, save_wav
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    os.environ["DDSP_SVC_TPU_RMVPE_CKPT"] = str(root / "rmvpe.msgpack")
+    rng = np.random.default_rng(SEED + 245)
+    for rel, seconds in BATCH_INFER_SECONDS.items():
+        (root / "in" / rel).parent.mkdir(parents=True, exist_ok=True)
+        save_wav(str(root / "in" / rel), voice_wave(seconds, rng), SR)
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    per_file, infer = [], SvcPipeline.infer
+
+    def metered(self, audio, sr, **kwargs):
+        before = {n: w.launches for n, w in wrappers.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = infer(self, audio, sr, **kwargs)
+        torch.cuda.synchronize()
+        per_file.append((time.perf_counter() - t0, len(audio) / sr,
+                         {n: w.launches - before[n] for n, w in wrappers.items()}))
+        return out
+
+    SvcPipeline.infer = metered
+    try:
+        t0 = time.perf_counter()
+        files = batch_infer.main(["-m", str(model), "-i", str(root / "in"), "-o",
+                                  str(root / "out"), "-kstep", "100", "-pe", "rmvpe"])
+        total = time.perf_counter() - t0
+    finally:
+        SvcPipeline.infer = infer
+    launches = {n: w.launches for n, w in wrappers.items()}
+    written = sorted(str(p.relative_to(root / "out"))
+                     for p in (root / "out").rglob("*.wav"))
+    if files != sorted(BATCH_INFER_SECONDS) or written != files:
+        fail(f"batch_infer: wrote {written} for the inputs {files}")
+    for wall, seconds, delta in per_file:
+        if delta != EXPECT_DIFFUSION:
+            fail(f"batch_infer: a {seconds:g} s file launched {delta}, expected "
+                 f"{EXPECT_DIFFUSION}")
+    solo = SvcPipeline(str(model), seed=SEED, pitch_extractor="rmvpe")
+    seeds, worst = np.random.default_rng(0), math.inf
+    for rel in files:
+        wave, sr = load_wav(str(root / "in" / rel))
+        want, _ = solo.infer(wave, sr, k_step=100, seed=int(seeds.integers(1 << 62)))
+        want16 = np.clip(np.round(want * 32767.0), -32768, 32767)
+        got16 = wavfile.read(str(root / "out" / rel))[1].astype(np.float64)
+        snr = math.inf if np.array_equal(got16, want16) else snr_db(want16, got16)
+        worst = min(worst, snr)
+        if not snr >= BATCH_INFER_SNR_DB:
+            fail(f"batch_infer {rel}: {snr:.2f} dB from SvcPipeline.infer alone "
+                 f"(limit >= {BATCH_INFER_SNR_DB} dB)")
+    audio_s = sum(s for _, s, _ in per_file)
+    log(f"[batch_infer] {len(files)} files ({', '.join(files)}) mirrored; each "
+        f"{'bit for bit' if worst == math.inf else f'>= {worst:.2f} dB'} against "
+        f"SvcPipeline.infer alone (limit {BATCH_INFER_SNR_DB:.0f} dB); launches per "
+        f"file {EXPECT_DIFFUSION}; wall per file "
+        + ", ".join(f"{s:g} s {w * 1e3:.1f} ms ({w / s * 1e3:.2f} ms per s of "
+                    f"audio)" for w, s, _ in per_file)
+        + f"; {audio_s:g} s of audio in {sum(w for w, _, _ in per_file):.2f} s "
+        f"of requests, {total:.2f} s with the pipeline's load and the wav IO [{card}]")
+    del solo
+    return {"batch_infer": launches}
+
+
+def export_artifacts(torch, card: str, root: Path, models: dict) -> dict:
+    """Phase 24 (c): cli.export on the card and from CPU inputs, each
+    artifact loaded on the card and held against the eager model."""
+    from ddsp_svc_tpu_torch.cli import export as cli_export
+    from ddsp_svc_tpu_torch.models.registry import load_model
+
+    wrappers, launches = all_counts(), {}
+    for name, path, device in (("diffusion-fast", models["diffusion-fast"], None),
+                               ("diffusion-fast", models["diffusion-fast"], "cpu"),
+                               ("sins", models["sins"], None)):
+        what = f"{name} exported on {'the CPU' if device else 'the card'}"
+        out = root / f"{name}-{device or 'cuda'}.pt2"
+        k_step = ["-kstep", "100"] if name == "diffusion-fast" else []
+        meta = cli_export.main(["-m", str(path), "-o", str(out), "--seconds", "10"]
+                               + k_step + (["--device", device] if device else []))
+        torch.cuda.empty_cache()
+        program = cli_export.load_exported(str(out), "cuda", seed=SEED)
+        frames, dev = meta["frames"], program.device
+        rng = np.random.default_rng(SEED + 246)
+        x = {"units": torch.from_numpy(rng.standard_normal(
+                 (1, frames, N_UNIT)).astype(np.float32)).to(dev),
+             "f0": torch.from_numpy(f0_contour(frames)).to(dev),
+             "volume": torch.full((1, frames, 1), 0.5, device=dev),
+             "spk_id": torch.ones((1, 1), dtype=torch.int32, device=dev)}
+        draws = cli_export.draw(meta, frames, torch.Generator().manual_seed(SEED),
+                                dev)
+        model, args = load_model(str(path))
+        eager, _ = cli_export.build_forward(model.eval(), args,
+                                            100 if k_step else None, dev)
+        inputs = [{**x, **draws}[n] for n in meta["inputs"]]
+
+        def call_artifact():
+            return program(**x, **draws)
+
+        def call_eager():
+            with torch.no_grad():
+                return eager(*inputs)
+
+        walls = {}
+        for label, call in (("artifact", call_artifact), ("eager", call_eager)):
+            runs = []
+            for _ in range(1 + 3):
+                for w in wrappers.values():
+                    w.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _NoPlain():
+                    got = call()
+                    torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+                delta = {n: w.launches for n, w in wrappers.items()}
+                if delta != _with_zeros(EXPECT_EXPORT[name]):
+                    fail(f"{what} ({label}): launches {delta}, expected "
+                         f"{_with_zeros(EXPECT_EXPORT[name])} a call")
+            walls[label] = (runs[0], sorted(runs[1:])[1], got)
+        launches[what] = {n: 4 * c for n, c in EXPECT_EXPORT[name].items()}
+        got, want = walls["artifact"][2], walls["eager"][2]
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{what}: output {tuple(got.shape)}, eager {tuple(want.shape)}")
+        rel = float((got - want).abs().max() / want.abs().max())
+        log(f"[export] {what} ({meta['type']}, {frames} frames, inputs "
+            f"{meta['inputs']}): export {meta['seconds']:.1f} s, artifact "
+            f"{meta['bytes'] / 1e6:.1f} MB; on the card per call exactly "
+            f"{EXPECT_EXPORT[name]}, no plain version; against the eager model "
+            f"with the same draws {rel:.3e} x max|out| (limit {EXPORT_REL_TOL:g}); "
+            f"warm median wall artifact {walls['artifact'][1] * 1e3:.2f} ms (cold "
+            f"{walls['artifact'][0] * 1e3:.1f}), eager {walls['eager'][1] * 1e3:.2f} "
+            f"ms (cold {walls['eager'][0] * 1e3:.1f}) [{card}]")
+        if not rel <= EXPORT_REL_TOL:
+            fail(f"{what}: {rel:.3e} x max|out| from the eager model")
+        del program, eager, model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_convert_export(torch, card: str, root: Path) -> dict:
+    """Phase 24; returns {path: launch counts}."""
+    t0 = time.perf_counter()
+    models = write_upstream(root)
+    check_converted(torch, card, root, models)
+    launches = batch_infer_tree(torch, card, root, models["diffusion-fast"])
+    launches.update(export_artifacts(torch, card, root, models))
+    log(f"[convert] phase 24 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -4419,8 +4724,14 @@ def main() -> None:
     t_start = time.perf_counter()
 
     name, card = phase_device(torch)
+
+    def mark(phases: str) -> None:
+        log(f"[time] phases {phases} done at {time.perf_counter() - t_start:.1f} s "
+            f"[{card}]")
+
     phase_build()
     results = phase_kernels(torch, card)
+    mark("1-3")
 
     args, model, vocoder = build_parts(torch)
     diffusion_cpu = (args, copy.deepcopy(model), copy.deepcopy(vocoder))
@@ -4442,6 +4753,7 @@ def main() -> None:
         "diffusion-fast from a wav": diffusion_cpu, "sins from a wav": sins_parts})
     paths.update(phase_cli(torch, card, pipes))
     paths.update(phase_samplers(torch, card, pipes["diffusion-fast from a wav"]))
+    mark("4-11")
 
     phase_gradients(torch, card)
     encoder = pipes["diffusion-fast from a wav"].units_encoder
@@ -4459,6 +4771,7 @@ def main() -> None:
     paths.update(phase_bf16_vocoder(torch, card, pipes))
     paths.update(phase_batched_serving(torch, card,
                                        pipes["diffusion-fast from a wav"]))
+    mark("12-17")
     del pipes, reflow, encoder
     torch.cuda.empty_cache()
     import tempfile
@@ -4466,17 +4779,24 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = Path(tmp)
         paths.update(phase_training(torch, card, root))
+        mark("18")
         torch.cuda.empty_cache()
         paths.update(phase_bf16_training(torch, card, root))
+        mark("19")
         torch.cuda.empty_cache()
         paths.update(phase_vocoder_training(torch, card, root))
+        mark("20")
         torch.cuda.empty_cache()
         paths.update(phase_f0_front_end(torch, card, diffusion_cpu))
+        mark("21")
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as stmp:
             paths.update(phase_streaming(torch, card, Path(stmp)))
         torch.cuda.empty_cache()
         paths.update(phase_multi_training(torch, card, root))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as tmp:
+        paths.update(phase_convert_export(torch, card, Path(tmp)))
 
     table = []
     for kname in ("combtooth", "resblock_group", "resblock_group_bf16",

@@ -518,10 +518,31 @@ def vocoder_train_params(gen_sd: dict, disc_sd: dict, cfg: dict, periods,
     return out
 
 
-def _put_attention(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
+def generator_params(gen_sd: dict, cfg: dict) -> dict:
+    """A training generator's state dict (weight norm as (v, g); tensors or
+    numpy) -> the JAX ``Generator`` params of ``cfg``'s shape, as the JAX
+    package's NSF-HiFiGAN converter writes them (kernel_v and kernel_g
+    apart)."""
+    tree = _ToJax(gen_sd, with_buffers=False)
+    _fill_generator(gen_sd, tree, cfg)
+    tree.finish()
+    return tree.params
+
+
+def _put_attention(sd: dict, tree, scope: str, name: str, heads: int) -> None:
     """flax MultiHeadDotProductAttention: query/key/value kernels (dim,
     heads, head_dim) with (heads, head_dim) biases, the out kernel (heads,
-    head_dim, dim) -> four Linear layers."""
+    head_dim, dim) <-> four Linear layers."""
+    if isinstance(tree, _ToJax):
+        for proj in ("query", "key", "value"):
+            w = tree.get(f"{name}.{proj}.weight")
+            tree.put(f"{scope}/{proj}/kernel", w.T.reshape(w.shape[1], heads, -1))
+            tree.put(f"{scope}/{proj}/bias",
+                     tree.get(f"{name}.{proj}.bias").reshape(heads, -1))
+        w = tree.get(f"{name}.out.weight")
+        tree.put(f"{scope}/out/kernel", w.T.reshape(heads, -1, w.shape[0]))
+        tree.put(f"{scope}/out/bias", tree.get(f"{name}.out.bias"))
+        return
     for proj in ("query", "key", "value"):
         kernel = tree.take(f"{scope}/{proj}/kernel")
         sd[f"{name}.{proj}.weight"] = np.ascontiguousarray(
@@ -533,12 +554,11 @@ def _put_attention(sd: dict, tree: _Leaves, scope: str, name: str) -> None:
     sd[f"{name}.out.bias"] = tree.take(f"{scope}/out/bias")
 
 
-def hubert_state_dict(params: dict, config) -> dict:
-    """A ``HubertModel``'s JAX params (the tree under ``params`` of its
-    variables) -> the port's ``features/hubert.HubertModel`` state dict
-    (numpy) for ``config`` (a ``HubertConfig``)."""
-    tree = _Leaves(params)
-    sd: dict = {}
+def _fill_hubert(sd: dict, tree, config) -> None:
+    """A ``HubertModel``'s JAX params <-> the port's state dict for
+    ``config``. The JAX converter writes the encoder's final LayerNorm as
+    ``norm`` even where the model has none (pre-LN with an early exit, whose
+    flax module ignores it); reading, such a leaf is dropped."""
     for i in range(7):
         _put_conv(sd, tree, f"feature_extractor/conv{i}",
                   f"feature_extractor.convs.{i}")
@@ -550,17 +570,38 @@ def hubert_state_dict(params: dict, config) -> dict:
     _put_conv(sd, tree, "pos_conv/conv", "pos_conv.conv")
     if config.final_norm:
         _put_norm(sd, tree, "norm", "norm")
+    elif isinstance(tree, _Leaves) and tree.has("norm/scale"):
+        tree.take("norm/scale")
+        tree.take("norm/bias")
     for i in range(config.layers_run):
         s, n = f"layer{i}", f"layers.{i}"
-        _put_attention(sd, tree, f"{s}/attn", f"{n}.attn")
+        _put_attention(sd, tree, f"{s}/attn", f"{n}.attn", config.heads)
         for part in ("norm1", "norm2"):
             _put_norm(sd, tree, f"{s}/{part}", f"{n}.{part}")
         for part in ("fc1", "fc2"):
             _put_dense(sd, tree, f"{s}/{part}", f"{n}.{part}")
-    if config.proj_dim:
+    if config.proj_dim and tree.present(sd, "proj/kernel", "proj.weight"):
         _put_dense(sd, tree, "proj", "proj")
+
+
+def hubert_state_dict(params: dict, config) -> dict:
+    """A ``HubertModel``'s JAX params (the tree under ``params`` of its
+    variables) -> the port's ``features/hubert.HubertModel`` state dict
+    (numpy) for ``config`` (a ``HubertConfig``)."""
+    tree = _Leaves(params)
+    sd: dict = {}
+    _fill_hubert(sd, tree, config)
     tree.finish()
     return sd
+
+
+def hubert_variables(state: dict, config) -> dict:
+    """The inverse: the port model's state dict (tensors or numpy) -> the
+    JAX variables ``{"params": ...}`` for ``config``."""
+    tree = _ToJax(state)
+    _fill_hubert(state, tree, config)
+    tree.finish()
+    return {"params": tree.params}
 
 
 def unflatten(flat: dict, sep: str = ".") -> dict:

@@ -214,12 +214,21 @@ def conformer_layer(x, cond, step_vec, weights):
     A CPU tensor takes the plain version; a CUDA tensor launches the layer's
     four kernels (three tensor-core GEMMs and the depthwise conv) and counts
     one launch in ``conformer_layer.launches``, through
-    ``ConformerLayerFunction`` when grad is on and an input requires it."""
+    ``ConformerLayerFunction`` when grad is on and an input requires it.
+    Traced (``kernels.traced``), the registered operator
+    ``torch.ops.ddsp_svc.conformer_layer`` (``kernels.OPS``) stands for
+    either, one graph node."""
+    if kernels.traced():
+        return _CONFORMER_LAYER(x, cond, step_vec, weights)
     if x.device.type == "cpu":
         return conformer_layer_plain(x, cond, step_vec, weights)
     if kernels.grad_wanted(x, cond, step_vec, *weights):
         return ConformerLayerFunction.apply(_launch, x, cond, step_vec, *weights)
     return _launch(x, cond, step_vec, weights)
+
+
+def _conformer_layer_fake(x, cond, step_vec, weights):
+    return torch.empty_like(x)
 
 
 def _launch(x, cond, step_vec, weights):
@@ -244,6 +253,12 @@ def _launch(x, cond, step_vec, weights):
 
 
 conformer_layer.launches = 0
+_CONFORMER_LAYER = kernels.register_op(
+    "conformer_layer(Tensor x, Tensor cond, Tensor step_vec, Tensor[] weights) "
+    "-> Tensor",
+    lambda x, cond, step_vec, weights: conformer_layer_plain(x, cond, step_vec,
+                                                             weights),
+    _launch, _conformer_layer_fake)
 
 # B3 reuses K3's Function: its forward launches the bf16 kernel, its
 # backward is the same f32 plain chain

@@ -19,6 +19,10 @@ With grad on, ``HarmonicBankFunction`` gives the kernel a backward of its
 own: autograd through ``harmonic_bank_plain`` recomputed from the saved
 phase and amplitudes. It is the port's: the JAX Sins model differentiates
 its stock bank (ddsp_svc_tpu/models/ddsp.py:134) and never the Pallas one.
+
+Traced (``kernels.traced``), the wrapper calls the registered operator
+``torch.ops.ddsp_svc.harmonic_bank`` (``kernels.OPS``), in both modes: the
+plain version on the CPU, the launch on the card, shapes while tracing.
 """
 from __future__ import annotations
 
@@ -93,12 +97,20 @@ def harmonic_bank(x: torch.Tensor, amplitudes_frames: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts the launch in ``harmonic_bank.launches``), through
-    ``HarmonicBankFunction`` when grad is on and an input requires it."""
+    ``HarmonicBankFunction`` when grad is on and an input requires it;
+    traced, the operator stands for either."""
+    if kernels.traced():
+        return _HARMONIC_BANK(x, amplitudes_frames, int(block_size))
     if x.device.type == "cpu":
         return harmonic_bank_plain(x, amplitudes_frames, block_size)
     if kernels.grad_wanted(x, amplitudes_frames):
         return HarmonicBankFunction.apply(_launch, x, amplitudes_frames, block_size)
     return _launch(x, amplitudes_frames, block_size)
+
+
+def _harmonic_bank_fake(x, amplitudes_frames, block_size):
+    b, t, _ = amplitudes_frames.shape
+    return x.new_empty(b, t * block_size, dtype=torch.float32)
 
 
 def _launch(x, amplitudes_frames, block_size):
@@ -123,3 +135,7 @@ def _launch(x, amplitudes_frames, block_size):
 
 
 harmonic_bank.launches = 0
+_HARMONIC_BANK = kernels.register_op(
+    "harmonic_bank(Tensor x, Tensor amplitudes_frames, int block_size) -> Tensor",
+    lambda x, amps, block: harmonic_bank_plain(x, amps, block), _launch,
+    _harmonic_bank_fake)

@@ -168,6 +168,43 @@ def plain_backward(plain, inputs, needs, grad_out) -> tuple:
     return tuple(next(grads) if n else None for n in needs)
 
 
+# the namespace of the kernels' registered operators (torch.ops.ddsp_svc.*):
+# K1 ``combtooth``, K3 ``conformer_layer``, K4 ``harmonic_bank``
+OPS = "ddsp_svc"
+_LIBRARY = torch.library.Library(OPS, "DEF")
+
+
+def register_op(schema: str, plain, launch, fake):
+    """Define ``ddsp_svc::<schema>`` with the plain version as its CPU
+    implementation, the launch as its CUDA one (which counts the launch,
+    so a traced program counts when it runs, never when it is traced) and
+    ``fake`` giving the outputs' shapes for tracing and meta tensors.
+    Importing the wrapper's module registers it (a fresh process, before
+    ``torch.export.load``, too). Returns the operator's overload.
+
+    The low-level ``torch.library.Library`` API, not ``custom_op``: the
+    latter wraps each implementation in a guard whose first call imports
+    ``torch._dynamo`` (some 3 s on a CPU, ~11 s measured on the H100
+    machine's first request) and adds ~25 us a call. The operator has no
+    autograd kernel: the wrappers call it only while tracing (``traced``),
+    never with grad."""
+    name = schema.split("(", 1)[0]
+    _LIBRARY.define(schema)
+    _LIBRARY.impl(name, plain, "CPU")
+    _LIBRARY.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"{OPS}::{name}", fake, lib=_LIBRARY)
+    return getattr(getattr(torch.ops, OPS), name).default
+
+def traced() -> bool:
+    """Whether the caller is being traced (``torch.export``, ``torch.compile``):
+    the wrappers then call their operator, which the graph keeps as one node.
+    Eager calls launch directly (or take the plain version on the CPU), one
+    dispatcher pass fewer a call: routed through the operators, the 10 s
+    diffusion-fast request (62 calls) read ~3 % slower on the H100
+    (scripts/request_walls_ab.py)."""
+    return torch.compiler.is_compiling()
+
+
 _COUNT_LOCK = threading.Lock()
 
 

@@ -629,3 +629,51 @@ def test_combtooth_refuses_an_f0_that_requires_grad(cuda):
     with torch.no_grad():
         combtooth(f0, 44100, 512)
     assert combtooth.launches == n0 + 1
+
+
+@pytest.mark.parametrize("name", ["combtooth", "conformer_layer", "harmonic_bank"])
+def test_registered_operator_launches_the_kernel(cuda, name, monkeypatch):
+    """Each kernel's operator (``torch.ops.ddsp_svc.*``, what an exported
+    program calls) on CUDA tensors launches the kernel once, counted, never
+    its plain version, and agrees with the plain version within the
+    kernel's tolerance; on CPU tensors it is the plain version."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_oscillator, cuda_source
+
+    gen = torch.Generator().manual_seed(7)
+    if name == "combtooth":
+        module, plain = cuda_source, "combtooth_plain"
+        args = (_vibrato_f0(1, 862, cuda), None, 44100.0, 512)
+        tol, rel = 5e-5, False
+    elif name == "conformer_layer":
+        module, plain = cuda_conformer, "conformer_layer_plain"
+        c, hc, inner, k = 512, 128, 1024, 31
+        shapes = [(c, hc), (c,), (2 * inner, c), (2 * inner,), (inner, k),
+                  (inner,), (c, inner), (c,)]
+        w = [(torch.randn(s, generator=gen) / math.sqrt(s[-1])).to(cuda) for s in shapes]
+        args = (torch.randn(1, 862, c, generator=gen).to(cuda),
+                torch.randn(1, 862, hc, generator=gen).to(cuda),
+                torch.randn(1, c, generator=gen).to(cuda), w)
+        tol, rel = 1e-4, True
+    else:
+        module, plain = cuda_oscillator, "harmonic_bank_plain"
+        args = (torch.rand(1, 862 * 512, 1, generator=gen).to(cuda),
+                torch.rand(1, 862, 128, generator=gen).to(cuda) * 0.01, 512)
+        tol, rel = 3e-5, False
+    op = getattr(torch.ops.ddsp_svc, name).default
+    want = getattr(module, plain)(*((args[0], args[2], args[3], args[1])
+                                    if name == "combtooth" else args))
+    wrapper = getattr(module, name)
+    n0 = wrapper.launches
+    monkeypatch.setattr(module, plain, lambda *a, **k: pytest.fail("plain ran"))
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    got, want = (got[0], want[0]) if name == "combtooth" else (got, want)
+    err = float((got - want).abs().max())
+    assert err <= (tol * float(want.abs().max()) if rel else tol), err
+    monkeypatch.undo()
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else
+                [t.cpu() for t in a] if isinstance(a, list) else a for a in args]
+    cpu = op(*cpu_args)
+    cpu = cpu[0] if name == "combtooth" else cpu
+    assert wrapper.launches == n0 + 1 and cpu.device.type == "cpu"

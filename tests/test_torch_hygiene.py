@@ -29,7 +29,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddsp_svc_tpu", "yaml", "msgpack"
 def _sources():
     files = sorted(Path(ddsp_svc_tpu_torch.__file__).parent.rglob("*.py"))
     assert len(files) > 20
-    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_shard_map.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_shard_map.py",
+                    ROOT / "tests" / "torch_convert_helpers.py"]
 
 
 def _imports(tree):
@@ -98,9 +99,18 @@ def test_front_end_entry_points_default_to_cuda(monkeypatch):
         assert params["device"].default is None and params["device_f0"].default is False
     options = cli_infer.parse_args(["-m", "m.ckpt", "-i", "in.wav", "-o", "out.wav"])
     assert options.device is None
+    from ddsp_svc_tpu_torch.cli import batch_infer, export
+
+    assert batch_infer.parse_args(["-m", "m", "-i", "i", "-o", "o"]).device is None
+    assert export.parse_args(["-m", "m", "-o", "o"]).device is None
+    assert inspect.signature(export.load_exported).parameters["device"].default is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: UnitsEncoder("tiny"),
                  lambda: SvcPipeline("absent/model_1.ckpt"),
+                 lambda: batch_infer.main(["-m", "absent/model_1.ckpt", "-i",
+                                           "absent", "-o", "out"]),
+                 lambda: export.main(["-m", "absent/model_1.ckpt", "-o", "o.pt2"]),
+                 lambda: export.load_exported("absent.pt2"),
                  lambda: cli_infer.main(["-m", "absent/model_1.ckpt", "-i",
                                          "absent.wav", "-o", "out.wav"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
