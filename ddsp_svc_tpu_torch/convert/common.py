@@ -1,6 +1,11 @@
 """Shared helpers of the converters (mirrors ddsp_svc_tpu/convert/common.py
 ``load_state_dict``, ``fold_weight_norm`` and ``check_tree_shapes``), and
-the renaming that takes an upstream state dict to the port's names."""
+the renaming that takes an upstream state dict to the port's names.
+
+``check_tree_shapes`` is kept for parity with the JAX package's public
+helpers, for a user who holds a converted tree against a model's template;
+the converters do not call it (their strictness is the renaming's and the
+loaders'), and the tests hold the written trees with it."""
 from __future__ import annotations
 
 import os

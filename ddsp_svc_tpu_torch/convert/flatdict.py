@@ -1,6 +1,10 @@
 """Flat <-> nested param dicts for .npz param files (mirrors
 ddsp_svc_tpu/convert/flatdict.py; ``unflatten`` is the port's
-``io/jax_params.unflatten``)."""
+``io/jax_params.unflatten``).
+
+``flatten`` is kept for parity with the JAX package's public helpers, for
+a user who writes a converted tree as flat ``.npz`` arrays; nothing in the
+package calls it, and the tests use it to compare trees leaf by leaf."""
 from __future__ import annotations
 
 import numpy as np

@@ -192,8 +192,8 @@ def _check(x, cond, step_vec, weights, cond_dtype=torch.float32):
 
 
 class ConformerLayerFunction(torch.autograd.Function):
-    """``impl(x, cond, step_vec, weights)`` forward (the kernel; the plain
-    version in the CPU tests), backward through ``conformer_layer_plain``."""
+    """``impl(x, cond, step_vec, weights)`` forward (K3's operator, or B3's
+    launch and plain version), backward through ``conformer_layer_plain``."""
 
     @staticmethod
     def forward(ctx, impl, x, cond, step_vec, *weights):
@@ -211,20 +211,17 @@ class ConformerLayerFunction(torch.autograd.Function):
 def conformer_layer(x, cond, step_vec, weights):
     """x (B, T, C), cond (B, T, Hc), step_vec (B, C) -> (B, T, C).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the layer's
-    four kernels (three tensor-core GEMMs and the depthwise conv) and counts
-    one launch in ``conformer_layer.launches``, through
-    ``ConformerLayerFunction`` when grad is on and an input requires it.
-    Traced (``kernels.traced``), the registered operator
-    ``torch.ops.ddsp_svc.conformer_layer`` (``kernels.OPS``) stands for
-    either, one graph node."""
-    if kernels.traced():
-        return _CONFORMER_LAYER(x, cond, step_vec, weights)
-    if x.device.type == "cpu":
-        return conformer_layer_plain(x, cond, step_vec, weights)
+    Through the registered operator ``torch.ops.ddsp_svc.conformer_layer``
+    (``kernels.OPS``), one node of a traced graph: a CPU tensor takes the
+    plain version, a CUDA tensor launches the layer's four kernels (three
+    tensor-core GEMMs and the depthwise conv) and counts one launch in
+    ``conformer_layer.launches``. When grad is on and an input requires it,
+    the operator (which has no autograd kernel) runs inside
+    ``ConformerLayerFunction``."""
     if kernels.grad_wanted(x, cond, step_vec, *weights):
-        return ConformerLayerFunction.apply(_launch, x, cond, step_vec, *weights)
-    return _launch(x, cond, step_vec, weights)
+        return ConformerLayerFunction.apply(_CONFORMER_LAYER, x, cond, step_vec,
+                                            *weights)
+    return _CONFORMER_LAYER(x, cond, step_vec, weights)
 
 
 def _conformer_layer_fake(x, cond, step_vec, weights):

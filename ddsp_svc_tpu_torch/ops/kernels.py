@@ -180,29 +180,24 @@ def register_op(schema: str, plain, launch, fake):
     so a traced program counts when it runs, never when it is traced) and
     ``fake`` giving the outputs' shapes for tracing and meta tensors.
     Importing the wrapper's module registers it (a fresh process, before
-    ``torch.export.load``, too). Returns the operator's overload.
+    ``torch.export.load``, too). Returns the operator's overload, which the
+    wrappers call on every device, eager or traced: its dispatch costs
+    0.2-5.8 us of host time a call on an H100, under 1 % of a 10 s
+    diffusion-fast request's 61 calls (``scripts/request_walls_ab.py
+    --dispatch``, PERF.md section 6).
 
     The low-level ``torch.library.Library`` API, not ``custom_op``: the
     latter wraps each implementation in a guard whose first call imports
-    ``torch._dynamo`` (some 3 s on a CPU, ~11 s measured on the H100
-    machine's first request) and adds ~25 us a call. The operator has no
-    autograd kernel: the wrappers call it only while tracing (``traced``),
-    never with grad."""
+    ``torch._dynamo`` (a process's first request took 13.1 s on an H100
+    against 1.7 s without it, PERF.md section 6). The operator has no
+    autograd kernel: with grad wanted, the wrappers call it inside their
+    ``autograd.Function``."""
     name = schema.split("(", 1)[0]
     _LIBRARY.define(schema)
     _LIBRARY.impl(name, plain, "CPU")
     _LIBRARY.impl(name, launch, "CUDA")
     torch.library.register_fake(f"{OPS}::{name}", fake, lib=_LIBRARY)
     return getattr(getattr(torch.ops, OPS), name).default
-
-def traced() -> bool:
-    """Whether the caller is being traced (``torch.export``, ``torch.compile``):
-    the wrappers then call their operator, which the graph keeps as one node.
-    Eager calls launch directly (or take the plain version on the CPU), one
-    dispatcher pass fewer a call: routed through the operators, the 10 s
-    diffusion-fast request (62 calls) read ~3 % slower on the H100
-    (scripts/request_walls_ab.py)."""
-    return torch.compiler.is_compiling()
 
 
 _COUNT_LOCK = threading.Lock()

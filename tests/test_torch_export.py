@@ -221,3 +221,43 @@ def test_export_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pexport.load_exported("absent.pt2")
+
+
+@pytest.mark.parametrize("name", ["conformer_layer", "harmonic_bank"])
+def test_wrapper_with_grad_runs_the_operator_in_its_function(monkeypatch, name):
+    """With grad wanted, K3's and K4's wrappers call their operator (which
+    has no autograd kernel) inside their ``autograd.Function``: the
+    operator runs, and the gradient is the plain version's, bit for bit."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_oscillator
+
+    rng = np.random.default_rng(7)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).requires_grad_(True)
+
+    if name == "conformer_layer":
+        c, hc, inner, k = 8, 4, 16, 5
+        inputs = [leaf(1, 6, c), leaf(1, 6, hc), leaf(1, c), leaf(c, hc), leaf(c),
+                  leaf(2 * inner, c), leaf(2 * inner), leaf(inner, k), leaf(inner),
+                  leaf(c, inner), leaf(c)]
+        wrapper = lambda *a: cuda_conformer.conformer_layer(*a[:3], tuple(a[3:]))
+        plain = lambda *a: cuda_conformer.conformer_layer_plain(*a[:3], tuple(a[3:]))
+        function = "ConformerLayerFunction"
+    else:
+        inputs = [leaf(1, 4 * 16, 1), leaf(1, 4, 8)]
+        wrapper = lambda *a: cuda_oscillator.harmonic_bank(*a, 16)
+        plain = lambda *a: cuda_oscillator.harmonic_bank_plain(*a, 16)
+        function = "HarmonicBankFunction"
+    grad_out = torch.from_numpy(rng.standard_normal(
+        tuple(plain(*inputs).shape)).astype(np.float32))
+    want = torch.autograd.grad(plain(*inputs), inputs, grad_out)
+    module = cuda_conformer if name == "conformer_layer" else cuda_oscillator
+    handle = f"_{name.upper()}"
+    op, calls = getattr(module, handle), []
+    monkeypatch.setattr(module, handle, lambda *a: calls.append(1) or op(*a))
+    out = wrapper(*inputs)
+    assert calls == [1] and function in out.grad_fn.name()
+    got = torch.autograd.grad(out, inputs, grad_out)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
