@@ -192,8 +192,9 @@ def _check(x, cond, step_vec, weights, cond_dtype=torch.float32):
 
 
 class ConformerLayerFunction(torch.autograd.Function):
-    """``impl(x, cond, step_vec, weights)`` forward (K3's operator, or B3's
-    launch and plain version), backward through ``conformer_layer_plain``."""
+    """``impl(x, cond, step_vec, weights)`` forward (the kernel, its
+    operator, or the plain version in the CPU tests), backward through
+    ``conformer_layer_plain``."""
 
     @staticmethod
     def forward(ctx, impl, x, cond, step_vec, *weights):
@@ -211,17 +212,22 @@ class ConformerLayerFunction(torch.autograd.Function):
 def conformer_layer(x, cond, step_vec, weights):
     """x (B, T, C), cond (B, T, Hc), step_vec (B, C) -> (B, T, C).
 
-    Through the registered operator ``torch.ops.ddsp_svc.conformer_layer``
-    (``kernels.OPS``), one node of a traced graph: a CPU tensor takes the
-    plain version, a CUDA tensor launches the layer's four kernels (three
-    tensor-core GEMMs and the depthwise conv) and counts one launch in
-    ``conformer_layer.launches``. When grad is on and an input requires it,
-    the operator (which has no autograd kernel) runs inside
-    ``ConformerLayerFunction``."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the layer's
+    four kernels (three tensor-core GEMMs and the depthwise conv) and counts
+    one launch in ``conformer_layer.launches``. Traced (``kernels.traced``),
+    the registered operator ``torch.ops.ddsp_svc.conformer_layer``
+    (``kernels.OPS``) stands for either, one graph node. The launch and
+    the operator run inside ``ConformerLayerFunction`` when grad is on and
+    an input requires it (the operator has no autograd kernel)."""
+    if kernels.traced():
+        impl = _CONFORMER_LAYER
+    elif x.device.type == "cpu":
+        return conformer_layer_plain(x, cond, step_vec, weights)
+    else:
+        impl = _launch
     if kernels.grad_wanted(x, cond, step_vec, *weights):
-        return ConformerLayerFunction.apply(_CONFORMER_LAYER, x, cond, step_vec,
-                                            *weights)
-    return _CONFORMER_LAYER(x, cond, step_vec, weights)
+        return ConformerLayerFunction.apply(impl, x, cond, step_vec, *weights)
+    return impl(x, cond, step_vec, weights)
 
 
 def _conformer_layer_fake(x, cond, step_vec, weights):

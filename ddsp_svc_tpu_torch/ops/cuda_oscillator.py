@@ -20,9 +20,9 @@ own: autograd through ``harmonic_bank_plain`` recomputed from the saved
 phase and amplitudes. It is the port's: the JAX Sins model differentiates
 its stock bank (ddsp_svc_tpu/models/ddsp.py:134) and never the Pallas one.
 
-The wrapper calls the registered operator ``torch.ops.ddsp_svc.harmonic_bank``
-(``kernels.OPS``), in both modes: the plain version on the CPU, the launch
-on the card, shapes while tracing.
+Traced (``kernels.traced``), the wrapper calls the registered operator
+``torch.ops.ddsp_svc.harmonic_bank`` (``kernels.OPS``), in both modes: the
+plain version on the CPU, the launch on the card, shapes while tracing.
 """
 from __future__ import annotations
 
@@ -73,8 +73,9 @@ def harmonic_bank_plain(x: torch.Tensor, amplitudes_frames: torch.Tensor,
 
 
 class HarmonicBankFunction(torch.autograd.Function):
-    """``impl(x, amplitudes, block_size)`` forward (the operator),
-    backward through ``harmonic_bank_plain``."""
+    """``impl(x, amplitudes, block_size)`` forward (the kernel, its
+    operator, or the plain version in the CPU tests), backward through
+    ``harmonic_bank_plain``."""
 
     @staticmethod
     def forward(ctx, impl, x, amplitudes_frames, block_size):
@@ -95,15 +96,21 @@ def harmonic_bank(x: torch.Tensor, amplitudes_frames: torch.Tensor,
     """x (B, L, 1) wrapped phase in cycles, amplitudes (B, T, n_harm) f32
     or bf16 (the bf16-amplitude mode) -> (B, L) f32, L = T * block.
 
-    Through the operator: a CPU tensor takes the plain version, a CUDA
-    tensor launches the kernel (and counts the launch in
-    ``harmonic_bank.launches``). When grad is on and an input requires it,
-    the operator (which has no autograd kernel) runs inside
-    ``HarmonicBankFunction``."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in ``harmonic_bank.launches``); traced, the
+    operator stands for either. The launch and the operator run inside
+    ``HarmonicBankFunction`` when grad is on and an input requires it (the
+    operator has no autograd kernel)."""
+    if kernels.traced():
+        impl = _HARMONIC_BANK
+    elif x.device.type == "cpu":
+        return harmonic_bank_plain(x, amplitudes_frames, block_size)
+    else:
+        impl = _launch
     if kernels.grad_wanted(x, amplitudes_frames):
-        return HarmonicBankFunction.apply(_HARMONIC_BANK, x, amplitudes_frames,
+        return HarmonicBankFunction.apply(impl, x, amplitudes_frames,
                                           int(block_size))
-    return _HARMONIC_BANK(x, amplitudes_frames, int(block_size))
+    return impl(x, amplitudes_frames, int(block_size))
 
 
 def _harmonic_bank_fake(x, amplitudes_frames, block_size):

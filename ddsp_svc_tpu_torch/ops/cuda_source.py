@@ -11,11 +11,12 @@ The kernel has no backward, as ``combtooth_pallas`` has no VJP: f0 is
 data. The wrapper refuses an f0 that requires grad while grad is on, on
 either device, rather than return a tensor cut from the graph.
 
-The wrapper calls the registered operator ``torch.ops.ddsp_svc.combtooth``
-(``kernels.OPS``): its CPU implementation is the plain version, its CUDA
-implementation the launch, and its fake implementation gives the output
-shapes, so ``torch.export`` keeps the call as one node that launches the
-kernel wherever the exported program runs on the card.
+Traced (``kernels.traced``), the wrapper calls the registered operator
+``torch.ops.ddsp_svc.combtooth`` (``kernels.OPS``): its CPU implementation
+is the plain version, its CUDA implementation the launch, and its fake
+implementation gives the output shapes, so ``torch.export`` keeps the call
+as one node that launches the kernel wherever the exported program runs
+on the card.
 """
 from __future__ import annotations
 
@@ -38,16 +39,21 @@ def combtooth(f0_frames: torch.Tensor, sampling_rate: int, block_size: int,
     ``carry_offset_q`` (B, 1, 1) int32 or int64: the integer carry of
     everything before this block (streaming), on f0's device.
 
-    Through the operator: a CPU tensor takes the plain version, a CUDA
-    tensor launches the kernel (and counts the launch in
-    ``combtooth.launches``). An f0 that requires grad, with grad on,
-    raises: the exciter has no backward."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in ``combtooth.launches``); traced, the operator
+    stands for either. An f0 that requires grad, with grad on, raises: the
+    exciter has no backward."""
     if kernels.grad_wanted(f0_frames):
         raise RuntimeError("combtooth: f0 requires grad, but the combtooth "
                            "exciter has no backward (f0 is data, as in the "
                            "JAX package); pass f0.detach()")
-    return _COMBTOOTH(f0_frames, carry_offset_q, float(sampling_rate),
-                      int(block_size))
+    if kernels.traced():
+        return _COMBTOOTH(f0_frames, carry_offset_q, float(sampling_rate),
+                          int(block_size))
+    if f0_frames.device.type == "cpu":
+        return combtooth_plain(f0_frames, sampling_rate, block_size,
+                               carry_offset_q)
+    return _launch(f0_frames, carry_offset_q, sampling_rate, block_size)
 
 
 def _combtooth_fake(f0_frames, carry_offset_q, sampling_rate, block_size):

@@ -181,10 +181,7 @@ def register_op(schema: str, plain, launch, fake):
     ``fake`` giving the outputs' shapes for tracing and meta tensors.
     Importing the wrapper's module registers it (a fresh process, before
     ``torch.export.load``, too). Returns the operator's overload, which the
-    wrappers call on every device, eager or traced: its dispatch costs
-    0.2-5.8 us of host time a call on an H100, under 1 % of a 10 s
-    diffusion-fast request's 61 calls (``scripts/request_walls_ab.py
-    --dispatch``, PERF.md section 6).
+    wrappers call while traced (``traced``).
 
     The low-level ``torch.library.Library`` API, not ``custom_op``: the
     latter wraps each implementation in a guard whose first call imports
@@ -198,6 +195,18 @@ def register_op(schema: str, plain, launch, fake):
     _LIBRARY.impl(name, launch, "CUDA")
     torch.library.register_fake(f"{OPS}::{name}", fake, lib=_LIBRARY)
     return getattr(getattr(torch.ops, OPS), name).default
+
+
+def traced() -> bool:
+    """Whether the caller is being traced (``torch.export``, ``torch.compile``):
+    the wrappers then call their operator, which the graph keeps as one node.
+    Eager calls launch directly (or take the plain version on the CPU):
+    routed through the operators, the 10 s diffusion-fast request (61
+    calls) read 2.3 ms (4.8 %) slower on an H100, the median of 200 pairs
+    of single runs alternated run by run in one process, the operators
+    slower in 164 (``scripts/request_walls_ab.py --dispatch``; PERF.md
+    section 6), over the 2 % a request may grow."""
+    return torch.compiler.is_compiling()
 
 
 _COUNT_LOCK = threading.Lock()

@@ -19,10 +19,11 @@ off. Prints one JSON line per run and a table of warm medians.
 python3 scripts/request_walls_ab.py --dispatch [PAIRS]
 
 compares, in one process of this copy, the wrappers of K1, K3 and K4 as
-they are (through their registered operators ``torch.ops.ddsp_svc.*``)
-against the same wrappers calling each kernel's ``_launch`` directly (the
-module's operator handle swapped for it), in PAIRS alternated pairs
-(default 20; the order flips every pair): first K3's and K1's host time a
+they run eagerly (each calling its kernel's ``_launch`` directly) against
+the same wrappers routed through their registered operators
+``torch.ops.ddsp_svc.*`` (``kernels.traced`` forced true, as under
+``torch.export``), in PAIRS alternated pairs (default 20; the order flips
+every pair): first K3's and K1's host time a
 call (2000 back-to-back calls at the 10 s request's shapes and at 8
 frames, then one synchronize), then the requests above (WARM_AB warm runs
 each a side, medians); last, FINE pairs of single runs of the 10 s
@@ -123,16 +124,12 @@ def _median(xs: list[float]) -> float:
 def dispatch(pairs: int) -> dict:
     """The operators against direct launches, in one process (docstring)."""
     torch, model, requests = _setup(".")
-    from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_oscillator, cuda_source
+    from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_source, kernels
 
-    handles = ((cuda_source, "_COMBTOOTH"), (cuda_conformer, "_CONFORMER_LAYER"),
-               (cuda_oscillator, "_HARMONIC_BANK"))
-    sides = {"operator": [getattr(m, h) for m, h in handles],
-             "direct": [m._launch for m, _ in handles]}
+    sides = {"operator": lambda: True, "direct": kernels.traced}
 
     def use(side: str) -> None:
-        for (mod, handle), fn in zip(handles, sides[side]):
-            setattr(mod, handle, fn)
+        kernels.traced = sides[side]
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -169,7 +166,7 @@ def dispatch(pairs: int) -> dict:
             for side in (list(sides) if pair % 2 == 0 else list(sides)[::-1]):
                 use(side)
                 fine[side].append(_walls(torch, ten_s, 1)[0])
-    use("operator")
+    use("direct")
 
     def summary(table: dict) -> dict:
         out = {}

@@ -224,11 +224,12 @@ def test_export_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["conformer_layer", "harmonic_bank"])
-def test_wrapper_with_grad_runs_the_operator_in_its_function(monkeypatch, name):
-    """With grad wanted, K3's and K4's wrappers call their operator (which
-    has no autograd kernel) inside their ``autograd.Function``: the
-    operator runs, and the gradient is the plain version's, bit for bit."""
-    from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_oscillator
+def test_traced_wrapper_runs_the_operator_in_its_function(monkeypatch, name):
+    """Traced with grad wanted (``torch.compile`` of a training step), K3's
+    and K4's wrappers call their operator (which has no autograd kernel)
+    inside their ``autograd.Function``: the operator runs, and the
+    gradient is the plain version's, bit for bit, as in eager mode."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer, cuda_oscillator, kernels
 
     rng = np.random.default_rng(7)
 
@@ -256,6 +257,7 @@ def test_wrapper_with_grad_runs_the_operator_in_its_function(monkeypatch, name):
     handle = f"_{name.upper()}"
     op, calls = getattr(module, handle), []
     monkeypatch.setattr(module, handle, lambda *a: calls.append(1) or op(*a))
+    monkeypatch.setattr(kernels, "traced", lambda: True)
     out = wrapper(*inputs)
     assert calls == [1] and function in out.grad_fn.name()
     got = torch.autograd.grad(out, inputs, grad_out)
