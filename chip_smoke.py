@@ -6,9 +6,10 @@ from a recording, through the offline CLI and through the realtime engine,
 the kernels' gradients, the bf16 vocoder, batched serving through the HTTP
 server, training from preprocess to checkpoint and resume, the f0
 front end (RMVPE, CREPE, FCPE, the host trackers), time-sharded
-streaming over ranks that share the card, and multi-process training
+streaming over ranks that share the card, multi-process training
 (data-parallel cli.train and cli.train_vocoder, the sequence-parallel
-step, model.use_remat).
+step, model.use_remat), upstream checkpoints, batch inference and export,
+and the last tools: ONNX export, the web GUI and the C++ batch prefetcher.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -216,7 +217,26 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      load_exported(..., "cuda"): per call exactly K1 1 and K3 60 (Sins K4
      1) and no plain version, the output against the eager model on the
      card with the same draws within EXPORT_REL_TOL of its peak, the export
-     seconds, the artifact's MB, the artifact's and the eager call's walls.
+     seconds, the artifact's MB, the artifact's and the eager call's walls;
+ 25. the last tools: (a) ``cli.export_onnx --check`` of a random
+     configs/diffusion.yaml Unit2Mel (20 x 512 WaveNet, n_hidden 256,
+     k_step_max 1000) on the card: the four graphs' export seconds and MB,
+     and the PNDM chain through them (the numpy ONNX runtime) against the
+     card's eager model >= 60 dB, no kernel launched; (b) the web GUI
+     (``gui.GuiApp`` on 127.0.0.1:0): /api/load_model of a random
+     configs/diffusion-fast.yaml checkpoint written by the port's saver,
+     /api/convert of a 5 s recording at 44.1 kHz and at 16 kHz through the
+     realtime engine (0.3 s blocks, 2 s of context): status, length, the
+     X-Rtf and X-Block-Ms headers, exactly phase 15's launches per block
+     over the blocks and the two warmup calls, and the output >= 80 dB
+     against the engine driven directly on the same pipeline and request
+     seeds (bit for bit expected); (c) cli.train of configs/combsub.yaml's
+     CombSubSuperFast on phase 18's corpus with cache_all_data false, which
+     takes the C++ prefetcher (the JAX solver's choice for an uncached
+     corpus without mels), then with BatchSampler reading the files and
+     with the corpus cached, then prefetched again: every batch bit for bit
+     the same, exactly K1 1 per step, and each run's batch wait and step
+     wall.
 Phase 3 also holds K4's bf16-amplitude mode (the bf16 Sins: amplitudes
 upsampled in bf16) to its plain version within 3e-5, timed as K4.
 Phase 3 also holds B5 (K3's bf16 class on bf16 activations) to its plain
@@ -2576,6 +2596,8 @@ def expect_train(args, bf16_trunk: bool = False) -> dict:
         trunk = ("conformer_layer_bf16_io" if bf16 else
                  "conformer_layer_bf16" if bf16_trunk else "conformer_layer")
         return {"combtooth": 1, trunk: int(args.model.n_layers)}
+    if mtype == "CombSubSuperFast":
+        return {"combtooth": 1}
     return {"harmonic_bank": 1} if mtype == "Sins" else {}
 
 
@@ -4710,6 +4732,310 @@ def phase_convert_export(torch, card: str, root: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 25
+
+ONNX_SNR_DB = 60.0  # cli.export_onnx --check's own gate
+GUI_SNR_DB = 80.0
+GUI_SECONDS = 5.0
+GUI_RATES = (44100, 16000)
+PREFETCH_STEPS = 8
+PREFETCH_CONFIG = "combsub.yaml"  # CombSubSuperFast: no mels, so it streams
+
+
+def random_checkpoint(torch, root: Path, name: str, config: str) -> Path:
+    """A JAX-format checkpoint of a model drawn from the seed at
+    ``configs/<config>``'s widths, written by the port's saver with its
+    config beside it (the vocoder's and the encoder's weight files absent,
+    so the pipeline draws them from its seed) -> (the checkpoint's path,
+    its config)."""
+    from ddsp_svc_tpu_torch.models.nn import random_init_
+    from ddsp_svc_tpu_torch.models.registry import build_model
+    from ddsp_svc_tpu_torch.train.checkpoint import save_checkpoint
+    from ddsp_svc_tpu_torch.utils.config import load_config, save_config
+
+    args = load_config(CONFIGS / config)
+    for key in ("vocoder", "enhancer"):
+        if args.get(key):
+            args[key]["ckpt"] = str(root / "absent" / key)
+    args["data"]["encoder_ckpt"] = str(root / "absent" / "encoder.msgpack")
+    d = root / name
+    d.mkdir(parents=True)
+    save_config(d / "config.yaml", args)
+    model = random_init_(build_model(args, vocoder_dimension=args.model.out_dims or 128),
+                         torch.Generator().manual_seed(SEED))
+    return Path(save_checkpoint(str(d), 1, model, args.model)), args
+
+
+def onnx_export_check(torch, card: str, root: Path) -> dict:
+    """(a) cli.export_onnx --check on a random configs/diffusion.yaml
+    Unit2Mel: the four graphs traced on the card, their export seconds and
+    sizes, and the PNDM chain through them against the card's eager model.
+    Returns {path: launch counts} (none: the JAX package has no Pallas
+    kernel on this path)."""
+    import contextlib
+    import io
+
+    import ddsp_svc_tpu_torch.cli.export_onnx as cli_onnx
+
+    ckpt, args = random_checkpoint(torch, root, "unit2mel", "diffusion.yaml")
+    m = args.model
+    export, spent = cli_onnx.export_onnx, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = export(*args, **kwargs)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    wrappers = all_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    cli_onnx.export_onnx = timed
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            paths = cli_onnx.main(["-m", str(ckpt), "-o", str(root / "onnx"),
+                                   "--project", "unit2mel", "--check"])
+    except SystemExit as e:
+        fail(f"[onnx] cli.export_onnx --check failed: {e} ({out.getvalue()!r})")
+    finally:
+        cli_onnx.export_onnx = export
+    wall = time.perf_counter() - t0
+    launched = {n: w.launches for n, w in wrappers.items()}
+    check = re.search(r"check: ([-0-9.]+) dB SNR vs checkpoint \((\d+)-step PNDM, "
+                      r"max abs err ([-0-9.e+]+)\)", out.getvalue())
+    if check is None:
+        fail(f"[onnx] no check line in the CLI's output: {out.getvalue()!r}")
+    snr, steps = float(check.group(1)), int(check.group(2))
+    sizes = {g: Path(p).stat().st_size / 2 ** 20 for g, p in paths.items()}
+    log(f"[onnx] (a) cli.export_onnx --check of a random configs/diffusion.yaml "
+        f"Unit2Mel ({m.n_layers} x {m.n_chans} WaveNet, n_hidden {m.n_hidden}, "
+        f"k_step_max {m.k_step_max}, {args.data.encoder_out_channels} units, "
+        f"{m.out_dims or 128} mel bins), traced on the card: export {spent[0]:.2f} s, "
+        f"graphs " + ", ".join(f"{g} {mb:.2f} MB" for g, mb in sizes.items())
+        + f"; the {steps}-step PNDM chain through the four graphs (numpy runtime "
+        f"on the host, 24 frames) against the card's eager Unit2Mel (sampler "
+        f"pndm, same init noise): SNR {snr:.1f} dB (gate >= {ONNX_SNR_DB:.0f} dB), "
+        f"max abs err {check.group(3)}; export and check {wall:.2f} s; "
+        f"launches {launched} [{card}]")
+    if not snr >= ONNX_SNR_DB or any(launched.values()):
+        fail(f"[onnx] SNR {snr} dB or launches {launched}")
+    return {"onnx export": launched}
+
+
+def _gui_call(base: str, path: str, body: bytes):
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read(), dict(r.headers)
+
+
+def gui_convert(torch, card: str, root: Path) -> dict:
+    """(b) the web GUI on 127.0.0.1:0: /api/load_model of a random
+    configs/diffusion-fast.yaml checkpoint (the default factory builds the
+    pipeline on the card), then /api/convert of a 5 s recording at 44.1 kHz
+    and at 16 kHz: status, length, headers, exact launches, and the output
+    against the engine driven directly on the same pipeline with the same
+    request seeds (PCM16 both). Returns {path: launch counts}."""
+    import io
+
+    from scipy.io import wavfile
+
+    from ddsp_svc_tpu_torch.gui import GuiApp, serve
+    from ddsp_svc_tpu_torch.infer.realtime import drive_blocks
+    from ddsp_svc_tpu_torch.ops.resample import resample
+
+    from ddsp_svc_tpu_torch.utils.device import resolve_device
+
+    ckpt, _ = random_checkpoint(torch, root, "diffusion-fast", "diffusion-fast.yaml")
+    app = GuiApp()
+    srv = serve(app, port=0, background=True)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    wrappers = all_counts()
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        status, _, _ = _gui_call(base, "/api/load_model",
+                                 json.dumps({"path": str(ckpt)}).encode())
+        load_s = time.perf_counter() - t0
+        pipe = app.pipeline
+        if (status != 200 or pipe is None
+                or pipe.device.type != resolve_device(None).type):
+            fail(f"[gui] /api/load_model: status {status}, pipeline on "
+                 f"{getattr(pipe, 'device', None)}")
+        _gui_call(base, "/api/config", json.dumps(dict(RT, samplerate=SR)).encode())
+        rng = np.random.default_rng(SEED + 250)
+        for rate in GUI_RATES:
+            wave = voice_wave(GUI_SECONDS, rng)
+            if rate != SR:  # the same voice recorded at another rate
+                wave = resample(torch.from_numpy(wave)[None], SR, rate)[0].numpy()
+            buf = io.BytesIO()
+            wavfile.write(buf, rate, (np.clip(wave, -1, 1) * 32767).astype(np.int16))
+            seeds = pipe._seeds.bit_generator.state
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            status, body, headers = _gui_call(base, "/api/convert", buf.getvalue())
+            wall = time.perf_counter() - t0
+            got_launches = {n: w.launches for n, w in wrappers.items()}
+            out_sr, got = wavfile.read(io.BytesIO(body))
+            # the reference: the same request's engine driven here
+            pipe._seeds.bit_generator.state = seeds
+            audio = (np.clip(wave, -1, 1) * 32767).astype(np.int16) / 32768.0
+            with torch.no_grad():
+                x = torch.as_tensor(audio.astype(np.float32), device=pipe.device)
+                if rate != SR:
+                    x = resample(x[None], rate, SR)[0]
+                vc = app.make_engine()
+                vc.warmup()
+                want, stats = drive_blocks(vc, x.cpu().numpy())
+            want = (np.clip(want, -1, 1) * 32767).astype(np.int16)
+            n_out = int(math.ceil(SR * len(wave) / rate))
+            calls = stats["blocks"] + 2  # the blocks and warmup's two variants
+            expect = {n: c * calls for n, c in _with_zeros(EXPECT_DIFFUSION).items()}
+            if (status != 200 or out_sr != SR or got.shape != (n_out,)
+                    or float(headers.get("X-Rtf", 0)) <= 0
+                    or float(headers.get("X-Block-Ms", 0)) <= 0):
+                fail(f"[gui] /api/convert at {rate} Hz: status {status}, {out_sr} "
+                     f"Hz, {got.shape} (want {n_out}), headers {headers}")
+            if got_launches != expect:
+                fail(f"[gui] /api/convert at {rate} Hz launched {got_launches}, "
+                     f"expected {expect} ({calls} engine calls)")
+            differ = int(np.count_nonzero(got != want))
+            snr = snr_db(want.astype(np.float64), got.astype(np.float64)) \
+                if differ else float("inf")
+            what = f"gui convert {rate} Hz"
+            launches[what] = got_launches
+            log(f"[gui] (b) POST /api/convert, {GUI_SECONDS:g} s at {rate} Hz -> "
+                f"{out_sr} Hz: {stats['blocks']} blocks of {RT['block_time']} s with "
+                f"{RT['extra_time']} s of context (+ 2 warmup calls); X-Rtf "
+                f"{headers['X-Rtf']}, X-Block-Ms {headers['X-Block-Ms']}, request "
+                f"wall {wall:.2f} s; launches {calls} x {EXPECT_DIFFUSION} exactly; "
+                f"against drive_blocks on the same pipeline and seeds: "
+                f"{differ} of {got.size} PCM16 samples differ, SNR {snr:.1f} dB "
+                f"(limit >= {GUI_SNR_DB:.0f} dB) [{card}]")
+            if not snr >= GUI_SNR_DB:
+                fail(f"[gui] {what}: SNR {snr:.2f} dB < {GUI_SNR_DB} dB")
+        log(f"[gui] (b) /api/load_model built the pipeline on the card in "
+            f"{load_s:.2f} s [{card}]")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return launches
+
+
+class _SamplerMeter:
+    """Records every batch a sampler class hands out and the wall of each
+    ``sample()`` call (the time the training loop waits for its batch)."""
+
+    def __init__(self, cls):
+        self.cls, self.original = cls, cls.sample
+        self.batches, self.waits = [], []
+        meter = self
+
+        def sample(sampler):
+            t0 = time.perf_counter()
+            batch = meter.original(sampler)
+            meter.waits.append(time.perf_counter() - t0)
+            meter.batches.append({k: v.copy() for k, v in batch.items()})
+            return batch
+
+        cls.sample = sample
+
+    def restore(self):
+        self.cls.sample = self.original
+
+
+def prefetched_training(torch, card: str, root: Path) -> dict:
+    """(c) cli.train of configs/combsub.yaml's CombSubSuperFast on phase
+    18's corpus with cache_all_data false, so the solver takes the C++
+    prefetcher (as the JAX solver does: an uncached corpus without mels);
+    then the same run with BatchSampler reading the files each step, and
+    with the corpus cached, then prefetched again (the first run in the
+    process pays its warmup, so the prefetcher runs first and last): every
+    batch bit for bit the same, exactly K1 1 per step, and each run's batch
+    wait and warm step wall. Returns {path: launch counts}."""
+    import ddsp_svc_tpu_torch.data.prefetch as prefetch
+    from ddsp_svc_tpu_torch.cli import train as cli_train
+    from ddsp_svc_tpu_torch.data.dataset import BatchSampler
+    from ddsp_svc_tpu_torch.train import solver
+    from ddsp_svc_tpu_torch.utils.config import save_config
+
+    runs, read, real = {}, {}, prefetch.PrefetchBatchSampler
+    wrappers = all_counts()
+    for i, (what, cached) in enumerate((
+            ("prefetched", False), ("uncached BatchSampler", False),
+            ("cached BatchSampler", True), ("prefetched again", False))):
+        cfg, args = train_config(root, f"prefetch-{i}", PREFETCH_CONFIG)
+        args["train"]["cache_all_data"] = cached
+        save_config(cfg, args)
+        cls = real if what.startswith("prefetched") else BatchSampler
+        sampler = _SamplerMeter(cls)
+        if what == "uncached BatchSampler":  # the solver's other arm, forced
+            prefetch.PrefetchBatchSampler = BatchSampler
+        meter, restore = metered(torch, solver, f"(c) CombSubSuperFast, {what}",
+                                 expect_train(args))
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        try:
+            cli_train.main(["-c", cfg, "--max_steps", str(PREFETCH_STEPS)])
+        finally:
+            restore()
+            sampler.restore()
+            prefetch.PrefetchBatchSampler = real
+        read[what] = {n: w.launches for n, w in wrappers.items()}
+        if len(sampler.batches) != PREFETCH_STEPS:
+            fail(f"[prefetch] {what}: {len(sampler.batches)} batches from "
+                 f"{cls.__name__}, expected {PREFETCH_STEPS}")
+        runs[what] = (sampler, meter, time.perf_counter() - t0)
+    ref = runs["prefetched"][0].batches
+    for what in list(runs)[1:]:
+        for i, (got, want) in enumerate(zip(ref, runs[what][0].batches)):
+            bad = [k for k in want if not np.array_equal(got.get(k), want[k])]
+            if bad or set(got) != set(want):
+                fail(f"[prefetch] batch {i}: the prefetcher's {bad or set(got)} "
+                     f"differ from the {what}'s")
+    batch = ref[0]["units"].shape[0]
+    for what, (sampler, meter, run_s) in runs.items():
+        waits = sorted(sampler.waits[2:])
+        steps = sorted(meter.walls[2:])
+        log(f"[prefetch] (c) {what}: {PREFETCH_STEPS} CombSubSuperFast steps at "
+            f"batch {batch} x {ref[0]['audio'].shape[1] / SR:g} s crops, warm "
+            f"iteration wall (batch wait + synchronized step) median "
+            f"{(waits[len(waits) // 2] + steps[len(steps) // 2]) * 1e3:.2f} ms: "
+            f"batch wait median {waits[len(waits) // 2] * 1e3:.2f} ms (min "
+            f"{waits[0] * 1e3:.2f}, max {waits[-1] * 1e3:.2f}), step median "
+            f"{steps[len(steps) // 2] * 1e3:.2f} ms (min {steps[0] * 1e3:.2f}, max "
+            f"{steps[-1] * 1e3:.2f}, n={len(steps)}); the run {run_s:.2f} s; "
+            f"launches per step {({n: c for n, c in meter.expect.items() if c})} "
+            f"exactly, over the run {({n: c for n, c in read[what].items() if c})} "
+            f"[{card}]")
+    log(f"[prefetch] (c) all {PREFETCH_STEPS} batches of the four runs bit for "
+        f"bit equal (warm page cache: the corpus was just written and read) "
+        f"[{card}]")
+    return {f"train {what}": counts for what, counts in read.items()
+            if what.startswith("prefetched")}
+
+
+def phase_tools(torch, card: str, root: Path) -> dict:
+    """Phase 25; ``root`` holds phase 18's corpus. Returns {path: launch
+    counts}."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        launches = onnx_export_check(torch, card, Path(tmp))
+        torch.cuda.empty_cache()
+        launches.update(gui_convert(torch, card, Path(tmp)))
+        torch.cuda.empty_cache()
+    launches.update(prefetched_training(torch, card, root))
+    log(f"[tools] phase 25 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -4796,9 +5122,14 @@ def main() -> None:
             paths.update(phase_streaming(torch, card, Path(stmp)))
         torch.cuda.empty_cache()
         paths.update(phase_multi_training(torch, card, root))
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as tmp:
-        paths.update(phase_convert_export(torch, card, Path(tmp)))
+        mark("22-23")
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as ctmp:
+            paths.update(phase_convert_export(torch, card, Path(ctmp)))
+        mark("24")
+        torch.cuda.empty_cache()
+        paths.update(phase_tools(torch, card, root))  # phase 18's corpus
+        mark("25")
 
     table = []
     for kname in ("combtooth", "resblock_group", "resblock_group_bf16",

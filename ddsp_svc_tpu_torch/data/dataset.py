@@ -14,9 +14,9 @@ for bit the JAX package's batch for the same corpus and seed:
     data: it never requires grad), aug_shift returned;
   - multi-host sharding: each host keeps files[rank::world].
 
-The JAX package's C++ prefetcher (data/prefetch.py) is bit-matched to
-``BatchSampler`` and is not ported; the port's solver samples with
-``BatchSampler`` in both cache modes, which gives the same batches.
+``data/prefetch.PrefetchBatchSampler``, the C++ prefetcher, is bit-matched
+to ``BatchSampler``; the solver takes it for an uncached corpus without
+mels, as the JAX solver does.
 
 spk_id parsing: first integer chunk of the file's directory name, 1-based.
 """

@@ -137,6 +137,16 @@ def sample_ddim(x: torch.Tensor, eps_fn: EpsFn, t_start: int, speedup: int
     return x
 
 
+def plms_coefficients(a_t, a_prev, sqrt=np.sqrt) -> tuple:
+    """PLMS's transfer from step t to t_prev is x + (a_prev - a_t) * (c_x x
+    - c_eps eps), with a the cumulative alpha: -> (c_x, c_eps), from host
+    floats (the sampler, in float64) or tensors (the ONNX ``pred`` graph,
+    ``sqrt=torch.sqrt``)."""
+    a_t_sq, a_prev_sq = sqrt(a_t), sqrt(a_prev)
+    return (1.0 / (a_t_sq * (a_t_sq + a_prev_sq)),
+            1.0 / (a_t_sq * (sqrt((1 - a_prev) * a_t) + sqrt((1 - a_t) * a_prev))))
+
+
 def sample_plms(x: torch.Tensor, eps_fn: EpsFn, t_start: int, speedup: int
                 ) -> torch.Tensor:
     """PLMS/PNDM: Adams-Bashforth on eps, a Heun start (two denoiser calls
@@ -145,12 +155,8 @@ def sample_plms(x: torch.Tensor, eps_fn: EpsFn, t_start: int, speedup: int
 
     def x_pred(x, eps, i):
         a_t, a_prev = float(ac[i]), float(ac[max(i - speedup, 0)])
-        a_t_sq, a_prev_sq = np.sqrt(a_t), np.sqrt(a_prev)
-        x_delta = (a_prev - a_t) * (
-            float(1.0 / (a_t_sq * (a_t_sq + a_prev_sq))) * x
-            - float(1.0 / (a_t_sq * (np.sqrt((1 - a_prev) * a_t)
-                                     + np.sqrt((1 - a_t) * a_prev)))) * eps)
-        return x + x_delta
+        c_x, c_eps = plms_coefficients(a_t, a_prev)
+        return x + (a_prev - a_t) * (float(c_x) * x - float(c_eps) * eps)
 
     noise_list = []
     for i in reversed(range(0, t_start, speedup)):

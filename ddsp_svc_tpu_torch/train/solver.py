@@ -8,10 +8,13 @@ ddsp_svc_tpu/train/solver.py: ``FAMILIES``, ``build_train_step``,
   family 'reflow'    -- cascade with the log-normal flow loss, and mel
                         SNR / PSNR / SI-SNR in validation
 
-One step per batch; batches from ``data/dataset.BatchSampler`` (the JAX
-package's C++ prefetcher gives the same batches and is not ported). The
-data seed and the model-noise stream are folded with the resumed step, so
-a resumed run draws fresh batches and noise. A NaN loss raises.
+One step per batch; batches from ``data/dataset.BatchSampler``, or for an
+uncached corpus without mels (``cache_all_data`` false, the DDSP family)
+from ``data/prefetch.PrefetchBatchSampler``, the C++ prefetcher that reads
+the crops while the card runs the previous step and gives the same batches
+bit for bit (the JAX solver's choice, solver.py:174-181). The data seed
+and the model-noise stream are folded with the resumed step, so a resumed
+run draws fresh batches and noise. A NaN loss raises.
 Validation runs under ``torch.no_grad``.
 
 Data parallel (a ``mesh`` of ``torchrun``'s ranks): every rank draws the
@@ -126,6 +129,18 @@ def validate(args, family: str, model, valid: AudioDataset, saver: Saver,
     return results
 
 
+def make_sampler(args, train_ds: AudioDataset, seed: int):
+    """The training batches: the C++ prefetcher for an uncached corpus
+    without mels, where each step would otherwise wait on the crops' reads,
+    else ``BatchSampler`` (the JAX solver's choice)."""
+    batch_size = int(args.train.batch_size)
+    if not bool(args.train.cache_all_data) and not train_ds.with_mel:
+        from ..data.prefetch import PrefetchBatchSampler
+
+        return PrefetchBatchSampler(train_ds, batch_size, seed=seed)
+    return BatchSampler(train_ds, batch_size, seed=seed)
+
+
 def train(args, state: TrainState, mel_extract_fn=None, initial_step: int = 0,
           device="cuda", max_steps: int | None = None, mesh=None) -> TrainState:
     """The main loop: sample, step, log every ``interval_log``, save,
@@ -137,8 +152,7 @@ def train(args, state: TrainState, mel_extract_fn=None, initial_step: int = 0,
     lead = mesh is None or mesh.rank == 0
     saver = Saver(args, initial_global_step=initial_step) if lead else None
     train_ds, valid_ds = get_datasets(args)
-    sampler = BatchSampler(train_ds, int(args.train.batch_size),
-                           seed=int(args.train.seed or 0) + initial_step)
+    sampler = make_sampler(args, train_ds, int(args.train.seed or 0) + initial_step)
     if lead:
         saver.log_info(f" [*] {len(train_ds)} train files, {len(valid_ds)} "
                        f"valid files" + (f", {mesh.dp} data-parallel ranks"

@@ -420,3 +420,56 @@ def test_helpers_refuse_code_that_imports_jax():
     refused = run("torch_helpers:tt")
     assert refused.returncode != 0
     assert "brought in JAX" in refused.stderr
+
+
+def test_no_jax_imports_scans_the_tools():
+    """The scan covers the ONNX export, the GUI and the prefetcher (whose
+    C++ source is the port's own copy: the JAX package's is never built)."""
+    from ddsp_svc_tpu_torch.data import prefetch
+
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for module in ("onnx/__init__", "onnx/shim", "onnx/reader", "onnx/runtime",
+                   "onnx/mirrors", "onnx/export", "onnx/validate",
+                   "gui/__init__", "gui/i18n", "gui/workflow", "gui/web",
+                   "cli/export_onnx", "cli/gui", "data/prefetch"):
+        assert f"ddsp_svc_tpu_torch/{module}.py" in names, module
+    assert prefetch.SOURCE == ROOT / "ddsp_svc_tpu_torch" / "data" / "_prefetch.cpp"
+
+
+def test_tool_clis_default_to_cuda(monkeypatch):
+    """cli.export_onnx and cli.gui take --device, default the card, and
+    without one raise before any file is read or any port is bound."""
+    from ddsp_svc_tpu_torch.cli import export_onnx, gui
+    from ddsp_svc_tpu_torch.gui.web import GuiApp
+    from ddsp_svc_tpu_torch.onnx.export import export_onnx as export
+    from ddsp_svc_tpu_torch.onnx.validate import validate_export
+
+    assert export_onnx.build_parser().parse_args(["-m", "m"]).device is None
+    assert gui.parse_args([]).device is None
+    for entry in (export, validate_export, GuiApp):
+        assert inspect.signature(entry).parameters["device"].default is None, entry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    served = []
+    monkeypatch.setattr("ddsp_svc_tpu_torch.gui.web.serve",
+                        lambda *a, **k: served.append(a))
+    for call in (lambda: export_onnx.main(["-m", "absent/model_1.ckpt"]),
+                 lambda: gui.main(["--port", "0"]),
+                 lambda: GuiApp().load_model("absent/model_1.ckpt")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not served
+
+
+def test_onnx_shim_names_a_missing_exporter_module(monkeypatch):
+    """Without the onnx wheel the export patches a private torch module;
+    where a torch build lacks it the shim raises and names it (never
+    another exporter)."""
+    from ddsp_svc_tpu_torch.onnx import shim
+
+    called = []
+    monkeypatch.setattr(torch.onnx, "export", lambda *a, **k: called.append(a))
+    monkeypatch.setattr(shim, "_onnx_wheel_available", lambda: False)
+    monkeypatch.setitem(sys.modules, shim.PROTO_UTILS, None)  # import fails
+    with pytest.raises(RuntimeError, match=shim.PROTO_UTILS.replace(".", r"\.")):
+        shim.torch_onnx_export(torch.nn.Identity(), (torch.zeros(1),), "x.onnx")
+    assert not called
