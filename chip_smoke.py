@@ -9,7 +9,9 @@ front end (RMVPE, CREPE, FCPE, the host trackers), time-sharded
 streaming over ranks that share the card, multi-process training
 (data-parallel cli.train and cli.train_vocoder, the sequence-parallel
 step, model.use_remat), upstream checkpoints, batch inference and export,
-and the last tools: ONNX export, the web GUI and the C++ batch prefetcher.
+the last tools: ONNX export, the web GUI and the C++ batch prefetcher, and
+batched serving sharded over a mesh, the recycling worker supervisor and
+the NCCL backend.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -45,7 +47,7 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      trunk, k_step 100, DPM-Solver++ with speedup 10, the default
      NSF-HiFiGAN) with random weights from a seeded torch.Generator:
      requests of 2, 5 and 10 s through SvcPipeline.infer_features (one cold
-     and five warm runs each, then one warm 10 s run under torch.profiler
+     and WARM_RUNS (3) warm runs each, then one warm 10 s run under torch.profiler
      for the device-time breakdown), checking each output and the kernel
      launch counts of every run;
   5. its 2 s request on the card (kernels, TF32 off) against the same
@@ -59,7 +61,7 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
   8. both paths from a wav: SvcPipeline.infer with the full contentvec768l12
      units encoder both configs name (random weights from the seed) and
      host YIN, on synthetic 44.1 kHz recordings with a pitch contour of 2,
-     5 and 10 s (one cold and five warm runs each: median, min, max, real-
+     5 and 10 s (one cold and WARM_RUNS warm runs each: median, min, max, real-
      time factor), the launch counts of every run checked (DiffusionFast:
      K1 1, K2 5, K3 60; Sins: K4 1, K2 5); one warm 10 s request's host
      wall per stage (encoder, f0, volume/mask, model, vocoder or enhancer)
@@ -180,7 +182,7 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      K4 1, K1 1 with K3 0, K2 5), and card against CPU ranks on the same
      10 s (>= 40 dB); (b) cli.infer.main --stream 2 on a 12 s wav for combsub and sins
      against the same CLI without --stream outside the last FRAME_HALO
-     frames of each segment; (c) streamed and whole walls, five warm runs;
+     frames of each segment; (c) streamed and whole walls, WARM_RUNS warm runs;
  23. multi-process training, the ranks launched as torchrun launches them
      (``parallel/launch.py``; each rank is this script with ``--rank``,
      recording every step's wall, launches and loss terms) and sharing
@@ -208,8 +210,8 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      diffusion-fast request on the card against the CPU (>= 40 dB); (b)
      cli.batch_infer on the card over a nested tree of four wavs (2, 5, 10
      and 12 s) with the converted model, vocoder, encoder and -pe rmvpe:
-     the output tree mirrors the input, each file within BATCH_INFER_SNR_DB
-     of SvcPipeline.infer alone with its seed (or bit for bit), exactly K1
+     the output tree mirrors the input, each file bit for bit
+     SvcPipeline.infer alone with its seed (ROADMAP C(kk)), exactly K1
      1, K3 60, K2 5 a file, the wall per file and per second of audio;
      (c) cli.export of the converted diffusion-fast checkpoint at
      --seconds 10 -kstep 100 and of the converted Sins, traced on the card,
@@ -236,7 +238,30 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
      corpus without mels), then with BatchSampler reading the files and
      with the corpus cached, then prefetched again: every batch bit for bit
      the same, exactly K1 1 per step, and each run's batch wait and step
-     wall.
+     wall;
+ 26. (a) BatchedSynth and BatchedEncoder on a mesh of MESH x cuda:0
+     (``enable_batching(mesh=, batch_encoder=True)`` on diffusion-fast
+     from a wav, host YIN): eight concurrent requests of 2-10 s, one
+     untimed round and one timed, on one device, on the mesh and on the
+     mesh with pipeline_depth 2; exactly MESH x (K1 1, K2 5, K3 60) a
+     batch; every row >= 80 dB (BATCH_ROW_SNR_DB) from the same request
+     (same seed) on the single-device engine; the rounds' walls; with two
+     or more cards also cli.api --batch_devices 2 (else said unmeasured);
+     (b) ``python -m ddsp_svc_tpu_torch.cli.api --worker_max_requests 3``
+     as a process on a random configs/diffusion-fast.yaml checkpoint,
+     eight sequential 2 s POSTs across two recycles (each POST after a
+     worker's third waits for the swap): each 200 and >= 80 dB from the
+     in-process server (phase 17's handler, cli.api's defaults) over the
+     same checkpoint; nvidia-smi --query-compute-apps never lists the
+     supervisor, which holds no /dev/nvidia* open; the retired workers end
+     and memory.used after two recycles is within 1.5 x one worker's;
+     spawn-to-healthy times, RSS before each recycle, the first POST's
+     wall after a hand-off against the steady median; (c) world_backend:
+     NCCL for 1 rank on the card, gloo for 2 ranks sharing it; a 1-rank
+     NCCL world's psum, all_gather, psum_flat, broadcast (real and
+     complex) and replicate on cuda tensors against a 1-rank gloo world's,
+     bit for bit, and NCCL's own all_reduce and all_gather_into_tensor;
+     the 2-rank NCCL step said unmeasured on one card.
 Phase 3 also holds K4's bf16-amplitude mode (the bf16 Sins: amplitudes
 upsampled in bf16) to its plain version within 3e-5, timed as K4.
 Phase 3 also holds B5 (K3's bf16 class on bf16 activations) to its plain
@@ -263,7 +288,7 @@ import numpy as np
 SEED = 1234
 SR, BLOCK, WIN = 44100, 512, 2048
 REQUEST_SECONDS = (2, 5, 10)
-WARM_RUNS = 5
+WARM_RUNS = 3
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
 # f32 accuracy on the tensor cores: split TF32, three MMAs per product at
@@ -3812,7 +3837,7 @@ def _world_paths(torch, world, parts, x, card, paths_run, frames, timed,
                  launches):
     """Each path of ``paths_run`` through ``world`` at ``frames``: the
     streamed output against the whole reference on rank 0's device, exact
-    launches per rank, and with ``timed`` five warm walls of each.
+    launches per rank, and with ``timed`` WARM_RUNS warm walls of each.
     Returns {path: streamed output (CPU numpy)}."""
     outs = {}
     dev = world.device
@@ -4448,7 +4473,6 @@ def phase_multi_training(torch, card: str, root: Path) -> dict:
 
 # ---------------------------------------------------------------- phase 24
 
-BATCH_INFER_SNR_DB = 80.0
 BATCH_INFER_SECONDS = {"a.wav": 2, "set/b.wav": 5, "set/live/c.wav": 10,
                        "set/live/d.wav": 12}
 EXPORT_REL_TOL = 1e-5  # the artifact against the eager model, x max|out|
@@ -4620,21 +4644,19 @@ def batch_infer_tree(torch, card: str, root: Path, model: Path) -> dict:
             fail(f"batch_infer: a {seconds:g} s file launched {delta}, expected "
                  f"{EXPECT_DIFFUSION}")
     solo = SvcPipeline(str(model), seed=SEED, pitch_extractor="rmvpe")
-    seeds, worst = np.random.default_rng(0), math.inf
+    seeds = np.random.default_rng(0)
     for rel in files:
         wave, sr = load_wav(str(root / "in" / rel))
         want, _ = solo.infer(wave, sr, k_step=100, seed=int(seeds.integers(1 << 62)))
         want16 = np.clip(np.round(want * 32767.0), -32768, 32767)
         got16 = wavfile.read(str(root / "out" / rel))[1].astype(np.float64)
-        snr = math.inf if np.array_equal(got16, want16) else snr_db(want16, got16)
-        worst = min(worst, snr)
-        if not snr >= BATCH_INFER_SNR_DB:
-            fail(f"batch_infer {rel}: {snr:.2f} dB from SvcPipeline.infer alone "
-                 f"(limit >= {BATCH_INFER_SNR_DB} dB)")
+        if not np.array_equal(got16, want16):
+            snr = snr_db(want16, got16) if got16.shape == want16.shape else -math.inf
+            fail(f"batch_infer {rel}: not bit for bit SvcPipeline.infer alone "
+                 f"({snr:.2f} dB; ROADMAP C(kk))")
     audio_s = sum(s for _, s, _ in per_file)
     log(f"[batch_infer] {len(files)} files ({', '.join(files)}) mirrored; each "
-        f"{'bit for bit' if worst == math.inf else f'>= {worst:.2f} dB'} against "
-        f"SvcPipeline.infer alone (limit {BATCH_INFER_SNR_DB:.0f} dB); launches per "
+        f"bit for bit SvcPipeline.infer alone; launches per "
         f"file {EXPECT_DIFFUSION}; wall per file "
         + ", ".join(f"{s:g} s {w * 1e3:.1f} ms ({w / s * 1e3:.2f} ms per s of "
                     f"audio)" for w, s, _ in per_file)
@@ -5036,6 +5058,411 @@ def phase_tools(torch, card: str, root: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 26
+
+MESH = 2  # entries of the serving mesh on the one card
+MESH_SECONDS = (2.0, 3.1, 4.2, 5.3, 6.4, 7.5, 8.6, 10.0)
+SUPERVISED_RECYCLE = 3  # --worker_max_requests
+SUPERVISED_POSTS = 8  # across two recycles
+SUPERVISED_SECONDS = 2.0
+SUPERVISOR_WALL = 300.0  # a worker's start, a POST, the end (s)
+DEFAULT_TF32 = (False, True)  # (matmul, cuDNN) as a fresh process has them; main reads them
+
+
+def _mesh_round(torch, pipe, waves, seeds, what: str, per_batch: int,
+                wrappers) -> tuple:
+    """One untimed round of the requests, then a timed one -> (rows, wall,
+    launches, batches); launches exactly ``per_batch`` x (K1 1, K2 5, K3
+    60) a batch."""
+    def round_():
+        return _concurrently([lambda w=w, s=s: pipe.infer(w, SR, seed=s, **DIFF_KW)[0]
+                              for w, s in zip(waves, seeds)])
+
+    round_()
+    before = pipe.batcher.stats()["batches"]
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = round_()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: w.launches for n, w in wrappers.items()}
+    n_b = pipe.batcher.stats()["batches"] - before
+    expect = {n: n_b * per_batch * c for n, c in _with_zeros(EXPECT_BATCH).items()}
+    if got != expect:
+        fail(f"[mesh] {what}: launches {got} over {n_b} batches, expected {expect}")
+    for i, (wave, row) in enumerate(zip(waves, rows)):
+        check_audio(row, len(wave) // BLOCK + 1, f"{what} row {i}")
+    return rows, wall, got, n_b
+
+
+def mesh_serving(torch, card: str, wav_pipe, root: Path) -> dict:
+    """Phase 26 (a): BatchedSynth and BatchedEncoder sharded over a mesh of
+    MESH entries of the one card against the single-device engines."""
+    wrappers = all_counts()
+    rng = np.random.default_rng(SEED + 26)
+    waves = [voice_wave(s, rng) for s in MESH_SECONDS]
+    seeds = [2600 + i for i in range(len(waves))]
+    pipe = sibling(wav_pipe)
+    mesh = [torch.device("cuda", 0)] * MESH
+    out, launches = {}, {}
+    try:
+        for what, m, depth in (("one device", None, 1), ("mesh", mesh, 1),
+                               ("mesh, pipeline_depth 2", mesh, 2)):
+            pipe.enable_batching(buckets=BUCKETS, max_batch=BATCH,
+                                 max_wait_ms=BATCH_WAIT_MS, mesh=m,
+                                 pipeline_depth=depth, batch_encoder=True, **DIFF_KW)
+            out[what] = _mesh_round(torch, pipe, waves, seeds, what,
+                                    1 if m is None else MESH, wrappers)
+            if m is not None and not (pipe.batcher.mesh == mesh
+                                      and pipe.enc_batcher.mesh == mesh):
+                fail(f"[mesh] {what}: the batchers hold no mesh of {MESH}")
+            launches[f"mesh serving ({what})"] = out[what][2]
+    finally:
+        pipe.disable_batching()
+    single = out["one device"][0]
+    for what in ("mesh", "mesh, pipeline_depth 2"):
+        rows, wall, got, n_b = out[what]
+        snrs = [math.inf if np.array_equal(a, b) else snr_db(a, b)
+                for a, b in zip(single, rows)]
+        log(f"[mesh] (a) {len(waves)} concurrent requests of {MESH_SECONDS[0]:g}-"
+            f"{MESH_SECONDS[-1]:g} s, BatchedSynth + BatchedEncoder on a mesh of "
+            f"{MESH} x cuda:0 ({what}): {n_b} batches, launches {got} "
+            f"({MESH} x {EXPECT_BATCH} a batch); rows against the single-device "
+            f"engine with the same seeds: SNR min {min(snrs):.1f} dB, "
+            f"{sum(s == math.inf for s in snrs)} of {len(snrs)} bit for bit "
+            f"(limit >= {BATCH_ROW_SNR_DB:.0f} dB) [{card}]")
+        if not min(snrs) >= BATCH_ROW_SNR_DB:
+            fail(f"[mesh] {what}: a row {min(snrs):.1f} dB from the single-device "
+                 f"engine (limit {BATCH_ROW_SNR_DB} dB)")
+    log(f"[mesh] (a) wall of the timed round (after one untimed): one device "
+        f"{out['one device'][1] * 1e3:.1f} ms, mesh {out['mesh'][1] * 1e3:.1f} ms, "
+        f"mesh with pipeline_depth 2 {out['mesh, pipeline_depth 2'][1] * 1e3:.1f} "
+        f"ms; one card either way, so no speed is claimed [{card}]")
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"[mesh] (a) --batch_devices 2 through cli.api: not measured, this "
+            f"machine has {n_cards} card [{card}]")
+        return launches
+    # two cards: the server's own mesh, cuda:0 and cuda:1
+    import threading
+
+    from ddsp_svc_tpu_torch.cli import api
+
+    ckpt, _ = random_checkpoint(torch, root, "mesh-server", "diffusion-fast.yaml")
+    ready, holder = threading.Event(), {}
+    th = threading.Thread(target=api.main, daemon=True, kwargs=dict(
+        argv=["-m", str(ckpt), "-p", "0", "--host", "127.0.0.1", "--batch",
+              str(BATCH), "--batch_devices", "2", "--batch_wait_ms",
+              str(BATCH_WAIT_MS)],
+        ready_cb=lambda srv: (holder.setdefault("srv", srv), ready.set())))
+    th.start()
+    if not ready.wait(SUPERVISOR_WALL):
+        fail("[mesh] cli.api --batch_devices 2 did not start")
+    srv = holder["srv"]
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        answers = _concurrently([lambda w=w: _post(base, w) for w in waves])
+        wall = time.perf_counter() - t0
+        for i, (w, (status, sr, data, _)) in enumerate(zip(waves, answers)):
+            _check_wav(status, sr, data, len(w), f"--batch_devices 2 request {i}")
+        got = {n: w.launches for n, w in wrappers.items()}
+        log(f"[mesh] (a) cli.api --batch_devices 2 on cuda:0 and cuda:1: "
+            f"{len(waves)} concurrent POSTs answered in {wall * 1e3:.1f} ms, "
+            f"launches {got} [{card}]")
+        launches["cli.api --batch_devices 2"] = got
+    finally:
+        srv.shutdown()
+        th.join(60)
+    return launches
+
+
+def _gpu_query(query: str) -> list[list[str]]:
+    """nvidia-smi's CSV rows for ``query`` (no header, no units)."""
+    kind = "--query-compute-apps" if query.startswith("pid") else "--query-gpu"
+    text = subprocess.run(["nvidia-smi", f"{kind}={query}",
+                           "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60).stdout
+    return [[c.strip() for c in line.split(",")] for line in text.splitlines()
+            if line.strip()]
+
+
+def _memory_used_mib() -> float:
+    return float(_gpu_query("memory.used")[0][0])
+
+
+def _opens_the_card(pid: int) -> bool:
+    """Whether process ``pid`` holds a file of the card's driver open (a
+    CUDA context opens /dev/nvidia*)."""
+    import os
+
+    fd_dir = Path(f"/proc/{pid}/fd")
+    for fd in fd_dir.iterdir() if fd_dir.exists() else ():
+        try:
+            if os.readlink(fd).startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def _alive(pid: int) -> bool:
+    return Path(f"/proc/{pid}").exists()
+
+
+def supervised_server(torch, card: str, root: Path) -> None:
+    """Phase 26 (b): ``python -m ddsp_svc_tpu_torch.cli.api
+    --worker_max_requests 3`` on a diffusion-fast checkpoint, 8 sequential
+    POSTs across two recycles against phase 17's in-process server over
+    the same checkpoint."""
+    import os
+    import threading
+
+    from ddsp_svc_tpu_torch.infer.pipeline import SvcPipeline
+
+    ckpt, _ = random_checkpoint(torch, root, "supervised", "diffusion-fast.yaml")
+    wave = voice_wave(SUPERVISED_SECONDS, np.random.default_rng(SEED + 261))
+    # the in-process server over the same checkpoint: request j of a fresh
+    # pipeline draws the j-th seed of cli.api's sequence, as a worker's j-th
+    # does; TF32 as a cli.api process has it (PyTorch's defaults)
+    ref_pipe = SvcPipeline(str(ckpt))
+    srv, base = _serve_default(ref_pipe)
+    ours = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = DEFAULT_TF32
+    try:
+        refs = []
+        for _ in range(SUPERVISED_RECYCLE):
+            status, sr, data, _ = _post(base, wave)
+            _check_wav(status, sr, data, len(wave), "the in-process server")
+            refs.append(data)
+    finally:
+        srv.shutdown()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = ours
+    del ref_pipe
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_base = _memory_used_mib()
+    lines, lines_lock = [], threading.Lock()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddsp_svc_tpu_torch.cli.api", "-m", str(ckpt), "-p",
+         "0", "--host", "127.0.0.1", "--worker_max_requests",
+         str(SUPERVISED_RECYCLE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(Path(__file__).resolve().parent))
+
+    def read():
+        for line in proc.stdout:
+            with lines_lock:
+                lines.append((time.perf_counter(), line.rstrip()))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    samples, stop = [], threading.Event()
+
+    def sample():  # the compute processes nvidia-smi lists, and the parent's fds
+        while not stop.is_set():
+            pids = {int(r[0]) for r in _gpu_query("pid,used_memory") if r[0].isdigit()}
+            samples.append((pids, _opens_the_card(proc.pid)))
+            stop.wait(0.5)
+
+    def wait_line(pattern: str, after: int = 0):
+        deadline = time.perf_counter() + SUPERVISOR_WALL
+        while time.perf_counter() < deadline:
+            with lines_lock:
+                for t, line in lines[after:]:
+                    found = re.search(pattern, line)
+                    if found:
+                        return found
+            if proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        with lines_lock:
+            tail = "\n".join(line for _, line in lines[-20:])
+        fail(f"[supervisor] no line matching {pattern!r} (rc {proc.poll()}):\n{tail}")
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    workers, walls, mem = [], [], {}
+    try:
+        first = wait_line(r"supervised API on :(\d+) \(worker pid (\d+),.*"
+                          r"healthy after ([\d.]+) s")
+        port, spawn = int(first.group(1)), [float(first.group(3))]
+        workers.append(int(first.group(2)))
+        base = f"http://127.0.0.1:{port}"
+        for i in range(SUPERVISED_POSTS):
+            t0 = time.perf_counter()
+            status, sr, data, _ = _post(base, wave)
+            walls.append(time.perf_counter() - t0)
+            _check_wav(status, sr, data, len(wave), f"supervised POST {i}")
+            snr = (math.inf if np.array_equal(data, refs[i % SUPERVISED_RECYCLE])
+                   else snr_db(refs[i % SUPERVISED_RECYCLE], data))
+            if not snr >= BATCH_ROW_SNR_DB:
+                fail(f"[supervisor] POST {i} {snr:.1f} dB from the in-process "
+                     f"server's request {i % SUPERVISED_RECYCLE} (limit "
+                     f"{BATCH_ROW_SNR_DB} dB)")
+            if i == 1:  # the first worker alone, two requests served
+                mem["one worker"] = _memory_used_mib()
+            if i % SUPERVISED_RECYCLE == SUPERVISED_RECYCLE - 1 and i + 1 < SUPERVISED_POSTS:
+                gen = len(workers) + 1
+                # the next POST waits for the swap, so each worker serves 3
+                rec = wait_line(rf"recycled serving worker \(gen {gen}, pid (\d+), "
+                                r"healthy after ([\d.]+) s")
+                workers.append(int(rec.group(1)))
+                spawn.append(float(rec.group(2)))
+                old = workers[-2]
+                deadline = time.perf_counter() + 60
+                while _alive(old) and time.perf_counter() < deadline:
+                    time.sleep(0.05)
+                if _alive(old):
+                    fail(f"[supervisor] the retired worker {old} still runs")
+        mem["after two recycles"] = _memory_used_mib()
+    finally:
+        stop.set()
+        proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(10)
+        sampler.join(10)
+        for pid in workers:
+            if _alive(pid):
+                os.kill(pid, 9)
+    if any(_alive(pid) for pid in workers):
+        fail("[supervisor] a worker outlived its supervisor")
+    seen = set().union(*(p for p, _ in samples)) if samples else set()
+    if proc.pid in seen or any(fds for _, fds in samples):
+        fail(f"[supervisor] the supervisor (pid {proc.pid}) held the card: listed "
+             f"{proc.pid in seen}, /dev/nvidia* open {any(f for _, f in samples)}")
+    listed = sorted(seen & set(workers))
+    rss = [float(m.group(1)) for m in (re.search(
+        r"retiring serving worker gen \d+ \(pid \d+, \d+ connections, RSS ([\d.]+) MB",
+        line) for _, line in lines) if m]
+    one = mem["one worker"] - mem_base
+    after = mem["after two recycles"] - mem_base
+    steady = [w for i, w in enumerate(walls) if i % SUPERVISED_RECYCLE]
+    handoff = [w for i, w in enumerate(walls) if i and i % SUPERVISED_RECYCLE == 0]
+    log(f"[supervisor] (b) cli.api --worker_max_requests {SUPERVISED_RECYCLE}: "
+        f"{SUPERVISED_POSTS} sequential POSTs of {SUPERVISED_SECONDS:g} s, all 200, "
+        f"each >= {BATCH_ROW_SNR_DB:.0f} dB from the in-process server over the "
+        f"same checkpoint (its request j for a worker's j-th); workers "
+        f"{workers} (spawn to healthy {', '.join(f'{s:.2f}' for s in spawn)} s); "
+        f"RSS before each recycle {', '.join(f'{r:.1f}' for r in rss)} MB; "
+        f"nvidia-smi listed {listed} of the workers over {len(samples)} samples "
+        f"and never the supervisor (pid {proc.pid}), which opened no /dev/nvidia* "
+        f"[{card}]")
+    log(f"[supervisor] (b) POST walls: first after each hand-off "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in handoff)} ms (max "
+        f"{max(handoff) * 1e3:.1f}), steady median {_med(steady) * 1e3:.1f} ms; "
+        f"memory.used above the base: one worker {one:.0f} MiB, after two "
+        f"recycles {after:.0f} MiB (limit 1.5 x one worker); no speed is "
+        f"claimed [{card}]")
+    if len(workers) != 3 or len(rss) < 2:
+        fail(f"[supervisor] workers {workers}, RSS lines {rss}: not two recycles")
+    if not after <= 1.5 * one:
+        fail(f"[supervisor] the retired workers' device memory was not returned: "
+             f"{after:.0f} MiB against one worker's {one:.0f}")
+
+
+def _serve_default(pipe):
+    """Phase 17's in-process server over ``pipe`` with cli.api's defaults."""
+    import threading
+
+    from ddsp_svc_tpu_torch.cli.api import Server, make_handler
+
+    srv = Server(("127.0.0.1", 0), make_handler(pipe, {}))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def nccl_world(torch, card: str) -> None:
+    """Phase 26 (c): the backend chooser, and a 1-rank NCCL world's
+    collectives on the card against a 1-rank gloo world's."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ddsp_svc_tpu_torch.parallel import mesh as m
+
+    n_cards = torch.cuda.device_count()
+    want2 = "nccl" if n_cards >= 2 else "gloo"
+    if m.world_backend(1) != "nccl" or m.world_backend(2) != want2:
+        fail(f"[nccl] world_backend: 1 rank {m.world_backend(1)}, 2 ranks "
+             f"{m.world_backend(2)} on {n_cards} card(s)")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 262)
+    x = torch.randn((4, 862, 128), generator=gen, device=dev)
+    z = torch.complex(torch.randn((2, 4096), generator=gen, device=dev),
+                      torch.randn((2, 4096), generator=gen, device=dev))
+    model = torch.nn.Sequential(torch.nn.Linear(128, 256), torch.nn.BatchNorm1d(256)).to(dev)
+    answers = {}
+    for backend in ("nccl", "gloo"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
+            init = f"{tmp}/rendezvous"
+            if backend == "nccl":
+                group = m.init_rank(0, 1, init, None)  # the chooser's pick
+            else:
+                dist.init_process_group("gloo", init_method=f"file://{init}",
+                                        rank=0, world_size=1)
+                group = m.TimeGroup(0, 1, dev)
+            try:
+                if dist.get_backend() != backend or group.nccl != (backend == "nccl"):
+                    fail(f"[nccl] a {backend} world reads {dist.get_backend()}")
+                mesh = m.Mesh(1, 1, dev)
+                rep = copy.deepcopy(model)
+                m.replicate(mesh, rep)
+                out = {"psum": group.psum(x), "all_gather": group.all_gather(x),
+                       "psum_flat": torch.cat([t.reshape(-1) for t in
+                                               group.psum_flat([x, 2 * x])]),
+                       "broadcast": group.broadcast(x),
+                       "broadcast_complex": group.broadcast(z),
+                       "replicate": torch.cat([t.detach().reshape(-1).double() for t in
+                                               list(rep.parameters()) + list(rep.buffers())])}
+                if backend == "nccl":  # the collectives themselves on the card
+                    total = x.clone()
+                    dist.all_reduce(total)
+                    gathered = torch.empty_like(x)
+                    dist.all_gather_into_tensor(gathered, x)
+                    if not (torch.equal(total, x) and torch.equal(gathered, x)):
+                        fail("[nccl] a 1-rank all_reduce / all_gather changed x")
+                torch.cuda.synchronize()
+                answers[backend] = out
+            finally:
+                dist.destroy_process_group()
+    for k, v in answers["nccl"].items():
+        w = answers["gloo"][k]
+        if v.device != dev or w.device != dev or not torch.equal(v, w):
+            fail(f"[nccl] {k}: NCCL and gloo differ ({v.device}, {w.device})")
+    log(f"[nccl] (c) world_backend: 1 rank on the card nccl, 2 ranks {want2} "
+        f"({n_cards} card); a 1-rank NCCL world against a 1-rank gloo world on "
+        f"cuda tensors, bit for bit: {', '.join(answers['nccl'])}; NCCL's own "
+        f"all_reduce and all_gather_into_tensor on the card [{card}]")
+    if n_cards < 2:
+        log(f"[nccl] (c) a 2-rank DiffusionFast step on NCCL: not measured, this "
+            f"machine has {n_cards} card (phase 23's 2 ranks share it on gloo) [{card}]")
+    else:
+        log(f"[nccl] (c) phase 23 (a)'s 2 ranks held a card each, so world_backend "
+            f"put them on NCCL: their step walls and all-reduce share above are "
+            f"NCCL's; gloo at a card a rank is not run [{card}]")
+
+
+def phase_mesh_supervisor_nccl(torch, card: str, wav_pipe, root: Path) -> dict:
+    """Phase 26; returns {path: launch counts}."""
+    t0 = time.perf_counter()
+    launches = mesh_serving(torch, card, wav_pipe, root)
+    torch.cuda.empty_cache()
+    supervised_server(torch, card, root)
+    nccl_world(torch, card)
+    log(f"[mesh] phase 26 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -5047,6 +5474,9 @@ def main() -> None:
         import ddsp_svc_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
+    global DEFAULT_TF32
+    DEFAULT_TF32 = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -5067,6 +5497,7 @@ def main() -> None:
     del model, vocoder
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch, args, *diffusion_cpu[1:], card)
+    mark("4-5")
 
     sins_parts = random_parts(torch, dict(SINS, type="Sins"), enhancer=True)
     args, model, vocoder = sins_parts
@@ -5074,20 +5505,25 @@ def main() -> None:
                                     copy.deepcopy(vocoder), card)
     torch.cuda.empty_cache()
     phase_ddsp_card_vs_cpu(torch, card, sins_parts)
+    mark("6-7")
 
     wav_launches, pipes = phase_wav_paths(torch, card, diffusion_cpu, sins_parts)
     paths.update(wav_launches)
     phase_wav_card_vs_cpu(torch, card, pipes, {
         "diffusion-fast from a wav": diffusion_cpu, "sins from a wav": sins_parts})
+    mark("8-9")
     paths.update(phase_cli(torch, card, pipes))
     paths.update(phase_samplers(torch, card, pipes["diffusion-fast from a wav"]))
-    mark("4-11")
+    mark("10-11")
 
     phase_gradients(torch, card)
+    mark("12")
     encoder = pipes["diffusion-fast from a wav"].units_encoder
     reflow_launches, reflow = phase_reflow(torch, card, encoder)
     paths.update(reflow_launches)
+    mark("13")
     paths.update(phase_wavenet_families(torch, card, encoder, reflow["parts"]))
+    mark("14")
     torch.cuda.empty_cache()
     paths.update(phase_realtime(
         torch, card,
@@ -5095,11 +5531,14 @@ def main() -> None:
          "reflow": reflow["wav"], "sins": pipes["sins from a wav"]},
         {"diffusion-fast": diffusion_cpu, "reflow": reflow["parts"],
          "sins": sins_parts}))
+    mark("15")
     torch.cuda.empty_cache()
     paths.update(phase_bf16_vocoder(torch, card, pipes))
+    mark("16")
     paths.update(phase_batched_serving(torch, card,
                                        pipes["diffusion-fast from a wav"]))
-    mark("12-17")
+    mark("17")
+    diffusion_wav = pipes["diffusion-fast from a wav"]  # phase 26 serves it again
     del pipes, reflow, encoder
     torch.cuda.empty_cache()
     import tempfile
@@ -5120,9 +5559,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as stmp:
             paths.update(phase_streaming(torch, card, Path(stmp)))
+        mark("22")
         torch.cuda.empty_cache()
         paths.update(phase_multi_training(torch, card, root))
-        mark("22-23")
+        mark("23")
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as ctmp:
             paths.update(phase_convert_export(torch, card, Path(ctmp)))
@@ -5130,6 +5570,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         paths.update(phase_tools(torch, card, root))  # phase 18's corpus
         mark("25")
+        torch.cuda.empty_cache()
+        paths.update(phase_mesh_supervisor_nccl(torch, card, diffusion_wav, root))
+        mark("26")
 
     table = []
     for kname in ("combtooth", "resblock_group", "resblock_group_bf16",

@@ -15,11 +15,24 @@ draw: a request's output does not depend on its batch-mates (up to the
 numerics of another batch shape, since cuDNN picks its algorithms by batch
 size).
 
+On a mesh (``mesh``: a sequence of devices, repeats allowed) a batch's
+rows are split into contiguous blocks, rows [d n / D, (d + 1) n / D) on
+device d, as JAX's ``P("data")`` splits them: each block runs the batched
+forward on its entry's own copy of the parameters, on its device and on a
+stream of its own, and the blocks are joined in row order on the first
+device before the device-to-host codec. Slots stay right-sized but
+divisible by D (``right_sized_slots``), a mesh batch is never split at the
+deadline, and its inputs are staged on the host. Each row draws from its
+own seeded generator on its block's device, so a sharded batch returns
+what the single-device engine returns for the same requests.
+
 The worker thread and the delivery thread each run with autograd off: grad
 mode is thread-local, and a thread starts with it on.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import queue
 import threading
 import time
@@ -32,17 +45,105 @@ import torch.nn.functional as F
 from ..ops.codec import i16_decode, i16_encode, mulaw_decode, mulaw_encode_u8
 from ..utils.device import resolve_device
 
-MESH_REFUSED = ("a mesh (multi-card batched serving, --batch_devices) is not "
-                "ported yet (ROADMAP A item 12); the card machine has one H100")
 DUMMY_SEED = 0  # the dummy rows' noise
+
+
+def mesh_devices(mesh) -> list[torch.device] | None:
+    """A mesh as the engines hold it: one ``torch.device`` per entry, in
+    order, repeats kept (a CUDA device without an index is the current
+    card). None stays None."""
+    if mesh is None:
+        return None
+    out = []
+    for d in mesh:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    if not out:
+        raise ValueError("a mesh needs at least one device")
+    return out
+
+
+def check_mesh(mesh: list | None, max_batch: int) -> None:
+    if mesh is not None and max_batch % len(mesh):
+        raise ValueError(f"max_batch {max_batch} not divisible by mesh size "
+                         f"{len(mesh)}")
 
 
 def right_sized_slots(n_real: int, max_batch: int, mesh=None) -> int:
     """Padded row count of a batch: the next power of two >= n_real, capped
-    at max_batch. One policy for both serving engines."""
+    at max_batch; on a mesh of D devices, the smallest power-of-two row
+    count per device times D, capped at max_batch. One policy for both
+    serving engines."""
     if mesh is not None:
-        raise NotImplementedError(MESH_REFUSED)
+        m = len(mesh)
+        per_dev = -(-n_real // m)
+        return min(max_batch, m << max(0, (per_dev - 1).bit_length()))
     return min(max_batch, 1 << max(0, (n_real - 1).bit_length()))
+
+
+class MeshBlocks:
+    """The blocks of a mesh: entry d's device and, on a card, a stream of
+    its own. ``block(d)`` makes d's device and stream current for the
+    block's work, after the work already queued on that device's current
+    stream; ``join`` brings the blocks' outputs to the first device in
+    entry order, once their streams are done."""
+
+    def __init__(self, devices: list[torch.device]):
+        self.devices = devices
+        self.streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
+                        for d in devices]
+
+    def rows(self, n: int, d: int) -> slice:
+        per = n // len(self.devices)
+        return slice(d * per, (d + 1) * per)
+
+    @contextlib.contextmanager
+    def block(self, d: int):
+        dev, stream = self.devices[d], self.streams[d]
+        if stream is None:
+            yield dev
+            return
+        with torch.cuda.device(dev):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                yield dev
+
+    def join(self, outs: list) -> list:
+        """Each block's outputs (a tensor or a tuple of them) on the first
+        device, in order."""
+        first = self.devices[0]
+        joined = []
+        for dev, stream, out in zip(self.devices, self.streams, outs):
+            single = isinstance(out, torch.Tensor)
+            parts = (out,) if single else tuple(out)
+            if stream is not None:
+                current = torch.cuda.current_stream(dev)
+                current.wait_stream(stream)
+                for t in parts:  # made on the block's stream, read on this one
+                    t.record_stream(current)
+                if first.type == "cuda" and first != dev:
+                    torch.cuda.current_stream(first).wait_stream(current)
+            parts = tuple(t.to(first) for t in parts)
+            joined.append(parts[0] if single else parts)
+        return joined
+
+
+def _on(module, device: torch.device) -> bool:
+    """Whether ``module``'s parameters lie on ``device`` (true for a module
+    without any)."""
+    p = (next(iter(module.parameters()), None)
+         if isinstance(module, torch.nn.Module) else None)
+    return p is None or mesh_devices([p.device])[0] == device
+
+
+def _replica(module, device: torch.device):
+    """A copy of ``module`` on ``device`` (an object that is not a module is
+    shared)."""
+    if not isinstance(module, torch.nn.Module):
+        return module
+    return copy.deepcopy(module).to(device)
 
 
 def deadline_chunks(batch: list, slots_fn) -> list[list]:
@@ -97,7 +198,8 @@ def _default_forward(model, bucket: int, block: int):
 
 
 class BatchedSynth:
-    """Thread-safe batching front end of a synthesizer on one device.
+    """Thread-safe batching front end of a synthesizer on one device, or
+    sharded over a mesh of devices.
 
     ``infer`` blocks the calling thread until its request's batch has run;
     concurrent callers sharing a (bucket, signature) group ride one forward.
@@ -116,8 +218,15 @@ class BatchedSynth:
     the device.
     ``pipeline_depth`` >= 2: a delivery thread waits for batch N's output
     while the worker forms and launches batch N + 1; each output's copy to
-    pinned host memory is queued right behind its batch. ``mesh`` is not
-    ported (raises)."""
+    pinned host memory is queued right behind its batch.
+
+    ``mesh``: a sequence of D devices (``max_batch`` divisible by D) over
+    which each batch's rows are sharded. ``model`` is then copied to every
+    entry but the first on its device, and ``forward_builder``, if given,
+    is a sequence of D builders, entry d's building the forward of d's
+    block on d's copy of the parameters (``SvcPipeline.enable_batching``
+    gives one per replica of itself). ``device`` is ignored: the first
+    entry is the engine's device."""
 
     def __init__(self, model, buckets: tuple[int, ...] = (128, 256, 512, 1024),
                  max_batch: int = 8, max_wait_ms: float = 5.0, mesh=None,
@@ -125,10 +234,23 @@ class BatchedSynth:
                  transfer: str = "f32", transfer_in: str = "f32",
                  pipeline_depth: int = 1,
                  device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSED)
+        self.mesh = mesh_devices(mesh)
+        check_mesh(self.mesh, max_batch)
         self.model = model
-        self.device = resolve_device(device)
+        if self.mesh is None:
+            self.device = resolve_device(device)
+            self._blocks = None
+        else:
+            self.device = self.mesh[0]
+            self._blocks = MeshBlocks(self.mesh)
+            if forward_builder is not None and (
+                    callable(forward_builder)
+                    or len(forward_builder) != len(self.mesh)):
+                raise ValueError("on a mesh, forward_builder is a sequence of "
+                                 f"{len(self.mesh)} builders, one per entry")
+            self._models = [model if d == 0 and _on(model, dev) else
+                            _replica(model, dev)
+                            for d, dev in enumerate(self.mesh)]
         self.buckets = tuple(sorted(buckets))
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1000.0
@@ -180,7 +302,9 @@ class BatchedSynth:
                 f"pre-padded rows {rows} exceed the bucket {bucket} for "
                 f"n_frames={t}: the front end's frame buckets must match the "
                 "synthesis buckets")
-        on_device = isinstance(units, torch.Tensor) and isinstance(f0, torch.Tensor)
+        # a mesh stages on the host, as JAX's sharded path does
+        on_device = (self.mesh is None and isinstance(units, torch.Tensor)
+                     and isinstance(f0, torch.Tensor))
         # pad in the submitting thread, so staging runs in parallel across
         # clients instead of in the worker's batch-forming path
         if on_device:
@@ -237,16 +361,16 @@ class BatchedSynth:
             sizes = sorted({self._batch_slots(k)
                             for k in range(1, self.max_batch + 1)} - {1})
             with torch.no_grad():
-                fn = self._fn(bucket, sig)
                 for n in sizes:
-                    fn(torch.zeros((n, bucket, n_unit), device=self.device),
-                       torch.full((n, bucket, 1), 220.0, device=self.device),
-                       torch.zeros((n, bucket, 1), device=self.device),
-                       torch.ones((n, 1), dtype=torch.long, device=self.device),
-                       [self._generator(DUMMY_SEED)] * n,
-                       torch.full((n,), bucket, device=self.device))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                    self._forward(bucket, sig, np.zeros((n, bucket, n_unit), np.float32),
+                                  np.full((n, bucket, 1), 220.0, np.float32),
+                                  np.zeros((n, bucket, 1), np.float32),
+                                  np.ones((n, 1), np.int64),
+                                  np.full((n,), DUMMY_SEED, np.int64),
+                                  np.full((n,), bucket, np.int64))
+            for dev in dict.fromkeys(self.mesh or [self.device]):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
 
     def reset_stats(self) -> None:
         """Zero the counters and latency ring (after the warmup drill)."""
@@ -280,7 +404,7 @@ class BatchedSynth:
             "latency_ms_p99": pct(0.99),
             "buckets": list(self.buckets), "max_batch": self.max_batch,
             "pipeline_depth": self.pipeline_depth,
-            "compiled_signatures": len(self._fns),
+            "compiled_signatures": len({k[:2] for k in self._fns}),
             "recent_batches": trace,
         }
 
@@ -319,13 +443,15 @@ class BatchedSynth:
     # ---- internals ------------------------------------------------------
     @staticmethod
     def _pad_host(a, bucket: int, fill: float, dtype) -> np.ndarray:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu()
         a = np.asarray(a, np.float32)
         out = np.full((bucket,) + a.shape[1:], fill, dtype)
         out[:a.shape[0]] = a
         return out
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    def _generator(self, seed: int, device=None) -> torch.Generator:
+        return torch.Generator(device=device or self.device).manual_seed(int(seed))
 
     def _bucket_for(self, t: int) -> int:
         for b in self.buckets:
@@ -335,24 +461,55 @@ class BatchedSynth:
             f"{t} frames exceeds the largest bucket {self.buckets[-1]}; "
             "split the request or add a bucket")
 
-    def _fn(self, bucket: int, sig: tuple = ()):
-        """The batched forward of a (bucket, signature) group, with the
-        transfer codecs around it (built once per group)."""
-        fn = self._fns.get((bucket, sig))
+    def _fn(self, bucket: int, sig: tuple = (), entry: int | None = None):
+        """The batched forward of a (bucket, signature) group (built once
+        per group; on a mesh, once per group and entry)."""
+        key = (bucket, sig, entry)
+        fn = self._fns.get(key)
         if fn is None:
-            fwd = (self.forward_builder(bucket, sig) if self.forward_builder
-                   else _default_forward(self.model, bucket, self.hop))
+            if entry is None:
+                fwd = (self.forward_builder(bucket, sig) if self.forward_builder
+                       else _default_forward(self.model, bucket, self.hop))
+            else:
+                fwd = (self.forward_builder[entry](bucket, sig)
+                       if self.forward_builder
+                       else _default_forward(self._models[entry], bucket, self.hop))
 
             def fn(units, f0, volume, spk, generators, tframes, _fwd=fwd):
-                audio = _fwd(units.float(), f0, volume, spk, generators, tframes)
-                if self.transfer == "i16":
-                    return i16_encode(audio)
-                if self.transfer == "mulaw":
-                    return mulaw_encode_u8(audio)
-                return audio.float()
+                return _fwd(units.float(), f0, volume, spk, generators, tframes)
 
-            self._fns[(bucket, sig)] = fn
+            self._fns[key] = fn
         return fn
+
+    def _encode(self, audio: torch.Tensor) -> torch.Tensor:
+        """The device side of the device-to-host codec."""
+        if self.transfer == "i16":
+            return i16_encode(audio)
+        if self.transfer == "mulaw":
+            return mulaw_encode_u8(audio)
+        return audio.float()
+
+    def _forward(self, bucket: int, sig: tuple, units, f0, volume, spk, seeds,
+                 tframes) -> torch.Tensor:
+        """The batch's output on the engine's device, encoded for the host.
+        The inputs are host arrays or (single device) tensors on the
+        engine's device; ``seeds`` one per row."""
+        if self.mesh is None:
+            dev = self.device
+            out = self._fn(bucket, sig)(
+                *(torch.as_tensor(a).to(dev) for a in (units, f0, volume, spk)),
+                [self._generator(s) for s in seeds], torch.as_tensor(tframes).to(dev))
+            return self._encode(out)
+        blocks, outs = self._blocks, []
+        for d in range(len(self.mesh)):
+            rows = blocks.rows(len(seeds), d)
+            with blocks.block(d) as dev:
+                outs.append(self._fn(bucket, sig, d)(
+                    *(torch.as_tensor(a[rows]).to(dev)
+                      for a in (units, f0, volume, spk)),
+                    [self._generator(s, dev) for s in seeds[rows]],
+                    torch.as_tensor(tframes[rows]).to(dev)))
+        return self._encode(torch.cat(blocks.join(outs)))
 
     def _collect(self) -> list[_Request]:
         """One batch: the oldest waiting request, then same-group requests
@@ -391,7 +548,14 @@ class BatchedSynth:
         return batch
 
     def _batch_slots(self, n_real: int) -> int:
-        return right_sized_slots(n_real, self.max_batch)
+        return right_sized_slots(n_real, self.max_batch, self.mesh)
+
+    def _chunks(self, batch: list[_Request]) -> list[list[_Request]]:
+        """``deadline_chunks`` with this engine's sizing; a mesh batch stays
+        whole (its slots are already right-sized and divisible)."""
+        if self.mesh is not None:
+            return [batch]
+        return deadline_chunks(batch, self._batch_slots)
 
     def _loop(self) -> None:
         with torch.no_grad():  # grad mode is per thread
@@ -399,7 +563,7 @@ class BatchedSynth:
                 batch = self._collect()
                 if not batch:
                     continue
-                for chunk in deadline_chunks(batch, self._batch_slots):
+                for chunk in self._chunks(batch):
                     try:
                         self._run(chunk, time.monotonic())
                     except Exception as e:  # fail every caller of the chunk
@@ -408,7 +572,9 @@ class BatchedSynth:
                             r.done.set()
 
     def _stack(self, batch: list[_Request], n: int, bucket: int):
-        """The batch's inputs on the device, dummy rows filled."""
+        """The batch's inputs, dummy rows filled: tensors on the device when
+        its requests were staged there, else host arrays; spk, the row
+        seeds and each row's real frames on the host."""
         dev = self.device
         c = batch[0].units.shape[1]
         if batch[0].on_device:
@@ -426,36 +592,32 @@ class BatchedSynth:
                 for i, r in enumerate(batch):
                     volume[i] = (r.volume.cpu().numpy()
                                  if isinstance(r.volume, torch.Tensor) else r.volume)
-                volume = torch.from_numpy(volume).to(dev)
         else:
             in_dtype = np.float16 if self.transfer_in == "f16" else np.float32
-            u = np.zeros((n, bucket, c), in_dtype)
-            f = np.full((n, bucket, 1), 220.0, np.float32)
-            v = np.zeros((n, bucket, 1), np.float32)
+            units = np.zeros((n, bucket, c), in_dtype)
+            f0 = np.full((n, bucket, 1), 220.0, np.float32)
+            volume = np.zeros((n, bucket, 1), np.float32)
             for i, r in enumerate(batch):
-                u[i], f[i], v[i] = r.units, r.f0, r.volume
-            units, f0, volume = (torch.from_numpy(a).to(dev) for a in (u, f, v))
-        spk = torch.ones((n, 1), dtype=torch.long)
-        tframes = torch.full((n,), bucket, dtype=torch.long)
+                units[i], f0[i], volume[i] = r.units, r.f0, r.volume
+        spk = np.ones((n, 1), np.int64)
+        tframes = np.full((n,), bucket, np.int64)
+        seeds = np.full((n,), DUMMY_SEED, np.int64)
         for i, r in enumerate(batch):
-            spk[i, 0] = r.spk_id
-            tframes[i] = r.n_frames
-        gens = [self._generator(r.seed) for r in batch]
-        gens += [self._generator(DUMMY_SEED) for _ in range(n - len(batch))]
-        return units, f0, volume, spk.to(dev), gens, tframes.to(dev)
+            spk[i, 0], tframes[i], seeds[i] = r.spk_id, r.n_frames, r.seed
+        return units, f0, volume, spk, seeds, tframes
 
     def _run(self, batch: list[_Request], t_formed: float) -> None:
         bucket = batch[0].bucket
         n = self._batch_slots(len(batch))
         inputs = self._stack(batch, n, bucket)
         t_staged = time.monotonic()
-        out = self._fn(bucket, batch[0].sig)(*inputs)
+        out = self._forward(bucket, batch[0].sig, *inputs)
         # queue the copy to the host right behind the batch
         if out.device.type == "cuda":
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             ready = torch.cuda.Event()
-            ready.record()
+            ready.record(torch.cuda.current_stream(out.device))
         else:
             host, ready = out, None
         trace = {"formed": t_formed, "staged": t_staged,
@@ -480,8 +642,8 @@ class BatchedSynth:
             self._n_rows += len(batch)
             self._n_slots += trace["slots"]
             # per batch: stage = host work forming the inputs, dispatch =
-            # the forward's launches, device = waiting for the device and
-            # the copy, fetch = decoding on the host
+            # their upload and the forward's launches, device = waiting for
+            # the device and the copy, fetch = decoding on the host
             self._batch_trace.append({
                 "rows": len(batch), "slots": trace["slots"],
                 "stage_ms": round(1e3 * (trace["staged"] - trace["formed"]), 1),

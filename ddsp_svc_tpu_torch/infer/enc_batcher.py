@@ -10,9 +10,17 @@ synth hop grid and padded to the frame bucket with the synthesis batcher's
 convention (units 0, f0 220 Hz), so the submitting thread runs no device
 work of its own. A request longer than the largest bucket takes the solo
 path. Results stay on the device.
+
+On a mesh (a sequence of devices) a batch's rows are split into contiguous
+blocks as ``BatchedSynth`` splits them: each block runs the masked HuBERT
+(and the device YIN) on its entry's own copy of the encoder, on its device
+and stream, and the blocks' results are joined on the first device in row
+order. Each row is the function of its own audio alone, so a sharded batch
+returns what the single-device engine returns.
 """
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 import time
@@ -23,7 +31,17 @@ import torch
 
 from ..features.yin_device import make_pipeline_f0_fn
 from ..ops.codec import i16_decode, i16_encode, mulaw_decode, mulaw_encode_u8
-from .batcher import MESH_REFUSED, deadline_chunks, right_sized_slots
+from .batcher import (MeshBlocks, check_mesh, deadline_chunks, mesh_devices,
+                      right_sized_slots)
+
+
+def encoder_replica(enc, device: torch.device):
+    """A copy of the UnitsEncoder ``enc`` on ``device`` (its model's weights
+    copied)."""
+    rep = copy.copy(enc)
+    rep.device = device
+    rep.model = copy.deepcopy(enc.model).to(device)
+    return rep
 
 
 @dataclass(eq=False)  # identity: _pending.remove() must not compare tensors
@@ -51,18 +69,28 @@ class BatchedEncoder:
     ``with_f0``: the device YIN (``features/yin_device``) runs in the same
     batch (``encode_with_f0``). ``transfer_in``: the codec of the batch audio
     on its way to the device, 'f32', 'i16' or 'mulaw' (decoded there).
-    ``mesh`` is not ported (raises)."""
+    ``mesh``: a sequence of D devices (``max_batch`` divisible by D) over
+    which each batch's rows are sharded, the encoder copied to every entry
+    but the first; results then come back on the first entry's device."""
 
     def __init__(self, units_encoder, frame_buckets: tuple[int, ...] = (128, 256, 512, 1024),
                  max_batch: int = 8, max_wait_ms: float = 5.0,
                  with_f0: bool = False, f0_min: float = 50.0,
                  f0_max: float = 1100.0, transfer_in: str = "f32", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSED)
         if transfer_in not in ("f32", "i16", "mulaw"):
             raise ValueError(f"unknown transfer_in codec {transfer_in!r}")
+        self.mesh = mesh_devices(mesh)
+        check_mesh(self.mesh, max_batch)
         self.enc = units_encoder
         self.device = units_encoder.device
+        self._blocks = None
+        if self.mesh is not None:
+            self.device = self.mesh[0]
+            self._blocks = MeshBlocks(self.mesh)
+            own = mesh_devices([units_encoder.device])[0]
+            self._encs = [units_encoder if d == 0 and dev == own else
+                          encoder_replica(units_encoder, dev)
+                          for d, dev in enumerate(self.mesh)]
         self.frame_buckets = tuple(sorted(frame_buckets))
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1000.0
@@ -243,7 +271,14 @@ class BatchedEncoder:
         return batch
 
     def _batch_slots(self, n_real: int) -> int:
-        return right_sized_slots(n_real, self.max_batch)
+        return right_sized_slots(n_real, self.max_batch, self.mesh)
+
+    def _chunks(self, batch: list[_EncRequest]) -> list[list[_EncRequest]]:
+        """``deadline_chunks`` with this engine's sizing; a mesh batch stays
+        whole."""
+        if self.mesh is not None:
+            return [batch]
+        return deadline_chunks(batch, self._batch_slots)
 
     def _loop(self) -> None:
         with torch.no_grad():  # grad mode is per thread
@@ -251,13 +286,38 @@ class BatchedEncoder:
                 batch = self._collect()
                 if not batch:
                     continue
-                for chunk in deadline_chunks(batch, self._batch_slots):
+                for chunk in self._chunks(batch):
                     try:
                         self._run(chunk)
                     except Exception as e:
                         for r in chunk:
                             r.error = e
                             r.done.set()
+
+    def _encode_rows(self, enc, dev, audio: np.ndarray, valid: np.ndarray,
+                     sample_rate: int, f0_rows=None):
+        """One block's rows on ``dev`` through ``enc``: the wire decoded,
+        the masked HuBERT, and with ``f0_rows`` = (index, shift, tframes,
+        bucket_len, hop) the device YIN, the gather onto the synth grid and
+        the bucket padding -> (units,) or (units, gathered units, f0)."""
+        wire = torch.from_numpy(audio).to(dev)
+        if audio.dtype == np.int16:
+            wire = i16_decode(wire)
+        elif audio.dtype == np.uint8:
+            wire = mulaw_decode(wire)
+        units = enc.encode_batched(wire, sample_rate, torch.from_numpy(valid).to(dev))
+        if f0_rows is None:
+            return (units,)
+        index, shift, tframes, bucket_len, hop = f0_rows
+        b_frames = bucket_len // hop
+        f0 = self._f0_fn(bucket_len, sample_rate, hop)(wire)[:, :b_frames]
+        f0 = f0 * torch.from_numpy(2.0 ** (shift / 12.0)).to(dev)
+        ug = torch.gather(units, 1, torch.from_numpy(index).to(dev)[..., None]
+                          .expand(-1, -1, units.shape[-1]))
+        live = torch.arange(b_frames, device=dev) < torch.from_numpy(tframes).to(dev)
+        ug = torch.where(live[..., None], ug, torch.zeros((), device=dev))
+        f0 = torch.where(live, f0, torch.full((), 220.0, device=dev))
+        return units, ug, f0
 
     def _run(self, batch: list[_EncRequest]) -> None:
         t_formed = time.monotonic()
@@ -272,15 +332,7 @@ class BatchedEncoder:
             a = r.audio if r.audio.dtype == dtype else self._encode_wire(r.audio)
             audio[i, :a.shape[0]] = a
             valid[i] = a.shape[0]
-        dev = self.device
-        wire = torch.from_numpy(audio).to(dev)
-        if dtype == np.int16:
-            wire = i16_decode(wire)
-        elif dtype == np.uint8:
-            wire = mulaw_decode(wire)
-        t_staged = time.monotonic()
-        units = self.enc.encode_batched(wire, sample_rate,
-                                        torch.from_numpy(valid).to(dev))
+        f0_rows = None
         if self.with_f0 and any(r.want_f0 for r in batch):
             b_frames = bucket_len // hop
             index = np.zeros((n, b_frames), np.int64)
@@ -290,14 +342,23 @@ class BatchedEncoder:
                 if r.want_f0:
                     index[i], shift[i, 0] = r.index, r.shift
                     tframes[i, 0] = r.audio.shape[0] // hop + 1
-            f0 = self._f0_fn(bucket_len, sample_rate, hop)(wire)[:, :b_frames]
-            f0 = f0 * torch.from_numpy(2.0 ** (shift / 12.0)).to(dev)
-            ug = torch.gather(units, 1, torch.from_numpy(index).to(dev)[..., None]
-                              .expand(-1, -1, units.shape[-1]))
-            live = (torch.arange(b_frames, device=dev)
-                    < torch.from_numpy(tframes).to(dev))
-            ug = torch.where(live[..., None], ug, torch.zeros((), device=dev))
-            f0 = torch.where(live, f0, torch.full((), 220.0, device=dev))
+            f0_rows = (index, shift, tframes, bucket_len, hop)
+        t_staged = time.monotonic()
+        if self.mesh is None:
+            out = self._encode_rows(self.enc, self.device, audio, valid,
+                                    sample_rate, f0_rows)
+        else:
+            blocks, outs = self._blocks, []
+            for d in range(len(self.mesh)):
+                rows = blocks.rows(n, d)
+                block_f0 = (None if f0_rows is None else
+                            (f0_rows[0][rows], f0_rows[1][rows], f0_rows[2][rows],
+                             bucket_len, hop))
+                with blocks.block(d) as dev:
+                    outs.append(self._encode_rows(self._encs[d], dev, audio[rows],
+                                                  valid[rows], sample_rate, block_f0))
+            out = tuple(torch.cat(parts) for parts in zip(*blocks.join(outs)))
+        dev = self.device
         with self._stats_lock:
             self._groups.add(batch[0].group)
             self._n_batches += 1
@@ -309,10 +370,11 @@ class BatchedEncoder:
                 "dispatch_ms": round(1e3 * (time.monotonic() - t_staged), 1)})
             if len(self._batch_trace) > 64:
                 del self._batch_trace[:-64]
+        units = out[0]
         for i, r in enumerate(batch):
             if r.want_f0:
-                r.result = ug[i][None]
-                r.result_f0 = f0[i][None, :, None]
+                r.result = out[1][i][None]
+                r.result_f0 = out[2][i][None, :, None]
             else:
                 r.result = units[i][torch.from_numpy(r.index).to(dev)][None]
             r.done.set()

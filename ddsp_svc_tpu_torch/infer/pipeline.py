@@ -29,6 +29,7 @@ seeded from the pipeline's seed sequence under a lock (or from the caller's
 """
 from __future__ import annotations
 
+import copy
 import threading
 
 import numpy as np
@@ -539,11 +540,16 @@ class SvcPipeline:
         (and with ``device_f0`` the YIN) batch too (``audio_in``: their
         upload codec). The DDSP family with an enhancer on its own grid
         runs synth, volume mask (``mask_threshold`` is its signature) and
-        enhancer in one forward. Returns the ``BatchedSynth``."""
-        from .batcher import BatchedSynth
+        enhancer in one forward. ``mesh``, a sequence of devices, shards
+        each batch's rows over them (JAX's ``Mesh``): every entry but the
+        first runs on a replica of this pipeline (``_replica``) and, with
+        the encoder batched, of its units encoder. Returns the
+        ``BatchedSynth``."""
+        from .batcher import BatchedSynth, mesh_devices
         from .enc_batcher import BatchedEncoder
 
         self.disable_batching()
+        mesh = mesh_devices(mesh)
         if (batch_encoder or self.device_f0) and self.units_encoder is not None:
             self.enc_batcher = BatchedEncoder(
                 self.units_encoder, frame_buckets=buckets, max_batch=max_batch,
@@ -558,18 +564,45 @@ class SvcPipeline:
                 out_hop = self.enhancer.vocoder.vocoder_hop_size
             else:
                 self._batch_sigs = {()}
-            builder = self._ddsp_builder
+            builder = "_ddsp_builder"
         else:
             self._batch_sigs = {self._static_sig(self.sampler_kwargs(**sampler))}
-            builder = self._cascade_builder
+            builder = "_cascade_builder"
             out_hop = self.vocoder.vocoder_hop_size
+        if mesh is None:
+            builders = getattr(self, builder)
+        else:  # entry d's block runs on its own replica of this pipeline
+            own = mesh_devices([self.device])[0]
+            builders = [getattr(self if d == 0 and dev == own
+                                else self._replica(dev), builder)
+                        for d, dev in enumerate(mesh)]
         self.batcher = BatchedSynth(
             self.model, buckets=buckets, max_batch=max_batch,
-            max_wait_ms=max_wait_ms, mesh=mesh, forward_builder=builder,
+            max_wait_ms=max_wait_ms, mesh=mesh, forward_builder=builders,
             out_hop=out_hop or int(self.args.data.block_size),
             transfer=transfer, transfer_in=transfer_in,
             pipeline_depth=pipeline_depth, device=self.device)
         return self.batcher
+
+    def _replica(self, device: torch.device) -> "SvcPipeline":
+        """This pipeline for one mesh entry on ``device``: its own copy of
+        the model and of the NSF-HiFiGAN (vocoder or enhancer), no units
+        encoder and no batchers; the batched forward's builders run on it."""
+        from ..models.vocoder import Enhancer
+
+        rep = copy.copy(self)
+        rep.device = device
+        rep.model = copy.deepcopy(self.model).to(device).eval()
+        if self.vocoder is not None:
+            rep.vocoder = copy.deepcopy(self.vocoder).to(device).eval()
+        if self.enhancer is not None:
+            rep.enhancer = Enhancer(
+                self.args.enhancer.type or "nsf-hifigan", device=device,
+                vocoder=copy.deepcopy(self.enhancer.vocoder).to(device).eval(),
+                dtype=self.vocoder_dtype)
+        rep.units_encoder = rep.batcher = rep.enc_batcher = None
+        rep._f0_extractors, rep._f0_fns = {}, {}
+        return rep
 
     def _enhancer_batchable(self) -> bool:
         """Whether the DDSP family's enhancer runs on the model's own grid

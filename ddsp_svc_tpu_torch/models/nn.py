@@ -33,6 +33,71 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def _polyphase_weight(weight: torch.Tensor, stride: tuple) -> torch.Tensor:
+    """A transposed convolution's weight (in, out, *k) as the weight of the
+    forward convolution that computes its ``stride`` phases: (out * prod
+    (stride), in, *J), J = ceil(k / s) per axis, phase r's taps w[j s + r]
+    in reverse order, out-major."""
+    nd = weight.dim() - 2
+    cin, cout, ks = weight.shape[0], weight.shape[1], weight.shape[2:]
+    js = [-(-k // s) for k, s in zip(ks, stride)]
+    pad = []
+    for k, s, j in reversed(list(zip(ks, stride, js))):
+        pad += [0, j * s - k]
+    shape = [cin, cout]
+    for j, s in zip(js, stride):
+        shape += [j, s]
+    w = F.pad(weight, pad).reshape(shape).flip([2 + 2 * i for i in range(nd)])
+    perm = ([1] + [3 + 2 * i for i in range(nd)] + [0]
+            + [2 + 2 * i for i in range(nd)])
+    return w.permute(perm).reshape(cout * math.prod(stride), cin, *js)
+
+
+def conv_transpose(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor | None, stride, padding,
+                   output_padding=0) -> torch.Tensor:
+    """``F.conv_transpose1d`` / ``conv_transpose2d`` on channels-first x
+    (no dilation, one group). On a CUDA tensor it runs as one forward
+    convolution over the stride's polyphase components, interleaved after:
+    cuDNN's transposed convolutions may accumulate with atomics, so the
+    same call on the same input could return other bits (ROADMAP C(kk)),
+    while its forward convolutions return the same ones. The products
+    summed are the same; their order is the forward convolution's."""
+    if x.is_cuda:
+        return polyphase_conv_transpose(x, weight, bias, stride, padding,
+                                        output_padding)
+    conv_t = (F.conv_transpose1d, F.conv_transpose2d)[x.dim() - 3]
+    return conv_t(x, weight, bias, stride, padding, output_padding)
+
+
+def polyphase_conv_transpose(x: torch.Tensor, weight: torch.Tensor,
+                             bias: torch.Tensor | None, stride, padding,
+                             output_padding=0) -> torch.Tensor:
+    """``conv_transpose``'s CUDA route on any device: the forward
+    convolution of ``_polyphase_weight`` over x padded by J - 1 on each
+    side gives output position q s + r of the unpadded transposed
+    convolution in phase r; the phases are interleaved, ``padding`` is
+    cropped and ``output_padding`` filled with zeros past the last tap."""
+    nd = x.dim() - 2
+    tup = (lambda v: (v,) * nd if isinstance(v, int) else tuple(v))
+    stride, padding, output_padding = tup(stride), tup(padding), tup(output_padding)
+    w = _polyphase_weight(weight, stride)
+    js = w.shape[2:]
+    y = (F.conv1d, F.conv2d)[nd - 1](x, w, None, 1, [j - 1 for j in js])
+    b, cout, qs = x.shape[0], weight.shape[1], y.shape[2:]
+    y = y.reshape(b, cout, *stride, *qs)  # (B, out, s.., q..) -> (B, out, q s ..)
+    perm = [0, 1] + [i for a in range(nd) for i in (2 + nd + a, 2 + a)]
+    y = y.permute(perm).reshape(b, cout, *(q * s for q, s in zip(qs, stride)))
+    out = [(t - 1) * s - 2 * p + k + op for t, s, p, k, op in zip(
+        x.shape[2:], stride, padding, weight.shape[2:], output_padding)]
+    short = [max(0, p + o - n) for p, o, n in zip(padding, out, y.shape[2:])]
+    if any(short):  # output padding past the last tap: zeros
+        y = F.pad(y, [v for sh in reversed(short) for v in (0, sh)])
+    y = y[(slice(None), slice(None)) + tuple(
+        slice(p, p + o) for p, o in zip(padding, out))]
+    return y if bias is None else y + bias.reshape(1, -1, *([1] * nd))
+
+
 def _norm_rows(v: torch.Tensor) -> torch.Tensor:
     """||v|| over every axis but the first, shaped to broadcast against v."""
     return torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True))
@@ -176,11 +241,11 @@ class ConvTranspose1d(_Weighted):
         dtype = dtype or self.compute_dtype or x.dtype
         weight = self.folded_weight()
         if dtype == weight.dtype:
-            y = F.conv_transpose1d(x.transpose(1, 2).to(dtype), weight,
-                                   self.bias, self.stride, self.padding)
+            y = conv_transpose(x.transpose(1, 2).to(dtype), weight, self.bias,
+                               self.stride, self.padding)
             return y.transpose(1, 2)
-        y = F.conv_transpose1d(x.transpose(1, 2).to(dtype), weight.to(dtype),
-                               None, self.stride, self.padding)
+        y = conv_transpose(x.transpose(1, 2).to(dtype), weight.to(dtype), None,
+                           self.stride, self.padding)
         return y.transpose(1, 2) + self.bias.to(dtype)
 
 
@@ -189,7 +254,11 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     ``ConvTranspose2d``, nn.py:259-300, on (B, H, W, C)): out = (in - 1) *
     stride - 2 * pad + k + output_padding per spatial axis. The weight (in,
     out, kh, kw) is the JAX kernel (kh, kw, in, out) permuted (2, 3, 0, 1),
-    unflipped, as ``ConvTranspose1d``'s."""
+    unflipped, as ``ConvTranspose1d``'s. Computed by ``conv_transpose``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose(x, self.weight, self.bias, self.stride,
+                              self.padding, self.output_padding)
 
 
 class BatchNorm(nn.Module):

@@ -6,12 +6,17 @@ JAX runs one controller over a mesh of devices; the port runs one process
 per time block. Rank r of a world of N holds frames [r T / N, (r + 1) T /
 N) of an utterance and computes on ``cuda:{r % device_count}`` (several
 ranks share a card when N exceeds the cards; that is said on stderr), or
-on the CPU when the caller asks for it. The backend is gloo with a
-``file://`` rendezvous in a fresh temporary directory (no TCP port to
-collide with another world on the machine). gloo moves host tensors only,
-so every collective here stages its tensors through the host: ``.cpu()``
-before, ``.to(device)`` after. A collective that fails raises; nothing
-falls back to a local answer.
+on the CPU when the caller asks for it. The rendezvous is a ``file://`` in
+a fresh temporary directory (no TCP port to collide with another world on
+the machine). ``world_backend`` picks the backend: NCCL when every rank
+holds a card of its own (the world no larger than the cards, the ranks
+not on the CPU), gloo otherwise (ranks that share a card, CPU worlds); the
+choice is said on stderr, as the card sharing is. On NCCL the collectives
+move the device tensors themselves; gloo moves host tensors only, so there
+every collective stages its tensors through the host: ``.cpu()`` before,
+``.to(device)`` after. Complex tensors travel as their real view on both.
+A collective that fails raises; nothing falls back to a local answer, nor
+from NCCL to gloo.
 
 ``TimeGroup`` holds one rank's view: the two ring shifts (JAX ``ppermute``
 to the right and to the left neighbour, without the wrap-around that the
@@ -86,12 +91,28 @@ def rank_device(rank: int, device: str | torch.device | None = None
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def _host(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous CPU copy for gloo (complex as its real view)."""
+def world_backend(size: int, device: str | torch.device | None = None) -> str:
+    """The backend of a world of ``size`` ranks on ``device`` ('cpu', or a
+    card as ``rank_device`` gives one): 'nccl' when each rank holds a card
+    of its own, 'gloo' when ranks share a card or run on the CPU."""
+    if device is not None and torch.device(device).type == "cpu":
+        return "gloo"
+    if not torch.cuda.is_available() or size > torch.cuda.device_count():
+        return "gloo"
+    return "nccl"
+
+
+def _say_backend(backend: str, size: int) -> None:
+    print(f" [*] a world of {size} rank(s) on {backend}", file=sys.stderr)
+
+
+def _wire_tensor(x: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous copy on ``device`` (complex as its real view): the CPU
+    for gloo, the rank's card for NCCL."""
     x = x.detach()
     if x.is_complex():
         x = torch.view_as_real(x)
-    return x.to("cpu").contiguous()
+    return x.to(device).contiguous()
 
 
 def _back(t: torch.Tensor, like: torch.Tensor | None, complex_: bool,
@@ -162,6 +183,29 @@ class TimeGroup:
         self.rank, self.size, self.device = rank, size, torch.device(device)
         self.pg = pg
         self.ranks = list(range(size)) if ranks is None else list(ranks)
+        # NCCL moves the device tensors; gloo copies through the host
+        self.nccl = (dist.is_initialized()
+                     and dist.get_backend(pg) == dist.Backend.NCCL)
+
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        """x as the backend moves it (complex as its real view)."""
+        return _wire_tensor(x, self.device if self.nccl else "cpu")
+
+    def _empty(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype,
+                           device=self.device if self.nccl else "cpu")
+
+    def _p2p(self, ops: list) -> list:
+        """Point-to-point ``(send?, tensor, world rank, tag)`` ops -> their
+        works; on NCCL as one batch, so no order of the calls can leave a
+        pair of ranks waiting on each other."""
+        if self.nccl:
+            return dist.batch_isend_irecv([
+                dist.P2POp(dist.isend if send else dist.irecv, t, peer,
+                           group=self.pg, tag=tag)
+                for send, t, peer, tag in ops]) if ops else []
+        return [(dist.isend if send else dist.irecv)(t, peer, group=self.pg, tag=tag)
+                for send, t, peer, tag in ops]
 
     @contextlib.contextmanager
     def _failing(self, what: str):
@@ -196,22 +240,20 @@ class TimeGroup:
         got, sent = {}, []  # the buffers live until every wait returns
 
         def works():
-            out = []
+            ops = []
             for x, peer_out, peer_in, tag, key in (
                     (to_right, r + 1, r - 1, _TAG_RIGHT, "left"),
                     (to_left, r - 1, r + 1, _TAG_LEFT, "right")):
                 if x is None:
                     continue
-                h = _host(x)
+                h = self._wire(x)
                 if 0 <= peer_out < n:
                     sent.append(h)
-                    out.append(dist.isend(h, self.ranks[peer_out],
-                                          group=self.pg, tag=tag))
+                    ops.append((True, h, self.ranks[peer_out], tag))
                 if 0 <= peer_in < n:
                     got[key] = (torch.empty_like(h), x)
-                    out.append(dist.irecv(got[key][0], self.ranks[peer_in],
-                                          group=self.pg, tag=tag))
-            return out
+                    ops.append((False, got[key][0], self.ranks[peer_in], tag))
+            return self._p2p(ops)
 
         self._wait(works, "halo exchange")
         out = {k: _back(buf, x, x.is_complex(), self.device)
@@ -233,7 +275,7 @@ class TimeGroup:
     def _all_gather(self, x):
         if self.size == 1:
             return x[None]
-        h = _host(x)
+        h = self._wire(x)
         parts = [torch.empty_like(h) for _ in range(self.size)]
         with self._failing("all_gather"):
             dist.all_gather(parts, h, group=self.pg)
@@ -275,13 +317,13 @@ class TimeGroup:
 
     def broadcast(self, x: torch.Tensor | None) -> torch.Tensor | None:
         """Rank 0's tensor (or None) on every rank's device (``P()``)."""
+        wire = None if self.rank or x is None else self._wire(x)
         meta = self.broadcast_object(
-            None if self.rank or x is None
-            else (tuple(_host(x).shape), _host(x).dtype, x.is_complex()))
+            None if wire is None else (tuple(wire.shape), wire.dtype, x.is_complex()))
         if meta is None:
             return None
         shape, dtype, complex_ = meta
-        buf = _host(x) if self.rank == 0 else torch.empty(shape, dtype=dtype)
+        buf = wire if self.rank == 0 else self._empty(shape, dtype)
         with self._failing("broadcast"):
             dist.broadcast(buf, src=self.ranks[0], group=self.pg)
         if self.rank == 0:
@@ -295,18 +337,18 @@ class TimeGroup:
             if len(pieces) != self.size:
                 raise ValueError(f"scatter: {len(pieces)} pieces for "
                                  f"{self.size} ranks")
-            hosts = [_host(p) for p in pieces]
+            hosts = [self._wire(p) for p in pieces]
             meta = [(tuple(h.shape), h.dtype, p.is_complex())
                     for h, p in zip(hosts, pieces)]
         meta = self.broadcast_object(meta if self.rank == 0 else None)
         if self.rank == 0:
-            self._wait(lambda: [dist.isend(h, self.ranks[r], group=self.pg)
-                                for r, h in enumerate(hosts) if r], "scatter")
+            self._wait(lambda: self._p2p([(True, h, self.ranks[r], 0)
+                                          for r, h in enumerate(hosts) if r]),
+                       "scatter")
             return pieces[0].to(self.device)
         shape, dtype, complex_ = meta[self.rank]
-        buf = torch.empty(shape, dtype=dtype)
-        self._wait(lambda: [dist.irecv(buf, self.ranks[0], group=self.pg)],
-                   "scatter")
+        buf = self._empty(shape, dtype)
+        self._wait(lambda: self._p2p([(False, buf, self.ranks[0], 0)]), "scatter")
         return _back(buf, None, complex_, self.device)
 
     def scatter_blocks(self, x: torch.Tensor | None, dim: int = 1
@@ -324,14 +366,13 @@ class TimeGroup:
                       ) -> torch.Tensor | None:
         """Every rank's block joined along ``dim`` on rank 0 (None on the
         others)."""
-        h = _host(x)
+        h = self._wire(x)
         if self.rank:
-            self._wait(lambda: [dist.isend(h, self.ranks[0], group=self.pg)],
-                       "gather")
+            self._wait(lambda: self._p2p([(True, h, self.ranks[0], 0)]), "gather")
             return None
         bufs = [torch.empty_like(h) for _ in range(self.size - 1)]
-        self._wait(lambda: [dist.irecv(b, self.ranks[r + 1], group=self.pg)
-                            for r, b in enumerate(bufs)], "gather")
+        self._wait(lambda: self._p2p([(False, b, self.ranks[r + 1], 0)
+                                      for r, b in enumerate(bufs)]), "gather")
         parts = [x] + [_back(b, x, x.is_complex(), self.device) for b in bufs]
         return torch.cat(parts, dim=dim)
 
@@ -343,12 +384,25 @@ class TimeGroup:
         return out
 
 
+def _init(backend: str, dev: torch.device, **kwargs) -> None:
+    """``init_process_group`` on ``backend``; an NCCL rank binds its card
+    first (the object collectives use the current device)."""
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+        kwargs["device_id"] = dev
+    dist.init_process_group(backend, **kwargs)
+
+
 def init_rank(rank: int, size: int, init_file: str, device) -> TimeGroup:
-    """Join the gloo world at ``init_file`` as ``rank`` -> its TimeGroup."""
-    dist.init_process_group(
-        "gloo", init_method=f"file://{init_file}", rank=rank, world_size=size,
-        timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    return TimeGroup(rank, size, rank_device(rank, device))
+    """Join the world at ``init_file`` as ``rank`` (on ``world_backend``'s
+    choice) -> its TimeGroup."""
+    dev = rank_device(rank, device)
+    backend = world_backend(size, dev)
+    _init(backend, dev, init_method=f"file://{init_file}", rank=rank,
+          world_size=size, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    if rank == 0:
+        _say_backend(backend, size)
+    return TimeGroup(rank, size, dev)
 
 
 LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
@@ -363,12 +417,18 @@ def launched() -> bool:
 
 def join_launched_world(device: str | torch.device | None = None
                         ) -> torch.device:
-    """Join the gloo world that torchrun's environment describes -> this
-    rank's device: ``cuda:{LOCAL_RANK % device_count}``, or the CPU when
+    """Join the world that torchrun's environment describes (on
+    ``world_backend``'s choice for the ranks on this host) -> this rank's
+    device: ``cuda:{LOCAL_RANK % device_count}``, or the CPU when
     ``device`` names it."""
-    dist.init_process_group("gloo", init_method="env://",
-                            timeout=datetime.timedelta(seconds=TRAIN_TIMEOUT_S))
-    return rank_device(int(os.environ["LOCAL_RANK"]), device)
+    dev = rank_device(int(os.environ["LOCAL_RANK"]), device)
+    size = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    backend = world_backend(size, dev)
+    _init(backend, dev, init_method="env://",
+          timeout=datetime.timedelta(seconds=TRAIN_TIMEOUT_S))
+    if dist.get_rank() == 0:
+        _say_backend(backend, dist.get_world_size())
+    return dev
 
 
 class Mesh:
@@ -440,7 +500,7 @@ def replicate(mesh: Mesh, module: torch.nn.Module) -> None:
     tensors = list(module.parameters()) + list(module.buffers())
     for dtype in dict.fromkeys(t.dtype for t in tensors):
         group = [t for t in tensors if t.dtype == dtype]
-        flat = _host(torch.cat([t.reshape(-1) for t in group]))
+        flat = mesh.world._wire(torch.cat([t.reshape(-1) for t in group]))
         with mesh.world._failing("replicate"):
             dist.broadcast(flat, src=0)
         with torch.no_grad():

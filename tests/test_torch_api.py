@@ -4,8 +4,10 @@ apply -- the multipart round trip, the flask_api voice-change contract,
 concurrent requests batched, /health, /stats, 404, a request past the
 largest bucket (the direct path), a malformed body (a one-line 500), the
 diffusion sampler fields (each setting its own signature), stream=1 as a
-chunked response and its rate-mismatch fallback -- the refused options,
-and ``main`` serving a checkpoint written by the JAX package."""
+chunked response and its rate-mismatch fallback -- the refusal of
+``--batch_devices`` above the cards there are, and ``main`` serving a
+checkpoint written by the JAX package, on one device and sharded over two
+CPU entries. The supervisor's tests are tests/test_torch_supervisor.py."""
 import io
 import threading
 import urllib.error
@@ -213,15 +215,70 @@ def test_diffusion_per_request_sampler_fields():
         pipeline.disable_batching()
 
 
-@pytest.mark.parametrize("flag,item", [(["--batch_devices", "2"], "12"),
-                                       (["--worker_max_requests", "5"], "11"),
-                                       (["--worker_max_rss_mb", "900"], "11")])
-def test_refused_options(flag, item):
-    cmd = api.parse_args(["-m", "m"] + flag)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP A item {item}"):
-        api.check_ported(cmd)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP A item {item}"):
+@pytest.mark.parametrize("devices,cards", [(2, 0), (2, 1), (3, 2)])
+def test_refused_options(monkeypatch, devices, cards):
+    """``--batch_devices`` above the cards this machine has is refused,
+    naming both numbers, before a model loads (JAX would serve on fewer
+    devices than asked)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    flag = ["--batch_devices", str(devices), "--batch", "4"]
+    msg = f"--batch_devices {devices}: this machine has {cards} CUDA card"
+    with pytest.raises(ValueError, match=msg):
+        api.batch_mesh(api.parse_args(["-m", "m"] + flag).batch_devices)
+    with pytest.raises(ValueError, match=msg):
         api.main(["-m", "absent/model_1.ckpt"] + flag)
+    assert api.batch_mesh(1) is None
+    assert api.batch_mesh(devices, "cpu") == [torch.device("cpu")] * devices
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: devices)
+    assert api.batch_mesh(devices) == [torch.device("cuda", i) for i in range(devices)]
+
+
+def test_main_shards_batches_over_cpu_entries(ddsp_ckpt):  # noqa: F811
+    """``main`` with ``--batch_devices 2 --device cpu``: the batchers shard
+    over two CPU entries, and concurrent POSTs are answered."""
+    ready, holder = threading.Event(), {}
+    import ddsp_svc_tpu_torch.infer.pipeline as pipeline
+
+    made = []
+    enable = pipeline.SvcPipeline.enable_batching
+
+    def spy(self, *a, **k):
+        made.append(k.get("mesh"))
+        return enable(self, *a, **k)
+
+    pipeline.SvcPipeline.enable_batching = spy
+    th = threading.Thread(target=api.main, daemon=True, kwargs=dict(
+        argv=["-m", str(ddsp_ckpt), "-p", "0", "--host", "127.0.0.1",
+              "--device", "cpu", "--batch", "2", "--batch_buckets", "32,64",
+              "--batch_devices", "2", "--batch_encoder", "--batch_wait_ms", "200"],
+        ready_cb=lambda srv: (holder.setdefault("srv", srv), ready.set())))
+    try:
+        th.start()
+        assert ready.wait(300)
+    finally:
+        pipeline.SvcPipeline.enable_batching = enable
+    srv = holder["srv"]
+    try:
+        assert made == [[torch.device("cpu")] * 2]
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        results = [None] * 2
+
+        def worker(i):
+            results[i] = _post(base, sample=_wav_bytes(seconds=0.1, freq=200.0 + 50 * i))
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        for status, payload, _ in results:
+            assert status == 200
+            out_sr, data = wavfile.read(io.BytesIO(payload))
+            assert out_sr == SR and len(data) == int(0.1 * SR) // HOP * HOP + HOP
+    finally:
+        srv.shutdown()
+        th.join(60)
+    assert not th.is_alive()
 
 
 def test_main_serves_a_jax_checkpoint(ddsp_ckpt):  # noqa: F811

@@ -245,11 +245,13 @@ def test_transfer_codecs_against_f32(synth, transfer):
 
 
 def test_rejects_unknown_codecs_and_mesh(synth):
+    """An unknown codec, and a mesh whose size does not divide max_batch
+    (JAX's ValueError; the sharded engines are tests/test_torch_mesh_serving.py)."""
     _, model = synth
     with pytest.raises(ValueError, match="transfer codec"):
         BatchedSynth(model, transfer="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 12"):
-        BatchedSynth(model, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="max_batch 8 not divisible by mesh size 3"):
+        BatchedSynth(model, max_batch=8, mesh=["cpu"] * 3)
 
 
 def test_no_cross_bucket_starvation(synth):
