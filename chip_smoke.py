@@ -265,10 +265,15 @@ Phases (any failure exits non-zero; no phase's failure is swallowed):
 Phase 3 also holds K4's bf16-amplitude mode (the bf16 Sins: amplitudes
 upsampled in bf16) to its plain version within 3e-5, timed as K4.
 Phase 3 also holds B5 (K3's bf16 class on bf16 activations) to its plain
-version by ``bf16_io_agreement`` at B 48 x T 172 (cond f32 and bf16) and
-B 1 x T 862, the kernel and both plain versions against float64 sums with
-two planted faults failing, with its device time by CUDA graph replay and
-its bound.
+version by ``bf16_io_agreement`` at B 48 x T 172 and B 1 x T 862 (cond
+f32 and bf16 at both), the kernel and both plain versions against float64
+sums with two planted faults failing, with its device time by CUDA graph
+replay, each of its three launches' device time (torch.profiler) and its
+bound. Then B3 and B5 run once on every visible card at B 48 x T 172 with
+cuda:0 left current (the wrappers make the tensor's card current; the C
+launchers raise the kernels' shared-memory limit once per card), each held
+to its plain version on that card; with one card the second is said
+unmeasured.
 It then prints one JSON line describing the kernels and, last, one JSON
 line {"ok": true, "device": {...}}. TF32 is off for the whole run.
 """
@@ -331,10 +336,16 @@ REDESIGNED = {
                            "stage (a conv pair at C = 128), TMA + wgmma bf16",
     "conformer_layer": "mma.sync in split TF32",
     "conformer_layer_bf16": "TMA + wgmma bf16, three launches, h and s in "
-                            "bf16, the depthwise conv in GEMM 2's epilogue",
+                            "bf16, the depthwise conv in GEMM 2's epilogue; "
+                            "from M = 4096 that launch persistent, two "
+                            "consumer warpgroups in ping-pong down a run of "
+                            "row tiles",
     "conformer_layer_bf16_io": "B3's three TMA + wgmma launches on bf16 x "
-                               "and out (cond by TMA when bf16)",
-    "harmonic_bank": "three-term recurrence over harmonics"}
+                               "and out (cond by TMA when bf16), the "
+                               "persistent ping-pong GLU + depthwise launch "
+                               "from M = 4096",
+    "harmonic_bank": "three-term recurrence over harmonics; the bf16-"
+                     "amplitude mode's upsample in packed bf16x2"}
 MIX = {1: 0.5, 2: 0.5}
 # phase 18: the run's sizes, and the card-vs-CPU limits for one training
 # step, stated before its first run: the loss relative, the gradients as
@@ -707,6 +718,7 @@ def phase_kernels(torch, card: str) -> dict:
     results["conformer_layer_bf16"] = k3_bf16(torch, gen, (x, cond, step, w),
                                               got, card, problems)
     results["conformer_layer_bf16_io"] = k3_bf16_io(torch, gen, w, card, problems)
+    bf16_trunk_per_card(torch, w, card, problems)
     # K4 harmonic bank: x (B, T*512, 1) cycles, amps (B, T, 128); 3e-5 abs
     from ddsp_svc_tpu_torch.ops.cuda_oscillator import (harmonic_bank,
                                                         harmonic_bank_plain)
@@ -797,6 +809,52 @@ def k4_bf16_amp(torch, inputs: dict, card: str, problems: list) -> dict:
         f"{p_ms:.4f} ms [{card}]")
     return dict(max_abs_err=max(errs.values()), ms=k_ms, plain_ms=p_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def bf16_trunk_per_card(torch, w, card: str, problems: list) -> None:
+    """B3 and B5 once on every visible card at B 48 x T 172, each against
+    its plain version on that card, with cuda:0 left current: the wrappers
+    must make the tensor's card current, and the C launchers raise the
+    kernels' shared-memory limit once per card (not once per process). With
+    one card the second is said unmeasured."""
+    from ddsp_svc_tpu_torch.ops.cuda_conformer import (bf16_gemm_weights,
+                                                       bf16_io_agreement,
+                                                       bf16_layer_agreement,
+                                                       conformer_layer_bf16,
+                                                       conformer_layer_bf16_io,
+                                                       conformer_layer_bf16_io_plain,
+                                                       conformer_layer_bf16_plain)
+
+    n_cards = torch.cuda.device_count()
+    c, hc = w[0].shape
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for index in range(n_cards):
+        dev = torch.device("cuda", index)
+        wd = tuple(v.to(dev) for v in w)
+        packed = bf16_gemm_weights(wd)
+        x = torch.randn((48, 172, c), generator=gen).to(dev)
+        cond = torch.randn((48, 172, hc), generator=gen).to(dev)
+        step = torch.randn((48, c), generator=gen).to(dev)
+        if torch.cuda.current_device() != 0:
+            problems.append(f"cuda:{torch.cuda.current_device()} current, not cuda:0")
+        got = conformer_layer_bf16(x, cond, step, wd, packed)
+        b3 = bf16_layer_agreement(got, conformer_layer_bf16_plain(x, cond, step, wd), x)
+        x16 = x.to(torch.bfloat16)
+        got16 = conformer_layer_bf16_io(x16, cond, step, wd, packed)
+        b5 = bf16_io_agreement(got16, conformer_layer_bf16_io_plain(x16, cond, step, wd),
+                               x16)
+        torch.cuda.synchronize(dev)
+        for what, agree in (("B3", b3), ("B5", b5)):
+            if not agree["ok"]:
+                problems.append(f"{what} on cuda:{index} (cuda:0 current): {agree}")
+        log(f"[kernels] B3 / B5 on cuda:{index} of {n_cards} (cuda:0 current) at "
+            f"B 48 x T 172: B3 {b3['rel']:.3e} x max|branch| from plain "
+            f"({'ok' if b3['ok'] else 'FAILS'}), B5 {100 * b5['differ']:.3f} % "
+            f"differ, {100 * b5['beyond_ulp']:.3f} % beyond 1 ulp "
+            f"({'ok' if b5['ok'] else 'FAILS'}) [{card}]")
+    if n_cards < 2:
+        log(f"[kernels] B3 / B5 on a second card: unmeasured ({n_cards} card "
+            f"visible) [{card}]")
 
 
 def conformer_bf16_chain(torch, x, cond, step, w, fault=None):
@@ -963,14 +1021,25 @@ def k3_bf16_io(torch, gen, w, card: str, problems: list) -> dict:
                                                        bf16_io_agreement,
                                                        conformer_layer_bf16_io,
                                                        conformer_layer_bf16_io_plain)
-    from ddsp_svc_tpu_torch.tools.timing import cuda_ms, graph_ms
+    from ddsp_svc_tpu_torch.tools.timing import cuda_ms, graph_ms, launch_split
+
+    from ddsp_svc_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
+    # the persistent launch 2's branch-free reciprocal against 1.0f / y at
+    # every float y in [1, 2^126): its sigmoids are ddsp_sigmoid's bits
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    kernels.launch("rcp_fast", "ddsp_rcp_fast_mismatches", dev, bad.data_ptr())
+    if int(bad.item()):
+        problems.append(f"B3 / B5 rcp_fast differs from 1 / y at {int(bad.item())} y")
+    log(f"[kernels] B3 / B5 rcp_fast: {int(bad.item())} of the 1.06e9 floats in "
+        f"[1, 2^126) differ from 1.0f / y [{card}]")
     c, hc = w[0].shape
     inner, k = w[4].shape
     packed = bf16_gemm_weights(w)
     out = {}
-    for batch, t, cond16 in ((48, 172, False), (48, 172, True), (1, 862, False)):
+    for batch, t, cond16 in ((48, 172, False), (48, 172, True), (1, 862, False),
+                             (1, 862, True)):
         what = (f"B5 conformer_layer_bf16_io B={batch} T={t} cond "
                 f"{'bf16' if cond16 else 'f32'}")
         x = torch.randn((batch, t, c), generator=gen).to(dev, torch.bfloat16)
@@ -1007,6 +1076,7 @@ def k3_bf16_io(torch, gen, w, card: str, problems: list) -> dict:
                 + f" [{card}]")
         call = lambda: conformer_layer_bf16_io(x, cond, step, w, packed)  # noqa: E731
         k_ms = graph_ms(call, 10 if batch > 1 else 50)
+        split = launch_split(call, "conformer", 10)
         p_ms = cuda_ms(lambda: conformer_layer_bf16_io_plain(x, cond, step, w), 5)
         m = batch * t
         gemm = 2.0 * m * (hc * c + 3 * inner * c)
@@ -1023,7 +1093,9 @@ def k3_bf16_io(torch, gen, w, card: str, problems: list) -> dict:
             f"{100 * agree['beyond_ulp']:.3f} % beyond 1 ulp, {agree['rel']:.3e} x "
             f"max|branch| (limits 4 %, 0.5 %, 2^-8 + 1 ulp); kernel {k_ms:.4f} ms "
             f"device time by CUDA graph replay ({(gemm + dw) / k_ms / 1e9:.1f} "
-            f"TFLOP/s), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"TFLOP/s; by launch, torch.profiler: "
+            + ", ".join(f"{name} {ms:.5f} ms" for name, ms in split)
+            + f"), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
             f"{gemm / 1e9:.3f} GFLOP bf16 + {dw / 1e9:.3f} GFLOP f32, "
             f"{nbytes / 1e6:.2f} MB); no single PyTorch call computes it [{card}]")
     r = out[(48, False)]

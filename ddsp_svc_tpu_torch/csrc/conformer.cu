@@ -344,8 +344,8 @@ DDSP_API int ddsp_conformer_layer(const float* x, const float* cond,
 //   3. out = x + s . W2^T + b2.
 // Three launches a layer where K3 takes four. At M = 862 the tiles are
 // 128 x 32, 256 x 32 (226 own rows) and 128 x 32, so the three launch 112,
-// 128 and 112 blocks on 132 SMs; from M = 4096 on, 256 x 64, 256 x 64 and
-// 256 x 128.
+// 128 and 112 blocks on 132 SMs; from M = 4096 on, 256 x 64 and 256 x 128
+// for launches 1 and 3, and launch 2 persistent (below).
 // Measured (tools/kernel_ab.py, parent and this kernel in turns on one
 // NVIDIA H100 80GB HBM3 at 700 W, device time by CUDA graph replay):
 // 0.032 ms a layer at M = 862 against 0.061 before, 0.236 ms at B 48 x
@@ -364,7 +364,47 @@ DDSP_API int ddsp_conformer_layer(const float* x, const float* cond,
 // C16 launch 1 loads cond's A tiles by TMA like the other launches, with
 // no rounding pass. Launch 2 is B3's own. The bound is B3's (operations);
 // the bytes drop by x's and out's halves.
+//
+// Launch 2 at M >= 4096 (the training shapes; for B3 and B5 alike). Measured first (tools/kernel_ab.py, torch.profiler device time
+// per launch, NVIDIA H100 80GB HBM3 at 700 W): at B 48 x T 172 B5's
+// launches took 0.021 / 0.166 / 0.031 ms, launch 2 74 % of the layer; at
+// 10 s 0.0055 / 0.0187 / 0.0075 ms (latency; that path is unchanged). What
+// held launch 2 back: 592 blocks of one per SM in 4.5 waves, each running
+// its mainloop, its GLU and its depthwise conv in turn, the conv's time
+// mostly in per-element window masks and in sigmoids whose division
+// branches to a slow path and serialises the chains; the 15-row halo
+// recomputed (13 %), h read by 16 column blocks, W1 by 37 row blocks.
+// Design (conformer_bf16_kernel_glu_dw): a persistent grid of one block
+// per SM (8 column blocks of 128 value columns x 16 runs of ~546 rows);
+// a block walks its run as 64-row tiles:
+//  - a producer warp keeps a 3-slot TMA ring (h's 64 x 64 slice, W1's 128
+//    value rows and 128 gate rows, one after the other) full across tiles;
+//  - two consumer warpgroups take the tiles in turn (ping-pong): one runs
+//    its mainloop (wgmma m64n256k16, value and gate columns in one
+//    product) while the other runs the GLU and conv of the tile before;
+//    named barriers order the mainloops (a ring slot's barrier is never
+//    read two phases behind) and the convs (a tile's conv reads the halo
+//    the tile before copied into its slot);
+//  - the GLU goes from the accumulators into the tile's slot of u, f32;
+//    the slot begins with the last 30 rows of the tile before, so the conv
+//    of the rows whose window the tile completes (15 rows behind it) reads
+//    one contiguous window and nothing is recomputed but 30 rows a run
+//    (5.5 %); a thread takes a channel and 16 rows of one utterance at a
+//    time, its taps and the 46-row window in registers, masks only at an
+//    utterance's edge, and the 16 sigmoids of a step branch-free
+//    (rcp_fast, proven equal to the division by ddsp_rcp_fast_mismatches);
+//  - h is read by 8 column blocks (16 before), W1's slice once per tile.
+// The output is the old launch's bit for bit (the same sums in the same
+// order). Measured in turns with the old launch on one card
+// (tools/kernel_ab.py, device time by CUDA graph replay): 0.151 ms against
+// 0.224 at B 48 x T 172, launch 2 0.094 against 0.166 (PERF.md section 6),
+// B3 0.164 against 0.237. Ablations of
+// this kernel (variants timed by launch, the same card) put its mainloop
+// alone at ~4.5 us a tile and the conv at ~half of the launch: the
+// epilogue of a tile runs on one warpgroup, one warp per scheduler, and
+// its instruction rate, not the tensor cores or the bytes, bounds the launch.
 
+#include <atomic>
 #include <mutex>
 
 #include "hopper_bf16.cuh"
@@ -662,6 +702,271 @@ conformer_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launch 2 at M >= 4096 rows (B3's and B5's training shapes): the GLU GEMM
+// and the depthwise conv on a persistent grid in ping-pong (see the note
+// above, "Launch 2 at M >= 4096").
+constexpr int kPpRows = 64;                // a tile's rows: one m64 per warpgroup
+constexpr int kPpCols = 128;               // its value columns (and as many gate)
+constexpr int kPpStages = 3;
+constexpr int kPpA = kPpRows * 128;        // h's 64-deep slice of a tile
+constexpr int kPpB = kPpCols * 128;        // one half of W1's slice
+constexpr int kPpStage = kPpA + 2 * kPpB;  // 40 KB
+// u of a tile in a slot of its own, behind the last 30 rows of the tile
+// before (the conv's halo), so that a window never wraps; two slots
+constexpr int kPpHalo = 2 * kB3Halo;
+constexpr int kPpSlotRows = kPpHalo + kPpRows;
+constexpr int kPpUS = kPpCols + 8;         // u's row stride in floats
+constexpr int kPpDwR = 16;                 // output rows a thread takes at once
+
+constexpr size_t pp_smem_bytes() {
+  return (size_t)kPpStages * kPpStage + (size_t)2 * kPpSlotRows * kPpUS * 4 +
+         2 * kPpCols * 4 + 2 * kPpStages * 8 + 1024;
+}
+
+// 1 / y rounded to nearest for y in [1, 2^126): the approximate reciprocal
+// refined by two FMA corrections, free of the division's branch to its
+// slow path (which checks for extreme exponents and, in every sigmoid it
+// guards, ends a block of the schedule). ddsp_rcp_fast_mismatches holds it
+// to 1.0f / y at every such y on the card.
+__device__ __forceinline__ float rcp_fast(float y) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(y));
+  r = fmaf(r, fmaf(-y, r, 1.0f), r);
+  return fmaf(r, fmaf(-y, r, 1.0f), r);
+}
+
+// ddsp_sigmoid of N values, bit for bit: the N reciprocals branch-free, and
+// all N again by division if any denominator left [1, 2^126) (x below
+// about -87, or NaN), so that the N chains interleave
+template <int N>
+__device__ __forceinline__ void sigmoid_n(const float (&x)[N], float (&out)[N]) {
+  float y[N];
+  bool slow = false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    y[i] = 1.0f + expf(-x[i]);
+    out[i] = rcp_fast(y[i]);
+    slow |= !(y[i] < 0x1p126f);
+  }
+  if (slow) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = 1.0f / y[i];
+  }
+}
+
+struct PpArgs {
+  const float* b1;          // (2I,)
+  const float* wd;          // (I, k)
+  const float* bd;          // (I,)
+  __nv_bfloat16* s;         // (M, I)
+  int m_rows, n_out, k_dim, t_len, k_dw;
+  int run_rows, tiles;      // own rows and tiles of a block
+};
+
+__global__ void __launch_bounds__(kB3Threads, 1)
+conformer_bf16_kernel_glu_dw(const __grid_constant__ CUtensorMap map_h,
+                             const __grid_constant__ CUtensorMap map_w1,
+                             const PpArgs p) {
+  constexpr int S = kPpStages;
+  extern __shared__ uint8_t pp_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(pp_smem_raw) + 1023) & ~(uintptr_t)1023);
+  float* u_s = reinterpret_cast<float*>(smem + S * kPpStage);  // [2][94][136]
+  float* bias_s = u_s + 2 * kPpSlotRows * kPpUS;  // b1's value, then gate slice
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias_s + 2 * kPpCols);
+  uint64_t* empty = full + S;
+
+  const int n_cb = (p.n_out + kPpCols - 1) / kPpCols;
+  const int n0 = (blockIdx.x % n_cb) * kPpCols;
+  const int r_lo = (blockIdx.x / n_cb) * p.run_rows;  // own rows [r_lo, r_hi)
+  if (r_lo >= p.m_rows) return;
+  const int r_hi = min(p.m_rows, r_lo + p.run_rows);
+  const int row0 = r_lo - kB3Halo;  // tile j computes u for rows row0 + 64 j + [0, 64)
+  const int n_k = (p.k_dim + 63) / 64;
+  const int tiles = p.tiles;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4);  // the owning warpgroup's four warps
+    }
+    mbar_fence_init();
+  }
+  if (tid < kPpCols) {
+    const int n = n0 + tid;
+    bias_s[tid] = n < p.n_out ? p.b1[n] : 0.0f;
+    bias_s[kPpCols + tid] = n < p.n_out ? p.b1[n + p.n_out] : 0.0f;
+  }
+  __syncthreads();
+
+  if (tid >= kB3Consumers) {
+    // the producer: every tile's K slices in order, through one ring
+    if (tid == kB3Consumers) {
+      int g = 0;
+      for (int j = 0; j < tiles; ++j) {
+        for (int kt = 0; kt < n_k; ++kt, ++g) {
+          const int st = g % S;
+          if (g >= S) mbar_wait(&empty[st], ((g / S) - 1) & 1);
+          uint8_t* dst = smem + st * kPpStage;
+          mbar_expect_tx(&full[st], kPpStage);
+          tma_load_2d(dst, &map_h, kt * 64, row0 + kPpRows * j, &full[st]);
+          tma_load_2d(dst + kPpA, &map_w1, kt * 64, n0, &full[st]);
+          tma_load_2d(dst + kPpA + kPpB, &map_w1, kt * 64, n0 + p.n_out, &full[st]);
+        }
+      }
+    }
+  } else {
+    const int wg = tid >> 7;
+    const int tw = tid & 127;
+    const int warp = tw >> 5;
+    const int lane = tid & 31;
+    const int g8 = lane >> 2;
+    const int q = lane & 3;
+    // named barriers: 2 + w releases warpgroup w's mainloop, 4 + w its conv,
+    // 6 + w is its own
+    const int ml_mine = 2 + wg, ml_other = 3 - wg;
+    const int ep_mine = 4 + wg, ep_other = 5 - wg;
+
+    for (int j = wg; j < tiles; j += 2) {
+      // the mainloop of tile j starts once tile j-1's slices have all landed,
+      // so that a ring slot's barrier is never read two phases behind
+      if (j > 0) named_sync(ml_mine, kB3Consumers);
+      // one m64n256 product a k16 step: W1's value rows and gate rows sit one
+      // after the other in the slot, so acc[0, 64) holds the value columns and
+      // acc[64, 128) the gate columns, in wgmma's layout
+      float acc[kPpCols];
+  #pragma unroll
+      for (int e = 0; e < kPpCols; ++e) acc[e] = 0.0f;
+      wgmma_fence_operand(acc);
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int g = j * n_k + kt;
+        const int st = g % S;
+        mbar_wait(&full[st], (g / S) & 1);
+        if (kt == n_k - 1 && j + 1 < tiles) named_arrive(ml_other, kB3Consumers);
+        wgmma_fence();
+        const uint8_t* slot = smem + st * kPpStage;
+  #pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<2 * kPpCols>(acc, desc_sw128(slot + 32 * kk),
+                                desc_sw128(slot + kPpA + 32 * kk));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(g - 1) % S]);
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[(j * n_k + n_k - 1) % S]);
+      wgmma_fence_operand(acc);
+
+      // u = GLU(h . W1^T + b1), f32, from the accumulators into the main rows
+      // of slot j % 2 (the tile's row r at slot row 30 + r). The slot's main
+      // rows were last read by tile j-2's conv, this warpgroup's own; the
+      // other warpgroup may meanwhile run tile j-1's conv (the other slot)
+      // and copy its tail into this slot's halo rows.
+      float* slot_u = u_s + (j & 1) * kPpSlotRows * kPpUS;
+  #pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float* urow = slot_u + (kPpHalo + 16 * warp + g8 + 8 * hh) * kPpUS;
+  #pragma unroll
+        for (int jb = 0; jb < kPpCols / 32; ++jb) {
+          float gate[8], sig[8];
+  #pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int jj = 4 * jb + t;
+            const float2 bg = *reinterpret_cast<const float2*>(bias_s + kPpCols + 8 * jj + 2 * q);
+            gate[2 * t] = acc[kPpCols / 2 + 4 * jj + 2 * hh] + bg.x;
+            gate[2 * t + 1] = acc[kPpCols / 2 + 4 * jj + 2 * hh + 1] + bg.y;
+          }
+          sigmoid_n(gate, sig);
+  #pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int jj = 4 * jb + t;
+            const int cl = 8 * jj + 2 * q;
+            const float2 bv = *reinterpret_cast<const float2*>(bias_s + cl);
+            *reinterpret_cast<float2*>(urow + cl) =
+                make_float2((acc[4 * jj + 2 * hh] + bv.x) * sig[2 * t],
+                            (acc[4 * jj + 2 * hh + 1] + bv.y) * sig[2 * t + 1]);
+          }
+        }
+      }
+      named_sync(6 + wg, 128);
+      // the convs run in tile order: tile j-1's copied its tail into this
+      // slot's halo, and read the halo rows of the slot this tile's tail goes to
+      if (j > 0) named_sync(ep_mine, kB3Consumers);
+
+      // s = silu(depthwise_k(u) + bd) for the own rows whose window tile j
+      // completes, [row0 + 64 j - 15, row0 + 64 j + 49) within [r_lo, r_hi).
+      // A thread takes one channel (its taps in registers) and up to kPpDwR
+      // rows of one utterance at a time: the rows' window of u, read where a
+      // warp's 32 channels are 32 consecutive words (no bank conflict), sits
+      // in registers; zeros outside the utterance, and only there is a load
+      // predicated.
+      const int n = n0 + tw;
+      const float* u_col = slot_u + tw;
+      if (n < p.n_out) {
+        const int k = p.k_dw;
+        const int pad = (k - 1) / 2;
+        float w[2 * kB3Halo + 1];
+  #pragma unroll
+        for (int tau = 0; tau <= 2 * kB3Halo; ++tau)
+          w[tau] = tau < k ? __ldg(p.wd + (size_t)n * k + tau) : 0.0f;
+        const float bias = __ldg(p.bd + n);
+        const int s_j = row0 + kPpRows * j;  // the tile's first row
+        const int lo = max(r_lo, s_j - kB3Halo);
+        const int hi = min(r_hi, s_j + kPpRows - kB3Halo);
+        constexpr int kWin = kPpDwR + 2 * kB3Halo;
+        for (int m0r = lo; m0r < hi;) {
+          const int t0r = m0r % p.t_len;
+          const int rows = min(min(hi - m0r, kPpDwR), p.t_len - t0r);
+          // window element jj is slot row base + jj, time t0r - pad + jj; the
+          // rows' outputs need jj in [j_lo, j_hi)
+          const float* win_u = u_col + (kPpHalo + m0r - pad - s_j) * kPpUS;
+          const int j_lo = max(0, pad - t0r);
+          const int j_hi = min(rows + 2 * pad, p.t_len - t0r + pad);
+          float win[kWin];
+          if (j_lo == 0 && j_hi == kWin) {
+  #pragma unroll
+            for (int jj = 0; jj < kWin; ++jj) win[jj] = win_u[jj * kPpUS];
+          } else {
+  #pragma unroll
+            for (int jj = 0; jj < kWin; ++jj)
+              win[jj] = (jj >= j_lo && jj < j_hi) ? win_u[jj * kPpUS] : 0.0f;
+          }
+          // each row's sum in tap order, the rows' chains interleaved
+          float a[kPpDwR], sig[kPpDwR];
+  #pragma unroll
+          for (int rr = 0; rr < kPpDwR; ++rr) a[rr] = 0.0f;
+  #pragma unroll
+          for (int tau = 0; tau <= 2 * kB3Halo; ++tau)
+  #pragma unroll
+            for (int rr = 0; rr < kPpDwR; ++rr) a[rr] = fmaf(win[rr + tau], w[tau], a[rr]);
+  #pragma unroll
+          for (int rr = 0; rr < kPpDwR; ++rr) a[rr] += bias;
+          sigmoid_n(a, sig);
+          __nv_bfloat16* out = p.s + (size_t)m0r * p.n_out + n;
+  #pragma unroll
+          for (int rr = 0; rr < kPpDwR; ++rr)
+            if (rr < rows) out[(size_t)rr * p.n_out] = __float2bfloat16_rn(a[rr] * sig[rr]);
+          m0r += rows;
+        }
+      }
+      // the tile's last 30 rows of u become the next tile's halo (the other
+      // slot's first rows, which tile j-1's conv has read)
+      if (j + 1 < tiles) {
+        float* next_u = u_s + ((j + 1) & 1) * kPpSlotRows * kPpUS + tw;
+  #pragma unroll
+        for (int r = 0; r < kPpHalo; ++r)
+          next_u[r * kPpUS] = u_col[(kPpRows + r) * kPpUS];
+        named_arrive(ep_other, kB3Consumers);
+      }
+    }
+  }
+  // the producer warp waits here for the consumers rather than exiting
+  // while their named barriers are in use
+  __syncthreads();
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime (the library links
 // no libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -726,6 +1031,43 @@ int cached_map(CUtensorMap* map, const void* base, int rows, int cols, int box_r
   return err;
 }
 
+// A kernel's dynamic shared-memory limit is an attribute of the current
+// card's context, so a launcher raises it once per card: on a second card
+// a limit raised on the first alone refuses the launch. The wrappers make
+// the tensor's card current before they call in (ops/kernels.launch).
+constexpr int kMaxCards = 64;
+
+struct DeviceFlags {
+  std::atomic<bool> done[kMaxCards];
+};
+
+template <typename Kernel>
+cudaError_t raise_smem_limit(DeviceFlags& raised, Kernel kernel, int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool known = dev >= 0 && dev < kMaxCards;
+  if (known && raised.done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && known) raised.done[dev].store(true, std::memory_order_release);
+  return e;
+}
+
+// the card's SM count, asked once per card
+int sm_count() {
+  static std::atomic<int> sms[kMaxCards];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const bool known = dev >= 0 && dev < kMaxCards;
+  int n = known ? sms[dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    if (known) sms[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
+
 template <int MODE, int BN, int MT, int STAGES, bool IN16 = false, bool C16 = false>
 int launch_b3(const void* a, int a_cols, const void* b, int b_rows, const B3Args& p,
               cudaStream_t stream) {
@@ -740,15 +1082,44 @@ int launch_b3(const void* a, int a_cols, const void* b, int b_rows, const B3Args
     if (err) return err;
   }
   const size_t smem = b3_smem_bytes<MODE, BN, MT, STAGES, IN16, C16>(p.k_dim);
-  // raised once per instantiation (to the most any Hc <= 256 needs)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conformer_bf16_kernel<MODE, BN, MT, STAGES, IN16, C16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // raised once per instantiation and card (to the most any Hc <= 256 needs)
+  static DeviceFlags raised;
+  const cudaError_t attr = raise_smem_limit(
+      raised, conformer_bf16_kernel<MODE, BN, MT, STAGES, IN16, C16>,
       (int)b3_smem_bytes<MODE, BN, MT, STAGES, IN16, C16>(kB3MaxCondK));
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((p.n_out + BN - 1) / BN, (p.m_rows + G::OWN - 1) / G::OWN);
   conformer_bf16_kernel<MODE, BN, MT, STAGES, IN16, C16>
       <<<grid, kB3Threads, smem, stream>>>(map_a, map_b, p);
+  DDSP_CHECK_LAUNCH();
+  return 0;
+}
+
+// launch 2 at M >= 4096: one block per SM walks a run of row tiles of one
+// 128-column block; the runs split M evenly over the SMs a column block gets
+int launch_glu_dw(const __nv_bfloat16* h, int c, const __nv_bfloat16* w1, int inner,
+                  const float* b1, const float* wd, const float* bd, __nv_bfloat16* s,
+                  int m, int t_len, int k, cudaStream_t stream) {
+  CUtensorMap map_h, map_w1;
+  int err = cached_map(&map_h, h, m, c, kPpRows);
+  if (err) return err;
+  err = cached_map(&map_w1, w1, 2 * inner, c, kPpCols);
+  if (err) return err;
+  static DeviceFlags raised;
+  const cudaError_t attr =
+      raise_smem_limit(raised, conformer_bf16_kernel_glu_dw, (int)pp_smem_bytes());
+  if (attr != cudaSuccess) return (int)attr;
+  const int sms = sm_count();
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
+  const int n_cb = (inner + kPpCols - 1) / kPpCols;
+  const int runs_max = sms > n_cb ? sms / n_cb : 1;
+  const int per_run = (m + runs_max - 1) / runs_max;
+  const int tiles = (per_run + 2 * kB3Halo + kPpRows - 1) / kPpRows;
+  const int run_rows = tiles * kPpRows - 2 * kB3Halo;
+  const int runs = (m + run_rows - 1) / run_rows;
+  const PpArgs p{b1, wd, bd, s, m, inner, c, t_len, k, run_rows, tiles};
+  conformer_bf16_kernel_glu_dw<<<n_cb * runs, kB3Threads, pp_smem_bytes(), stream>>>(
+      map_h, map_w1, p);
   DDSP_CHECK_LAUNCH();
   return 0;
 }
@@ -782,7 +1153,7 @@ int conformer_layer_bf16(const void* x, const void* cond, bool c16, const float*
   int err = large ? launch_cond<kB3Cond, 64, 2, 4, IN16>(c16, cond, hc, wc, c, p1, st)
                   : launch_cond<kB3Cond, 32, 1, 4, IN16>(c16, cond, hc, wc, c, p1, st);
   if (err) return err;
-  err = large ? launch_b3<kB3GluDw, 64, 2, 3>(h, c, w1, 2 * inner, p2, st)
+  err = large ? launch_glu_dw(h, c, w1, inner, b1, wd, bd, s, m, t_len, k, st)
               : launch_b3<kB3GluDw, 32, 2, 3>(h, c, w1, 2 * inner, p2, st);
   if (err) return err;
   return large ? launch_b3<kB3Out, 128, 2, 4, IN16>(s, inner, w2, c, p3, st)
@@ -820,4 +1191,28 @@ DDSP_API int ddsp_conformer_layer_bf16_io(
   return conformer_layer_bf16<true>(x, cond, cond_bf16 != 0, step, wc, bc, w1, b1, wd,
                                     bd, w2, b2, out, h, s, batch, t_len, c, hc, inner,
                                     k, stream);
+}
+
+namespace {
+
+__global__ void rcp_fast_check_kernel(unsigned long long* mismatches) {
+  unsigned long long bad = 0;
+  const uint32_t lo = 0x3F800000u, hi = 0x7E800000u;  // [1, 2^126)
+  for (uint32_t b = lo + blockIdx.x * blockDim.x + threadIdx.x; b < hi;
+       b += gridDim.x * blockDim.x) {
+    const float y = __uint_as_float(b);
+    bad += __float_as_uint(rcp_fast(y)) != __float_as_uint(1.0f / y);
+  }
+  if (bad) atomicAdd(mismatches, bad);
+}
+
+}  // namespace
+
+// The number of y in [1, 2^126) at which B3's and B5's branch-free
+// reciprocal differs from 1.0f / y, added to *mismatches (one u64 on the
+// card, zeroed by the caller): must be 0.
+DDSP_API int ddsp_rcp_fast_mismatches(unsigned long long* mismatches, void* stream) {
+  rcp_fast_check_kernel<<<1056, 256, 0, (cudaStream_t)stream>>>(mismatches);
+  DDSP_CHECK_LAUNCH();
+  return 0;
 }

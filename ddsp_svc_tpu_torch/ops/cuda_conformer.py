@@ -244,13 +244,13 @@ def _launch(x, cond, step_vec, weights):
     h = torch.empty_like(x)
     u = torch.empty(b, t, inner, device=x.device, dtype=x.dtype)
     s = torch.empty_like(u)
-    err = kernels.library().ddsp_conformer_layer(
+    kernels.launch(
+        "conformer_layer", "ddsp_conformer_layer", x.device,
         x.data_ptr(), cond.data_ptr(), step_vec.data_ptr(), wc.data_ptr(),
         bc.data_ptr(), w1.data_ptr(), b1.data_ptr(), wd.data_ptr(),
         bd.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
         h.data_ptr(), u.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1],
-        inner, k, kernels.stream_handle(x.device))
-    kernels.check(err, "conformer_layer")
+        inner, k)
     kernels.count_launch(conformer_layer)
     return out
 
@@ -321,13 +321,12 @@ def _launch_bf16(x, cond, step_vec, weights, packed):
     h = torch.empty((b, t, c), device=x.device, dtype=torch.bfloat16)
     s = torch.empty((b, t, inner), device=x.device, dtype=torch.bfloat16)
     pc, p1, p2 = packed
-    err = kernels.library().ddsp_conformer_layer_bf16(
+    kernels.launch(
+        "conformer_layer_bf16", "ddsp_conformer_layer_bf16", x.device,
         x.data_ptr(), cond.data_ptr(), step_vec.data_ptr(), pc.data_ptr(),
         bc.data_ptr(), p1.data_ptr(), b1.data_ptr(), wd.data_ptr(),
         bd.data_ptr(), p2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        h.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1], inner, k,
-        kernels.stream_handle(x.device))
-    kernels.check(err, "conformer_layer_bf16")
+        h.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1], inner, k)
     kernels.count_launch(conformer_layer_bf16)
     return out
 
@@ -407,13 +406,13 @@ def _launch_bf16_io(x, cond, step_vec, weights, packed):
     # JAX casts step_vec to x's type before the kernel reads it
     step = step_vec.detach().to(torch.bfloat16).float().contiguous()
     pc, p1, p2 = packed
-    err = kernels.library().ddsp_conformer_layer_bf16_io(
+    kernels.launch(
+        "conformer_layer_bf16_io", "ddsp_conformer_layer_bf16_io", x.device,
         x.data_ptr(), cond.data_ptr(), int(c16), step.data_ptr(),
         pc.data_ptr(), bc.data_ptr(), p1.data_ptr(), b1.data_ptr(),
         wd.data_ptr(), bd.data_ptr(), p2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), h.data_ptr(), s.data_ptr(), b, t, c, cond.shape[-1],
-        inner, k, kernels.stream_handle(x.device))
-    kernels.check(err, "conformer_layer_bf16_io")
+        inner, k)
     kernels.count_launch(conformer_layer_bf16_io)
     return out
 

@@ -130,11 +130,10 @@ def _launch(x, amplitudes_frames, block_size):
     if x.device != amplitudes_frames.device:
         raise ValueError("harmonic_bank: x and amplitudes on different devices")
     out = torch.empty(b, t * block_size, device=x.device, dtype=torch.float32)
-    lib = kernels.library()
-    entry = lib.ddsp_harmonic_bank_bf16amp if bf16 else lib.ddsp_harmonic_bank
-    err = entry(x.data_ptr(), amplitudes_frames.data_ptr(), out.data_ptr(), b, t,
-                block_size, n_harm, kernels.stream_handle(x.device))
-    kernels.check(err, "harmonic_bank")
+    kernels.launch("harmonic_bank",
+                   "ddsp_harmonic_bank_bf16amp" if bf16 else "ddsp_harmonic_bank",
+                   x.device, x.data_ptr(), amplitudes_frames.data_ptr(),
+                   out.data_ptr(), b, t, block_size, n_harm)
     kernels.count_launch(harmonic_bank)
     return out
 

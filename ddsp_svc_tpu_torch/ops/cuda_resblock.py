@@ -485,11 +485,11 @@ def _launch(x, rb_weights: PackedResblocks, kernel_sizes, dilations):
     ds_flat = [d for dils in dilations for d in dils]
     ds = (ctypes.c_int * len(ds_flat))(*ds_flat)
     out, t_buf, z_buf, s_buf = (torch.empty_like(x) for _ in range(4))
-    err = kernels.library().ddsp_resblock_group(
+    kernels.launch(
+        "resblock_group", "ddsp_resblock_group", x.device,
         x.data_ptr(), w_ptrs, b_ptrs, ks, ds, len(kernel_sizes),
         len(dilations[0]), out.data_ptr(), t_buf.data_ptr(), z_buf.data_ptr(),
-        s_buf.data_ptr(), b, length, c, kernels.stream_handle(x.device))
-    kernels.check(err, "resblock_group")
+        s_buf.data_ptr(), b, length, c)
     kernels.count_launch(resblock_group)
     return out
 
@@ -551,11 +551,11 @@ def _launch_bf16(x, rb_weights: PackedResblocks, kernel_sizes, dilations):
 
     acc = scratch(1)
     z_buf = scratch(2 if mode == "pair" else 0)
-    err = kernels.library().ddsp_resblock_group_bf16(
+    kernels.launch(
+        "resblock_group_bf16", "ddsp_resblock_group_bf16", x.device,
         x.data_ptr(), w_ptrs, b_ptrs, ks, ds, len(kernel_sizes),
         len(dilations[0]), out.data_ptr(), acc.data_ptr(), z_buf.data_ptr(),
-        b, length, c, per_launch, bm, kernels.stream_handle(x.device))
-    kernels.check(err, "resblock_group_bf16")
+        b, length, c, per_launch, bm)
     kernels.count_launch(resblock_group_bf16)
     return out
 

@@ -84,11 +84,10 @@ def _launch(f0_frames, carry_offset_q, sampling_rate, block_size):
     phase_frames = torch.empty(b, t, 1, device=dev, dtype=torch.float32)
     scratch = torch.empty(lib.ddsp_combtooth_scratch_words(b, t), device=dev,
                           dtype=torch.int32)
-    err = lib.ddsp_combtooth(
-        f0_frames.data_ptr(), offset_ptr, offset_is_64, out.data_ptr(),
-        phase_frames.data_ptr(), scratch.data_ptr(), b, t, block_size,
-        float(sampling_rate), kernels.stream_handle(dev))
-    kernels.check(err, "combtooth")
+    kernels.launch(
+        "combtooth", "ddsp_combtooth", dev, f0_frames.data_ptr(), offset_ptr,
+        offset_is_64, out.data_ptr(), phase_frames.data_ptr(),
+        scratch.data_ptr(), b, t, block_size, float(sampling_rate))
     kernels.count_launch(combtooth)
     return out, phase_frames
 

@@ -57,6 +57,8 @@ _SIGNATURES = {
     # B5: (x, cond, cond_bf16, step_vec, wc, bc, w1, b1, wd, bd, w2, b2, out,
     #  h, s, batch, t, c, hc, inner, k, stream); x, out bf16, cond bf16 or f32
     "ddsp_conformer_layer_bf16_io": (_P, _P, _I) + (_P,) * 12 + (_I,) * 6 + (_P,),
+    # B3's and B5's branch-free reciprocal against 1 / y: (u64 count, stream)
+    "ddsp_rcp_fast_mismatches": (_P, _P),
     # (x, amps, out, batch, n_frames, block, n_harm, stream)
     "ddsp_harmonic_bank": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ddsp_harmonic_bank_bf16amp": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -146,6 +148,23 @@ def stream_handle(device: torch.device) -> int:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call the library's entry point ``entry`` with ``args`` and the
+    current stream of ``device``, on ``device``; raise (``check``) on a
+    refused launch. The C launchers launch on the current device and raise
+    a kernel's shared-memory limit there, so a tensor on another card than
+    the current one must have its card made current first. That is done
+    only when the two differ: a single-card caller pays one query of the
+    current device."""
+    fn = getattr(library(), entry)
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            err = fn(*args, stream_handle(device))
+    else:
+        err = fn(*args, stream_handle(device))
+    check(err, name)
 
 
 def grad_wanted(*tensors: torch.Tensor) -> bool:

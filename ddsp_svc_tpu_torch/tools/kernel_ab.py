@@ -24,9 +24,14 @@ its error against the plain version:
   K3's bf16 class (B3) at B 1 x T 862 and B 48 x T 172, with its
   ``bf16_layer_agreement``, by CUDA events over back-to-back calls and by
   CUDA graph replay (device time: at 10 s the host's work per call is the
-  longer); and B5 (B3 on bf16 x and out) at the same shapes, with the
-  share of its elements that differ from the plain version. A copy that
-  predates a class skips it.
+  longer); and B5 (B3 on bf16 x and out) at the same shapes, cond f32
+  and bf16, with the share of its elements that differ from the plain
+  version and each of its launches' device time (torch.profiler);
+- K4's bf16-amplitude mode beside K4, the same way.
+
+Every output also gets a digest (SHA-1 of its bytes; the inputs are drawn
+from one seed in one order), so that two copies, or a copy's two runs,
+can be compared bit for bit. A copy that predates a class skips it.
 
     python3 -m ddsp_svc_tpu_torch.tools.kernel_ab <dir_a> <dir_b> [...]
 """
@@ -38,7 +43,7 @@ import subprocess
 import sys
 
 CHILD = r'''
-import importlib.util, json, math, sys
+import hashlib, importlib.util, json, math, sys
 import numpy as np
 import torch
 spec = importlib.util.spec_from_file_location("ab_timing", sys.argv[2])
@@ -66,11 +71,26 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 kernels.library()
 per_launch = len(sys.argv) > 3
+if per_launch:  # ptxas's registers and spills of each kernel, once per copy
+    entry = None
+    for line in kernels.build().log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("registers" in line or "spill" in line):
+            print(f"PTXAS {entry[-100:]}: {line.split(':', 1)[-1].strip()}")
 ms = timing.cuda_ms
 
 
 def rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
+
+
+def digest(*tensors):
+    """SHA-1 of the outputs' bytes: copies compared bit for bit."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().flatten().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 gen = torch.Generator().manual_seed(1)
@@ -81,8 +101,10 @@ for c, per_frame in ((256, 8), (128, 64), (64, 128), (32, 256), (16, 512)):
     w = [[tuple(((torch.rand(shape, generator=gen) * 2 - 1) / math.sqrt(c * k)).cuda()
                 for shape in ((c, c, k), (c,))) for _ in range(6)] for k in ks]
     packed = pack(w)
-    err = rel(resblock_group(x, packed, ks, ds), resblock_group_plain(x, w, ks, ds))
-    out[f"K2 C={c}"] = dict(ms=ms(lambda: resblock_group(x, packed, ks, ds), 20), err=err)
+    got = resblock_group(x, packed, ks, ds)
+    err = rel(got, resblock_group_plain(x, w, ks, ds))
+    out[f"K2 C={c}"] = dict(ms=ms(lambda: resblock_group(x, packed, ks, ds), 20), err=err,
+                            digest=digest(got))
     if per_launch and c in (128, 16):
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
@@ -98,8 +120,10 @@ step = torch.randn((1, c), generator=gen).cuda()
 w = tuple(((torch.rand(shape, generator=gen) * 2 - 1) * scale).cuda() for shape, scale in (
     ((c, hc), hc ** -0.5), ((c,), 0.1), ((2 * inner, c), c ** -0.5), ((2 * inner,), 0.1),
     ((inner, k), k ** -0.5), ((inner,), 0.1), ((c, inner), inner ** -0.5), ((c,), 0.1)))
-err = rel(conformer_layer(x, cond, step, w), conformer_layer_plain(x, cond, step, w))
-out["K3"] = dict(ms=ms(lambda: conformer_layer(x, cond, step, w), 200), err=err)
+got = conformer_layer(x, cond, step, w)
+err = rel(got, conformer_layer_plain(x, cond, step, w))
+out["K3"] = dict(ms=ms(lambda: conformer_layer(x, cond, step, w), 200), err=err,
+                 digest=digest(got))
 
 from ddsp_svc_tpu_torch.ops import cuda_conformer
 if hasattr(cuda_conformer, "conformer_layer_bf16"):
@@ -115,11 +139,13 @@ if hasattr(cuda_conformer, "conformer_layer_bf16"):
         call = lambda: cuda_conformer.conformer_layer_bf16(xb, cb, sb, w, packed)
         out[f"B3 B={b} T={tt}"] = dict(ms=ms(call, 200 if b == 1 else 50),
                                        graph_ms=timing.graph_ms(call, 50 if b == 1 else 10),
-                                       err=agree["rel"])
+                                       err=agree["rel"], digest=digest(got))
 if hasattr(cuda_conformer, "conformer_layer_bf16_io"):
-    for b, tt in ((1, 862), (48, 172)):
+    for b, tt, c16 in ((1, 862, False), (48, 172, False), (1, 862, True), (48, 172, True)):
         xb = torch.randn((b, tt, c), generator=gen).cuda().to(torch.bfloat16)
         cb = torch.randn((b, tt, hc), generator=gen).cuda()
+        if c16:
+            cb = cb.to(torch.bfloat16)
         sb = torch.randn((b, c), generator=gen).cuda()
         packed = cuda_conformer.bf16_gemm_weights(w)
         got = cuda_conformer.conformer_layer_bf16_io(xb, cb, sb, w, packed)
@@ -128,9 +154,11 @@ if hasattr(cuda_conformer, "conformer_layer_bf16_io"):
         if not agree["ok"]:
             sys.exit(f"B5 B={b} T={tt} disagrees with its plain version: {agree}")
         call = lambda: cuda_conformer.conformer_layer_bf16_io(xb, cb, sb, w, packed)
-        out[f"B5 B={b} T={tt}"] = dict(ms=ms(call, 200 if b == 1 else 50),
-                                       graph_ms=timing.graph_ms(call, 50 if b == 1 else 10),
-                                       err=agree["differ"])
+        out[f"B5 B={b} T={tt}" + (" cond bf16" if c16 else "")] = dict(
+            ms=ms(call, 200 if b == 1 else 50),
+            graph_ms=timing.graph_ms(call, 50 if b == 1 else 10),
+            split=timing.launch_split(call, "conformer"),
+            err=agree["differ"], digest=digest(got))
 if hasattr(cuda_resblock, "resblock_group_bf16"):
     plans = getattr(cuda_resblock, "FUSED_PLAN", None)
     others = {128: (), 64: ("chain",), 32: ("chain",), 16: ("chain",)}
@@ -152,7 +180,8 @@ if hasattr(cuda_resblock, "resblock_group_bf16"):
                 if not agree["ok"]:
                     sys.exit(f"B4 C={c2} {plan} disagrees with its plain version: {agree}")
                 name = f"B4 C={c2}" + ("" if plan == default else f" {plan[0]} {plan[1]}")
-                out[name] = dict(ms=ms(call, 20), err=agree["max_abs_err"])
+                out[name] = dict(ms=ms(call, 20), err=agree["max_abs_err"],
+                                 digest=digest(call()))
             finally:
                 if plans:
                     plans[c2] = default
@@ -174,15 +203,18 @@ for t in (862, 51680):
     kern, ops, _ = timing.profiled_call(call, "combtooth_kernel")
     out[f"K1 T={t}"] = dict(ms=timing.graph_ms(call, 200 if t < 1000 else 20),
                             err=err, kernel_ms=kern, ops=ops,
-                            wall_ms=timing.wall_ms(call))
+                            wall_ms=timing.wall_ms(call), digest=digest(got, phase))
 f0 = f0_contour(862)
 x = cumsum_phase_source(torch.repeat_interleave(f0, 512, dim=1), 44100, 512).contiguous()
 amps = remove_above_fmax(torch.exp(0.5 * torch.randn((1, 862, 128), generator=gen)).cuda()
                          / 128.0, f0, 22050.0).contiguous()
-err = float((harmonic_bank(x, amps, 512) - harmonic_bank_plain(x, amps, 512)).abs().max())
-call = lambda: harmonic_bank(x, amps, 512)
-kern, ops, _ = timing.profiled_call(call, "harmonic_bank_kernel")
-out["K4"] = dict(ms=timing.graph_ms(call), err=err, kernel_ms=kern, ops=ops)
+for name, a in (("K4", amps), ("K4 bf16", amps.to(torch.bfloat16))):
+    got = harmonic_bank(x, a, 512)
+    err = float((got - harmonic_bank_plain(x, a, 512)).abs().max())
+    call = lambda: harmonic_bank(x, a, 512)
+    kern, ops, _ = timing.profiled_call(call, "harmonic_bank")
+    out[name] = dict(ms=timing.graph_ms(call), err=err, kernel_ms=kern, ops=ops,
+                     digest=digest(got))
 print("RESULT " + json.dumps(out))
 '''
 
@@ -195,6 +227,10 @@ def _describe(name: str, res: dict) -> str:
         text += f"; kernel {res['kernel_ms']:.5f} ms by the profiler, {res['ops']:g} device ops"
     if "wall_ms" in res:
         text += f", host wall {res['wall_ms']:.4f} ms"
+    if "split" in res:
+        text += "; launches " + ", ".join(f"{k} {v:.5f} ms" for k, v in res["split"])
+    if "digest" in res:
+        text += f"; sha1 {res['digest']}"
     return text + ")"
 
 
@@ -211,7 +247,7 @@ def main(argv: list[str]) -> None:
         r = subprocess.run(args, capture_output=True, text=True, timeout=900)
         lines = r.stdout.splitlines()
         for line in lines:
-            if line.startswith("LAUNCHES"):
+            if line.startswith(("LAUNCHES", "PTXAS")):
                 print(d, line, flush=True)
         result = [line[7:] for line in lines if line.startswith("RESULT ")]
         if r.returncode != 0 or not result:

@@ -6,7 +6,8 @@ of the package it compares is timed by the same code).
 that keeps the card busier than the host's launch rate. ``graph_ms``
 replays calls captured in one CUDA graph, for calls shorter than a host
 launch. ``profiled_call`` reads torch.profiler's device time of a kernel
-and counts a call's device operations; ``wall_ms`` is the host's wall time
+and counts a call's device operations; ``launch_split`` gives the device
+time of each kernel a call launches; ``wall_ms`` is the host's wall time
 of one call up to ``synchronize()``.
 """
 from __future__ import annotations
@@ -84,6 +85,45 @@ def profiled_call(fn, symbol: str, reps: int = 20) -> tuple[float, float, float]
     if k_n == 0:
         raise RuntimeError(f"profile: no device time for {symbol}")
     return k_us / k_n / 1e3, ops / reps, all_us / reps / 1e3
+
+
+def launch_split(fn, symbol: str, reps: int = 20) -> list[tuple[str, float]]:
+    """[(kernel, device ms per launch)] of the kernels whose name holds
+    ``symbol``, in the order one call of ``fn`` launches them, over ``reps``
+    calls under torch.profiler. A lead of spin kernels goes first, since
+    the profiler drops a trace's first device records, and the order is
+    read from the last call, which is whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = sorted(((e.time_range.start, e) for e in prof.events()
+                    if symbol in e.name and e.device_time_total > 0),
+                   key=lambda pair: pair[0])
+    if not found:
+        raise RuntimeError(f"profile: no device time for {symbol}")
+    times: dict[str, list[float]] = {}
+    for _, e in found:
+        times.setdefault(e.name, []).append(e.device_time_total / 1e3)
+    order = []
+    for _, e in reversed(found):
+        if e.name in order:
+            break
+        order.insert(0, e.name)
+
+    def short(name: str) -> str:
+        start = name.find(symbol)
+        end = name.find("(", start)
+        return name[start:end if end > 0 else None]
+
+    return [(short(n), sum(times[n]) / len(times[n])) for n in order]
 
 
 def wall_ms(fn, n: int = 100) -> float:

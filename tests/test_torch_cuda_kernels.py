@@ -278,13 +278,17 @@ def test_conformer_layer_kernel(cuda, b, t, c, hc, k):
 @pytest.mark.parametrize("b,t,c,hc,k", [(1, 862, 512, 128, 31), (48, 172, 512, 128, 31),
                                         (1, 37, 64, 32, 7), (2, 101, 128, 16, 31),
                                         (1, 1, 512, 128, 31), (1, 15, 512, 128, 31),
-                                        (1, 16, 512, 128, 31), (3, 15, 512, 128, 31)])
+                                        (1, 16, 512, 128, 31), (3, 15, 512, 128, 31),
+                                        (64, 65, 512, 128, 31), (1, 4100, 200, 64, 31),
+                                        (5, 1000, 256, 64, 3), (274, 15, 128, 16, 31)])
 def test_conformer_layer_bf16_kernel(cuda, b, t, c, hc, k):
     """B3 against its plain version within ``bf16_layer_agreement`` (other
     f32 sum orders flip bf16 roundings of h and s), at the 10 s and the
     training shapes, at B = 1, 2 with ragged T, and at T = 1, 15 and 16
     (the depthwise conv's 15-row pad, rows of three utterances in one
-    tile); one launch per call."""
+    tile); from M = 4096 rows (launch 2 persistent): short utterances, one
+    long one with I = 400 (a partial column block), k = 3, and utterances
+    shorter than the pad; one launch per call."""
     from ddsp_svc_tpu_torch.ops.cuda_conformer import (bf16_layer_agreement,
                                                        conformer_layer_bf16,
                                                        conformer_layer_bf16_plain)
@@ -339,12 +343,16 @@ def test_conformer_layer_bf16_backward(cuda):
 
 @pytest.mark.parametrize("b,t,c,hc,k,cond16", [
     (48, 172, 512, 128, 31, False), (48, 172, 512, 128, 31, True),
-    (1, 862, 512, 128, 31, False), (2, 101, 128, 16, 31, True),
-    (1, 1, 512, 128, 31, False), (3, 15, 512, 128, 31, True)])
+    (1, 862, 512, 128, 31, False), (1, 862, 512, 128, 31, True),
+    (2, 101, 128, 16, 31, True), (1, 1, 512, 128, 31, False),
+    (3, 15, 512, 128, 31, True), (64, 65, 512, 128, 31, False),
+    (1, 4100, 200, 64, 31, True), (5, 1000, 256, 64, 3, False),
+    (274, 15, 128, 16, 31, False)])
 def test_conformer_layer_bf16_io_kernel(cuda, b, t, c, hc, k, cond16):
     """B5 against its plain version within ``bf16_io_agreement``, at the
     training and the 10 s shapes, cond f32 (the DDSP mel) and bf16, ragged
-    T and T = 1 and 15; one launch per call, a bf16 output."""
+    T and T = 1 and 15, and from M = 4096 rows (launch 2 persistent) the
+    edges B3's test takes; one launch per call, a bf16 output."""
     from ddsp_svc_tpu_torch.ops.cuda_conformer import (bf16_io_agreement,
                                                        conformer_layer_bf16_io,
                                                        conformer_layer_bf16_io_plain)
@@ -368,6 +376,48 @@ def test_conformer_layer_bf16_io_kernel(cuda, b, t, c, hc, k, cond16):
     assert conformer_layer_bf16_io.launches == n0 + 1 and got.dtype == torch.bfloat16
     agree = bf16_io_agreement(got, conformer_layer_bf16_io_plain(x, cond, step, w), x)
     assert agree["ok"], agree
+
+
+def test_sigmoid_reciprocal_is_the_division(cuda):
+    """B3's and B5's branch-free reciprocal (``rcp_fast`` in
+    csrc/conformer.cu) equals 1.0f / y at every float y in [1, 2^126), so
+    their sigmoids are ``ddsp_sigmoid`` bit for bit."""
+    from ddsp_svc_tpu_torch.ops import kernels
+
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    kernels.launch("rcp_fast", "ddsp_rcp_fast_mismatches", count.device,
+                   count.data_ptr())
+    torch.cuda.synchronize()
+    assert int(count.item()) == 0
+
+
+def test_bf16_trunk_on_every_card(cuda):
+    """B3 and B5 on each visible card with cuda:0 current (launch 2 at the
+    training shape): the wrappers make the tensor's card current and the
+    launchers raise the shared-memory limit once per card."""
+    from ddsp_svc_tpu_torch.ops import cuda_conformer as cc
+
+    b, t, c, hc, inner, k = 48, 172, 512, 128, 1024, 31
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        gen = torch.Generator().manual_seed(index)
+
+        def r(*shape, scale):
+            return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).to(dev)
+
+        x, cond, step = r(b, t, c, scale=1.0), r(b, t, hc, scale=1.0), r(b, c, scale=1.0)
+        w = (r(c, hc, scale=hc ** -0.5), r(c, scale=0.1), r(2 * inner, c, scale=c ** -0.5),
+             r(2 * inner, scale=0.1), r(inner, k, scale=k ** -0.5), r(inner, scale=0.1),
+             r(c, inner, scale=inner ** -0.5), r(c, scale=0.1))
+        assert torch.cuda.current_device() == 0
+        got = cc.conformer_layer_bf16(x, cond, step, w)
+        assert cc.bf16_layer_agreement(
+            got, cc.conformer_layer_bf16_plain(x, cond, step, w), x)["ok"]
+        x16 = x.to(torch.bfloat16)
+        got16 = cc.conformer_layer_bf16_io(x16, cond, step, w)
+        assert cc.bf16_io_agreement(
+            got16, cc.conformer_layer_bf16_io_plain(x16, cond, step, w), x16)["ok"]
+        torch.cuda.synchronize(dev)
 
 
 def test_conformer_layer_bf16_io_backward(cuda):

@@ -9,7 +9,14 @@ s_{k+1} = 2 cos(th) s_k - s_{k-1}, restarted every ``kRestart`` harmonics
 from an exact sincos of the plain version's rounded argument; tolerance
 3e-5 absolute, the JAX oscillator test's bound. K1 derives its frame
 increments in the plain version's f32 order and sums them by a blocked
-look-back scan in int32; both are held bit for bit."""
+look-back scan in int32; both are held bit for bit.
+
+K4's bf16-amplitude mode upsamples each amplitude as JAX's bf16 upsample,
+bf16(bf16(a0 (1 - w)) + bf16(a1 w)), each op in f32 rounded to bf16, and
+computes it with packed bf16x2 multiplies and adds, which round the exact
+result once. The tests below prove the two the same for every weight of a
+512-sample block and hold the packed order within 3e-5 of the plain
+version."""
 import math
 import re
 from pathlib import Path
@@ -21,7 +28,8 @@ import torch
 import jax.numpy as jnp
 
 from ddsp_svc_tpu.models.ddsp import sins_harmonic_bank as j_sins_bank
-from ddsp_svc_tpu_torch.ops.cuda_oscillator import harmonic_bank_plain
+from ddsp_svc_tpu_torch.ops.cuda_oscillator import (bf16_upsample_weights,
+                                                    harmonic_bank_plain)
 from ddsp_svc_tpu_torch.ops.interp import remove_above_fmax
 from ddsp_svc_tpu_torch.ops.source import (PHASE_Q_BITS,
                                            carry_from_increments_q,
@@ -148,6 +156,140 @@ def test_bank_needs_its_restarts():
     want = harmonic_bank_plain(x, amps, BLOCK).numpy()
     got = bank_emulated(x.numpy()[..., 0], amps.numpy(), BLOCK, 128)
     assert float(np.abs(got - want).max()) > 3e-5
+
+
+# ---------------------------------------------------------------- bf16 mode
+
+
+def bf16_of_f32(v: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest bf16 (ties to even), as float32: what
+    ``__float2bfloat16_rn`` does to an f32 op's result (subnormals too)."""
+    bits = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def bf16_once(v: np.ndarray) -> np.ndarray:
+    """float64 -> the nearest bf16 (ties to even) in one rounding, as
+    float64: the packed bf16x2 ops' rounding of their exact result."""
+    v = np.asarray(v, np.float64)
+    _, e = np.frexp(v)  # |v| = m 2^e, 0.5 <= m < 1
+    quantum = np.maximum(e - 1, -126) - 7  # 8 significant bits, bf16's subnormals
+    return np.ldexp(np.round(np.ldexp(v, -quantum)), quantum)
+
+
+def bf16_values(bits: np.ndarray) -> np.ndarray:
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32)
+
+
+def _same(a, b) -> bool:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return bool(np.array_equal(a, b) and np.array_equal(np.signbit(a), np.signbit(b)))
+
+
+def test_bf16_products_round_once():
+    """bf16(f32(a w)) equals the single rounding of the exact product for
+    every w and 1 - w of ``bf16_upsample_weights(512)`` and every positive
+    finite bf16 amplitude, subnormals included: the f32 product of two bf16
+    values is exact (16 significant bits on a grid no finer than 2^-149)."""
+    w, omw = (t.float().numpy().ravel() for t in bf16_upsample_weights(BLOCK))
+    amps = bf16_values(np.arange(1, 0x7F80))  # up to the largest finite
+    for weight in np.unique(np.concatenate([w, omw])):
+        via_f32 = bf16_of_f32(amps * np.float32(weight))
+        once = bf16_once(amps.astype(np.float64) * float(weight))
+        assert _same(via_f32, once), weight
+
+
+def _sum_pairs(rng) -> tuple[np.ndarray, np.ndarray]:
+    """10^6 random bf16 pairs (any sign, finite sums) and the edge cases: equal
+    exponents, exponents 16-30 apart, subnormals with subnormals and with
+    normals."""
+    def finite(n):  # below 2^126, so that no sum overflows
+        bits = rng.integers(0, 1 << 16, n, dtype=np.uint32)
+        return bits[(bits >> 7 & 0xFF) < 253]
+
+    a, b = finite(10 ** 6 + 4000), finite(10 ** 6 + 4000)
+    n = min(len(a), len(b))
+    pairs = [(a[:n], b[:n])]
+    sign = lambda k: rng.integers(0, 2, k, dtype=np.uint32) << 15  # noqa: E731
+    mant = lambda k: rng.integers(0, 128, k, dtype=np.uint32)  # noqa: E731
+    k = 20000
+    exp = rng.integers(1, 253, k, dtype=np.uint32)
+    pairs.append((sign(k) | exp << 7 | mant(k), sign(k) | exp << 7 | mant(k)))
+    for gap in range(16, 31):
+        exp = rng.integers(1 + gap, 253, 2000, dtype=np.uint32)
+        pairs.append((sign(2000) | exp << 7 | mant(2000),
+                      sign(2000) | (exp - gap) << 7 | mant(2000)))
+    pairs.append((sign(k) | mant(k), sign(k) | mant(k)))  # both subnormal
+    exp = rng.integers(1, 12, k, dtype=np.uint32)
+    pairs.append((sign(k) | exp << 7 | mant(k), sign(k) | mant(k)))
+    return (np.concatenate([p[0] for p in pairs]),
+            np.concatenate([p[1] for p in pairs]))
+
+
+def test_bf16_sums_round_once():
+    """bf16(f32(a + b)) equals the single rounding of the exact sum of two
+    bf16 values. Up to 44 binades apart the float64 sum is exact; further
+    apart the smaller lies below 2^-36 of a bf16 ulp of the larger, far
+    from any rounding boundary, so the exact sum rounds to the larger, and
+    so must the f32 route."""
+    a_bits, b_bits = _sum_pairs(np.random.default_rng(17))
+    a, b = bf16_values(a_bits), bf16_values(b_bits)
+    via_f32 = bf16_of_f32(a + b)
+    gap = np.abs((a_bits >> 7 & 0xFF).astype(np.int64) - (b_bits >> 7 & 0xFF))
+    near = gap <= 44
+    assert near.sum() > 10 ** 5 and (~near).sum() > 10 ** 5
+    once = bf16_once(a[near].astype(np.float64) + b[near])
+    assert _same(via_f32[near], once)
+    larger = np.where(np.abs(a) >= np.abs(b), a, b)[~near]
+    assert _same(via_f32[~near], larger)
+
+
+def bank_bf16_emulated(x: np.ndarray, amps16: np.ndarray, block: int,
+                       restart: int) -> np.ndarray:
+    """K4's bf16-amplitude mode in numpy: K4's sines (the recurrence with
+    its restarts), each pair's amplitude from the packed ops' single
+    roundings, accumulated by fmaf in harmonic order. amps16 holds bf16
+    values as float32."""
+    b, t, n_harm = amps16.shape
+    xr = x.reshape(b, t, block)
+    nxt = np.concatenate([amps16[:, 1:], amps16[:, -1:]], axis=1).astype(np.float64)
+    cur = amps16.astype(np.float64)
+    w, omw = (v.float().numpy().reshape(block).astype(np.float64)
+              for v in bf16_upsample_weights(block))
+    mult = _r32(2 * math.pi * np.arange(1, n_harm + 1, dtype=np.float64))
+    base = _mul(mult[0], xr)
+    s1 = _r32(np.sin(base.astype(np.float64)))
+    c1 = _r32(np.cos(base.astype(np.float64)))
+    two_c = 2.0 * c1
+    acc = np.zeros_like(xr)
+    s = sp = co = None
+    for k in range(n_harm):
+        if k % restart == 0:
+            arg = _mul(mult[k], xr).astype(np.float64)
+            s, co = _r32(np.sin(arg)), _r32(np.cos(arg))
+        elif k % restart == 1:
+            sp, s = s, _fma(s, c1, _mul(co, s1))
+        else:
+            sp, s = s, _fma(two_c, s, -sp.astype(np.float64))
+        amp = bf16_once(bf16_once(cur[:, :, None, k] * omw)
+                        + bf16_once(nxt[:, :, None, k] * w))
+        acc = _fma(s, amp, acc)
+    return acc.reshape(b, t * block)
+
+
+@pytest.mark.parametrize("b,t,kind", [(2, 37, "uniform"), (1, 200, "smoke")])
+def test_bank_bf16_packed_order_within_tolerance(b, t, kind):
+    """The bf16-amplitude mode's order (packed amplitudes, K4's sines)
+    stays within 3e-5 absolute of ``harmonic_bank_plain`` on the same
+    bf16 amplitudes."""
+    x, amps = _bank_inputs(b, t, kind, seed=t + 1)
+    a16 = amps.to(torch.bfloat16)
+    want = harmonic_bank_plain(x, a16, BLOCK).numpy()
+    got = bank_bf16_emulated(x.numpy()[..., 0], a16.float().numpy(), BLOCK,
+                             K4_RESTART)
+    assert got.shape == want.shape
+    assert float(np.abs(got - want).max()) <= 3e-5
 
 
 def increments_emulated(f0: np.ndarray, sr: int, block: int) -> np.ndarray:
